@@ -1,0 +1,130 @@
+"""Unified telemetry layer: one process-wide metrics registry + span
+tracer behind a module-level functional API.
+
+The port's own copy of ``rafiki_tpu/telemetry`` (pure Python), so the
+serving chain keeps the same metric and span names
+(``inference.forward``, ``inference.queries_served``, ...).
+
+Every subsystem writes through these functions; every reader (the
+``GET /metrics`` endpoints on the admin and predictor apps, bench.py's
+embedded snapshot, ``scripts/tpu_watch.py``, tests) reads the SAME
+state via :func:`snapshot`, so "what the bench reports" and "what the
+serving endpoint shows" can never drift apart.
+
+Write API (cheap, thread-safe, never raises into callers):
+    inc("bus.reaped_workers")            counters (floats allowed)
+    set_gauge("bus.queue_depth", 3)      point-in-time values
+    add_gauge("scheduler.active_workers", +1)
+    observe("predictor.gather_s", 0.01)  histograms (bounded reservoir)
+    with span("trial.train", trial_id=t): ...   nestable timed phases
+
+Read API:
+    snapshot()        -> one JSON-able dict (registry + span aggregates
+                         + registered collectors, e.g. program_cache)
+    span_records()    -> the bounded ring of finished spans
+    dump_jsonl(path)  -> span records + final snapshot, one JSON/line
+
+Scope: telemetry is PER-PROCESS (like the program cache). Subprocess
+workers accumulate their own registries; cross-process aggregation is
+the reader's job (each process exposes/dumps its own state).
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any, Callable, Dict, List
+
+from rafiki_tpu_torch.telemetry.registry import Histogram, Registry
+from rafiki_tpu_torch.telemetry.spans import Span, Tracer
+
+__all__ = [
+    "Histogram", "Registry", "Span", "Tracer",
+    "inc", "set_gauge", "add_gauge", "observe", "span",
+    "get_counter", "get_gauge", "get_registry", "get_tracer",
+    "register_collector", "snapshot", "span_records", "dump_jsonl",
+    "reset", "current_span_id",
+]
+
+_registry = Registry()
+_tracer = Tracer()
+
+
+def get_registry() -> Registry:
+    return _registry
+
+
+def get_tracer() -> Tracer:
+    return _tracer
+
+
+# -- writes ------------------------------------------------------------------
+
+
+def inc(name: str, n: float = 1.0) -> None:
+    _registry.inc(name, n)
+
+
+def set_gauge(name: str, value: float) -> None:
+    _registry.set_gauge(name, value)
+
+
+def add_gauge(name: str, delta: float) -> None:
+    _registry.add_gauge(name, delta)
+
+
+def observe(name: str, value: float) -> None:
+    _registry.observe(name, value)
+
+
+def span(name: str, **tags: Any) -> Span:
+    return _tracer.span(name, **tags)
+
+
+def current_span_id():
+    """The innermost open span id on this thread, or None."""
+    return _tracer.current_span_id()
+
+
+def register_collector(name: str, fn: Callable[[], Dict[str, Any]]) -> None:
+    _registry.register_collector(name, fn)
+
+
+# -- reads -------------------------------------------------------------------
+
+
+def get_counter(name: str) -> float:
+    return _registry.get_counter(name)
+
+
+def get_gauge(name: str):
+    return _registry.get_gauge(name)
+
+
+def snapshot() -> Dict[str, Any]:
+    """The whole telemetry state as one JSON-able dict."""
+    out = _registry.snapshot()
+    out["spans"] = _tracer.summary()
+    return out
+
+
+def span_records() -> List[Dict[str, Any]]:
+    return _tracer.records()
+
+
+def dump_jsonl(path) -> int:
+    """Write finished span records then a final ``{"type": "snapshot"}``
+    line to ``path``. Returns the number of lines written."""
+    records = _tracer.records()
+    snap = dict(snapshot(), type="snapshot")
+    with open(path, "w") as f:
+        for rec in records:
+            f.write(json.dumps(rec) + "\n")
+        f.write(json.dumps(snap) + "\n")
+    return len(records) + 1
+
+
+def reset(clear_collectors: bool = False) -> None:
+    """Zero all metrics and spans (tests; collectors stay by default
+    since they register at module import)."""
+    _registry.reset(clear_collectors=clear_collectors)
+    _tracer.reset()
