@@ -11,7 +11,11 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``;
 with no CUDA device and no explicit CPU request they raise
 (:func:`rafiki_tpu_torch.utils.backend.resolve_device`).
 
-This slice covers the serving path: params blob -> model -> inference
-worker -> bus -> predictor -> ensemble, with the stacked (one vmapped
-forward over k trials) and replicated (one worker per trial) routes.
+Ported so far:
+  * the serving path: params blob -> model -> inference worker -> bus
+    -> predictor -> ensemble, with the stacked (one vmapped forward over
+    k trials) and replicated (one worker per trial) routes;
+  * the trial's training path: ``Model.train(uri) -> evaluate(uri) ->
+    dump_parameters()`` for ``Vgg`` and ``FeedForward`` (datasets,
+    logger, the train loop with Adam and the health sentinels).
 """

@@ -16,6 +16,10 @@ Layouts:
 The Dense after the conv stack sees an NHWC-order flatten in both
 packages (the port's forward flattens NHWC), so its kernel needs no
 row permutation.
+
+Trees carried: ``Vgg`` (``Conv_i``, ``GroupNorm_i``, ``Dense_0..1``)
+and ``FeedForward`` (``Dense_0..hidden_layers``, its Linear layers in
+call order).
 """
 
 from __future__ import annotations

@@ -6,17 +6,20 @@ and knob config, and the same network:
     flax's numerics (``ops/layers.py``), ReLU;
   * 2x2 max-pool, applied only while ``min(H, W) >= 2``;
   * flatten in NHWC order, Dense(max(64, 512 * width_mult)), ReLU,
-    Dense to the classes.
+    dropout (training only), Dense to the classes.
 Parameters are float32 and each layer casts its input and parameters
 to the compute dtype (bfloat16 by default), as flax's
 ``dtype=bfloat16`` does; no autocast. Queries arrive NHWC and are
 viewed as NCHW with a channels-last layout, so no copy is made.
-Dropout is identity at serve time; training comes with a later slice.
+In training the dropout rate may be a float32 tensor
+(``ops/train.py dropout``), so a dropout sweep runs one code path; it
+falls back to the ``dropout`` attribute when none is passed.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +28,7 @@ from torch import nn
 from rafiki_tpu_torch.model.base import TorchModel
 from rafiki_tpu_torch.model.knobs import CategoricalKnob, FixedKnob, FloatKnob, IntegerKnob
 from rafiki_tpu_torch.ops.layers import GroupNorm
+from rafiki_tpu_torch.ops.train import dropout as _dropout
 
 _CFGS = {
     11: [64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512, "M"],
@@ -40,9 +44,11 @@ class _Vgg(nn.Module):
     conv stack needs the final spatial size."""
 
     def __init__(self, depth: int, width_mult: float, num_classes: int,
-                 input_shape: tuple, dtype: torch.dtype = torch.bfloat16):
+                 input_shape: tuple, dtype: torch.dtype = torch.bfloat16,
+                 dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.dropout = dropout
         h, w, cin = (int(s) for s in input_shape)
         self.plan = []  # "M" or the conv index, in call order
         convs, norms = [], []
@@ -65,7 +71,8 @@ class _Vgg(nn.Module):
     def _dense(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, layer.weight.to(self.dtype), layer.bias.to(self.dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, dropout_rate=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC -> NCHW, channels-last
         for step in self.plan:
             if step == "M":
@@ -77,6 +84,9 @@ class _Vgg(nn.Module):
             x = torch.relu(self.norms[step](x))
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
         x = torch.relu(self._dense(self.fc1, x))
+        if train:
+            rate = self.dropout if dropout_rate is None else dropout_rate
+            x = _dropout(x, rate, generator, deterministic=False)
         return self._dense(self.fc2, x)
 
 
@@ -99,4 +109,5 @@ class Vgg(TorchModel):
             width_mult=float(self.knobs["width_mult"]),
             num_classes=num_classes,
             input_shape=input_shape,
+            dropout=float(self.knobs["dropout"]),
         )

@@ -88,3 +88,58 @@ def test_card_stacked_route_matches_replicated(cuda):
         assert counters["inference.queries_served"] == len(workers) * len(queries)
     assert outs[0].shape == (5, 10)
     np.testing.assert_allclose(outs[0], outs[1], rtol=0, atol=BF16_PROB_ATOL)
+
+
+# Card vs CPU training, float32 with TF32 off: three steps of VGG11 w0.25
+# from the same params on the same batches. The convs sum in other
+# orders on the two devices, and Adam's first steps divide each gradient
+# by its own magnitude, so elements whose gradient is rounding noise
+# move by up to about lr: the params are held by their L2 distance
+# relative to how far they moved. Readings (H100, max over the steps):
+# loss 1.0e-7 rel, grad norm 4.9e-7, params 1.1e-2 of the distance
+# moved. Bounds: about 3x.
+TRAIN_PARITY_TOL = {"loss_rel": 1e-6, "grad_norm_rel": 2e-6, "param_rel_l2": 3e-2}
+
+
+def test_card_training_steps_match_cpu(cuda):
+    from rafiki_tpu_torch.convert import state_dict_to_flax
+    from rafiki_tpu_torch.models.vgg import Vgg, _Vgg
+
+    class VggF32(Vgg):
+        def build_module(self, num_classes, input_shape):
+            return _Vgg(11, 0.25, num_classes, input_shape, dtype=torch.float32)
+
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        src = VggF32(device="cpu", **SMALL)
+        src.init_parameters(10, (8, 8, 3))
+        start = {k: v.clone() for k, v in state_dict_to_flax(src._module).items()}
+        rng = np.random.default_rng(3)
+        batches = [{"x": torch.from_numpy(rng.uniform(0, 1, size=(16, 8, 8, 3)).astype(np.float32)),
+                    "y": torch.from_numpy(rng.integers(0, 10, size=16).astype(np.int32))}
+                   for _ in range(3)]
+        runs = {}
+        for device in ("cpu", cuda):
+            m = VggF32(device=device, **SMALL)
+            m.init_parameters(10, (8, 8, 3))  # the same seeded draw as src
+            loop, rows = m._loop, []
+            for b in batches:
+                loop.state, metrics = loop.program.train_step(
+                    loop.state, {k: v.to(loop.device) for k, v in b.items()})
+                rows.append((float(metrics["loss"]), float(metrics["health_grad_norm"]),
+                             int(metrics["health_nonfinite"]),
+                             {k: v.detach().cpu().clone()
+                              for k, v in state_dict_to_flax(m._module).items()}))
+            runs[str(device)] = rows
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    for (loss_a, gn_a, nf_a, p_a), (loss_b, gn_b, nf_b, p_b) in zip(runs["cuda"], runs["cpu"]):
+        assert nf_a == nf_b == 0
+        num = sum(float(((p_a[k] - p_b[k]) ** 2).sum()) for k in p_a) ** 0.5
+        den = sum(float(((p_b[k] - start[k]) ** 2).sum()) for k in p_a) ** 0.5
+        r = {"loss_rel": abs(loss_a - loss_b) / loss_b, "grad_norm_rel": abs(gn_a - gn_b) / gn_b,
+             "param_rel_l2": num / den}
+        print(r)
+        for key, bound in TRAIN_PARITY_TOL.items():
+            assert r[key] <= bound, (key, r)

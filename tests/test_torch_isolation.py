@@ -23,7 +23,10 @@ def _port_modules():
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     # A fresh interpreter: this test process has JAX loaded already.
     mods = _port_modules()
-    assert "rafiki_tpu_torch.worker.inference" in mods and len(mods) >= 20
+    for name in ("worker.inference", "model.dataset", "model.log", "obs.health.sentinel",
+                 "obs.health.detector", "ops.optim", "ops.train", "models.ff", "models.vgg"):
+        assert f"rafiki_tpu_torch.{name}" in mods
+    assert len(mods) >= 28
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -38,7 +41,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
+    from rafiki_tpu_torch.models.ff import FeedForward
     from rafiki_tpu_torch.models.vgg import Vgg
+    from rafiki_tpu_torch.ops.train import TrainLoop
     from rafiki_tpu_torch.utils.backend import local_devices, resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -50,6 +55,11 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
         Vgg(**knobs)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         local_devices()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FeedForward(hidden_layers=1, hidden_units=32, learning_rate=1e-3, batch_size=32,
+                    epochs=1, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrainLoop(None, None, None, hyper={"lr": 1e-3})
     assert resolve_device("cpu") == torch.device("cpu")
     assert local_devices("cpu") == [torch.device("cpu")]
     assert Vgg(device="cpu", **knobs).device == torch.device("cpu")

@@ -13,6 +13,9 @@ from flax.traverse_util import flatten_dict
 from rafiki_tpu.utils.serial import dump_pytree, load_pytree
 from rafiki_tpu_torch.utils import serial as tserial
 
+# See test_torch_train.py: two intra-op threads per xdist worker.
+torch.set_num_threads(2)
+
 SMALL = dict(depth=11, width_mult=0.25, dropout=0.0, learning_rate=1e-3,
              batch_size=64, epochs=1, seed=0)
 

@@ -23,6 +23,9 @@ from rafiki_tpu_torch.predictor.ensemble import ensemble_predictions
 from rafiki_tpu_torch.predictor.predictor import Predictor, default_quorum
 from rafiki_tpu_torch.worker.inference import InferenceWorker
 
+# See test_torch_train.py: two intra-op threads per xdist worker.
+torch.set_num_threads(2)
+
 SMALL = dict(depth=11, width_mult=0.25, dropout=0.0, learning_rate=1e-3,
              batch_size=64, epochs=1, seed=0)
 # Port vs JAX on bf16 serving blobs; see test_torch_vgg.BF16_PROB_ATOL.

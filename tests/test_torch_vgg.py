@@ -23,6 +23,9 @@ from rafiki_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
 from rafiki_tpu_torch.models.vgg import Vgg as TorchVgg, _Vgg as TorchVggModule
 from rafiki_tpu_torch.ops.layers import GroupNorm
 
+# See test_torch_train.py: two intra-op threads per xdist worker.
+torch.set_num_threads(2)
+
 SMALL = dict(depth=11, width_mult=0.25, dropout=0.0, learning_rate=1e-3,
              batch_size=64, epochs=1, seed=0)
 
