@@ -5,9 +5,10 @@ CUDA card.
     python3 chip_smoke.py                  # from the root of a checkout
     python3 chip_smoke.py --bf16-readings  # the readings behind BF16_GAP_ATOL
 
-Drives ``rafiki_tpu_torch`` the way a user serves a top-k ensemble and
-the way a trial trains, at the full width of the bench's canonical
-model (VGG16, width_mult=1.0, 32x32x3 inputs, 10 classes).
+Drives ``rafiki_tpu_torch`` the way a user serves a top-k ensemble,
+the way a tuning job runs and the way a trial trains, at the full width
+of the bench's canonical model (VGG16, width_mult=1.0, 32x32x3 inputs,
+10 classes).
 
 Serving, k=3 trials of random weights, batch 64:
 
@@ -28,24 +29,34 @@ Serving, k=3 trials of random weights, batch 64:
      forwards (CUDA events and ``torch.profiler``), each with the
      card's name and power limit.
 
-Training, the bench's canonical trial (VGG16 w1.0, batch 128, dropout
-0.1, lr 1e-3, one epoch of the 50k-image synthetic task, bf16 compute):
+Training, the bench's canonical job and trial (VGG16 w1.0, one epoch of
+the 50k-image synthetic task, bf16 compute):
 
-  6. three trials (seeds 0, 1, 2) through ``train -> evaluate ->
-     dump_parameters``; every epoch's loss finite and no
-     ``DivergenceError``; each eval accuracy above ACC_FLOOR; trial,
-     epoch (cold and warm), step and evaluate times, images/s and peak
-     device memory;
-  7. the three blobs loaded into serving models and stacked: each
-     trial's served argmax accuracy on the eval set against what
-     ``evaluate`` reported for it;
-  8. FeedForward at its widest knobs (3 x 256, batch 128) trained and
+  6. tune_job: the bench's canonical train job (``bench.py``
+     ``run_real_loop``) through the port's entry points: a ``BenchVgg``
+     template uploaded with ``MetaStore.create_model``, a job of
+     TUNE_TRIALS trials, ``LocalScheduler.run_train_job(n_workers=1,
+     advisor_kind="gp")`` on the card, params in a ``ParamsStore``. One
+     line per trial (knobs, status, score, seconds) in completion order,
+     then one for the job (wall seconds, completed trials per hour, the
+     cold trial, the advisor's and the saver's seconds, device memory).
+     Fails unless the job COMPLETED, every ERRORED trial is a contained
+     divergence, the GP proposed from expected improvement, the best
+     score reaches TUNE_TOP1_TARGET and the memory left after each trial
+     does not grow;
+  7. the job's top-2 trials' stored blobs loaded into serving models
+     and stacked: each trial's served argmax accuracy on the eval set
+     against the score ``evaluate`` stored for it;
+  8. one canonical trial (batch 128, dropout 0.1, lr 1e-3) through
+     ``train -> evaluate -> dump_parameters``: every epoch's loss finite
+     and no ``DivergenceError``, eval accuracy above ACC_FLOOR, and a
+     device profile of 20 warm train steps, with the Adam and sentinel
+     ranges' device time apart;
+  9. FeedForward at its widest knobs (3 x 256, batch 128) trained and
      evaluated;
-  9. card-vs-CPU training parity: three float32 steps (TF32 off,
+ 10. card-vs-CPU training parity: three float32 steps (TF32 off,
      dropout 0) of VGG16 w1.0 from the same params on both devices;
-     loss, the sentinel norms and the params after each step;
- 10. a device profile of 20 warm train steps, with the Adam and
-     sentinel ranges' device time apart.
+     loss, the sentinel norms and the params after each step.
 
 The port has no hand-written kernel yet (the JAX package has no Pallas
 kernel to port), so the kernel line is ``{"kernels": []}``. The last
@@ -99,7 +110,7 @@ ROUTE_ATOL = 5e-3
 # -- training -----------------------------------------------------------------
 TRAIN_KNOBS = dict(depth=16, width_mult=1.0, dropout=0.1, learning_rate=1e-3,
                    batch_size=128, epochs=1, seed=0)
-TRIAL_SEEDS = (0, 1, 2)
+TRIAL_SEEDS = (0,)
 # The bench's canonical task (bench.py CANON_TRAIN and run_real_loop):
 # noise 0.35 and 20% of labels flipped, so a perfect classifier scores
 # 0.8 + 0.2 / 10 = 0.82.
@@ -115,6 +126,52 @@ ACC_FLOOR = 0.78
 # trained float32 params through the serial forward). Readings: equal
 # for all three trials. The bound allows 20 flips of 10,000 near-ties.
 SERVED_ACC_ATOL = 0.002
+# The bench's canonical job (bench.py BENCH_MODEL_SRC and run_real_loop):
+# VGG16 w1.0 for one epoch, tuning dropout, the learning rate and the
+# batch size. Ten trials take the GP past its 8 warm-up proposals.
+TUNE_TRIALS = 10
+TUNE_TOP1_TARGET = 0.70  # bench.py _scale: the top-1 gate off the CPU
+# The memory allocated once a trial has evaluated (its own model
+# resident, the previous trial's destroyed), last trial against first.
+TUNE_LEAK_BYTES = 64 << 20
+BENCH_SRC = b'''
+import torch
+
+from rafiki_tpu_torch.model.knobs import CategoricalKnob, FixedKnob, FloatKnob
+from rafiki_tpu_torch.models.vgg import Vgg
+
+
+class BenchVgg(Vgg):
+    """Canonical-trial VGG16: fixed arch, tunable lr/dropout/batch."""
+
+    #: torch.cuda.memory_allocated() once each trial has evaluated, and
+    #: once each trial's model is destroyed (on the params saver's thread).
+    evaluated_bytes = []
+    destroyed_bytes = []
+
+    @staticmethod
+    def get_knob_config():
+        return {
+            "depth": FixedKnob(16),
+            "width_mult": FixedKnob(1.0),
+            "dropout": FloatKnob(0.0, 0.5),
+            "learning_rate": FloatKnob(1e-4, 3e-2, is_exp=True),
+            "batch_size": CategoricalKnob([64, 128, 256], affects_shape=True),
+            "epochs": FixedKnob(1),
+            "seed": FixedKnob(0),
+        }
+
+    def evaluate(self, dataset_uri):
+        score = super().evaluate(dataset_uri)
+        torch.cuda.synchronize()
+        BenchVgg.evaluated_bytes.append(torch.cuda.memory_allocated())
+        return score
+
+    def destroy(self):
+        super().destroy()
+        torch.cuda.synchronize()
+        BenchVgg.destroyed_bytes.append(torch.cuda.memory_allocated())
+'''
 FF_KNOBS = dict(hidden_layers=3, hidden_units=256, learning_rate=1e-3, batch_size=128,
                 epochs=3, seed=0)
 FF_TRAIN_URI = "synthetic://images?classes=10&n=2048&seed=0"
@@ -417,17 +474,17 @@ def _synced_s(t0: float) -> float:
 
 
 def train_trials(card):
-    """Phase 6: the canonical trial, three seeds. Returns the phase's
-    readings, the trained models and their serving blobs."""
+    """Phase 8: the canonical trial, for each of TRIAL_SEEDS. It runs
+    after the tune job, which loaded the same datasets, so its epoch is
+    a warm one. Returns the phase's readings, the trained models and
+    their serving blobs."""
     import torch
 
     from rafiki_tpu_torch.model.dataset import dataset_utils
     from rafiki_tpu_torch.model.log import logger
     from rafiki_tpu_torch.models.vgg import Vgg
 
-    t0 = time.monotonic()
     train_ds, eval_ds = dataset_utils.load(TRAIN_URI), dataset_utils.load(EVAL_URI)
-    data_s = time.monotonic() - t0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     trials, models, blobs = [], [], []
@@ -448,40 +505,144 @@ def train_trials(card):
         blobs.append(m.dump_parameters())
         models.append(m)
     steps = train_ds.size // TRAIN_KNOBS["batch_size"]
-    warm_s = float(np.mean([t["train_s"] for t in trials[1:]]))
+    epoch_s = float(np.mean([t["train_s"] for t in trials]))
     out = {
         "phase": "train_vgg", "card": card[1], "power_limit": card[2],
         "knobs": TRAIN_KNOBS, "train_uri": TRAIN_URI, "eval_uri": EVAL_URI,
         "train_examples": train_ds.size, "eval_examples": eval_ds.size,
-        "dataset_gen_s": data_s, "steps_per_epoch": steps, "trials": trials,
-        # Each trial is one epoch: the first pays the dataset upload and
-        # the first calls (cuDNN's algorithm choice, allocator growth).
-        "cold_epoch_s": trials[0]["train_s"], "warm_epoch_s": warm_s,
-        "warm_step_ms": warm_s / steps * 1e3,
-        "warm_train_images_per_s": steps * TRAIN_KNOBS["batch_size"] / warm_s,
+        "steps_per_epoch": steps, "trials": trials,
+        # One epoch per trial, after the tune job: datasets resident and
+        # cuDNN's choices for batch 128 made.
+        "epoch_s": epoch_s, "step_ms": epoch_s / steps * 1e3,
+        "train_images_per_s": steps * TRAIN_KNOBS["batch_size"] / epoch_s,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     }
     return out, models, blobs
 
 
-def served_accuracy(blobs, evaluated, card):
-    """Phase 7: the trained blobs loaded into serving models, stacked,
-    and run over the eval set: each trial's argmax accuracy through the
-    stacked route's forward, and the ensemble's."""
+def _bench_class():
+    """The BenchVgg class the scheduler loaded from BENCH_SRC."""
+    from rafiki_tpu_torch.models.vgg import Vgg
+
+    loaded = [c for c in Vgg.__subclasses__() if c.__name__ == "BenchVgg"]
+    if len(loaded) != 1:
+        fail(f"expected the scheduler to load BenchVgg once, found {len(loaded)}")
+    return loaded[0]
+
+
+def tune_job(card):
+    """Phase 6: the bench's canonical train job through the port's entry
+    points, in a temporary directory. Returns the per-trial lines in
+    completion order, the job line, and the top-2 trials with their
+    stored blobs."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from rafiki_tpu_torch import telemetry
+    from rafiki_tpu_torch.model.dataset import dataset_utils
+    from rafiki_tpu_torch.scheduler import LocalScheduler
+    from rafiki_tpu_torch.store import MetaStore, ParamsStore
+
+    tmp = tempfile.mkdtemp(prefix="rafiki-tune-")
+    try:
+        store = MetaStore(f"{tmp}/meta.sqlite3")
+        params = ParamsStore(f"{tmp}/params")
+        model = store.create_model("bench-vgg", "IMAGE_CLASSIFICATION", None, BENCH_SRC, "BenchVgg")
+        job = store.create_train_job("bench", "IMAGE_CLASSIFICATION", None, TRAIN_URI, EVAL_URI,
+                                     {"MODEL_TRIAL_COUNT": TUNE_TRIALS})
+        store.create_sub_train_job(job["id"], model["id"])
+        telemetry.reset()
+        # Earlier phases' reference cycles (worker threads, the bus) hold
+        # card memory until the collector runs: free it before reading.
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        result = LocalScheduler(store, params).run_train_job(
+            job["id"], n_workers=1, advisor_kind="gp")
+        wall = _synced_s(t0)
+        peak = torch.cuda.max_memory_allocated()
+        snap = telemetry.snapshot()
+        best = [dict(t, blob=params.load(t["params_id"])) for t in result.best_trials]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cls = _bench_class()
+    n_train = dataset_utils.load(TRAIN_URI).size
+    train_s = {r["tags"]["trial_id"]: r["dur_s"] for r in telemetry.span_records()
+               if r["name"] == "trial.train"}
+    done = sorted((t for t in result.trials if t.get("stopped_at")), key=lambda t: t["stopped_at"])
+    trials = []
+    for t in done:
+        bs = t["knobs"]["batch_size"]
+        steps = n_train // bs
+        row = {"phase": "tune_trial", "no": t["no"], "knobs": t["knobs"], "status": t["status"],
+               "score": t["score"], "trial_s": t["stopped_at"] - t["started_at"],
+               "batch_size": bs, "train_s": train_s.get(t["id"]),
+               "error": (t["error"] or "")[:200] or None}
+        if row["train_s"]:
+            row["step_ms"] = row["train_s"] / steps * 1e3
+        trials.append(row)
+    completed = [t for t in trials if t["status"] == "COMPLETED"]
+    spans = snap["spans"]
+    by_bs = {}
+    for t in completed:
+        by_bs.setdefault(t["batch_size"], []).append(t["trial_s"])
+    line = {
+        "phase": "tune_job", "card": card[1], "power_limit": card[2],
+        "status": result.status, "trials": len(trials), "completed": len(completed),
+        "errored": len(trials) - len(completed), "job_wall_s": wall,
+        "scheduler_duration_s": result.duration_s,
+        "completed_trials_per_hour": 3600.0 * len(completed) / wall,
+        "cold_trial_s": trials[0]["trial_s"] if trials else None,
+        "trial_s_by_batch_size": {str(k): v for k, v in sorted(by_bs.items())},
+        "best_score": max((t["score"] for t in completed), default=None),
+        "top1_target": TUNE_TOP1_TARGET,
+        "advisor_propose_s_total": spans.get("trial.advisor_propose", {}).get("total_s"),
+        "advisor_proposals": spans.get("trial.advisor_propose", {}).get("count"),
+        "persist_s_total": spans.get("trial.persist", {}).get("total_s"),
+        "trial_total_s_total": spans.get("trial.total", {}).get("total_s"),
+        # The worker's time outside its trials and proposals: the
+        # advisor's feedback (the GP refits there), store writes, and the
+        # wait for the last save.
+        "outside_trials_s": wall - spans.get("trial.total", {}).get("total_s", 0.0)
+        - spans.get("trial.advisor_propose", {}).get("total_s", 0.0),
+        "gp_warmup_proposals": snap["counters"].get("advisor.gp_warmup_proposals", 0),
+        "gp_ei_proposals": snap["counters"].get("advisor.gp_ei_proposals", 0),
+        "max_memory_allocated_bytes": peak,
+        "evaluated_memory_allocated_bytes": list(cls.evaluated_bytes),
+        "destroyed_memory_allocated_bytes": list(cls.destroyed_bytes),
+        "errors": result.errors,
+    }
+    return trials, line, best
+
+
+def served_accuracy(trials, card):
+    """Phase 7: the tune job's top trials' stored blobs loaded into
+    serving models, stacked, and run over the eval set: each trial's
+    argmax accuracy through the stacked route's forward, against the
+    score the job stored for it, and the ensemble's."""
     import torch
 
     from rafiki_tpu_torch.model.dataset import dataset_utils
+    from rafiki_tpu_torch.models.vgg import Vgg
     from rafiki_tpu_torch.parallel.serving import build_stacked
     from rafiki_tpu_torch.predictor.ensemble import renormalize_probs
 
     ds = dataset_utils.load(EVAL_URI)
-    stacked, reason = build_stacked([{"model_name": "vgg"}] * len(blobs),
-                                    load(blobs, knobs=TRAIN_KNOBS),
-                                    batch_size=TRAIN_KNOBS["batch_size"])
+    models = []
+    for t in trials:
+        m = Vgg(**t["knobs"])
+        m.load_parameters(t["blob"])
+        models.append(m)
+    bs = TRAIN_KNOBS["batch_size"]
+    stacked, reason = build_stacked([{"model_name": "BenchVgg"}] * len(models), models,
+                                    batch_size=bs)
     if stacked is None:
         fail(f"stacked route refused the trained trials: {reason}")
-    bs = TRAIN_KNOBS["batch_size"]
-    hits = np.zeros(len(blobs), np.int64)
+    hits = np.zeros(len(models), np.int64)
     ens_hits = 0
     t0 = time.monotonic()
     with torch.inference_mode():
@@ -495,15 +656,16 @@ def served_accuracy(blobs, evaluated, card):
     serve_s = _synced_s(t0)
     stacked.destroy()
     served = (hits / ds.size).tolist()
+    evaluated = [t["score"] for t in trials]
     return {"phase": "served_vs_evaluated", "card": card[1], "power_limit": card[2],
-            "evaluated_acc": evaluated, "served_acc": served,
-            "abs_diff": [abs(a - b) for a, b in zip(served, evaluated)],
+            "trials": [t["no"] for t in trials], "evaluated_acc": evaluated,
+            "served_acc": served, "abs_diff": [abs(a - b) for a, b in zip(served, evaluated)],
             "ensemble_acc": ens_hits / ds.size, "serve_s": serve_s,
             "served_acc_atol": SERVED_ACC_ATOL}
 
 
 def train_ff(card):
-    """Phase 8: FeedForward at its widest knobs."""
+    """Phase 9: FeedForward at its widest knobs."""
     from rafiki_tpu_torch.model.log import logger
     from rafiki_tpu_torch.models.ff import FeedForward
 
@@ -538,7 +700,7 @@ def _f32_vgg_class():
 
 
 def training_parity(card):
-    """Phase 9: PARITY_STEPS float32 train steps (TF32 off, dropout 0)
+    """Phase 10: PARITY_STEPS float32 train steps (TF32 off, dropout 0)
     from the same params on the card and on the CPU. Returns the
     readings after each step."""
     import torch
@@ -586,9 +748,9 @@ def training_parity(card):
 
 
 def train_step_profile(model, card):
-    """Phase 10: where a warm train step's device time goes, over
-    PROFILE_ITERS steps of a trained canonical trial on fresh batches
-    gathered from the resident dataset, as the epoch does."""
+    """Phase 8, after the trial: where a warm train step's device time
+    goes, over PROFILE_ITERS steps of a trained canonical trial on fresh
+    batches gathered from the resident dataset, as the epoch does."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -772,11 +934,37 @@ def main() -> int:
 
     replicas = None
 
-    # -- 6.-10. training -------------------------------------------------------
+    # -- 6.-7. the canonical tune job, and its top-2 served --------------------
     from rafiki_tpu_torch.obs.health import DivergenceError
 
+    tune_rows, job, best = tune_job(card)
+    for row in tune_rows:
+        print(json.dumps(row))
+    print(json.dumps(job))
+    check(job["status"] == "COMPLETED" and job["trials"] == TUNE_TRIALS and not job["errors"],
+          f"tune job: {job['status']}, {job['trials']} trials, errors {job['errors']}")
+    for row in tune_rows:
+        check(row["status"] == "COMPLETED" or (row["error"] or "").startswith("diverged:"),
+              f"tune trial {row['no']}: {row['status']} and not a contained divergence: "
+              f"{row['error']}")
+    check(job["gp_ei_proposals"] >= 1, f"tune job: no proposal from expected improvement {job}")
+    check(job["best_score"] is not None and job["best_score"] >= TUNE_TOP1_TARGET,
+          f"tune job: best score {job['best_score']} < {TUNE_TOP1_TARGET}")
+    ev = job["evaluated_memory_allocated_bytes"]
+    check(len(ev) == job["completed"] and ev and ev[-1] <= ev[0] + TUNE_LEAK_BYTES,
+          f"tune job: memory allocated after the last trial {ev[-1:]} > after the first "
+          f"{ev[:1]} + {TUNE_LEAK_BYTES}")
+    check(len(best) == 2, f"tune job: {len(best)} completed trials to serve, expected 2")
+    served = served_accuracy(best, card)
+    print(json.dumps(served))
+    check(max(served["abs_diff"]) <= SERVED_ACC_ATOL,
+          f"served accuracy disagrees with the stored score: {served}")
+    del best
+    torch.cuda.empty_cache()
+
+    # -- 8.-10. one canonical trial, FeedForward, card-vs-CPU parity -----------
     try:
-        vgg, trained, trained_blobs = train_trials(card)
+        vgg, trained, _ = train_trials(card)
     except DivergenceError as e:
         fail(f"canonical trial diverged: {e.verdict}")
     print(json.dumps(vgg))
@@ -785,10 +973,6 @@ def main() -> int:
               f"trial seed {t['seed']}: non-finite loss {t['epochs']}")
         check(t["eval_acc"] >= ACC_FLOOR,
               f"trial seed {t['seed']}: eval accuracy {t['eval_acc']} < {ACC_FLOOR}")
-    served = served_accuracy(trained_blobs, [t["eval_acc"] for t in vgg["trials"]], card)
-    print(json.dumps(served))
-    check(max(served["abs_diff"]) <= SERVED_ACC_ATOL,
-          f"served accuracy disagrees with evaluate: {served}")
     profile_row = train_step_profile(trained[0], card)
     print(json.dumps(profile_row))
     del trained

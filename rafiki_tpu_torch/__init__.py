@@ -17,5 +17,10 @@ Ported so far:
     k trials) and replicated (one worker per trial) routes;
   * the trial's training path: ``Model.train(uri) -> evaluate(uri) ->
     dump_parameters()`` for ``Vgg`` and ``FeedForward`` (datasets,
-    logger, the train loop with Adam and the health sentinels).
+    logger, the train loop with Adam and the health sentinels);
+  * the train job: ``MetaStore``/``ParamsStore`` (the JAX package's
+    schema and files) -> ``LocalScheduler.run_train_job`` ->
+    ``TrainWorker`` -> advisor (random, TPE, or GP with its own Gaussian
+    process) -> trials, with the model-developer harness
+    (``model/dev.py``).
 """

@@ -12,9 +12,13 @@ reads too (same pickle payload ``{"arch", "packed", "dataset_meta"}``,
 same RTPK1 leaves and flax key names; see ``utils/serial.py`` and
 ``convert.py``).
 
+``load_model_class`` loads an uploaded template (``.py`` source bytes)
+as the JAX package's does, and requires a subclass of the port's
+``BaseModel``.
+
 Not ported yet: ``make_optimizer`` (the custom-optimizer path),
 ``dump_checkpoint`` / ``restore_checkpoint`` and the checkpoint sink,
-trial packing, the dp mesh and ``load_model_class``.
+trial packing and the dp mesh.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import inspect
 import math
 import os
 import pickle
+import sys
+import types
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -363,3 +369,32 @@ def _portable_meta(meta: Dict[str, Any]) -> Dict[str, Any]:
     if isinstance(meta.get("tag_map"), dict):
         out["tag_map"] = dict(meta["tag_map"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# Model file loading (reference: load_model_class executes uploaded .py)
+# ---------------------------------------------------------------------------
+
+def load_model_class(model_file_bytes: bytes, model_class: str) -> type:
+    """Load a model template class from uploaded ``.py`` source bytes,
+    exec-ed into a scratch module as the JAX package does. The uploaded
+    source is *trusted* (model developers are authenticated users). The
+    class must subclass this package's :class:`BaseModel`."""
+    name = f"_rafiki_model_{abs(hash(model_file_bytes)) % (1 << 30):x}"
+    mod = types.ModuleType(name)
+    mod.__dict__["__file__"] = f"<{name}.py>"
+    sys.modules[name] = mod
+    try:
+        exec(compile(model_file_bytes, f"<{name}.py>", "exec"), mod.__dict__)
+    except Exception:
+        del sys.modules[name]
+        raise
+    mod.__rafiki_source__ = model_file_bytes
+    if not hasattr(mod, model_class):
+        del sys.modules[name]
+        raise ValueError(f"Model file defines no class named {model_class!r}")
+    cls = getattr(mod, model_class)
+    if not (isinstance(cls, type) and issubclass(cls, BaseModel)):
+        del sys.modules[name]
+        raise ValueError(f"{model_class} must subclass rafiki_tpu_torch BaseModel")
+    return cls

@@ -27,7 +27,7 @@ from torch import nn
 
 from rafiki_tpu_torch.model.base import TorchModel
 from rafiki_tpu_torch.model.knobs import CategoricalKnob, FixedKnob, FloatKnob, IntegerKnob
-from rafiki_tpu_torch.ops.layers import GroupNorm
+from rafiki_tpu_torch.ops.layers import GroupNorm, conv2d
 from rafiki_tpu_torch.ops.train import dropout as _dropout
 
 _CFGS = {
@@ -80,7 +80,7 @@ class _Vgg(nn.Module):
                     x = F.max_pool2d(x, 2, 2)
                 continue
             conv = self.convs[step]
-            x = F.conv2d(x, conv.weight.to(self.dtype), None, padding=1)
+            x = conv2d(x, conv.weight.to(self.dtype), padding=1)
             x = torch.relu(self.norms[step](x))
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
         x = torch.relu(self._dense(self.fc1, x))

@@ -12,12 +12,52 @@ from plain tensor ops, which also vmap cleanly over stacked params:
   * ``(x_f32 - mean) * (rsqrt(var + eps) * scale) + bias`` in float32,
     in that order, then a cast back to the compute dtype;
   * ``scale`` and ``bias`` are float32 parameters.
+
+``conv2d`` is the models' convolution. It is ``F.conv2d``, except when
+its weight is stacked under ``torch.func.vmap`` (the stacked serving
+forward, ``parallel/ensemble.py``, the port's only vmap): there it runs
+once per member instead of as the one grouped conv vmap would lower it
+to, which sums in another order, so the stacked forward bit-matches the
+serial ones.
 """
 
 from __future__ import annotations
 
 import torch
+import torch._C._functorch as _functorch
+import torch.nn.functional as F
 from torch import nn
+
+# The per-member conv uses functorch's private C API, as torch.func.vmap
+# does at its own boundary. Fail at import, not mid-forward, if a torch
+# release moves any of it.
+_FUNCTORCH_API = ("is_batchedtensor", "maybe_get_level", "_unwrap_batched", "_add_batch_dim")
+_missing = [n for n in _FUNCTORCH_API if not hasattr(_functorch, n)]
+if _missing:
+    raise ImportError(f"torch {torch.__version__} has no torch._C._functorch."
+                      f"{', '.join(_missing)}, which ops.layers.conv2d needs")
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor, padding: int = 0) -> torch.Tensor:
+    """Bias-free 2-D convolution (``F.conv2d``); once per member when
+    ``weight`` is stacked under vmap."""
+    if _functorch.is_batchedtensor(weight):
+        return _per_member_conv2d(x, weight, padding, _functorch.maybe_get_level(weight))
+    return F.conv2d(x, weight, None, padding=padding)
+
+
+def _per_member_conv2d(x, weight, padding, level):
+    """The k plain convs of one vmapped conv, stacked. Unwraps the
+    batched operands at vmap ``level`` (as ``torch.func.vmap`` itself
+    does at its boundary) and wraps the stacked result back, so no
+    batching rule runs: a custom ``autograd.Function`` vmap rule did the
+    same at several times the host cost per call."""
+    w, w_dim = _functorch._unwrap_batched(weight, level)
+    x, x_dim = _functorch._unwrap_batched(x, level)
+    outs = [F.conv2d(x if x_dim is None else x.select(x_dim, i), w.select(w_dim, i), None,
+                     padding=padding)
+            for i in range(w.shape[w_dim])]
+    return _functorch._add_batch_dim(torch.stack(outs), 0, level)
 
 
 class GroupNorm(nn.Module):

@@ -4,9 +4,17 @@ Counterpart of ``rafiki_tpu/parallel/ensemble.py``. When the top-k
 trials share an architecture, their parameters are stacked along a
 leading "model" axis (``torch.func.stack_module_state``) and the forward
 is ``torch.func.vmap``-ed over it through ``functional_call``: one
-Python call, k logits batches. Under vmap a conv with batched weights
-lowers to one grouped conv; the GroupNorm is written from mean/rsqrt
+Python call, k logits batches. The GroupNorm is written from mean/rsqrt
 ops and vmaps as it is.
+
+Convolutions are the exception. Under vmap a conv with batched weights
+lowers to one grouped conv, which sums in another order than the k
+plain convs of the serial forwards, so the two routes would differ in
+float32 and break the bit-parity contract of the JAX package's
+``StackedEnsemble.ensemble_proba`` (docs/serving.md). The port's
+models run their convs through ``ops.layers.conv2d``, which, given a
+weight stacked under vmap, runs once per member, as the serial forward
+runs it, and stacks the k outputs.
 
 The JAX package's multi-chip branch (a ``shard_map`` over a "model"
 mesh axis) is not ported: the port serves on one card.

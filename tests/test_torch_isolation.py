@@ -40,6 +40,39 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert out.stdout.strip() == "[]"
 
 
+
+def test_the_train_job_path_and_a_gp_fit_need_no_scikit_learn():
+    """The card's machine has no scikit-learn: the GP advisor fits its
+    own Gaussian process. Every module of the train-job path imports,
+    and a GP proposal past the warm-up runs, with none of scikit-learn,
+    JAX or the JAX package loaded."""
+    new = ("constants", "config", "utils.events", "store.meta", "store.params",
+           "advisor.base", "advisor.random_advisor", "advisor.gp", "advisor.tpe",
+           "advisor.service", "parallel.mesh", "worker.train", "scheduler.local", "model.dev")
+    mods = _port_modules()
+    for name in new:
+        assert f"rafiki_tpu_torch.{name}" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "from rafiki_tpu_torch import telemetry\n"
+        "from rafiki_tpu_torch.advisor import make_advisor\n"
+        "from rafiki_tpu_torch.model.knobs import CategoricalKnob, FloatKnob\n"
+        "adv = make_advisor({'lr': FloatKnob(1e-4, 3e-2, is_exp=True),\n"
+        "                    'bs': CategoricalKnob([64, 128, 256])}, kind='gp', seed=0)\n"
+        "for i in range(9):\n"
+        "    k = adv.propose()\n"
+        "    adv.feedback(-abs(k['lr'] - 1e-3) * 100 + k['bs'] / 1000, k)\n"
+        "assert telemetry.get_counter('advisor.gp_ei_proposals') == 1, telemetry.snapshot()\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN + ('sklearn',)!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip() == "[]"
+
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     from rafiki_tpu_torch.models.ff import FeedForward
     from rafiki_tpu_torch.models.vgg import Vgg

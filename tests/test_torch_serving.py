@@ -134,10 +134,10 @@ def test_stacked_bit_matches_host_ensemble_of_serial_forwards(blobs, queries, st
 
 
 def test_stacked_f32_forward_agrees_with_serial_to_rounding(blobs, queries):
-    """In float32 the vmapped forward's grouped convs (oneDNN on the
-    CPU) may sum in another order than the k plain convs, so in f32 the
-    routes agree to rounding rather than bit for bit; the bf16 serving
-    path above stays bit-exact (ROADMAP Queue 3)."""
+    """In float32 too the stacked forward bit-matches the serial ones:
+    under vmap each conv runs once per member, as the serial forward
+    runs it, not as one grouped conv that sums in another order (the
+    fault ROADMAP Queue 3 records; the bound here was 1e-6 before)."""
     from rafiki_tpu_torch.models.vgg import _Vgg
     from rafiki_tpu_torch.ops.train import predict
     from rafiki_tpu_torch.parallel.ensemble import StackedEnsemble
@@ -152,7 +152,7 @@ def test_stacked_f32_forward_agrees_with_serial_to_rounding(blobs, queries):
         serial = np.stack([predict(m, x).numpy() for m in f32])
     stacked = StackedEnsemble(f32).predict_proba(x)
     assert stacked.shape == serial.shape == (3, 5, 10)
-    np.testing.assert_allclose(stacked, serial, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(stacked, serial)
 
 
 def test_build_stacked_fallback_reasons(blobs):
