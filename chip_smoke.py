@@ -58,6 +58,23 @@ the 50k-image synthetic task, bf16 compute):
      dropout 0) of VGG16 w1.0 from the same params on both devices;
      loss, the sentinel norms and the params after each step.
 
+The service, as a user drives it (phase ``service_journey``):
+
+ 11. the admin server started through ``admin.app.serve`` (what
+     ``python -m rafiki_tpu_torch serve`` runs) on the card, on a free
+     loopback port, over a fresh data dir; with the port's ``Client``:
+     log in, upload BENCH_SRC, a JOURNEY_TRIALS-trial GP train job on
+     the canonical task, then an inference job over its top 2 (the
+     stacked route); JOURNEY_1Q requests of one query and JOURNEY_64Q of
+     64 POSTed to the published predictor host (client p50/p99 and the
+     server's split: JSON decode, gateway, JSON encode), the HTTP
+     predictions for JOURNEY_IMAGES eval images against an in-process
+     stacked ensemble of the same stored blobs (JOURNEY_ATOL) and their
+     accuracy; then the job again with microbatching, under
+     MB_THREADS x MB_REQUESTS concurrent single-query requests; then
+     everything stopped, and the memory allocated on the card back
+     within TUNE_LEAK_BYTES of its reading before the inference job.
+
 The port has no hand-written kernel yet (the JAX package has no Pallas
 kernel to port), so the kernel line is ``{"kernels": []}``. The last
 line is ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -191,6 +208,19 @@ PARITY_BATCH = 8
 PARITY_TOL = {"loss_rel": 3e-5, "health_grad_norm_rel": 3e-4,
               "health_update_norm_rel": 1e-3, "health_param_norm_rel": 3e-5,
               "param_rel_l2": 2e-2}
+# -- the service journey -------------------------------------------------------
+JOURNEY_TRIALS = 3
+JOURNEY_1Q = 50
+JOURNEY_64Q = 20
+JOURNEY_IMAGES = 512
+# HTTP predictions against the in-process stacked ensemble of the same
+# stored blobs on the card: the same forward on the same padded chunks,
+# and JSON carries float32 values exactly, so they should be equal; the
+# bound allows a float32 ulp of a probability.
+JOURNEY_ATOL = 1e-5
+MB_THREADS = 16
+MB_REQUESTS = 8
+MB_GATEWAY = {"max_batch": 8, "max_batch_wait_ms": 5}
 
 
 def fail(msg: str) -> None:
@@ -829,6 +859,268 @@ def train_step_profile(model, card):
             "top_ops_self_device_ms_per_step": {k[:80]: v / n / 1e3 for k, v in ops[:10]}}
 
 
+# -- the service journey --------------------------------------------------------
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _get_json(url: str):
+    import urllib.request
+
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    with opener.open(url, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def _span_p50_ms(records, name: str):
+    xs = [r["dur_s"] for r in records if r["name"] == name]
+    return percentile_ms(xs, 50) if xs else None
+
+
+def _serving_counters(host: str, phase: str) -> dict:
+    """The predictor's telemetry: fail on a worker error or a timed-out
+    query (the inference worker answers a failing forward with an
+    error reply and the manager's startup wait goes on regardless, so
+    the counters are what shows a fault)."""
+    snap = _get_json(f"http://{host}/metrics")
+    c = snap["counters"]
+    bad = {k: c.get(k, 0) for k in ("inference.batch_errors", "predictor.query_timeouts")}
+    if any(bad.values()):
+        fail(f"service_journey ({phase}): {bad}")
+    return snap
+
+
+def service_journey(card):
+    """Phase 11: the user's journey through the port's service on the
+    card. Returns the phase's line."""
+    import gc
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from rafiki_tpu_torch import telemetry
+    from rafiki_tpu_torch.admin.app import serve
+    from rafiki_tpu_torch.client import Client
+    from rafiki_tpu_torch.config import Config, get_config, set_config
+    from rafiki_tpu_torch.model.base import load_model_class
+    from rafiki_tpu_torch.model.dataset import dataset_utils
+    from rafiki_tpu_torch.parallel.serving import build_stacked
+    from rafiki_tpu_torch.predictor.ensemble import ensemble_predictions
+    from rafiki_tpu_torch.store import MetaStore
+    from rafiki_tpu_torch.utils.events import events
+
+    line = {"phase": "service_journey", "card": card[1], "power_limit": card[2]}
+    tmp = Path(tempfile.mkdtemp(prefix="rafiki-journey-"))
+    prev_config = get_config()
+    cfg = Config(data_dir=tmp / "data")
+    set_config(cfg)
+    port = _free_port()
+    stop = threading.Event()
+    server = threading.Thread(target=serve, name="journey-admin", daemon=True,
+                              kwargs=dict(host="127.0.0.1", port=port, device="cuda",
+                                          stop_event=stop))
+    t_phase = time.monotonic()
+    server.start()
+    try:
+        # -- 1. the server answers --------------------------------------------
+        client = Client(admin_port=port, timeout_s=300)
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                _get_json(f"http://127.0.0.1:{port}/healthz")
+                break
+            except OSError:
+                if time.monotonic() > deadline or not server.is_alive():
+                    fail("service_journey: the admin server never answered")
+                time.sleep(0.1)
+        store = MetaStore(cfg.db_path)
+
+        # -- 2. train through the REST API ------------------------------------
+        client.login(cfg.superadmin_email, cfg.superadmin_password)
+        (tmp / "bench_vgg.py").write_bytes(BENCH_SRC)
+        client.create_model("bench-vgg", "IMAGE_CLASSIFICATION", tmp / "bench_vgg.py",
+                            "BenchVgg")
+        t0 = time.monotonic()
+        client.create_train_job("journey", "IMAGE_CLASSIFICATION", TRAIN_URI, EVAL_URI,
+                                {"MODEL_TRIAL_COUNT": JOURNEY_TRIALS}, advisor_kind="gp")
+        job = client.wait_until_train_job_has_stopped("journey", timeout=900, poll_s=0.5)
+        line["train_job_s"] = time.monotonic() - t0
+        trials = client.get_trials_of_train_job("journey")
+        line["train_job_status"] = job["status"]
+        line["trials"] = [{"no": t["no"], "status": t["status"], "score": t["score"],
+                           "batch_size": t["knobs"]["batch_size"],
+                           "error": (t["error"] or "")[:200] or None} for t in trials]
+        completed = [t for t in trials if t["status"] == "COMPLETED"]
+        if job["status"] != "COMPLETED" or len(completed) < 2:
+            fail(f"service_journey: train job {job['status']}, {len(completed)} trials "
+                 f"completed: {line['trials']}")
+        for t in trials:
+            if t["status"] == "ERRORED" and not (t["error"] or "").startswith("diverged:"):
+                fail(f"service_journey: trial {t['no']} errored, not a contained "
+                     f"divergence: {t['error']}")
+
+        # -- 3. serve through the REST API ------------------------------------
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        inf = client.create_inference_job("journey", max_models=2)
+        line["create_inference_job_s"] = time.monotonic() - t0
+        host = inf["predictor_host"]
+        routes = [e for e in events.read("inference_route") if e.get("job_id") == inf["id"]]
+        line["route"] = routes[-1] if routes else None
+        rows = store.get_services_of_job(inf["id"])
+        if inf["status"] != "RUNNING" or not host:
+            fail(f"service_journey: inference job {inf}")
+        if not routes or routes[-1]["route"] != "stacked":
+            fail(f"service_journey: the job was not served stacked: {routes}")
+        if not rows or any(r["status"] == "ERRORED" for r in rows):
+            fail(f"service_journey: inference service rows {rows}")
+
+        # -- 4. predict over HTTP ---------------------------------------------
+        ds = dataset_utils.load(EVAL_URI)
+        x = ds.x[:JOURNEY_IMAGES]
+        singles = [x[i:i + 1].tolist() for i in range(JOURNEY_1Q)]
+        bursts = [x[(i * BATCH) % JOURNEY_IMAGES:][:BATCH].tolist() for i in range(JOURNEY_64Q)]
+        t0 = time.monotonic()
+        client.predict_via_predictor(host, singles[0])
+        line["first_request_s"] = time.monotonic() - t0
+        _serving_counters(host, "first request")
+        for label, reqs in (("1q", singles), ("64q", bursts)):
+            telemetry.reset()
+            lat = []
+            for q in reqs:
+                t0 = time.monotonic()
+                out = client.predict_via_predictor(host, q)
+                lat.append(time.monotonic() - t0)
+                if len(out) != len(q) or any(isinstance(p, dict) for p in out):
+                    fail(f"service_journey: a {label} request failed: {out[:2]}")
+            _serving_counters(host, f"{label} requests")
+            records = telemetry.span_records()
+            line[f"client_p50_ms_{label}"] = percentile_ms(lat, 50)
+            line[f"client_p99_ms_{label}"] = percentile_ms(lat, 99)
+            line[f"server_p50_ms_{label}"] = {
+                name: _span_p50_ms(records, name)
+                for name in ("predictor_http.decode", "predictor_http.rows",
+                             "gateway.predict", "predictor_http.encode",
+                             "inference.forward")}
+        line["request_body_bytes_64q"] = len(json.dumps({"queries": bursts[0]}))
+        http_probs = np.asarray(
+            [p for i in range(0, JOURNEY_IMAGES, BATCH)
+             for p in client.predict_via_predictor(host, x[i:i + BATCH].tolist())], np.float64)
+        # The same two stored blobs, stacked in-process on the card, and
+        # gathered as the predictor gathers the stacked worker's reply.
+        best = client.get_best_trials_of_train_job("journey", max_count=2)
+        cls = load_model_class(BENCH_SRC, "BenchVgg")
+        models = []
+        for t in best:
+            m = cls(device="cuda", **t["knobs"])
+            m.load_parameters(client.get_trial_parameters(t["id"]))
+            models.append(m)
+        ref_model, reason = build_stacked(best, models, batch_size=BATCH)
+        if ref_model is None:
+            fail(f"service_journey: the reference ensemble did not stack: {reason}")
+        ref = np.asarray([ensemble_predictions([p]) for i in range(0, JOURNEY_IMAGES, BATCH)
+                          for p in ref_model.predict(x[i:i + BATCH].tolist())], np.float64)
+        ref_model.destroy()
+        del models, ref_model
+        line["http_vs_in_process_max_abs"] = float(np.abs(http_probs - ref).max())
+        line["http_top1"] = float((http_probs.argmax(-1) == ds.y[:JOURNEY_IMAGES]).mean())
+        line["top1_target"] = TUNE_TOP1_TARGET
+        if http_probs.shape != (JOURNEY_IMAGES, NUM_CLASSES) or not np.isfinite(http_probs).all():
+            fail(f"service_journey: HTTP predictions of shape {http_probs.shape} or non-finite")
+        if line["http_vs_in_process_max_abs"] > JOURNEY_ATOL:
+            fail(f"service_journey: HTTP vs in-process ensemble "
+                 f"{line['http_vs_in_process_max_abs']} > {JOURNEY_ATOL}")
+        if line["http_top1"] < TUNE_TOP1_TARGET:
+            fail(f"service_journey: top-1 {line['http_top1']} < {TUNE_TOP1_TARGET}")
+
+        # -- 5. microbatching ---------------------------------------------------
+        client.stop_inference_job("journey")
+        inf = client.create_inference_job("journey", max_models=2, gateway=MB_GATEWAY)
+        host = inf["predictor_host"]
+        telemetry.reset()
+        answers, errors = {}, []
+        lock = threading.Lock()
+
+        def fire(k: int) -> None:
+            for j in range(MB_REQUESTS):
+                i = k * MB_REQUESTS + j
+                try:
+                    out = client.predict_via_predictor(host, x[i:i + 1].tolist())
+                    with lock:
+                        answers[i] = out[0]
+                except Exception as e:  # counted and failed on below
+                    with lock:
+                        errors.append(repr(e))
+
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=fire, args=(k,)) for k in range(MB_THREADS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        mb_wall = time.monotonic() - t0
+        n_req = MB_THREADS * MB_REQUESTS
+        snap = _serving_counters(host, "microbatched requests")
+        stats = _get_json(f"http://{host}/gateway")
+        sizes = snap["histograms"].get("serving.microbatch.size", {})
+        got = np.asarray([answers[i] for i in sorted(answers)], np.float64)
+        line["microbatch"] = {
+            "requests": n_req, "answered": len(answers), "errors": errors[:3],
+            "wall_s": mb_wall, "requests_per_s": len(answers) / mb_wall,
+            "shed_total": stats["shed_total"], "timeouts": stats["timeouts"],
+            "batches": sizes.get("count"), "mean_batch": sizes.get("mean"),
+            "max_batch": sizes.get("max"), "gateway": MB_GATEWAY,
+            "flushes": {r: snap["counters"].get(f"serving.microbatch.flush_{r}", 0)
+                        for r in ("size", "deadline", "drain")},
+            "vs_in_process_max_abs": (float(np.abs(got - ref[:n_req]).max())
+                                      if len(answers) == n_req else None)}
+        mb = line["microbatch"]
+        if errors or len(answers) != n_req or stats["shed_total"] or stats["timeouts"]:
+            fail(f"service_journey: microbatched requests {mb}")
+        if not sizes or not (sizes["max"] > 1 and sizes["mean"] > 1):
+            fail(f"service_journey: no batch of more than one member: {mb}")
+        if mb["vs_in_process_max_abs"] > JOURNEY_ATOL:
+            fail(f"service_journey: microbatched predictions disagree: {mb}")
+
+        # -- 6. stop, and the card's memory ---------------------------------
+        client.stop_inference_job("journey")
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        line["memory_allocated_before_serving"] = mem_before
+        line["memory_allocated_after_stop"] = mem_after
+        # Not gated: what is left once cuBLAS frees the workspaces it
+        # keeps per handle (a new thread that multiplies takes one).
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
+            line["memory_allocated_after_clearing_cublas_workspaces"] = \
+                torch.cuda.memory_allocated()
+        if mem_after > mem_before + TUNE_LEAK_BYTES:
+            fail(f"service_journey: {mem_after} bytes allocated after the inference jobs "
+                 f"stopped, {mem_before} before them (+{TUNE_LEAK_BYTES} allowed)")
+        store.close()
+    finally:
+        stop.set()
+        server.join(timeout=120)
+        set_config(prev_config)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if server.is_alive():
+        fail("service_journey: the admin server did not stop")
+    line["phase_s"] = time.monotonic() - t_phase
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -991,6 +1283,10 @@ def main() -> int:
         check(r["nonfinite"] == (0.0, 0.0), f"parity step {i}: non-finite {r}")
         for key, bound in PARITY_TOL.items():
             check(r[key] <= bound, f"parity step {i}: {key} {r[key]} > {bound}")
+
+    # -- 11. the service journey ----------------------------------------------
+    torch.cuda.empty_cache()
+    print(json.dumps(service_journey(card)))
 
     # -- kernels and the result line -------------------------------------------
     print(json.dumps({"kernels": []}))

@@ -22,5 +22,11 @@ Ported so far:
     schema and files) -> ``LocalScheduler.run_train_job`` ->
     ``TrainWorker`` -> advisor (random, TPE, or GP with its own Gaussian
     process) -> trials, with the model-developer harness
-    (``model/dev.py``).
+    (``model/dev.py``);
+  * the service: the admin REST API (``admin/``, ``python -m
+    rafiki_tpu_torch serve``), its ``Client``, and per inference job a
+    published HTTP predictor behind the serving gateway (``gateway/``:
+    admission, breakers, quorum gather, microbatching, drain).
 """
+
+__version__ = "0.1.0"

@@ -3,12 +3,11 @@
 The port's own copy of ``rafiki_tpu/store/meta.py`` ``MetaStore``,
 with the same SQLite schema, queries and atomic trial-slot claim
 (``create_trial(..., budget_max=)``), so a database written by either
-package reads the same in the other. Only the methods the train-job
-path reads and writes are ported: users, models, train jobs (+
-per-model sub-jobs), trials (knobs JSON, score, params ref, status,
-logs) and worker services. The inference-job rows, user listing and
-banning, and the orphan-adoption and recovery queries wait for the
-slices that first call them; so does the chaos hook on service
+package reads the same in the other. Ported: users (with listing and
+banning), models (with listing), train jobs (+ per-model sub-jobs),
+trials (knobs JSON, score, params ref, status, logs), inference jobs
+and services. The orphan-adoption and recovery queries wait for the
+slice that first calls them; so does the chaos hook on service
 heartbeats. Writes are short transactions; trial claiming uses an
 atomic UPDATE so concurrent workers never double-run a trial.
 """
@@ -24,6 +23,7 @@ import uuid
 from typing import Any, Dict, List, Optional
 
 from rafiki_tpu_torch.constants import (
+    InferenceJobStatus,
     ServiceStatus,
     TrainJobStatus,
     TrialStatus,
@@ -148,6 +148,13 @@ class MetaStore:
     def get_user_by_email(self, email: str) -> Optional[dict]:
         return self._one("SELECT * FROM users WHERE email=?", (email,))
 
+    def ban_user(self, user_id: str, banned: bool = True) -> None:
+        with self._conn() as c:
+            c.execute("UPDATE users SET banned=? WHERE id=?", (int(banned), user_id))
+
+    def get_users(self) -> List[dict]:
+        return self._all("SELECT * FROM users ORDER BY created_at")
+
     # -- models --------------------------------------------------------------
 
     def create_model(self, name: str, task: str, user_id: Optional[str],
@@ -175,6 +182,14 @@ class MetaStore:
                 return self._load_model_row(m)
         m = self._one("SELECT * FROM models WHERE name=? ORDER BY created_at DESC", (name,))
         return self._load_model_row(m)
+
+    def get_models(self) -> List[dict]:
+        return [self._load_model_row(m) for m in
+                self._all("SELECT * FROM models ORDER BY created_at")]
+
+    def get_models_of_task(self, task: str) -> List[dict]:
+        return [self._load_model_row(m) for m in
+                self._all("SELECT * FROM models WHERE task=? ORDER BY created_at", (task,))]
 
     @staticmethod
     def _load_model_row(m: Optional[dict]) -> Optional[dict]:
@@ -226,6 +241,13 @@ class MetaStore:
         if j:
             j["budget"] = json.loads(j["budget"])
         return j
+
+    def get_train_jobs(self, user_id: Optional[str] = None) -> List[dict]:
+        rows = (self._all("SELECT * FROM train_jobs WHERE user_id=? ORDER BY created_at", (user_id,))
+                if user_id else self._all("SELECT * FROM train_jobs ORDER BY created_at"))
+        for j in rows:
+            j["budget"] = json.loads(j["budget"])
+        return rows
 
     def update_train_job_status(self, job_id: str, status: str) -> None:
         stopped = _now() if status in (TrainJobStatus.STOPPED.value,
@@ -384,6 +406,38 @@ class MetaStore:
         return [json.loads(r["entry"]) for r in
                 self._all("SELECT * FROM trial_logs WHERE trial_id=? ORDER BY id", (trial_id,))]
 
+    # -- inference jobs ------------------------------------------------------
+
+    def create_inference_job(self, train_job_id: str, user_id: Optional[str]) -> dict:
+        iid = _uid()
+        with self._conn() as c:
+            c.execute(
+                "INSERT INTO inference_jobs (id, train_job_id, user_id, status, created_at)"
+                " VALUES (?,?,?,?,?)",
+                (iid, train_job_id, user_id, InferenceJobStatus.STARTED.value, _now()),
+            )
+        return self.get_inference_job(iid)
+
+    def get_inference_job(self, job_id: str) -> Optional[dict]:
+        return self._one("SELECT * FROM inference_jobs WHERE id=?", (job_id,))
+
+    def get_inference_job_of_train_job(self, train_job_id: str) -> Optional[dict]:
+        return self._one(
+            "SELECT * FROM inference_jobs WHERE train_job_id=? AND status IN ('STARTED','RUNNING')"
+            " ORDER BY created_at DESC", (train_job_id,))
+
+    def update_inference_job(self, job_id: str, status: Optional[str] = None,
+                             predictor_host: Optional[str] = None) -> None:
+        with self._conn() as c:
+            if status is not None:
+                stopped = _now() if status in (InferenceJobStatus.STOPPED.value,
+                                               InferenceJobStatus.ERRORED.value) else None
+                c.execute("UPDATE inference_jobs SET status=?, stopped_at=COALESCE(?, stopped_at)"
+                          " WHERE id=?", (status, stopped, job_id))
+            if predictor_host is not None:
+                c.execute("UPDATE inference_jobs SET predictor_host=? WHERE id=?",
+                          (predictor_host, job_id))
+
     # -- services (worker registry; replaces Docker Swarm service rows) -----
 
     def create_service(self, service_type: str, job_id: Optional[str] = None,
@@ -406,6 +460,9 @@ class MetaStore:
                 c.execute("UPDATE services SET status=? WHERE id=?", (status, service_id))
             if heartbeat:
                 c.execute("UPDATE services SET heartbeat_at=? WHERE id=?", (_now(), service_id))
+
+    def get_service(self, service_id: str) -> Optional[dict]:
+        return self._one("SELECT * FROM services WHERE id=?", (service_id,))
 
     def get_services_of_job(self, job_id: str) -> List[dict]:
         return self._all("SELECT * FROM services WHERE job_id=?", (job_id,))

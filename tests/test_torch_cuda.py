@@ -7,6 +7,7 @@ This file imports no JAX, so it also runs where JAX is absent:
 """
 
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -72,7 +73,9 @@ def test_card_stacked_route_matches_replicated(cuda):
         for t in threads:
             t.start()
         try:
+            deadline = time.monotonic() + 60
             while len(bus.get_workers("job")) < len(workers):
+                assert time.monotonic() < deadline, "workers never registered"
                 threading.Event().wait(0.01)
             outs.append(np.asarray(Predictor(bus, "job", timeout_s=60).predict(queries)))
         finally:

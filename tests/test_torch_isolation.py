@@ -12,7 +12,8 @@ import torch
 import rafiki_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "werkzeug", "rafiki_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "werkzeug", "requests",
+             "rafiki_tpu")
 
 
 def _port_modules():
@@ -72,6 +73,38 @@ def test_the_train_job_path_and_a_gp_fit_need_no_scikit_learn():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_the_service_modules_need_neither_werkzeug_nor_requests():
+    """The card's machine has neither werkzeug nor requests: the admin,
+    its REST app, the gateway, the HTTP predictor, the client and the
+    command line import, and the HTTP layer round-trips a request, with
+    none of them (nor JAX or the JAX package) loaded."""
+    new = ("utils.jsonable", "utils.auth", "utils.httpd", "gateway", "gateway.admission",
+           "gateway.breaker", "gateway.microbatch", "gateway.gateway", "predictor.app",
+           "admin", "admin.services_manager", "admin.admin", "admin.app", "client",
+           "client.client", "__main__")
+    mods = _port_modules()
+    for name in new:
+        assert f"rafiki_tpu_torch.{name}" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "from rafiki_tpu_torch.utils.httpd import json_response, start_server\n"
+        "from rafiki_tpu_torch.client.client import _send\n"
+        "srv, _ = start_server(lambda r: json_response({'path': r.path, 'n': len(r.body)}))\n"
+        "got = _send('POST', f'http://127.0.0.1:{srv.server_port}/a%20b', {}, b'xyz', 10)\n"
+        "srv.shutdown(); srv.server_close()\n"
+        "assert got == {'path': '/a b', 'n': 3}, got\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip() == "[]"
+
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     from rafiki_tpu_torch.models.ff import FeedForward

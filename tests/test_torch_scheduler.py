@@ -219,12 +219,21 @@ def test_stop_event_halts_the_job_and_logs_are_captured(sources, tmp_path):
     job = make_job(store, sources["port"], {"MODEL_TRIAL_COUNT": 100_000})
     stop = threading.Event()
     timer = threading.Timer(1.5, stop.set)
+    out = {}
+    # The job runs on its own thread so that a stop the scheduler fails
+    # to honour fails this test in bounded time instead of hanging it.
+    runner = threading.Thread(target=lambda: out.update(result=LocalScheduler(
+        store, params).run_train_job(job["id"], n_workers=1, devices=CPU,
+                                     advisor_kind="random", stop_event=stop)), daemon=True)
     timer.start()
+    runner.start()
     try:
-        result = LocalScheduler(store, params).run_train_job(
-            job["id"], n_workers=1, devices=CPU, advisor_kind="random", stop_event=stop)
+        runner.join(timeout=120)
     finally:
         timer.cancel()
+        stop.set()
+    assert not runner.is_alive(), "the job did not stop within 120 s of its stop event"
+    result = out["result"]
     assert result.status == "STOPPED"
     assert 0 < len(result.trials) < 100_000
     assert store.get_train_job(job["id"])["status"] == "STOPPED"

@@ -185,7 +185,9 @@ def test_worker_answers_a_failing_forward_with_errors():
     thread = threading.Thread(target=worker.run, daemon=True)
     thread.start()
     try:
+        deadline = time.monotonic() + 30
         while not bus.get_workers("job"):
+            assert time.monotonic() < deadline, "worker never registered"
             time.sleep(0.01)
         out = Predictor(bus, "job", timeout_s=10).predict([[0.0], [1.0]])
         assert out == [{"error": "all workers errored",

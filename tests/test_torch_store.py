@@ -90,6 +90,56 @@ def test_meta_store_written_by_either_reads_the_same_in_both(writer, tmp_path):
     assert got["counts"] == [3]
 
 
+def write_services(store, job_id):
+    """What the admin adds around a finished job: users (one banned),
+    models of two tasks, two inference jobs (one stopped), their
+    service rows."""
+    admin = store.create_user("ops@rafiki", "hash", "ADMIN")
+    store.ban_user(store.get_user_by_email("dev@rafiki")["id"])
+    store.create_model("pos", "POS_TAGGING", admin["id"], b"class P: pass\n", "P")
+    old = store.create_inference_job(job_id, admin["id"])
+    store.update_inference_job(old["id"], status="STOPPED")
+    inf = store.create_inference_job(job_id, admin["id"])
+    svc = store.create_service("INFERENCE_WORKER", job_id=inf["id"], worker_index=0)
+    store.create_service("PREDICTOR", job_id=inf["id"])
+    store.update_service(svc["id"], status="RUNNING")
+    store.update_inference_job(inf["id"], status="RUNNING", predictor_host="127.0.0.1:1")
+    return old["id"], inf["id"], svc["id"]
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_admin_rows_written_by_either_read_the_same_in_both(writer, tmp_path):
+    """The MetaStore methods the admin path adds (user listing and
+    banning, model and train-job listing, inference jobs, services)."""
+    db = tmp_path / "meta.sqlite3"
+    store = PACKAGES[writer][0](db)
+    job_id = write(store)
+    old_id, inf_id, svc_id = write_services(store, job_id)
+
+    def read_admin(store):
+        dev = store.get_user_by_email("dev@rafiki")
+        return {"users": store.get_users(), "models": store.get_models(),
+                "pos": store.get_models_of_task("POS_TAGGING"),
+                "jobs": store.get_train_jobs(), "dev_jobs": store.get_train_jobs(dev["id"]),
+                "old": store.get_inference_job(old_id),
+                "live": store.get_inference_job_of_train_job(job_id),
+                "svc": store.get_service(svc_id), "rows": store.get_services_of_job(inf_id)}
+
+    seen = {name: read_admin(cls(db)) for name, (cls, _) in PACKAGES.items()}
+    assert seen["port"] == seen["jax"]
+    got = seen["port"]
+    assert [(u["email"], u["banned"]) for u in got["users"]] == [("dev@rafiki", 1),
+                                                                 ("ops@rafiki", 0)]
+    assert [m["name"] for m in got["models"]] == ["vgg", "pos"]
+    assert [m["name"] for m in got["pos"]] == ["pos"]
+    assert [j["id"] for j in got["jobs"]] == [job_id] == [j["id"] for j in got["dev_jobs"]]
+    assert got["jobs"][0]["budget"] == {"MODEL_TRIAL_COUNT": 4}
+    assert got["old"]["status"] == "STOPPED" and got["old"]["stopped_at"] is not None
+    assert got["live"]["id"] == inf_id and got["live"]["predictor_host"] == "127.0.0.1:1"
+    assert got["svc"]["status"] == "RUNNING"
+    assert sorted(r["service_type"] for r in got["rows"]) == ["INFERENCE_WORKER", "PREDICTOR"]
+
+
 def test_both_packages_create_the_same_schema(tmp_path):
     def schema(path):
         with sqlite3.connect(path) as c:
