@@ -75,6 +75,32 @@ The service, as a user drives it (phase ``service_journey``):
      everything stopped, and the memory allocated on the card back
      within TUNE_LEAK_BYTES of its reading before the inference job.
 
+Trial packing, the same canonical model and task:
+
+ 12. trial_pack (the counterpart of ``bench.py run_trial_pack_micro``
+     at the canonical model): four BenchVgg trials at batch 128 (lr
+     3e-4/1e-3/2e-3/3e-3 with dropout 0.0/0.1/0.2/0.3, one packing key),
+     back to back in series and then as one pack
+     (``train_packed`` -> ``evaluate_packed``), each path warmed up first
+     on a 1024-image task of the same shapes, untimed. One line: serial
+     and packed seconds (and per trial), the speedup, each member's
+     packed score against its serial score, the pack's peak memory, and a
+     device profile of 20 warm packed steps. Fails unless every member's
+     packed score is within PACK_SCORE_ATOL of its serial score, the
+     member at lr 1e-3 / dropout 0.1 is above ACC_FLOOR, and every loss
+     is finite. Then one line of step times, a serial trial's and packs
+     of 1, 2 and 4 on the same card, and one float32 step of a
+     one-member pack against the serial step, gradient by gradient;
+ 13. tune_job_packed: phase 6's job again with
+     ``run_train_job(..., trial_pack=PACK_K)``. Its line is tune_job's
+     plus the ``trial_pack.size`` and ``trial_pack.fill_ratio``
+     histograms, ``worker.packed_rounds``/``packed_trials`` and the
+     serial job's trials per hour from phase 6. Gates as phase 6's
+     (the memory one reads the memory allocated before and after the job:
+     a packed trial is scored in its pack's shared pass, not by its own
+     ``evaluate``), plus ``worker.packed_rounds >= 1``, and the top-2
+     served within SERVED_ACC_ATOL of their stored scores, as in 7.
+
 The port has no hand-written kernel yet (the JAX package has no Pallas
 kernel to port), so the kernel line is ``{"kernels": []}``. The last
 line is ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -208,6 +234,17 @@ PARITY_BATCH = 8
 PARITY_TOL = {"loss_rel": 3e-5, "health_grad_norm_rel": 3e-4,
               "health_update_norm_rel": 1e-3, "health_param_norm_rel": 3e-5,
               "param_rel_l2": 2e-2}
+# -- trial packing ------------------------------------------------------------
+PACK_K = 4
+PACK_KNOBS = dict(depth=16, width_mult=1.0, batch_size=128, epochs=1, seed=0)
+# Below the lr at which trials of the canonical job train to chance.
+PACK_MEMBERS = ({"learning_rate": 3e-4, "dropout": 0.0}, {"learning_rate": 1e-3, "dropout": 0.1},
+                {"learning_rate": 2e-3, "dropout": 0.2}, {"learning_rate": 3e-3, "dropout": 0.3})
+# A member's packed score against its serial score: the JAX package's
+# bound for packed against serial (tests/test_trial_pack.py:85).
+PACK_SCORE_ATOL = 0.02
+# The warm-up task of both paths: the canonical shapes, 8 steps.
+PACK_WARMUP_URI = "synthetic://images?classes=10&n=1024&w=32&h=32&c=3&seed=2&noise=0.35&flip=0.2"
 # -- the service journey -------------------------------------------------------
 JOURNEY_TRIALS = 3
 JOURNEY_1Q = 50
@@ -551,20 +588,32 @@ def train_trials(card):
 
 
 def _bench_class():
-    """The BenchVgg class the scheduler loaded from BENCH_SRC."""
-    from rafiki_tpu_torch.models.vgg import Vgg
+    """The BenchVgg class the scheduler loaded from BENCH_SRC last
+    (``load_model_class`` registers each load under one module name)."""
+    module = sys.modules.get(f"_rafiki_model_{abs(hash(BENCH_SRC)) % (1 << 30):x}")
+    if module is None or not hasattr(module, "BenchVgg"):
+        fail("the scheduler did not load BenchVgg")
+    return module.BenchVgg
 
-    loaded = [c for c in Vgg.__subclasses__() if c.__name__ == "BenchVgg"]
-    if len(loaded) != 1:
-        fail(f"expected the scheduler to load BenchVgg once, found {len(loaded)}")
-    return loaded[0]
+
+def _memory_without_cublas_workspaces() -> int:
+    """The memory allocated on the card once cuBLAS has freed the
+    workspace it keeps per thread's handle (a job's worker is a new
+    thread, and takes a new one)."""
+    import torch
+
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return torch.cuda.memory_allocated()
 
 
-def tune_job(card):
-    """Phase 6: the bench's canonical train job through the port's entry
-    points, in a temporary directory. Returns the per-trial lines in
-    completion order, the job line, and the top-2 trials with their
-    stored blobs."""
+def tune_job(card, trial_pack=None):
+    """Phase 6 (and 13, with ``trial_pack``): the bench's canonical train
+    job through the port's entry points, in a temporary directory.
+    Returns the per-trial lines in completion order, the job line, and
+    the top-2 trials with their stored blobs."""
     import gc
     import shutil
     import tempfile
@@ -590,12 +639,15 @@ def tune_job(card):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        mem_before = _memory_without_cublas_workspaces()
         t0 = time.monotonic()
         result = LocalScheduler(store, params).run_train_job(
-            job["id"], n_workers=1, advisor_kind="gp")
+            job["id"], n_workers=1, advisor_kind="gp", trial_pack=trial_pack)
         wall = _synced_s(t0)
         peak = torch.cuda.max_memory_allocated()
         snap = telemetry.snapshot()
+        gc.collect()
+        mem_after = _memory_without_cublas_workspaces()
         best = [dict(t, blob=params.load(t["params_id"])) for t in result.best_trials]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -621,7 +673,8 @@ def tune_job(card):
     for t in completed:
         by_bs.setdefault(t["batch_size"], []).append(t["trial_s"])
     line = {
-        "phase": "tune_job", "card": card[1], "power_limit": card[2],
+        "phase": "tune_job" if trial_pack is None else "tune_job_packed",
+        "card": card[1], "power_limit": card[2],
         "status": result.status, "trials": len(trials), "completed": len(completed),
         "errored": len(trials) - len(completed), "job_wall_s": wall,
         "scheduler_duration_s": result.duration_s,
@@ -638,14 +691,28 @@ def tune_job(card):
         # advisor's feedback (the GP refits there), store writes, and the
         # wait for the last save.
         "outside_trials_s": wall - spans.get("trial.total", {}).get("total_s", 0.0)
+        - spans.get("trial_pack.total", {}).get("total_s", 0.0)
         - spans.get("trial.advisor_propose", {}).get("total_s", 0.0),
         "gp_warmup_proposals": snap["counters"].get("advisor.gp_warmup_proposals", 0),
         "gp_ei_proposals": snap["counters"].get("advisor.gp_ei_proposals", 0),
         "max_memory_allocated_bytes": peak,
         "evaluated_memory_allocated_bytes": list(cls.evaluated_bytes),
         "destroyed_memory_allocated_bytes": list(cls.destroyed_bytes),
+        "memory_allocated_before_job": mem_before, "memory_allocated_after_job": mem_after,
         "errors": result.errors,
     }
+    if trial_pack is not None:
+        hist, c = snap["histograms"], snap["counters"]
+        line.update({
+            "trial_pack": trial_pack,
+            "trial_pack_size": hist.get("trial_pack.size"),
+            "trial_pack_fill_ratio": hist.get("trial_pack.fill_ratio"),
+            "packed_rounds": c.get("worker.packed_rounds", 0),
+            "packed_trials": c.get("worker.packed_trials", 0),
+            "pack_ineligible": c.get("worker.pack_ineligible", 0),
+            "trial_pack_train_s_total": spans.get("trial_pack.train", {}).get("total_s"),
+            "trial_pack_evaluate_s_total": spans.get("trial_pack.evaluate", {}).get("total_s"),
+        })
     return trials, line, best
 
 
@@ -782,7 +849,6 @@ def train_step_profile(model, card):
     goes, over PROFILE_ITERS steps of a trained canonical trial on fresh
     batches gathered from the resident dataset, as the epoch does."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from rafiki_tpu_torch.model.dataset import dataset_utils
     from rafiki_tpu_torch.ops.train import get_device_dataset
@@ -798,6 +864,40 @@ def train_step_profile(model, card):
         ib = next(it)
         loop.state, _ = loop.program.train_step(loop.state, {"x": X.index_select(0, ib),
                                                              "y": Y.index_select(0, ib)})
+
+    return _profile_steps(step, bs, card, "train_step_profile")
+
+
+def packed_step_profile(packed, card):
+    """Phase 12, after the pack: the same profile over PROFILE_ITERS steps
+    of the trained pack, each member on its own batch."""
+    import torch
+
+    from rafiki_tpu_torch.model.dataset import dataset_utils
+    from rafiki_tpu_torch.ops.train import get_device_dataset
+
+    X, Y = get_device_dataset(dataset_utils.load(TRAIN_URI), packed.device)
+    k, bs = packed.k, PACK_KNOBS["batch_size"]
+    idx = torch.randperm(X.shape[0], generator=torch.Generator().manual_seed(0))
+    idx = idx[: (2 * PROFILE_ITERS + 3) * k * bs].reshape(-1, k * bs).to(packed.device)
+    it = iter(idx)
+
+    def step():
+        ib = next(it)
+        packed.program.train_step(packed.state, {
+            "x": X.index_select(0, ib).reshape((k, bs) + tuple(X.shape[1:])),
+            "y": Y.index_select(0, ib).reshape(k, bs)})
+
+    return dict(_profile_steps(step, bs, card, "packed_step_profile"), k=k)
+
+
+def _profile_steps(step, bs, card, phase):
+    """CUDA-event ms of ``step``, then under ``torch.profiler`` the
+    device's busy time and idle share, kernel launches, the device and
+    host time of the step's forward, Adam and sentinel ranges (the
+    backward: what they leave), and the costliest operators, per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         step()
@@ -848,7 +948,7 @@ def train_step_profile(model, card):
     ops = sorted(((a.key, self_device_us(a)) for a in prof.key_averages()
                   if self_device_us(a) > 0 and not a.key.startswith("train.")),
                  key=lambda kv: -kv[1])
-    return {"phase": "train_step_profile", "card": card[1], "power_limit": card[2],
+    return {"phase": phase, "card": card[1], "power_limit": card[2],
             "steps": n, "batch": bs, "event_ms_per_step": event_ms,
             "device_busy_ms_per_step": busy_us / n / 1e3,
             "device_idle_share": 1.0 - busy_us / wall_us,
@@ -857,6 +957,188 @@ def train_step_profile(model, card):
             # host time of the three ranges.
             "per_part": parts,
             "top_ops_self_device_ms_per_step": {k[:80]: v / n / 1e3 for k, v in ops[:10]}}
+
+
+# -- trial packing ------------------------------------------------------------
+PACK_K = 4
+PACK_KNOBS = dict(depth=16, width_mult=1.0, batch_size=128, epochs=1, seed=0)
+# Below the lr at which trials of the canonical job train to chance.
+PACK_MEMBERS = ({"learning_rate": 3e-4, "dropout": 0.0}, {"learning_rate": 1e-3, "dropout": 0.1},
+                {"learning_rate": 2e-3, "dropout": 0.2}, {"learning_rate": 3e-3, "dropout": 0.3})
+# A member's packed score against its serial score: the JAX package's
+# bound for packed against serial (tests/test_trial_pack.py:85).
+PACK_SCORE_ATOL = 0.02
+# The warm-up task of both paths: the canonical shapes, 8 steps.
+PACK_WARMUP_URI = "synthetic://images?classes=10&n=1024&w=32&h=32&c=3&seed=2&noise=0.35&flip=0.2"
+# -- trial packing ---------------------------------------------------------------
+
+
+def trial_pack(card):
+    """Phase 12: four canonical trials in series, then as one pack.
+    Returns the phase's line."""
+    import gc
+
+    import torch
+
+    from rafiki_tpu_torch.model.base import load_model_class
+    from rafiki_tpu_torch.model.log import logger
+
+    cls = load_model_class(BENCH_SRC, "BenchVgg")
+    knobs = [dict(PACK_KNOBS, **m) for m in PACK_MEMBERS]
+
+    def serial(train_uri, eval_uri):
+        out = []
+        for kn in knobs:
+            m = cls(**kn)
+            logs = []
+            with logger.capture(logs.append):
+                m.train(train_uri)
+            out.append({"score": m.evaluate(eval_uri),
+                        "epochs": [e["values"] for e in logs if e["type"] == "values"]})
+            m.destroy()
+        return out
+
+    def packed(train_uri, eval_uri):
+        models = [cls(**kn) for kn in knobs]
+        histories = cls.train_packed(models, train_uri)
+        return models, histories, cls.evaluate_packed(models, eval_uri)
+
+    def release(models):
+        for m in models:
+            m.destroy()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # Warm-up of both paths (first calls, allocator growth), untimed.
+    serial(PACK_WARMUP_URI, PACK_WARMUP_URI)
+    release(packed(PACK_WARMUP_URI, PACK_WARMUP_URI)[0])
+    t0 = time.monotonic()
+    ser = serial(TRAIN_URI, EVAL_URI)
+    serial_s = _synced_s(t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    models, histories, scores = packed(TRAIN_URI, EVAL_URI)
+    packed_s = _synced_s(t0)
+    peak = torch.cuda.max_memory_allocated()
+    profile_row = packed_step_profile(models[0]._loop.packed, card)
+    release(models)
+    k = len(knobs)
+    return {
+        "phase": "trial_pack", "card": card[1], "power_limit": card[2], "k": k,
+        "knobs": PACK_KNOBS, "members": list(PACK_MEMBERS), "train_uri": TRAIN_URI,
+        "eval_uri": EVAL_URI, "serial_s": serial_s, "packed_s": packed_s,
+        "serial_s_per_trial": serial_s / k, "packed_s_per_trial": packed_s / k,
+        "speedup_vs_serial": serial_s / packed_s,
+        "serial_scores": [r["score"] for r in ser], "packed_scores": scores,
+        "score_abs_diff": [abs(a - r["score"]) for a, r in zip(scores, ser)],
+        "serial_epochs": [r["epochs"] for r in ser], "packed_epochs": histories,
+        "score_atol": PACK_SCORE_ATOL,
+        "memory_allocated_before_pack": mem_before, "max_memory_allocated_bytes": peak,
+        "packed_step_profile": profile_row,
+    }
+
+
+def pack_scaling(card):
+    """Phase 12, after the pack: the step's event ms of a serial trial and
+    of packs of 1, 2 and 4 on fresh batches from the resident dataset,
+    run in the order serial, 1, 2, 4, 4, 2, 1, serial so a drift of the
+    host's speed reads on both sides; then one float32 step (TF32 off,
+    dropout 0) of a one-member pack against the serial step from the
+    same params, gradient by gradient."""
+    import functools
+
+    import torch
+
+    from rafiki_tpu_torch.model.dataset import dataset_utils
+    from rafiki_tpu_torch.ops.train import PackedGenerators, PackedTrainLoop, TrainLoop
+    from rafiki_tpu_torch.ops.train import get_device_dataset
+    from rafiki_tpu_torch.utils.backend import resolve_device
+
+    X, Y = get_device_dataset(dataset_utils.load(TRAIN_URI), resolve_device())
+    bs = PACK_KNOBS["batch_size"]
+
+    def fns(k, cls):
+        out = []
+        for m in PACK_MEMBERS[:k]:
+            model = cls(**dict(PACK_KNOBS, **m))
+            model._planned_steps = X.shape[0] // bs
+            out.append(model._loop_fns(NUM_CLASSES, INPUT_SHAPE))
+        return out
+
+    def serial_step(f):
+        loop = TrainLoop(f["init_fn"], f["apply_eval"], f["loss_fn"], f["optimizer"],
+                         hyper=f["hyper"])
+        it = iter(range(10 ** 6))
+
+        def step():
+            i = next(it) % (X.shape[0] // bs)
+            loop.state, _ = loop.program.train_step(
+                loop.state, {"x": X[i * bs:(i + 1) * bs], "y": Y[i * bs:(i + 1) * bs]})
+        return loop, step
+
+    def packed_step(fs):
+        k = len(fs)
+        loop = PackedTrainLoop(fs[0]["init_fn"], fs[0]["apply_eval"], fs[0]["loss_fn"],
+                               fs[0]["optimizer"], seeds=[0] * k, hypers=[f["hyper"] for f in fs])
+        it = iter(range(10 ** 6))
+
+        def step():
+            i = next(it) % (X.shape[0] // (k * bs))
+            loop.program.train_step(loop.state, {
+                "x": X[i * k * bs:(i + 1) * k * bs].reshape((k, bs) + INPUT_SHAPE),
+                "y": Y[i * k * bs:(i + 1) * k * bs].reshape(k, bs)})
+        return loop, step
+
+    from rafiki_tpu_torch.models.vgg import Vgg
+
+    steps = {"serial": serial_step(fns(1, Vgg)[0])[1]}
+    for k in (1, 2, 4):
+        steps[f"packed_{k}"] = packed_step(fns(k, Vgg))[1]
+    for step in steps.values():
+        for _ in range(3):
+            step()
+    order = ["serial", "packed_1", "packed_2", "packed_4"]
+    runs = {name: [] for name in order}
+    for name in order + order[::-1]:
+        runs[name].append(_event_ms(steps[name], PROFILE_ITERS))
+    del steps
+    torch.cuda.empty_cache()
+
+    # One float32 step, one-member pack against serial, gradient by gradient.
+    cls = _f32_vgg_class()
+    f_serial, f_pack = fns(1, cls)[0], fns(1, cls)[0]
+    loop, _ = serial_step(f_serial)
+    packed, _ = packed_step([f_pack])
+    x, y = X[:bs], Y[:bs]
+    module = loop.params
+    with torch.enable_grad():
+        loss, _ = f_serial["loss_fn"](module, {"x": x, "y": y}, loop.state[3], loop.state[4])
+        want = torch.autograd.grad(loss, list(module.parameters()))
+        st = packed.state
+        v_loss = torch.func.vmap(functools.partial(packed.program._member_loss,
+                                                   generators=PackedGenerators(st.generators)))
+        losses, _ = v_loss(st.params, st.buffers, x[None], y[None], st.hyper_dev)
+        got = torch.autograd.grad(losses.sum(), list(st.params.values()))
+    rel = {n: float((a - b[0]).abs().max() / a.abs().max().clamp_min(1e-30))
+           for (n, _), a, b in zip(module.named_parameters(), want, got)}
+
+    def worst(prefix):
+        return max(v for n, v in rel.items() if n.startswith(prefix))
+
+    return {"phase": "pack_scaling", "card": card[1], "power_limit": card[2], "batch": bs,
+            "steps": PROFILE_ITERS,
+            "step_event_ms": {name: float(np.mean(v)) for name, v in runs.items()},
+            "step_event_ms_runs": runs,
+            "ms_per_trial_step": {name: float(np.mean(v)) / (1 if name == "serial" else
+                                                            int(name.split("_")[1]))
+                                  for name, v in runs.items()},
+            "f32_one_member_pack_vs_serial": {
+                "loss": [float(loss.detach()), float(losses[0].detach())],
+                "grad_rel_max": {"convs": worst("convs."), "norms": worst("norms."),
+                                 "dense": max(worst("fc1."), worst("fc2."))}}}
 
 
 # -- the service journey --------------------------------------------------------
@@ -1287,6 +1569,50 @@ def main() -> int:
     # -- 11. the service journey ----------------------------------------------
     torch.cuda.empty_cache()
     print(json.dumps(service_journey(card)))
+
+    # -- 12.-13. trial packing ----------------------------------------------
+    torch.cuda.empty_cache()
+    pack = trial_pack(card)
+    print(json.dumps(pack))
+    for name, eps in (("serial", pack["serial_epochs"]), ("packed", pack["packed_epochs"])):
+        check(all(np.isfinite(ep["loss"]) for trial in eps for ep in trial),
+              f"trial_pack: non-finite {name} loss {eps}")
+    check(max(pack["score_abs_diff"]) <= PACK_SCORE_ATOL,
+          f"trial_pack: packed scores {pack['packed_scores']} against serial "
+          f"{pack['serial_scores']}, atol {PACK_SCORE_ATOL}")
+    member = PACK_MEMBERS.index({"learning_rate": 1e-3, "dropout": 0.1})
+    check(pack["packed_scores"][member] >= ACC_FLOOR,
+          f"trial_pack: the lr 1e-3 dropout 0.1 member scored "
+          f"{pack['packed_scores'][member]} < {ACC_FLOOR}")
+    scaling = pack_scaling(card)
+    print(json.dumps(scaling))
+    torch.cuda.empty_cache()
+    tune_rows, pjob, best = tune_job(card, trial_pack=PACK_K)
+    pjob["serial_job_completed_trials_per_hour"] = job["completed_trials_per_hour"]
+    for row in tune_rows:
+        print(json.dumps(dict(row, phase="tune_trial_packed")))
+    print(json.dumps(pjob))
+    check(pjob["status"] == "COMPLETED" and pjob["trials"] == TUNE_TRIALS and not pjob["errors"],
+          f"tune job packed: {pjob['status']}, {pjob['trials']} trials, errors {pjob['errors']}")
+    for row in tune_rows:
+        check(row["status"] == "COMPLETED" or (row["error"] or "").startswith("diverged:"),
+              f"tune job packed, trial {row['no']}: {row['status']} and not a contained "
+              f"divergence: {row['error']}")
+    check(pjob["gp_ei_proposals"] >= 1,
+          f"tune job packed: no proposal from expected improvement {pjob}")
+    check(pjob["best_score"] is not None and pjob["best_score"] >= TUNE_TOP1_TARGET,
+          f"tune job packed: best score {pjob['best_score']} < {TUNE_TOP1_TARGET}")
+    check(pjob["packed_rounds"] >= 1, f"tune job packed: no packed round {pjob}")
+    check(pjob["memory_allocated_after_job"] <= pjob["memory_allocated_before_job"]
+          + TUNE_LEAK_BYTES,
+          f"tune job packed: {pjob['memory_allocated_after_job']} bytes allocated after the "
+          f"job, {pjob['memory_allocated_before_job']} before (+{TUNE_LEAK_BYTES} allowed)")
+    check(len(best) == 2, f"tune job packed: {len(best)} completed trials to serve, expected 2")
+    served = dict(served_accuracy(best, card), phase="served_vs_evaluated_packed")
+    print(json.dumps(served))
+    check(max(served["abs_diff"]) <= SERVED_ACC_ATOL,
+          f"tune job packed: served accuracy disagrees with the stored score: {served}")
+    del best
 
     # -- kernels and the result line -------------------------------------------
     print(json.dumps({"kernels": []}))

@@ -16,9 +16,15 @@ same RTPK1 leaves and flax key names; see ``utils/serial.py`` and
 as the JAX package's does, and requires a subclass of the port's
 ``BaseModel``.
 
+Trial packing (docs/trial_packing.md): ``packable``, ``packing_key``,
+``train_packed`` and ``evaluate_packed`` train and score k same-key
+trials as one stacked program (``ops/train.py PackedTrainLoop``), each
+member ending where a serial ``train()`` of its trial ends.
+
 Not ported yet: ``make_optimizer`` (the custom-optimizer path),
-``dump_checkpoint`` / ``restore_checkpoint`` and the checkpoint sink,
-trial packing and the dp mesh.
+``dump_checkpoint`` / ``restore_checkpoint`` and the checkpoint sink
+(so ``train_packed`` takes no ``checkpoint_sink``), the learning-curve
+kill (so it takes no ``kill_predicate``), and the dp mesh.
 """
 
 from __future__ import annotations
@@ -187,9 +193,26 @@ class TorchModel(BaseModel):
             hyper["dropout"] = float(self.knobs["dropout"])
         return hyper
 
+    def _program_key(self, num_classes: int, input_shape: tuple, takes_dropout: bool):
+        """What reaches the step's computation, apart from the knobs that
+        reach it only through the hyper dict or not at all
+        (``ops/train.py DYNAMIC_KNOBS``; ``dropout`` only when the module
+        takes it as a rate): the template, the arch and the baked knobs.
+        The JAX package keys its program cache on it; the port keys trial
+        packing on it."""
+        dyn = set(_ops.DYNAMIC_KNOBS) if takes_dropout else set(_ops.DYNAMIC_KNOBS) - {"dropout"}
+        baked = tuple(sorted((k, repr(v)) for k, v in self.knobs.items() if k not in dyn))
+        return (type(self).__module__, type(self).__qualname__, num_classes,
+                tuple(input_shape), baked, False)
+
+    def _health_model_identity(self) -> Dict[str, Any]:
+        return {"module": type(self).__module__, "qualname": type(self).__qualname__,
+                "knobs": dict(self.knobs)}
+
     def _loop_fns(self, num_classes: int, input_shape: tuple) -> Dict[str, Any]:
-        """Everything a TrainLoop needs: the module, the closures, the
-        optimizer and this trial's hyper dict."""
+        """Everything a TrainLoop or PackedTrainLoop needs: the module,
+        the closures, the optimizer, this trial's hyper dict and its
+        program key."""
         module = self.build_module(num_classes, input_shape)
         takes_dropout = "dropout_rate" in inspect.signature(type(module).forward).parameters
 
@@ -219,6 +242,7 @@ class TorchModel(BaseModel):
             "loss_fn": loss_fn,
             "optimizer": self.make_base_optimizer(),
             "hyper": self._dynamic_hyper(takes_dropout),
+            "program_key": self._program_key(num_classes, input_shape, takes_dropout),
         }
 
     def _build_loop(self, num_classes: int, input_shape: tuple,
@@ -271,9 +295,7 @@ class TorchModel(BaseModel):
                 f"Dataset architecture {(num_classes, input_shape)} does not match "
                 f"the loaded model {self._arch}; use a fresh model instance")
         self._loop.health.set_context(
-            model={"module": type(self).__module__, "qualname": type(self).__qualname__,
-                   "knobs": dict(self.knobs)},
-            train_uri=dataset_uri, batch_size=self.batch_size, seed=self._seed,
+            model=self._health_model_identity(), train_uri=dataset_uri, batch_size=self.batch_size, seed=self._seed,
             planned_steps=self._planned_steps)
         logger.define_plot("Training", ["loss", "acc"], x_axis="epoch")
         for epoch in range(self.epochs):
@@ -288,6 +310,191 @@ class TorchModel(BaseModel):
         ds = self._prepared_dataset(dataset_uri)
         self._check_label_space(ds)
         return float(self._loop.evaluate(ds, self.batch_size))
+
+    # -- trial packing (docs/trial_packing.md) -------------------------------
+
+    @classmethod
+    def packable(cls) -> bool:
+        """Whether instances may join a trial pack. A pack shares one
+        device-resident dataset, so a template with its own
+        ``preprocess`` (which may depend on per-trial knobs) may not."""
+        return cls.preprocess is TorchModel.preprocess
+
+    def packing_key(self, ds: Dataset):
+        """Two models train in one pack iff their keys are equal: the same
+        program (template, arch, baked knobs), the same step geometry
+        (batch size, epochs) and the same hyper key set."""
+        num_classes, input_shape = ds.classes, tuple(ds.x.shape[1:])
+        self._planned_steps = self.epochs * max(1, ds.size // self.batch_size)
+        fns = self._loop_fns(num_classes, input_shape)
+        return (fns["program_key"], self.batch_size, self.epochs, tuple(sorted(fns["hyper"])))
+
+    @classmethod
+    def train_packed(cls, models: List["TorchModel"], dataset_uri: str, on_epoch=None,
+                     checkpoint_sink=None, backfill=None, on_evict=None,
+                     kill_predicate=None) -> List[List[Dict[str, float]]]:
+        """Train k model instances as one stacked program on their device.
+
+        All models share a packing key (the caller buckets) and a device.
+        Model i ends with the params, dropout stream and shuffle order a
+        serial ``train()`` of it would reach. Returns the per-model epoch
+        histories (``{"loss", "acc", ..., "epoch"}`` dicts), which the
+        caller writes to each trial's log; ``on_epoch(round)`` fires after
+        each packed epoch.
+
+        Elastic membership: a member whose epochs are done
+        (``"finished"``), whose ``should_stop_early`` fires
+        (``"early_stop"``) or whose numerics diverge (``"diverged"``; the
+        verdict rides on ``model._health_verdict``) while pack-mates go
+        on is evicted into a detached serial ``TrainLoop`` and
+        ``on_evict(model_index, epoch, reason)`` fires (not for
+        ``"finished"``). ``backfill(n)`` may then return freshly made
+        models of the same key; they are appended to ``models`` and to
+        the histories and admitted at their own epoch 0. When every live
+        member leaves in one round the pack ends, and its members keep
+        live slices of it, which :meth:`evaluate_packed` scores in one
+        shared pass.
+
+        ``checkpoint_sink`` (per-epoch checkpoints of the pack) and
+        ``kill_predicate`` (the learning-curve kill) are not ported yet;
+        anything but None is refused.
+        """
+        if checkpoint_sink is not None:
+            raise NotImplementedError("packed checkpoints are not ported to rafiki_tpu_torch")
+        if kill_predicate is not None:
+            raise NotImplementedError("the learning-curve kill is not ported to rafiki_tpu_torch")
+        from rafiki_tpu_torch.obs.health import detector as _detector
+
+        if not models:
+            return []
+        lead = models[0]
+        ds = lead._prepared_dataset(dataset_uri)
+        key = repr(lead.packing_key(ds))
+        if any(repr(m.packing_key(ds)) != key for m in models[1:]):
+            raise ValueError("train_packed models do not share a packing key; "
+                             "bucket with packing_key() first")
+        if len({m.device for m in models}) != 1:
+            raise ValueError("train_packed models are on different devices")
+        if ds.mask is not None:
+            raise ValueError("packed training does not support masked datasets")
+        num_classes, input_shape = ds.classes, tuple(ds.x.shape[1:])
+        epochs, batch_size = lead.epochs, lead.batch_size
+        arch = (num_classes, input_shape)
+        planned = epochs * max(1, ds.size // batch_size)
+
+        # One set of closures (the lead's: equal keys make them
+        # interchangeable) and k hyper dicts and seeds.
+        fns = lead._loop_fns(num_classes, input_shape)
+        hypers = {}
+        for i, m in enumerate(models):
+            m._planned_steps = planned
+            m._dataset_meta = dict(ds.meta)
+            hypers[i] = m._loop_fns(num_classes, input_shape)["hyper"]
+        packed = _ops.PackedTrainLoop(
+            fns["init_fn"], fns["apply_eval"], fns["loss_fn"], fns["optimizer"],
+            seeds=[m._seed for m in models], hypers=[hypers[i] for i in range(len(models))],
+            packing_key=key, device=lead.device)
+
+        def install_detached(mi: int, state, epoch: int) -> None:
+            """An evicted member carries on in an ordinary serial loop."""
+            m = models[mi]
+            m._loop = _ops.TrainLoop(
+                fns["init_fn"], fns["apply_eval"], fns["loss_fn"], fns["optimizer"],
+                seed=m._seed, hyper=hypers[mi], initial_state=state, device=m.device)
+            m._arch = arch
+            m._epochs_done = epoch
+
+        histories: List[List[Dict[str, float]]] = [[] for _ in models]
+        slots = list(range(len(models)))  # slot j <-> pack member j
+        epochs_done = {mi: 0 for mi in slots}  # epochs completed so far
+        packed.health.set_context(
+            model=lead._health_model_identity(), train_uri=dataset_uri,
+            batch_size=batch_size, planned_steps=planned,
+            member_info=lambda j: {"model": models[slots[j]]._health_model_identity(),
+                                   "seed": models[slots[j]]._seed})
+        rnd = 0
+        while slots:
+            # Serial parity: a member's shuffle seed is its seed plus its
+            # own epoch index; a backfilled member counts from 0.
+            mts = packed.run_epoch(ds, batch_size,
+                                   [models[mi]._seed + epochs_done[mi] for mi in slots])
+            for j, mi in enumerate(slots):
+                histories[mi].append(dict(mts[j], epoch=epochs_done[mi]))
+            if on_epoch is not None:
+                on_epoch(rnd)
+            rnd += 1
+
+            verdicts = packed.last_verdicts
+            leavers = []  # (slot, model index, epoch just run, reason)
+            for j, mi in enumerate(slots):
+                e = epochs_done[mi]
+                verdict = verdicts[j] if j < len(verdicts) else None
+                if verdict is not None:
+                    models[mi]._health_verdict = verdict
+                    leavers.append((j, mi, e, "diverged"))
+                elif e + 1 >= epochs:
+                    leavers.append((j, mi, e, "finished"))
+                elif models[mi].should_stop_early(e, mts[j]):
+                    leavers.append((j, mi, e, "early_stop"))
+            for mi in slots:
+                epochs_done[mi] += 1
+
+            if len(leavers) == len(slots):
+                # The whole pack ends together: live slices, one eval pass.
+                for j, mi, e, reason in leavers:
+                    m = models[mi]
+                    m._loop = packed.slice(j)
+                    m._arch = arch
+                    m._epochs_done = e
+                    if reason == "diverged":
+                        _detector.note_eviction()
+                    if on_evict is not None and reason != "finished":
+                        on_evict(mi, e, reason)
+                break
+
+            # Members done before their pack-mates leave, highest slot
+            # first so the lower slots keep their indices.
+            for j, mi, e, reason in sorted(leavers, reverse=True):
+                install_detached(mi, packed.evict(j), e)
+                slots.pop(j)
+                if reason == "diverged":
+                    _detector.note_eviction()
+                if on_evict is not None:
+                    on_evict(mi, e, reason)
+
+            if leavers and backfill is not None:
+                for m2 in (backfill(len(leavers)) or []):
+                    if repr(m2.packing_key(ds)) != key:
+                        raise ValueError("backfill model's packing_key differs from the "
+                                         "live pack's; the caller must bucket first")
+                    if m2.device != lead.device:
+                        raise ValueError("backfill model is on another device than the pack")
+                    m2._planned_steps = planned
+                    m2._dataset_meta = dict(ds.meta)
+                    mi2 = len(models)
+                    hypers[mi2] = m2._loop_fns(num_classes, input_shape)["hyper"]
+                    models.append(m2)
+                    histories.append([])
+                    packed.admit(m2._seed, hypers[mi2])
+                    slots.append(mi2)
+                    epochs_done[mi2] = 0
+        return histories
+
+    @classmethod
+    def evaluate_packed(cls, models: List["TorchModel"], dataset_uri: str) -> List[float]:
+        """Score models straight out of one ``train_packed`` in one shared
+        eval pass; any other mix is scored model by model."""
+        if not models:
+            return []
+        loops = [m._loop for m in models]
+        if not all(isinstance(lp, _ops.PackedSliceLoop) for lp in loops) or \
+                len({id(lp.packed) for lp in loops}) != 1:
+            return [m.evaluate(dataset_uri) for m in models]
+        ds = models[0]._prepared_dataset(dataset_uri)
+        for m in models:
+            m._check_label_space(ds)
+        scores = loops[0].packed.evaluate(ds, models[0].batch_size)
+        return [float(scores[lp.index]) for lp in loops]
 
     # -- params --------------------------------------------------------------
 

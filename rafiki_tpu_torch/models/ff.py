@@ -14,11 +14,11 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from rafiki_tpu_torch.model.base import TorchModel
 from rafiki_tpu_torch.model.knobs import CategoricalKnob, FixedKnob, FloatKnob, IntegerKnob
+from rafiki_tpu_torch.ops.layers import linear
 
 
 class _Mlp(nn.Module):
@@ -34,7 +34,7 @@ class _Mlp(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = x.reshape(x.shape[0], -1).to(self.dtype)
         for i, layer in enumerate(self.layers):
-            x = F.linear(x, layer.weight.to(self.dtype), layer.bias.to(self.dtype))
+            x = linear(x, layer.weight.to(self.dtype), layer.bias.to(self.dtype))
             if i < len(self.layers) - 1:
                 x = torch.relu(x)
         return x

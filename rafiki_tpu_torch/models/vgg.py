@@ -27,7 +27,7 @@ from torch import nn
 
 from rafiki_tpu_torch.model.base import TorchModel
 from rafiki_tpu_torch.model.knobs import CategoricalKnob, FixedKnob, FloatKnob, IntegerKnob
-from rafiki_tpu_torch.ops.layers import GroupNorm, conv2d
+from rafiki_tpu_torch.ops.layers import GroupNorm, conv2d, linear
 from rafiki_tpu_torch.ops.train import dropout as _dropout
 
 _CFGS = {
@@ -69,7 +69,7 @@ class _Vgg(nn.Module):
         self.fc2 = nn.Linear(self.fc1.out_features, num_classes)
 
     def _dense(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, layer.weight.to(self.dtype), layer.bias.to(self.dtype))
+        return linear(x, layer.weight.to(self.dtype), layer.bias.to(self.dtype))
 
     def forward(self, x: torch.Tensor, train: bool = False, dropout_rate=None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

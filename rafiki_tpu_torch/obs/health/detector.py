@@ -1,9 +1,9 @@
 """Divergence detection: the host half of the numerics health plane.
 
-The port's own copy of the serial half of
-``rafiki_tpu/obs/health/detector.py``. A :class:`HealthMonitor` lives
-on each ``TrainLoop`` and reads the epoch-boundary sentinel scalars
-(``obs/health/sentinel.py``). Two trip conditions:
+The port's own copy of ``rafiki_tpu/obs/health/detector.py``. A
+:class:`HealthMonitor` lives on each ``TrainLoop`` and
+``PackedTrainLoop`` and reads the epoch-boundary sentinel scalars
+(``obs/health/sentinel.py``). Two trip conditions, per trial:
 
 * **nonfinite** - any non-finite gradient/loss element this epoch (or
   a non-finite global grad norm). Trips at once: NaNs never heal.
@@ -13,13 +13,17 @@ on each ``TrainLoop`` and reads the epoch-boundary sentinel scalars
   history. Exploded samples are not absorbed into the median.
 
 On a trip the monitor bumps ``health.divergences`` and returns a
-verdict; the loop raises :class:`DivergenceError` with it.
+verdict. A serial loop raises :class:`DivergenceError` with it; a
+packed loop gets one ``Optional[verdict]`` per live member from
+:meth:`HealthMonitor.observe_pack`, and the pack driver evicts only the
+sick member. ``HealthMonitor(key, k)`` with ``k > 0`` follows the
+pack's live width through :meth:`~HealthMonitor.evict_member` and
+:meth:`~HealthMonitor.admit_member`.
 
 Left out until their planes are ported: the journal record, the
 badput ledger charge, the flight record and replay capsules
 (``snapshot_state`` returns None, as the JAX package's does with
-capsules off), and the pack half (``observe_pack``, ``evict_member``,
-``admit_member``).
+capsules off).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import os
 import statistics
 import time
 from collections import deque
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 from rafiki_tpu_torch import telemetry
 
@@ -47,6 +51,36 @@ DEFAULT_K = 50.0
 DEFAULT_WARMUP = 3
 DEFAULT_HYSTERESIS = 2
 _HISTORY = 32
+
+_STATS: Dict[str, float] = {"divergences": 0, "capsules": 0, "evictions": 0,
+                            "contained": 0, "badput_charged_s": 0.0}
+
+
+def stats() -> Dict[str, float]:
+    """The health plane's process-wide counts. ``capsules`` and
+    ``badput_charged_s`` stay 0 until capsules and the ledger are
+    ported."""
+    out = dict(_STATS)
+    out["badput_charged_s"] = round(float(out["badput_charged_s"]), 6)
+    return out
+
+
+def reset_stats() -> None:
+    for k in _STATS:
+        _STATS[k] = 0.0 if k == "badput_charged_s" else 0
+
+
+def note_eviction() -> None:
+    """A pack member was evicted for divergence (``model/base.py``)."""
+    _STATS["evictions"] += 1
+    telemetry.inc("health.evictions")
+
+
+def note_contained() -> None:
+    """A diverged trial was contained by the worker (fail-fast, or a
+    packed member skipped while its pack-mates are scored)."""
+    _STATS["contained"] += 1
+    telemetry.inc("health.contained")
 
 
 def _env_float(name: str, default: float) -> float:
@@ -77,15 +111,25 @@ class DivergenceError(RuntimeError):
         self.verdict = verdict
 
 
-class HealthMonitor:
-    """Per-loop divergence detector for one serial trial."""
+class _MemberState:
+    __slots__ = ("history", "streak", "bank", "tripped")
 
-    def __init__(self, key: str):
-        self.key = str(key)
+    def __init__(self) -> None:
         self.history: deque = deque(maxlen=_HISTORY)
         self.streak = 0
         self.bank = 0.0  # wall-clock this trial has consumed so far
         self.tripped = False
+
+
+class HealthMonitor:
+    """Per-loop divergence detector. ``k=0`` is a serial loop (one
+    member); ``k>0`` follows a pack's live width through
+    :meth:`evict_member` and :meth:`admit_member`."""
+
+    def __init__(self, key: str, k: int = 0):
+        self.key = str(key)
+        self.k = int(k)
+        self._members: List[_MemberState] = [_MemberState() for _ in range(max(1, self.k))]
         self._ctx: Optional[Dict[str, Any]] = None
         self.enabled = _on(ENV_ENABLE)
         self.explosion_k = _env_float(ENV_K, DEFAULT_K)
@@ -94,78 +138,119 @@ class HealthMonitor:
 
     def set_context(self, **ctx: Any) -> None:
         """Trial context from the model layer (``model`` identity dict,
-        ``train_uri``, ``batch_size``, ``seed``, ``planned_steps``);
-        it rides in the verdict."""
+        ``train_uri``, ``batch_size``, ``seed``, ``planned_steps``); it
+        rides in the verdict. A pack passes ``member_info``, a
+        ``slot -> {model, seed}`` callable resolved at trip time."""
         self._ctx = dict(self._ctx or {}, **ctx)
+
+    def _member_ctx(self, member: Optional[int]) -> Dict[str, Any]:
+        ctx = dict(self._ctx or {})
+        info = ctx.pop("member_info", None)
+        if member is not None and callable(info):
+            try:
+                ctx.update(info(member) or {})
+            except Exception:
+                pass  # a stale slot must not break the trip path
+        return ctx
+
+    def evict_member(self, i: int) -> None:
+        if self.k > 0 and 0 <= i < len(self._members):
+            self._members.pop(i)
+            self.k -= 1
+
+    def admit_member(self) -> None:
+        self._members.append(_MemberState())
+        self.k += 1
 
     def snapshot_state(self, state: Any) -> None:
         """The pre-epoch state copy a replay capsule would need. The port
         has no capsules yet, so no copy is taken."""
         return None
 
-    def _median_bar(self) -> Optional[float]:
-        if len(self.history) < self.warmup:
+    # -- observation ---------------------------------------------------------
+
+    def observe(self, health: Dict[str, float], *, t0: Optional[float] = None,
+                epoch_seed: Optional[int] = None) -> Optional[Dict[str, Any]]:
+        """Serial epoch boundary: returns a verdict dict on a trip, else
+        None. The caller (``TrainLoop``) raises DivergenceError on it."""
+        return self._observe(0, health, t0=t0, epoch_seed=epoch_seed, member=None)
+
+    def observe_pack(self, health_rows: List[Dict[str, float]], *,
+                     t0: Optional[float] = None, epoch_seeds: Any = None
+                     ) -> List[Optional[Dict[str, Any]]]:
+        """Packed epoch boundary: one Optional[verdict] per live member,
+        in slot order."""
+        return [self._observe(j, health, t0=t0,
+                              epoch_seed=None if epoch_seeds is None else epoch_seeds[j],
+                              member=j)
+                for j, health in enumerate(health_rows)]
+
+    def _median_bar(self, st: _MemberState) -> Optional[float]:
+        if len(st.history) < self.warmup:
             return None
-        median = statistics.median(self.history)
+        median = statistics.median(st.history)
         return self.explosion_k * median if median > 0.0 else None
 
-    def _classify(self, health: Dict[str, float]) -> Optional[str]:
+    def _classify(self, st: _MemberState, health: Dict[str, float]) -> Optional[str]:
         gn = float(health.get("health_grad_norm", 0.0))
         nf = int(health.get("health_nonfinite", 0))
         if nf > 0 or not math.isfinite(gn):
             return "nonfinite"
-        bar = self._median_bar()
-        if bar is not None and gn > bar and self.streak + 1 >= self.hysteresis:
+        bar = self._median_bar(st)
+        if bar is not None and gn > bar and st.streak + 1 >= self.hysteresis:
             return "explosion"
         return None
 
-    def observe(self, health: Dict[str, float], *, t0: Optional[float] = None,
-                epoch_seed: Optional[int] = None) -> Optional[Dict[str, Any]]:
-        """Epoch boundary: returns a verdict dict on a trip, else None."""
+    def _observe(self, j: int, health: Dict[str, float], *, t0: Optional[float],
+                 epoch_seed: Optional[int], member: Optional[int]
+                 ) -> Optional[Dict[str, Any]]:
         if not self.enabled or not health:
             return None
+        st = self._members[j]
         if t0 is not None:
-            self.bank += time.monotonic() - t0
-        if self.tripped:
+            # A pack's epoch wall is shared: each member banks its share.
+            st.bank += (time.monotonic() - t0) / max(1, self.k)
+        if st.tripped:
             return None
-        kind = self._classify(health)
+        kind = self._classify(st, health)
         if kind is None:
-            bar = self._median_bar()
+            bar = self._median_bar(st)
             if bar is not None and float(health.get("health_grad_norm", 0.0)) > bar:
-                self.streak += 1  # above the bar but under the hysteresis
+                st.streak += 1  # above the bar but under the hysteresis
             else:
-                self.streak = 0
-                self.history.append(float(health.get("health_grad_norm", 0.0)))
+                st.streak = 0
+                st.history.append(float(health.get("health_grad_norm", 0.0)))
             return None
-        return self._trip(kind, health, epoch_seed)
+        return self._trip(st, kind, health, epoch_seed, member)
 
-    def _diagnosis(self, kind: str, health: Dict[str, float]) -> str:
+    def _diagnosis(self, kind: str, st: _MemberState, health: Dict[str, float]) -> str:
         gn = float(health.get("health_grad_norm", float("nan")))
         if kind == "nonfinite":
             return (f"non-finite numerics at step "
                     f"{int(health.get('health_bad_step', -1))}: "
                     f"{int(health.get('health_nonfinite', 0))} bad elements, "
                     f"grad_norm={gn:.4g}")
-        median = statistics.median(self.history) if self.history else 0.0
+        median = statistics.median(st.history) if st.history else 0.0
         return (f"grad-norm explosion: {gn:.4g} > {self.explosion_k:g}x "
                 f"running median {median:.4g} "
                 f"({self.hysteresis} consecutive epochs)")
 
-    def _trip(self, kind: str, health: Dict[str, float],
-              epoch_seed: Optional[int]) -> Dict[str, Any]:
-        self.tripped = True
+    def _trip(self, st: _MemberState, kind: str, health: Dict[str, float],
+              epoch_seed: Optional[int], member: Optional[int]) -> Dict[str, Any]:
+        st.tripped = True
+        _STATS["divergences"] += 1
         telemetry.inc("health.divergences")
         return {
             "divergence": kind,
             "key": self.key,
-            "member": None,
+            "member": member,
             "bad_step": int(health.get("health_bad_step", -1)),
             "epoch_seed": epoch_seed,
             "grad_norm": float(health.get("health_grad_norm", float("nan"))),
             "update_norm": float(health.get("health_update_norm", float("nan"))),
             "nonfinite": int(health.get("health_nonfinite", 0)),
-            "badput_s": round(self.bank, 6),
+            "badput_s": round(st.bank, 6),
             "capsule": None,
-            "context": dict(self._ctx or {}),
-            "diagnosis": self._diagnosis(kind, health),
+            "context": self._member_ctx(member),
+            "diagnosis": self._diagnosis(kind, st, health),
         }

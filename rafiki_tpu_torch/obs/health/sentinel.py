@@ -10,6 +10,9 @@ epoch-boundary scalars, the only values the host reads, once per epoch.
   are the same with or without it.
 * **No per-step host sync.** Every output is a device scalar; the loop
   stacks the series and reduces it on the device at the epoch end.
+
+:func:`bundle_packed` is the same bundle for a pack of k trials: one
+value per member, each over that member's slices only.
 """
 
 from __future__ import annotations
@@ -47,6 +50,32 @@ def bundle(loss: torch.Tensor, grads: Sequence[torch.Tensor],
         "health_update_norm": _norm(updates),
         "health_param_norm": _norm(params),
         "health_nonfinite": _nonfinite(grads) + (~torch.isfinite(loss)).sum(),
+    }
+
+
+def bundle_packed(losses: torch.Tensor, grads: Sequence[torch.Tensor],
+                  updates: Sequence[torch.Tensor], params: Sequence[torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """Per-member health stats of a pack step, each of shape ``(k,)``:
+    ``losses`` is ``(k,)``, the others stacked ``(k, ...)`` leaves. Each
+    norm is taken per member slice of each leaf and then over the
+    member's L leaves, as :func:`bundle` takes it over one trial's."""
+    k = losses.shape[0]
+
+    def norms(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+        slices = [t.unbind(0) for t in leaves]
+        f32 = [s[i] if s[i].dtype == torch.float32 else s[i].float()
+               for i in range(k) for s in slices]
+        per_leaf = torch.stack(torch._foreach_norm(f32)).reshape(k, -1)
+        return torch.linalg.vector_norm(per_leaf, dim=1)
+
+    flat = torch.cat([g.reshape(k, -1) for g in grads], dim=1)
+    nonfinite = flat.shape[1] - torch.isfinite(flat).sum(dim=1)
+    return {
+        "health_grad_norm": norms(grads),
+        "health_update_norm": norms(updates),
+        "health_param_norm": norms(params),
+        "health_nonfinite": nonfinite + (~torch.isfinite(losses)).to(nonfinite.dtype),
     }
 
 

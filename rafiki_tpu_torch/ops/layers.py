@@ -15,10 +15,14 @@ from plain tensor ops, which also vmap cleanly over stacked params:
 
 ``conv2d`` is the models' convolution. It is ``F.conv2d``, except when
 its weight is stacked under ``torch.func.vmap`` (the stacked serving
-forward, ``parallel/ensemble.py``, the port's only vmap): there it runs
-once per member instead of as the one grouped conv vmap would lower it
-to, which sums in another order, so the stacked forward bit-matches the
-serial ones.
+forward, ``parallel/ensemble.py``, and a pack's train step,
+``ops/train.py PackedProgram``): there it runs once per member instead
+of as the one grouped conv vmap would lower it to, which sums in
+another order, so the stacked forward bit-matches the serial ones.
+The unwrapped convs record their backward under the pack's outer
+autograd like any op on the vmapped tensors underneath. ``linear`` does
+the same for the dense layers, whose vmapped form adds the bias after
+a rounded matmul.
 """
 
 from __future__ import annotations
@@ -28,36 +32,59 @@ import torch._C._functorch as _functorch
 import torch.nn.functional as F
 from torch import nn
 
-# The per-member conv uses functorch's private C API, as torch.func.vmap
+# The per-member layers use functorch's private C API, as torch.func.vmap
 # does at its own boundary. Fail at import, not mid-forward, if a torch
 # release moves any of it.
 _FUNCTORCH_API = ("is_batchedtensor", "maybe_get_level", "_unwrap_batched", "_add_batch_dim")
 _missing = [n for n in _FUNCTORCH_API if not hasattr(_functorch, n)]
 if _missing:
     raise ImportError(f"torch {torch.__version__} has no torch._C._functorch."
-                      f"{', '.join(_missing)}, which ops.layers.conv2d needs")
+                      f"{', '.join(_missing)}, which ops.layers needs")
+
+
+def _per_member(op, weight: torch.Tensor, *operands: torch.Tensor) -> torch.Tensor:
+    """``op`` once per member of a vmapped call whose ``weight`` is
+    stacked, on operands unwrapped at the vmap level (as
+    ``torch.func.vmap`` itself does at its boundary; an operand not
+    batched is shared), with the k results stacked and wrapped back, so
+    no batching rule runs. A custom ``autograd.Function`` vmap rule did
+    the same at several times the host cost per call. unbind, not k
+    selects: under autograd (a pack's train step) the backward of one
+    unbind is one stack of the k member gradients, where k selects would
+    each scatter into a zero tensor of all k."""
+    level = _functorch.maybe_get_level(weight)
+    w, w_dim = _functorch._unwrap_batched(weight, level)
+    ws = w.unbind(w_dim)
+    slices = []
+    for t in operands:
+        t, dim = _functorch._unwrap_batched(t, level)
+        slices.append([t] * len(ws) if dim is None else t.unbind(dim))
+    outs = [op(wi, *ts) for wi, *ts in zip(ws, *slices)]
+    if outs[0].is_contiguous(memory_format=torch.channels_last) and not outs[0].is_contiguous():
+        # Stacked as (k, N, H, W, C), so each member stays channels-last
+        # and the next layer sees the strides the serial forward sees.
+        stacked = torch.stack([o.permute(0, 2, 3, 1) for o in outs]).permute(0, 1, 4, 2, 3)
+    else:
+        stacked = torch.stack(outs)
+    return _functorch._add_batch_dim(stacked, 0, level)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``F.linear``; once per member when ``weight`` is stacked under
+    vmap. There vmap would run a batched matmul and then add the bias,
+    rounding twice in bf16, where the serial ``addmm`` adds the bias in
+    its float32 accumulator and rounds once."""
+    if _functorch.is_batchedtensor(weight):
+        return _per_member(lambda w, xi, b: F.linear(xi, w, b), weight, x, bias)
+    return F.linear(x, weight, bias)
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, padding: int = 0) -> torch.Tensor:
     """Bias-free 2-D convolution (``F.conv2d``); once per member when
     ``weight`` is stacked under vmap."""
     if _functorch.is_batchedtensor(weight):
-        return _per_member_conv2d(x, weight, padding, _functorch.maybe_get_level(weight))
+        return _per_member(lambda w, xi: F.conv2d(xi, w, None, padding=padding), weight, x)
     return F.conv2d(x, weight, None, padding=padding)
-
-
-def _per_member_conv2d(x, weight, padding, level):
-    """The k plain convs of one vmapped conv, stacked. Unwraps the
-    batched operands at vmap ``level`` (as ``torch.func.vmap`` itself
-    does at its boundary) and wraps the stacked result back, so no
-    batching rule runs: a custom ``autograd.Function`` vmap rule did the
-    same at several times the host cost per call."""
-    w, w_dim = _functorch._unwrap_batched(weight, level)
-    x, x_dim = _functorch._unwrap_batched(x, level)
-    outs = [F.conv2d(x if x_dim is None else x.select(x_dim, i), w.select(w_dim, i), None,
-                     padding=padding)
-            for i in range(w.shape[w_dim])]
-    return _functorch._add_batch_dim(torch.stack(outs), 0, level)
 
 
 class GroupNorm(nn.Module):

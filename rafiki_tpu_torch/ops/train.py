@@ -22,10 +22,23 @@ rate) are float32 scalars on the host, as the JAX package's are traced
 scalars: the step count lives on the host too, so the learning rate is
 computed there and no step reads back from the device.
 
+Trial packing (``PackedProgram`` ``:800``, ``PackedTrainLoop`` ``:879``,
+``PackedSliceLoop`` ``:1190``): k trials of one program train as one
+stacked program. Their params, Adam moments, step counts, dropout
+generators and hyper values are stacked along a leading trial axis; the
+forward is ``torch.func.vmap`` over ``functional_call``, and the
+gradients are plain autograd of the sum of the k losses with respect to
+the stacked leaves (member i's loss reads only slice i, so slice i's
+gradient is member i's own). Convolutions run once per member
+(``ops/layers.py conv2d``) and each member's dropout mask comes from its
+own generator (:class:`PackedGenerators`), so member i computes what a
+serial ``TrainLoop(seed_i, hyper_i)`` computes. The JAX package caches
+compiled packed programs under ``packed_program_key``; the port has no
+program cache (see :class:`Program`), so it has no such key either.
+
 Not ported with this slice: the dp mesh (``_ShardingPlan``), the chaos
 plane's ``train.nan`` poison column and ``collective.step``/``train.epoch``
-sites, the goodput ledger, the perf profiler and SLO ticks, and trial
-packing.
+sites, the goodput ledger, the perf profiler and SLO ticks.
 
 ``torch.inference_mode`` is thread-local, so :func:`predict_proba`
 enters it itself, on whatever thread serves the query.
@@ -33,25 +46,37 @@ enters it itself, on whatever thread serves the query.
 
 from __future__ import annotations
 
+import copy
+import functools
 import os
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch._C._functorch as _functorch
 from torch import nn
+from torch._functorch.pyfunctorch import temporarily_pop_interpreter_stack
+from torch.func import functional_call, vmap
 from torch.profiler import record_function
 
 from rafiki_tpu_torch import telemetry
 from rafiki_tpu_torch.obs.health import DivergenceError, HealthMonitor
 from rafiki_tpu_torch.obs.health import sentinel as _sentinel
-from rafiki_tpu_torch.ops.optim import scale_by_adam
+from rafiki_tpu_torch.ops.optim import ScaleByAdamState, member_vector, scale_by_adam
 from rafiki_tpu_torch.utils.backend import DeviceLike, resolve_device
 
 Batch = Dict[str, torch.Tensor]
 Hyper = Dict[str, torch.Tensor]
 # (module, optimizer state, step count, dropout generator, hyper)
 State = Tuple[nn.Module, Any, int, Optional[torch.Generator], Hyper]
+
+# Knob names that reach the step only through the per-trial hyper dict
+# (lr and warmup through the update scale, dropout through the forward)
+# or not at all (epochs = the epoch count, seed = the init draw). Two
+# trials that differ only in these run the same program, so they pack.
+DYNAMIC_KNOBS = frozenset({"learning_rate", "warmup_steps", "dropout", "epochs", "seed"})
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -76,17 +101,43 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     return loss, correct.sum() / denom
 
 
+class PackedGenerators(tuple):
+    """The dropout generators of a pack's k members, in slot order: what
+    a pack's step passes where a serial step passes its one generator."""
+
+
+def _per_member_rand(x: torch.Tensor, generators: PackedGenerators) -> torch.Tensor:
+    """Uniform noise for a pack's dropout: member i's draw comes from
+    member i's generator, at member i's shape, as a serial step draws
+    it. ``torch.rand`` inside vmap is refused (and ``randomness=
+    "different"`` would draw other values), so the draws run with the
+    vmap level popped and the stacked noise is wrapped back at it."""
+    if not _functorch.is_batchedtensor(x):
+        raise ValueError("a pack's dropout input must be batched over its members")
+    level = _functorch.maybe_get_level(x)
+    shape, device = tuple(x.shape), x.device
+    with temporarily_pop_interpreter_stack():
+        noise = torch.stack([torch.rand(shape, generator=g, device=device)
+                             for g in generators])
+    return _functorch._add_batch_dim(noise, 0, level)
+
+
 def dropout(x: torch.Tensor, rate, generator: Optional[torch.Generator],
             deterministic: bool) -> torch.Tensor:
     """Inverted dropout whose rate is a tensor (or a number), so a sweep
     over the rate needs no other code path. Rate 1 gives zeros; the
     kept elements are scaled by ``1 / max(1 - rate, 1e-6)``. The random
     stream is ``generator``'s (on ``x``'s device); the JAX package's
-    threefry stream cannot be matched, so parity is checked at rate 0."""
+    threefry stream cannot be matched, so parity is checked at rate 0.
+    In a pack, ``generator`` is the members' :class:`PackedGenerators`."""
     if deterministic or generator is None:
         return x
     rate = torch.as_tensor(rate, dtype=torch.float32)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < (1.0 - rate)
+    if isinstance(generator, PackedGenerators):
+        noise = _per_member_rand(x, generator)
+    else:
+        noise = torch.rand(x.shape, generator=generator, device=x.device)
+    keep = noise < (1.0 - rate)
     scale = torch.where(rate < 1.0, 1.0 / torch.clamp_min(1.0 - rate, 1e-6),
                         torch.zeros_like(rate))
     return torch.where(keep, x * scale.to(x.dtype), torch.zeros_like(x))
@@ -390,6 +441,439 @@ class TrainLoop:
     def predict_proba(self, x: np.ndarray, batch_size: int) -> np.ndarray:
         """Forward a query array; pads to full batches, returns (N, ..., C) probs."""
         return predict_proba(self.state[0], x, batch_size, self.device)
+
+
+# ---------------------------------------------------------------------------
+# Trial packing: k same-program trials as one stacked program
+# ---------------------------------------------------------------------------
+
+
+class _Bound:
+    """A module's forward with one member's params swapped in: callable
+    as the module is, so a template's ``loss`` runs unchanged."""
+
+    def __init__(self, base: nn.Module, params: Dict[str, torch.Tensor],
+                 buffers: Dict[str, torch.Tensor]):
+        self.base, self.params, self.buffers = base, params, buffers
+
+    def __call__(self, *args, **kwargs):
+        return functional_call(self.base, (self.params, self.buffers), args, kwargs)
+
+
+@dataclass
+class PackedState:
+    """A pack's state, every entry with the members in slot order:
+    ``params``/``buffers`` are stacked ``(k, ...)`` leaves, ``opt`` holds
+    the stacked Adam moments and a tuple of k counts, ``steps`` the k
+    step counts, ``generators`` the k dropout generators and ``hyper``
+    the ``(k,)`` float32 hyper vectors on the host (``hyper_dev``: the
+    same on the device, for the forward)."""
+
+    params: Dict[str, torch.Tensor]
+    buffers: Dict[str, torch.Tensor]
+    opt: ScaleByAdamState
+    steps: List[int]
+    generators: List[torch.Generator]
+    hyper: Dict[str, torch.Tensor]
+    hyper_dev: Dict[str, torch.Tensor]
+
+    @property
+    def k(self) -> int:
+        return len(self.steps)
+
+    def member_hyper(self, i: int) -> Hyper:
+        return {name: v[i] for name, v in self.hyper.items()}
+
+
+def _set_tensor(module: nn.Module, name: str, value: torch.Tensor) -> None:
+    owner_name, _, leaf = name.rpartition(".")
+    owner = module.get_submodule(owner_name) if owner_name else module
+    if leaf in owner._parameters:
+        owner._parameters[leaf] = nn.Parameter(value, requires_grad=False)
+    else:
+        owner._buffers[leaf] = value
+
+
+class PackedProgram:
+    """The trial-independent half of a k-trial pack: the per-member step
+    closures of :func:`_make_step_fns`, vmapped over the trial axis.
+
+    The train step feeds each member its own batch (``x``/``y`` of shape
+    ``(k, batch, ...)``) so each keeps its serial shuffle order; eval
+    shares one batch across the members (``in_dims=(0, 0, None)``).
+    ``module`` gives the architecture only (it is copied to the meta
+    device). The width k is not part of the program: evict and admit
+    change it freely.
+    """
+
+    def __init__(self, module: nn.Module, apply_fn, loss_fn, optimizer):
+        self.base = copy.deepcopy(module).to("meta")
+        self.optimizer = optimizer
+        _, eval_step = _make_step_fns(apply_fn, loss_fn, optimizer)
+
+        def member_loss(params, buffers, x, y, hyper, generators):
+            return loss_fn(_Bound(self.base, params, buffers), {"x": x, "y": y},
+                           generators, hyper)
+
+        def member_eval(params, buffers, batch):
+            return eval_step(_Bound(self.base, params, buffers), batch)
+
+        self._member_loss = member_loss
+        self._v_eval = vmap(member_eval, in_dims=(0, 0, None))
+
+    def train_step(self, state: PackedState, batch: Batch) -> Dict[str, torch.Tensor]:
+        """One step of every member (``state`` is updated in place).
+        Returns ``(k,)`` metrics: the loss, the template's metrics and
+        the per-member health bundle."""
+        k = state.k
+        leaves = list(state.params.values())
+        v_loss = vmap(functools.partial(self._member_loss,
+                                        generators=PackedGenerators(state.generators)))
+        with torch.enable_grad():
+            with record_function("train.forward"):
+                losses, metrics = v_loss(state.params, state.buffers, batch["x"], batch["y"],
+                                         state.hyper_dev)
+            # Member i's loss reads only slice i of each leaf, so the
+            # gradient of the sum, slice by slice, is each member's own.
+            grads = torch.autograd.grad(losses.sum(), leaves)
+        with torch.no_grad():
+            with record_function("train.adam"):
+                updates, state.opt = self.optimizer.update(grads, state.opt)
+                # Each member's -effective_lr, from its own step count.
+                lrs = [-float(effective_lr(state.member_hyper(i), state.steps[i]))
+                       for i in range(k)]
+                torch._foreach_mul_(updates, member_vector(lrs, leaves))
+                torch._foreach_add_(leaves, updates)
+            with record_function("train.sentinel"):
+                losses = losses.detach()
+                health = _sentinel.bundle_packed(losses, grads, updates, leaves)
+        state.steps = [s + 1 for s in state.steps]
+        metrics = {key: v.detach() for key, v in metrics.items()}
+        return dict(metrics, loss=losses, **health)
+
+    def eval_step(self, state: PackedState, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(k,)`` (correct, counted) of every member over one shared batch."""
+        return self._v_eval(state.params, state.buffers, batch)
+
+    def train_epoch(self, state: PackedState, X: torch.Tensor, Y: torch.Tensor,
+                    idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One step per row of ``idx`` (``(n_steps, k, batch)`` on the
+        device): member i's batch is gathered from the resident ``X``/
+        ``Y`` by ``idx[t, i]``. Returns the last step's ``(k,)`` metrics
+        and the epoch's health series reduced per member, on the device."""
+        k, batch = idx.shape[1], idx.shape[2]
+        health_steps = []
+        metrics: Dict[str, torch.Tensor] = {}
+        for ib in idx:
+            flat = ib.reshape(-1)
+            metrics = self.train_step(state, {
+                "x": X.index_select(0, flat).reshape((k, batch) + tuple(X.shape[1:])),
+                "y": Y.index_select(0, flat).reshape((k, batch) + tuple(Y.shape[1:]))})
+            health_steps.append(_sentinel.split(metrics)[1])
+        out = _sentinel.split(metrics)[0]
+        out.update(_sentinel.reduce_epoch({key: torch.stack([h[key] for h in health_steps])
+                                           for key in health_steps[0]}))
+        return out
+
+    def eval_epoch(self, state: PackedState, X: torch.Tensor, Y: torch.Tensor,
+                   idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-member summed (correct, counted) over the rows of ``idx``
+        (``(n_steps, batch)``: one batch stream shared by the members)."""
+        c = n = torch.zeros((state.k,), dtype=torch.int64, device=X.device)
+        for ib in idx:
+            dc, dn = self.eval_step(state, {"x": X.index_select(0, ib),
+                                            "y": Y.index_select(0, ib)})
+            c, n = c + dc, n + dn
+        return c, n
+
+
+class PackedTrainLoop:
+    """Drives epochs of a k-trial pack over one Dataset.
+
+    Parameters mirror :class:`TrainLoop`, pluralized: ``seeds`` are the
+    k per-trial seeds (each seeds its member's init draw and dropout
+    generator, as ``TrainLoop(seed=...)`` does), ``hypers`` the k
+    per-trial hyper dicts, all with one key set. Member i computes what
+    ``TrainLoop(init_fn, ..., seed=seeds[i], hyper=hypers[i])`` computes;
+    only the launches are shared. ``init_fn`` may return the same module
+    object on every call (``TorchModel._loop_fns`` does): each member's
+    params are copied out before the next draw.
+
+    A pack never raises on divergence: each epoch leaves one
+    ``Optional[verdict]`` per live member on ``last_verdicts``, and the
+    pack driver (``TorchModel.train_packed``) evicts the sick members.
+    """
+
+    def __init__(self, init_fn: Callable[[torch.Generator], nn.Module], apply_fn, loss_fn,
+                 optimizer=None, seeds: Optional[Sequence[int]] = None,
+                 hypers: Optional[Sequence[Dict[str, float]]] = None,
+                 packing_key: Optional[str] = None, device: DeviceLike = None):
+        if not seeds:
+            raise ValueError("PackedTrainLoop needs at least one seed")
+        hypers = list(hypers) if hypers is not None else [{} for _ in seeds]
+        if len(hypers) != len(seeds):
+            raise ValueError(f"{len(hypers)} hyper dicts for {len(seeds)} seeds")
+        keysets = {tuple(sorted(h)) for h in hypers}
+        if len(keysets) != 1:
+            raise ValueError(f"pack members carry different hyper keys {sorted(keysets)}")
+        if "lr" not in hypers[0]:
+            raise ValueError("a pack scales its updates by each member's hyper['lr']; "
+                             "none was given")
+        self.device = resolve_device(device)
+        self.packing_key = packing_key
+        self._init_fn = init_fn
+        draws = [self._draw(s) for s in seeds]
+        self.program = PackedProgram(draws[0][2], apply_fn, loss_fn,
+                                     optimizer if optimizer is not None else scale_by_adam())
+        names, buffer_names = list(draws[0][0]), list(draws[0][1])
+        hyper = {name: torch.tensor([float(h[name]) for h in hypers], dtype=torch.float32)
+                 for name in hypers[0]}
+        self.state = PackedState(
+            params={n: torch.stack([d[0][n] for d in draws]).to(self.device).requires_grad_()
+                    for n in names},
+            buffers={n: torch.stack([d[1][n] for d in draws]).to(self.device)
+                     for n in buffer_names},
+            opt=ScaleByAdamState(count=(0,) * len(seeds), mu=None, nu=None),
+            steps=[0] * len(seeds),
+            generators=[torch.Generator(device=self.device).manual_seed(int(s)) for s in seeds],
+            hyper=hyper,
+            hyper_dev={name: v.to(self.device) for name, v in hyper.items()})
+        self.health = HealthMonitor(f"packed:{id(self)}", k=self.k)
+        self.last_verdicts: List[Optional[Dict[str, Any]]] = [None] * self.k
+        self._warm = False
+
+    @property
+    def k(self) -> int:
+        return self.state.k
+
+    def _draw(self, seed: int):
+        """One member's initial (params, buffers), drawn as
+        ``TrainLoop(seed=seed)`` draws them and copied off the module,
+        and the module (the architecture a program is built from)."""
+        module = self._init_fn(torch.Generator().manual_seed(int(seed)))
+        return ({n: p.detach().clone() for n, p in module.named_parameters()},
+                {n: b.detach().clone() for n, b in module.named_buffers()}, module)
+
+    # -- elastic membership --------------------------------------------------
+
+    def _member_module(self, i: int) -> nn.Module:
+        """A trainable module holding a copy of member ``i``'s params."""
+        module = copy.deepcopy(self.program.base).to_empty(device=self.device)
+        with torch.no_grad():
+            for n, p in module.named_parameters():
+                p.copy_(self.state.params[n][i])
+            for n, b in module.named_buffers():
+                b.copy_(self.state.buffers[n][i])
+        return module.eval()
+
+    def trial_state(self, i: int) -> State:
+        """Member ``i``'s ``(module, opt_state, step, generator, hyper)``,
+        shaped as a serial ``TrainLoop``'s state (copies; the generator
+        is the member's own)."""
+        if not (0 <= i < self.k):
+            raise IndexError(f"member {i} out of pack of {self.k}")
+        st = self.state
+        opt = None
+        if st.opt.mu is not None:
+            opt = ScaleByAdamState(count=st.opt.count[i], mu=[m[i].clone() for m in st.opt.mu],
+                                   nu=[v[i].clone() for v in st.opt.nu])
+        hyper = {name: v[i].clone() for name, v in st.hyper.items()}
+        return (self._member_module(i), opt, st.steps[i], st.generators[i], hyper)
+
+    def trial_params(self, i: int) -> Dict[str, torch.Tensor]:
+        """Member ``i``'s params: views of the stacked leaves."""
+        return {n: p[i].detach() for n, p in self.state.params.items()}
+
+    def slice(self, i: int) -> "PackedSliceLoop":
+        return PackedSliceLoop(self, i)
+
+    def evict(self, i: int) -> State:
+        """Take member ``i`` out of the pack and narrow it to k-1. Returns
+        the member's serial-shaped state, which ``TrainLoop(initial_state=
+        ...)`` adopts to carry on exactly as a serial run of the trial."""
+        if not (0 <= i < self.k):
+            raise IndexError(f"evict {i} out of pack of {self.k}")
+        if self.k == 1:
+            raise ValueError("cannot evict the last pack member")
+        evicted = self.trial_state(i)
+        st = self.state
+
+        def drop(a: torch.Tensor) -> torch.Tensor:
+            return torch.cat([a[:i], a[i + 1:]]).detach()
+
+        st.params = {n: drop(p).requires_grad_() for n, p in st.params.items()}
+        st.buffers = {n: drop(b) for n, b in st.buffers.items()}
+        counts = st.opt.count[:i] + st.opt.count[i + 1:]
+        st.opt = ScaleByAdamState(
+            count=counts, mu=None if st.opt.mu is None else [drop(m) for m in st.opt.mu],
+            nu=None if st.opt.nu is None else [drop(v) for v in st.opt.nu])
+        st.steps = st.steps[:i] + st.steps[i + 1:]
+        st.generators = st.generators[:i] + st.generators[i + 1:]
+        st.hyper = {n: drop(v) for n, v in st.hyper.items()}
+        st.hyper_dev = {n: drop(v) for n, v in st.hyper_dev.items()}
+        self.health.evict_member(i)
+        if i < len(self.last_verdicts):
+            self.last_verdicts.pop(i)
+        telemetry.inc("trial_pack.evictions")
+        return evicted
+
+    def admit(self, seed: int, hyper: Dict[str, float]) -> int:
+        """Backfill one slot with a fresh member, initialised exactly as
+        ``TrainLoop(seed=seed, hyper=hyper)`` would be, and widen the pack
+        to k+1. Returns the new member's slot."""
+        st = self.state
+        have, want = tuple(sorted(st.hyper)), tuple(sorted(hyper))
+        if have != want:
+            raise ValueError(f"backfill hyper keys {want} != pack hyper keys {have}")
+        params, buffers, _ = self._draw(seed)
+
+        def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+            return torch.cat([a.detach(), b.to(a.device, a.dtype)[None]])
+
+        st.params = {n: add(p, params[n]).requires_grad_() for n, p in st.params.items()}
+        st.buffers = {n: add(b, buffers[n]) for n, b in st.buffers.items()}
+        if st.opt.mu is not None:
+            # Zero moments: the first update from them is the serial
+            # first update (whose moments start as zeros).
+            st.opt.mu = [add(m, torch.zeros_like(m[0])) for m in st.opt.mu]
+            st.opt.nu = [add(v, torch.zeros_like(v[0])) for v in st.opt.nu]
+        st.opt = ScaleByAdamState(count=st.opt.count + (0,), mu=st.opt.mu, nu=st.opt.nu)
+        st.steps = st.steps + [0]
+        st.generators = st.generators + [torch.Generator(device=self.device).manual_seed(int(seed))]
+        value = {n: torch.tensor([float(hyper[n])], dtype=torch.float32) for n in hyper}
+        st.hyper = {n: torch.cat([v, value[n]]) for n, v in st.hyper.items()}
+        st.hyper_dev = {n: torch.cat([v, value[n].to(v.device)]) for n, v in st.hyper_dev.items()}
+        self.health.admit_member()
+        self.last_verdicts.append(None)
+        telemetry.inc("trial_pack.backfills")
+        return self.k - 1
+
+    # -- epochs ----------------------------------------------------------------
+
+    def _fits_device_fast_path(self, dataset) -> bool:
+        return (getattr(dataset, "mask", None) is None
+                and dataset.x.nbytes + dataset.y.nbytes <= device_dataset_cap_bytes())
+
+    def run_epoch(self, dataset, batch_size: int, epoch_seeds: Sequence[int]
+                  ) -> List[Dict[str, float]]:
+        """One epoch of every member; ``epoch_seeds`` are the k shuffle
+        seeds (serial parity: ``seed_i + epoch_i``). Returns the k
+        members' final-step metrics; their health verdicts are left on
+        ``last_verdicts``."""
+        if len(epoch_seeds) != self.k:
+            raise ValueError(f"{len(epoch_seeds)} epoch seeds for pack of {self.k}")
+        if dataset.size < batch_size:
+            raise ValueError(
+                f"Dataset has {dataset.size} examples < batch_size={batch_size}; "
+                f"the epoch would run zero steps")
+        t_epoch = time.monotonic()
+        n_steps = dataset.size // batch_size
+        # (n_steps, k, batch): each member keeps its own serial permutation.
+        idx = np.stack([np.random.default_rng(int(s)).permutation(dataset.size)
+                        [: n_steps * batch_size].reshape(n_steps, batch_size)
+                        for s in epoch_seeds], axis=1)
+        feed_s = 0.0
+        if self._fits_device_fast_path(dataset):
+            X, Y = get_device_dataset(dataset, self.device)
+            metrics = self.program.train_epoch(self.state, X, Y,
+                                               torch.from_numpy(idx).to(self.device))
+        else:
+            health_steps = []
+            for ib in idx:
+                t_feed = time.monotonic()
+                batch = _put_batch({"x": dataset.x[ib], "y": dataset.y[ib]}, self.device)
+                feed_s += time.monotonic() - t_feed
+                metrics = self.program.train_step(self.state, batch)
+                health_steps.append(_sentinel.split(metrics)[1])
+            metrics = _sentinel.split(metrics)[0]
+            metrics.update(_sentinel.reduce_epoch(
+                {key: torch.stack([h[key] for h in health_steps]) for key in health_steps[0]}))
+        host = {key: v.cpu().numpy() for key, v in metrics.items()}
+        rows = [{key: float(v[i]) for key, v in host.items()} for i in range(self.k)]
+        self._record_epoch(t_epoch, feed_s)
+        return self._health_check(rows, t_epoch, epoch_seeds)
+
+    def _health_check(self, rows: List[Dict[str, float]], t0: float,
+                      epoch_seeds: Sequence[int]) -> List[Dict[str, float]]:
+        """Strip the sentinel keys from the members' rows and leave one
+        Optional[verdict] per live member on ``last_verdicts``."""
+        health_rows = [{k: v for k, v in r.items() if k.startswith(_sentinel.PREFIX)}
+                       for r in rows]
+        self.last_verdicts = self.health.observe_pack(health_rows, t0=t0,
+                                                      epoch_seeds=list(epoch_seeds))
+        return [{k: v for k, v in r.items() if not k.startswith(_sentinel.PREFIX)}
+                for r in rows]
+
+    def _record_epoch(self, t0: float, feed_s: float) -> None:
+        """``train.packed_cold_epoch_s`` for the pack's first epoch (it
+        pays the first-call costs), ``train.packed_epoch_s`` after."""
+        dt = time.monotonic() - t0
+        cold = not self._warm
+        self._warm = True
+        telemetry.observe("train.packed_cold_epoch_s" if cold else "train.packed_epoch_s", dt)
+        if feed_s > 0.0:
+            telemetry.inc("train.host_feed_s", feed_s)
+        telemetry.inc("train.step_s", max(dt - feed_s, 0.0))
+
+    def evaluate(self, dataset, batch_size: int) -> np.ndarray:
+        """``(k,)`` accuracies from one eval pass shared by the members."""
+        total_correct = total = torch.zeros((self.k,), dtype=torch.int64, device=self.device)
+        start = 0
+        with torch.inference_mode():
+            if self._fits_device_fast_path(dataset) and dataset.size >= batch_size:
+                X, Y = get_device_dataset(dataset, self.device)
+                n_steps = dataset.size // batch_size
+                idx = torch.arange(n_steps * batch_size, device=self.device).reshape(
+                    n_steps, batch_size)
+                c, n = self.program.eval_epoch(self.state, X, Y, idx)
+                total_correct, total = total_correct + c, total + n
+                start = n_steps * batch_size
+            for batch in dataset.batches(batch_size, shuffle=False, drop_remainder=False,
+                                         start=start):
+                c, n = self.program.eval_step(self.state, _put_batch(batch, self.device))
+                total_correct, total = total_correct + c, total + n
+        c = total_correct.cpu().numpy().astype(np.float64)
+        n = total.cpu().numpy().astype(np.float64)
+        return c / np.maximum(n, 1.0)
+
+
+class PackedSliceLoop:
+    """Member ``index`` of a pack, shaped as what ``TorchModel`` reads
+    from a ``TrainLoop``: ``params`` is an ``nn.Module`` whose params are
+    views of the member's slices, so ``dump_parameters`` and
+    ``predict_proba`` of a packed trial run the serial code. ``evaluate``
+    scores the member in the pack's shared pass. It has no
+    ``run_epoch``: a member trains only through its pack."""
+
+    def __init__(self, packed: PackedTrainLoop, index: int):
+        if not (0 <= index < packed.k):
+            raise IndexError(f"slice {index} out of pack of {packed.k}")
+        self.packed = packed
+        self.index = index
+        self.device = packed.device
+        self._module: Optional[nn.Module] = None
+
+    @property
+    def params(self) -> nn.Module:
+        if self._module is None:
+            module = copy.deepcopy(self.packed.program.base)
+            st = self.packed.state
+            for n, p in st.params.items():
+                _set_tensor(module, n, p[self.index].detach())
+            for n, b in st.buffers.items():
+                _set_tensor(module, n, b[self.index])
+            self._module = module.eval()
+        return self._module
+
+    @property
+    def state(self) -> State:
+        return self.packed.trial_state(self.index)
+
+    def evaluate(self, dataset, batch_size: int) -> float:
+        return float(self.packed.evaluate(dataset, batch_size)[self.index])
+
+    def predict_proba(self, x: np.ndarray, batch_size: int) -> np.ndarray:
+        return predict_proba(self.params, x, batch_size, self.device)
 
 
 # ---------------------------------------------------------------------------

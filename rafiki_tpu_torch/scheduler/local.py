@@ -50,6 +50,7 @@ class LocalScheduler:
         devices: Optional[List[Any]] = None,
         advisor_kind: str = "gp",
         stop_event: Optional[threading.Event] = None,
+        trial_pack: Optional[int] = None,
     ) -> TrainJobResult:
         """Run a train job to budget exhaustion. Blocking; thread-safe.
 
@@ -59,6 +60,11 @@ class LocalScheduler:
         after another; the budget is per sub-job, as in the reference.
         The devices are resolved before the job is marked RUNNING, so a
         missing card leaves the job as it was.
+
+        ``trial_pack``: each worker trains up to k same-program trials as
+        one stacked program on its device (None -> ``RAFIKI_TRIAL_PACK``,
+        default 1 = off; docs/trial_packing.md). A worker that fails the
+        packing eligibility checks runs its trials serially.
         """
         t0 = time.monotonic()
         job = self.store.get_train_job(job_id)
@@ -112,7 +118,7 @@ class LocalScheduler:
                     job["train_dataset_uri"], job["val_dataset_uri"], budget,
                     worker_id=f"{job_id[:8]}-w{i}", devices=dev_set,
                     job_created_at=job["created_at"], service_id=service["id"],
-                    stop_event=stop_event,
+                    stop_event=stop_event, trial_pack=trial_pack,
                 )
                 threads.append(threading.Thread(target=self._run_worker, args=(worker, errors),
                                                 name=f"train-worker-{i}", daemon=True))

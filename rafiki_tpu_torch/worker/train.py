@@ -23,10 +23,24 @@ Spans ``trial.total``/``build``/``train``/``evaluate``/``persist`` and
 ``worker.trials_errored``, ``worker.feedback_errors`` and
 ``worker.saver_errors``.
 
-Not ported yet: mid-trial checkpoints and resume, orphan adoption,
-trial packing (``PackedTrialRunner``), the learning-curve coordinator
-(early kill, speculation), and the chaos, journal, goodput-ledger and
-trace-context hooks.
+Trial packing (``trial_pack=k`` or ``RAFIKI_TRIAL_PACK``, default 1 =
+off; docs/trial_packing.md): :class:`PackedTrialRunner` drafts k
+proposals a round, buckets them by packing key and trains each bucket
+of two or more as one stacked program on the worker's device, keeping
+every per-trial contract of a serial trial (its row, score, feedback,
+logs, params and containment). Spans ``trial_pack.total``/``build``/
+``train``/``evaluate``, histograms ``trial_pack.size`` and
+``trial_pack.fill_ratio``, counters ``worker.packed_trials`` and
+``worker.packed_rounds``. A worker that is not eligible (another
+template base, a custom ``preprocess``, several devices or processes,
+a masked dataset) runs serially, and counts it in
+``worker.pack_ineligible``.
+
+Not ported yet: mid-trial checkpoints and resume (with the pack's
+``run_assigned``, ``PackAborted`` and per-epoch pack checkpoints),
+orphan adoption, the learning-curve coordinator (early kill,
+speculation), and the chaos, journal, goodput-ledger and trace-context
+hooks.
 """
 
 from __future__ import annotations
@@ -42,17 +56,21 @@ from typing import Any, Dict, List, Optional, Protocol
 from rafiki_tpu_torch import telemetry
 from rafiki_tpu_torch.config import get_config
 from rafiki_tpu_torch.constants import BudgetType
-from rafiki_tpu_torch.model.base import BaseModel
+from rafiki_tpu_torch.model.base import BaseModel, TorchModel
+from rafiki_tpu_torch.model.dataset import dataset_utils
 from rafiki_tpu_torch.model.knobs import Knobs, knob_config_signature
 from rafiki_tpu_torch.model.log import logger
 from rafiki_tpu_torch.obs.health import DivergenceError
+from rafiki_tpu_torch.obs.health import detector as _health
 from rafiki_tpu_torch.store import MetaStore, ParamsStore
 from rafiki_tpu_torch.utils.backend import default_device
 from rafiki_tpu_torch.utils.events import events
 
 
 class AdvisorHandle(Protocol):
-    """What the worker needs from an advisor, local or remote."""
+    """What the worker needs from an advisor, local or remote.
+    ``propose_batch(n)`` is optional: the packed runner falls back to n
+    proposals."""
 
     def propose(self) -> Knobs: ...
 
@@ -66,6 +84,9 @@ class InProcAdvisorHandle:
 
     def propose(self) -> Knobs:
         return self._svc.propose(self._id)
+
+    def propose_batch(self, n: int) -> List[Knobs]:
+        return self._svc.propose_batch(self._id, n)
 
     def feedback(self, score: float, knobs: Knobs) -> None:
         self._svc.feedback(self._id, score, knobs)
@@ -88,6 +109,7 @@ class TrainWorker:
         service_id: Optional[str] = None,
         stop_event=None,
         async_persist: bool = True,
+        trial_pack: Optional[int] = None,
     ):
         if not (isinstance(model_class, type) and issubclass(model_class, BaseModel)):
             raise TypeError("model_class must subclass BaseModel")
@@ -110,6 +132,10 @@ class TrainWorker:
         self._stop = stop_event
         self.trials_run = 0
         self._saver = _AsyncSaver(self) if async_persist else None
+        # Trial packing width (docs/trial_packing.md): 1 = off, the default.
+        if trial_pack is None:
+            trial_pack = int(os.environ.get("RAFIKI_TRIAL_PACK", "1"))
+        self.trial_pack = max(1, int(trial_pack))
         self.heartbeat_min_interval_s = get_config().trial_heartbeat_s
         self._last_heartbeat = 0.0
 
@@ -127,15 +153,18 @@ class TrainWorker:
 
     # -- one trial -----------------------------------------------------------
 
-    def run_trial(self, knobs: Knobs, budget_max: Optional[int] = None) -> Optional[dict]:
+    def run_trial(self, knobs: Knobs, budget_max: Optional[int] = None,
+                  trial: Optional[dict] = None) -> Optional[dict]:
         """Run one trial of ``knobs``. With ``budget_max`` the row insert
         claims a trial-count slot in the same transaction; None back means
-        the budget drained, and nothing ran."""
-        sig = knob_config_signature(self.model_class.get_knob_config(), knobs)
-        trial = self.store.create_trial(
-            self.sub_id, self.model_class.__name__, knobs,
-            worker_id=self.worker_id, shape_sig=sig,
-            service_id=self.service_id, budget_max=budget_max)
+        the budget drained, and nothing ran. ``trial`` is a row this
+        worker already claimed for ``knobs`` (a pack shrunk to one)."""
+        if trial is None:
+            sig = knob_config_signature(self.model_class.get_knob_config(), knobs)
+            trial = self.store.create_trial(
+                self.sub_id, self.model_class.__name__, knobs,
+                worker_id=self.worker_id, shape_sig=sig,
+                service_id=self.service_id, budget_max=budget_max)
         if trial is None:
             return None
         tid = trial["id"]
@@ -256,8 +285,22 @@ class TrainWorker:
         """Pull trials until the budget is exhausted. Returns #trials run."""
         max_trials = self.budget.get(BudgetType.MODEL_TRIAL_COUNT.value)
         budget_max = int(max_trials) if max_trials is not None else None
+        packer = None
+        if self.trial_pack > 1:
+            packer = PackedTrialRunner(self, self.trial_pack)
+            if not packer.eligible():
+                telemetry.inc("worker.pack_ineligible")
+                packer = None  # the serial loop below
         try:
             while not self.budget_exhausted():
+                if packer is not None:
+                    ran, drained = packer.run_round(budget_max)
+                    self.trials_run += ran
+                    if ran and self.service_id is not None:
+                        self.store.update_service(self.service_id, heartbeat=True)
+                    if drained:
+                        break
+                    continue
                 with telemetry.span("trial.advisor_propose", worker_id=self.worker_id):
                     knobs = self.advisor.propose()
                 # The slot claim is inside the trial-row insert; None back
@@ -273,6 +316,229 @@ class TrainWorker:
                 # return, and the saver thread exits.
                 self._saver.close()
         return self.trials_run
+
+
+class PackedTrialRunner:
+    """Drafts up to ``pack`` proposals a round, buckets them by packing
+    key, and trains each bucket of two or more as one stacked program
+    (``TorchModel.train_packed``) on the worker's device.
+
+    Every per-trial contract holds: one store row per trial, its budget
+    slot claimed atomically at creation; the trial's own score, advisor
+    feedback, TrialLog entries, persisted params and error containment,
+    as for k serial trials. Only the wall-clock is shared, so the
+    predictor's top-k and the gateway see no difference.
+    """
+
+    def __init__(self, worker: TrainWorker, pack: int):
+        self.w = worker
+        self.pack = max(1, int(pack))
+
+    def eligible(self) -> bool:
+        """Checked once per ``run()``: a packable ``TorchModel`` template,
+        one device, one process, an unmasked train dataset."""
+        w = self.w
+        if self.pack < 2:
+            return False
+        if not (isinstance(w.model_class, type) and issubclass(w.model_class, TorchModel)):
+            return False
+        if not w.model_class.packable():
+            return False
+        if w.devices is not None and len(w.devices) > 1:
+            return False
+        if int(os.environ.get("RAFIKI_NUM_PROCESSES", "1")) > 1:
+            return False
+        try:
+            if dataset_utils.load(w.train_uri).mask is not None:
+                return False
+        except Exception:
+            return False
+        return True
+
+    def _key(self, knobs: Knobs):
+        with self.w._device_scope():
+            m = self.w.model_class(**knobs)
+            return repr(m.packing_key(m._prepared_dataset(self.w.train_uri)))
+
+    def run_round(self, budget_max: Optional[int]) -> "tuple[int, bool]":
+        """One draft-bucket-train round. Returns (trials run, budget
+        drained). A proposal whose key matches no other runs serially."""
+        w = self.w
+        with telemetry.span("trial.advisor_propose", worker_id=w.worker_id):
+            batch = getattr(w.advisor, "propose_batch", None)
+            proposals = (batch(self.pack) if batch is not None
+                         else [w.advisor.propose() for _ in range(self.pack)])
+        buckets: Dict[Any, List[Knobs]] = {}
+        for kn in proposals:
+            try:
+                key = self._key(kn)
+            except Exception:
+                key = ("unpackable", id(kn))  # its own bucket: runs serially
+            buckets.setdefault(key, []).append(kn)
+        ran = 0
+        for knobs_list in buckets.values():
+            if len(knobs_list) == 1:
+                if w.run_trial(knobs_list[0], budget_max=budget_max) is None:
+                    return ran, True
+                ran += 1
+            else:
+                n, drained = self._run_packed(knobs_list, budget_max)
+                ran += n
+                if drained:
+                    return ran, True
+        return ran, False
+
+    def _create_row(self, knobs: Knobs, budget_max: Optional[int]) -> Optional[dict]:
+        w = self.w
+        return w.store.create_trial(
+            w.sub_id, w.model_class.__name__, knobs, worker_id=w.worker_id,
+            shape_sig=knob_config_signature(w.model_class.get_knob_config(), knobs),
+            service_id=w.service_id, budget_max=budget_max)
+
+    def _run_packed(self, knobs_list: List[Knobs],
+                    budget_max: Optional[int]) -> "tuple[int, bool]":
+        # All rows claimed up front, each an atomic budget slot; the pack
+        # shrinks to what the budget still allows.
+        rows: List["tuple[str, Knobs]"] = []
+        drained = False
+        claimed = None
+        for kn in knobs_list:
+            trial = self._create_row(kn, budget_max)
+            if trial is None:
+                drained = True
+                break
+            claimed = claimed or trial
+            rows.append((trial["id"], kn))
+        if not rows:
+            return 0, True
+        if len(rows) == 1:
+            # The budget shrank the pack to one: run it serially on its row.
+            out = self.w.run_trial(rows[0][1], trial=claimed)
+            return (1 if out is not None else 0), drained
+        return self._train_rows(rows, budget_max, drained)
+
+    def _train_rows(self, rows: "List[tuple[str, Knobs]]", budget_max: Optional[int],
+                    drained: bool) -> "tuple[int, bool]":
+        w = self.w
+        k = len(rows)
+        telemetry.observe("trial_pack.size", float(k))
+        telemetry.observe("trial_pack.fill_ratio", k / float(self.pack))
+        for tid, kn in rows:
+            events.emit("trial_started", trial_id=tid, sub_job_id=w.sub_id,
+                        model=w.model_class.__name__, worker_id=w.worker_id, knobs=kn)
+        models: List[BaseModel] = []
+        try:
+            with telemetry.span("trial_pack.total", worker_id=w.worker_id, k=k), \
+                    w._device_scope():
+                with telemetry.span("trial_pack.build"):
+                    models = [w.model_class(**kn) for _, kn in rows]
+
+                def heartbeat(_round: int) -> None:
+                    if w.service_id is not None:
+                        now = time.monotonic()
+                        if now - w._last_heartbeat >= w.heartbeat_min_interval_s:
+                            w._last_heartbeat = now
+                            w.store.update_service(w.service_id, heartbeat=True)
+
+                def on_evict(mi: int, epoch: int, reason: str) -> None:
+                    events.emit("pack_member_evicted", trial_id=rows[mi][0], epoch=epoch,
+                                reason=reason, worker_id=w.worker_id)
+
+                def backfill(n: int) -> List[BaseModel]:
+                    """Fresh proposals for the freed slots. One whose key
+                    differs from the live pack's is dropped before its row
+                    is claimed; the next round drafts again."""
+                    nonlocal drained
+                    if drained:
+                        return []
+                    pack_key = repr(models[0].packing_key(
+                        models[0]._prepared_dataset(w.train_uri)))
+                    out: List[BaseModel] = []
+                    for _ in range(n):
+                        try:
+                            kn = w.advisor.propose()
+                            m2 = w.model_class(**kn)
+                            if repr(m2.packing_key(m2._prepared_dataset(w.train_uri))) != pack_key:
+                                telemetry.inc("trial_pack.backfill_key_mismatch")
+                                continue
+                        except Exception:
+                            continue
+                        trial = self._create_row(kn, budget_max)
+                        if trial is None:
+                            drained = True
+                            break
+                        rows.append((trial["id"], kn))
+                        events.emit("trial_started", trial_id=trial["id"], sub_job_id=w.sub_id,
+                                    model=w.model_class.__name__, worker_id=w.worker_id,
+                                    knobs=kn)
+                        out.append(m2)
+                    return out
+
+                with telemetry.span("trial_pack.train"):
+                    histories = w.model_class.train_packed(
+                        models, w.train_uri, on_epoch=heartbeat, backfill=backfill,
+                        on_evict=on_evict)
+                # Members evicted for divergence hold the divergent state:
+                # they are not scored (a NaN score would skew the advisor).
+                verdicts = [getattr(m, "_health_verdict", None) for m in models]
+                healthy = [i for i, v in enumerate(verdicts) if v is None]
+                with telemetry.span("trial_pack.evaluate"):
+                    healthy_scores = (w.model_class.evaluate_packed(
+                        [models[i] for i in healthy], w.val_uri) if healthy else [])
+                scores: List[Optional[float]] = [None] * len(models)
+                for j, i in enumerate(healthy):
+                    scores[i] = healthy_scores[j]
+        except Exception:
+            # The pack failed as a whole: every member is ERRORED with the
+            # floor feedback, as a failing serial trial is. Nothing reruns.
+            err = traceback.format_exc()
+            for tid, kn in rows:
+                telemetry.inc("worker.trials_errored")
+                w.store.mark_trial_as_errored(tid, err)
+                events.emit("trial_errored", trial_id=tid, worker_id=w.worker_id,
+                            error=err.splitlines()[-1] if err else "")
+                w._floor_feedback(kn)
+            for m in models:
+                try:
+                    m.destroy()
+                except Exception:
+                    pass
+            return len(rows), drained
+
+        # Per-trial bookkeeping in creation order: logs, feedback,
+        # persistence, as for k serial trials.
+        for i, (tid, kn) in enumerate(rows):
+            def sink(entry, _tid=tid):
+                w.store.add_trial_log(_tid, entry)
+
+            with logger.capture(sink):
+                logger.define_plot("Training", ["loss", "acc"], x_axis="epoch")
+                for h in histories[i]:
+                    logger.log(**h)
+            if verdicts[i] is not None:
+                # The serial DivergenceError arm's contract: ERRORED with
+                # the diagnosis, floor feedback, nothing persisted.
+                v = verdicts[i]
+                telemetry.inc("worker.trials_errored")
+                w.store.mark_trial_as_errored(tid, f"diverged: {v.get('diagnosis')}")
+                events.emit("trial_diverged", trial_id=tid, worker_id=w.worker_id,
+                            divergence=v.get("divergence"), bad_step=v.get("bad_step"),
+                            diagnosis=v.get("diagnosis"))
+                _health.note_contained()
+                w._floor_feedback(kn)
+                models[i].destroy()
+                continue
+            score = float(scores[i])
+            w.advisor.feedback(score, kn)
+            telemetry.inc("worker.trials_succeeded")
+            telemetry.inc("worker.packed_trials")
+            if w._saver is not None:
+                w._saver.submit(tid, models[i], score, sink)
+            else:
+                with logger.capture(sink):
+                    w._persist(tid, models[i], score)
+        telemetry.inc("worker.packed_rounds")
+        return len(rows), drained
 
 
 class _AsyncSaver:

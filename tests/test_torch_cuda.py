@@ -146,3 +146,120 @@ def test_card_training_steps_match_cpu(cuda):
         print(r)
         for key, bound in TRAIN_PARITY_TOL.items():
             assert r[key] <= bound, (key, r)
+
+
+def _pack_run(device, dropout, batches, lrs, packed=True):
+    """Three float32 VGG11 w0.25 trials (seeds 0-2, learning rates
+    ``lrs``) over the same three steps, as one pack or as three serial
+    loops. Returns per-member rows of (loss, grad norm, non-finite,
+    params)."""
+    from rafiki_tpu_torch.convert import state_dict_to_flax
+    from rafiki_tpu_torch.models.vgg import Vgg, _Vgg
+    from rafiki_tpu_torch.ops.train import PackedTrainLoop, TrainLoop
+
+    class VggF32(Vgg):
+        def build_module(self, num_classes, input_shape):
+            return _Vgg(11, 0.25, num_classes, input_shape, dtype=torch.float32,
+                        dropout=dropout)
+
+    fns = []
+    for lr in lrs:
+        m = VggF32(device=device, **dict(SMALL, learning_rate=lr, dropout=dropout))
+        m._planned_steps = len(batches)
+        fns.append(m._loop_fns(10, (8, 8, 3)))
+    f0 = fns[0]
+    rows = [[] for _ in fns]
+    if packed:
+        loop = PackedTrainLoop(f0["init_fn"], f0["apply_eval"], f0["loss_fn"], f0["optimizer"],
+                               seeds=[0, 1, 2], hypers=[f["hyper"] for f in fns], device=device)
+        for b in batches:
+            metrics = loop.program.train_step(
+                loop.state, {k: torch.stack([v] * 3).to(loop.device) for k, v in b.items()})
+            for i in range(3):
+                module = loop.slice(i).params
+                rows[i].append((float(metrics["loss"][i]), float(metrics["health_grad_norm"][i]),
+                                int(metrics["health_nonfinite"][i]),
+                                {k: v.detach().cpu().clone()
+                                 for k, v in state_dict_to_flax(module).items()}))
+        return rows
+    for i, f in enumerate(fns):
+        loop = TrainLoop(f["init_fn"], f["apply_eval"], f["loss_fn"], f["optimizer"], seed=i,
+                         hyper=f["hyper"], device=device)
+        for b in batches:
+            loop.state, metrics = loop.program.train_step(
+                loop.state, {k: v.to(loop.device) for k, v in b.items()})
+            rows[i].append((float(metrics["loss"]), float(metrics["health_grad_norm"]),
+                            int(metrics["health_nonfinite"]),
+                            {k: v.detach().cpu().clone()
+                             for k, v in state_dict_to_flax(loop.params).items()}))
+    return rows
+
+
+# A pack of three VGG11 w0.25 trials on the card, float32, TF32 off,
+# 3 steps: against the same pack on the CPU (learning rate 1e-3, seeds
+# 0-2, dropout 0, as the two devices' random streams differ), beside the
+# serial trials' own card-vs-CPU gap; and against serial trials on the
+# card (learning rates 1e-3/3e-3/2e-3, dropout 0.2). On the CPU a pack
+# is bit-equal to its serial trials; on the card it is not, as vmap
+# reduces some gradients over other shapes than the serial step does
+# (readings of one VGG16 step: conv weight gradients 1.2e-5 apart
+# relative, GroupNorm's 6e-7, loss and dense layers equal), and Adam
+# moves an element whose gradient is rounding noise by up to lr.
+# Readings (H100, the worst of the three members and steps, over two
+# runs): pack card vs CPU loss 6.2e-5 rel, grad norm 1.3e-2, params
+# 3.4e-2 of the distance moved, as the serial trials' own card-vs-CPU
+# gap (3.5e-2; seeds 1-2 of this small network at 8x8 amplify rounding);
+# pack vs serial on the card loss 2.6e-7, grad norm 2.4e-7, params
+# 8.6e-3. Bounds: about 3x.
+PACK_CARD_VS_CPU_TOL = {"loss_rel": 2e-4, "grad_norm_rel": 4e-2, "param_rel_l2": 1e-1}
+PACK_VS_SERIAL_TOL = {"loss_rel": 8e-7, "grad_norm_rel": 8e-7, "param_rel_l2": 3e-2}
+PACK_LRS = (1e-3, 3e-3, 2e-3)
+
+
+def test_card_pack_matches_cpu_pack_and_card_serial(cuda):
+    """A pack of three trials on the card against the same pack on the
+    CPU, and the serial trials' card-vs-CPU gap beside it, held to
+    PACK_CARD_VS_CPU_TOL; then against three serial trials on the card
+    (one dropout stream per member on both paths), held to
+    PACK_VS_SERIAL_TOL."""
+    from rafiki_tpu_torch.convert import state_dict_to_flax
+    from rafiki_tpu_torch.models.vgg import Vgg
+
+    rng = np.random.default_rng(4)
+    batches = [{"x": torch.from_numpy(rng.uniform(0, 1, size=(16, 8, 8, 3)).astype(np.float32)),
+                "y": torch.from_numpy(rng.integers(0, 10, size=16).astype(np.int32))}
+               for _ in range(3)]
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    same_lr = (1e-3,) * 3
+    try:
+        pairs = {
+            "pack_card_vs_cpu": (same_lr, _pack_run(cuda, 0.0, batches, same_lr),
+                                 _pack_run("cpu", 0.0, batches, same_lr)),
+            "serial_card_vs_cpu": (same_lr, _pack_run(cuda, 0.0, batches, same_lr, packed=False),
+                                   _pack_run("cpu", 0.0, batches, same_lr, packed=False)),
+            "pack_vs_serial": (PACK_LRS, _pack_run(cuda, 0.2, batches, PACK_LRS),
+                               _pack_run(cuda, 0.2, batches, PACK_LRS, packed=False))}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    worst = {name: {"loss_rel": 0.0, "grad_norm_rel": 0.0, "param_rel_l2": 0.0}
+             for name in pairs}
+    for name, (lrs, got, want) in pairs.items():
+        for seed, lr in enumerate(lrs):
+            src = Vgg(device="cpu", **dict(SMALL, learning_rate=lr))
+            src._seed = seed
+            src.init_parameters(10, (8, 8, 3))
+            start = {k: v.clone() for k, v in state_dict_to_flax(src._module).items()}
+            for (loss_a, gn_a, nf_a, p_a), (loss_b, gn_b, nf_b, p_b) in zip(got[seed], want[seed]):
+                assert nf_a == nf_b == 0
+                num = sum(float(((p_a[k] - p_b[k]) ** 2).sum()) for k in p_a) ** 0.5
+                den = sum(float(((p_b[k] - start[k]) ** 2).sum()) for k in p_a) ** 0.5
+                r = {"loss_rel": abs(loss_a - loss_b) / loss_b,
+                     "grad_norm_rel": abs(gn_a - gn_b) / gn_b, "param_rel_l2": num / den}
+                worst[name] = {k: max(worst[name][k], r[k]) for k in r}
+    print("PACK_CARD_READINGS", worst)
+    for name, tol in (("pack_card_vs_cpu", PACK_CARD_VS_CPU_TOL),
+                      ("serial_card_vs_cpu", PACK_CARD_VS_CPU_TOL),
+                      ("pack_vs_serial", PACK_VS_SERIAL_TOL)):
+        for key, bound in tol.items():
+            assert worst[name][key] <= bound, (name, key, worst[name])

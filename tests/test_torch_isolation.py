@@ -106,6 +106,56 @@ def test_the_service_modules_need_neither_werkzeug_nor_requests():
     assert out.stdout.strip() == "[]"
 
 
+def test_a_packed_train_job_runs_with_nothing_of_jax_loaded(tmp_path):
+    """Trial packing touches the health monitor, Adam, the train step,
+    the layers, the model surface, the worker and the scheduler. Each of
+    them imports, and a job of three FeedForward trials packed by
+    ``LocalScheduler.run_train_job(trial_pack=3)`` on the CPU completes
+    in one packed round, with nothing of JAX or the JAX package loaded."""
+    touched = ("obs.health.detector", "obs.health.sentinel", "ops.optim", "ops.train",
+               "ops.layers", "model.base", "models.ff", "models.vgg", "worker.train",
+               "scheduler.local")
+    mods = _port_modules()
+    for name in touched:
+        assert f"rafiki_tpu_torch.{name}" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import torch\n"
+        "torch.set_num_threads(2)\n"
+        "from rafiki_tpu_torch import telemetry\n"
+        "from rafiki_tpu_torch.scheduler import LocalScheduler\n"
+        "from rafiki_tpu_torch.store import MetaStore, ParamsStore\n"
+        "src = open('rafiki_tpu_torch/models/ff.py', 'rb').read()\n"
+        f"store = MetaStore({str(tmp_path / 'm.sqlite3')!r})\n"
+        f"params = ParamsStore({str(tmp_path / 'p')!r})\n"
+        "model = store.create_model('ff', 'IMAGE_CLASSIFICATION', None, src, 'FeedForward')\n"
+        "uri = 'synthetic://images?classes=4&n=128&w=8&h=8&seed={}'\n"
+        "job = store.create_train_job('app', 'IMAGE_CLASSIFICATION', None, uri.format(0),\n"
+        "                             uri.format(1), {'MODEL_TRIAL_COUNT': 3})\n"
+        "store.create_sub_train_job(job['id'], model['id'])\n"
+        "class Fixed:\n"
+        "    def __init__(self): self.i = 0\n"
+        "    def __call__(self, advisor_id, n):\n"
+        "        self.i += n\n"
+        "        return [dict(hidden_layers=1, hidden_units=32, batch_size=32, epochs=1,\n"
+        "                     seed=0, learning_rate=1e-3 * (j + 1)) for j in range(n)]\n"
+        "sched = LocalScheduler(store, params)\n"
+        "sched.advisors.propose_batch = Fixed()\n"
+        "res = sched.run_train_job(job['id'], devices=[torch.device('cpu')], trial_pack=3)\n"
+        "assert res.status == 'COMPLETED', res\n"
+        "assert [t['status'] for t in res.trials] == ['COMPLETED'] * 3, res.trials\n"
+        "assert telemetry.get_counter('worker.packed_rounds') == 1\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     from rafiki_tpu_torch.models.ff import FeedForward
     from rafiki_tpu_torch.models.vgg import Vgg
