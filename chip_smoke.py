@@ -4,6 +4,7 @@ CUDA card.
 
     python3 chip_smoke.py                  # from the root of a checkout
     python3 chip_smoke.py --bf16-readings  # the readings behind BF16_GAP_ATOL
+    python3 chip_smoke.py --packed-step    # the serial and packed step alone
 
 Drives ``rafiki_tpu_torch`` the way a user serves a top-k ensemble,
 the way a tuning job runs and the way a trial trains, at the full width
@@ -90,7 +91,8 @@ Trial packing, the same canonical model and task:
      member at lr 1e-3 / dropout 0.1 is above ACC_FLOOR, and every loss
      is finite. Then one line of step times, a serial trial's and packs
      of 1, 2 and 4 on the same card, and one float32 step of a
-     one-member pack against the serial step, gradient by gradient;
+     one-member pack against the serial step, gradient by gradient,
+     which must give every gradient bit for bit;
  13. tune_job_packed: phase 6's job again with
      ``run_train_job(..., trial_pack=PACK_K)``. Its line is tune_job's
      plus the ``trial_pack.size`` and ``trial_pack.fill_ratio``
@@ -101,6 +103,28 @@ Trial packing, the same canonical model and task:
      ``evaluate``), plus ``worker.packed_rounds >= 1``, and the top-2
      served within SERVED_ACC_ATOL of their stored scores, as in 7.
 
+Checkpoints, resume and orphan recovery, the canonical model for 3
+epochs on the canonical task cut to RESUME_IMAGES images (params blobs
+stored in float32, compared byte for byte):
+
+ 14. trial_resume: one trial (batch 256, dropout 0.2) uninterrupted, its
+     params the reference; then the same knobs in a child process (a
+     ``TrainWorker`` under a service row, RAFIKI_CHECKPOINT_EVERY=1),
+     SIGKILLed once its epoch-0 checkpoint is durable; then the admin's
+     ``POST /recovery`` through its REST app (``wait: true``,
+     ``stale_after_s`` 1 s below the dead worker's silence). Fails unless
+     the trial COMPLETED, resumed from epoch 1 or later, its params equal
+     the reference's, its checkpoints are deleted and no orphan is left.
+     Prints the checkpoint's bytes, its write and restore seconds, the
+     seconds from POST to COMPLETED and the epochs trained after resume;
+ 15. pack_resume: two trials (batch 128, lr 1e-3/3e-4, dropout 0.1/0.2)
+     as one pack (``PackedTrialRunner``, checkpoints every epoch) in a
+     child process, SIGKILLed once the round-0 checkpoints are durable;
+     both recovered by ``recover_orphaned_trials`` and resumed serially.
+     Fails unless each ends byte-equal to an uninterrupted serial run of
+     its knobs. Prints each member's checkpoint bytes and the pack's
+     checkpoint seconds per round.
+
 The port has no hand-written kernel yet (the JAX package has no Pallas
 kernel to port), so the kernel line is ``{"kernels": []}``. The last
 line is ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -108,6 +132,10 @@ nonzero before it; without a CUDA device the script exits 1 at once.
 
 ``--bf16-readings`` runs only the forward-parity measurement, over 16
 other trial seeds and 4 other query sets, and prints the readings.
+``--packed-step`` runs only phase 12's profiles of the serial and the
+k=4 packed step, on random batches resident on the card, so two
+checkouts can be compared in one call. ``--resume-child`` is the child
+worker of phases 14 and 15.
 """
 
 from __future__ import annotations
@@ -959,17 +987,6 @@ def _profile_steps(step, bs, card, phase):
             "top_ops_self_device_ms_per_step": {k[:80]: v / n / 1e3 for k, v in ops[:10]}}
 
 
-# -- trial packing ------------------------------------------------------------
-PACK_K = 4
-PACK_KNOBS = dict(depth=16, width_mult=1.0, batch_size=128, epochs=1, seed=0)
-# Below the lr at which trials of the canonical job train to chance.
-PACK_MEMBERS = ({"learning_rate": 3e-4, "dropout": 0.0}, {"learning_rate": 1e-3, "dropout": 0.1},
-                {"learning_rate": 2e-3, "dropout": 0.2}, {"learning_rate": 3e-3, "dropout": 0.3})
-# A member's packed score against its serial score: the JAX package's
-# bound for packed against serial (tests/test_trial_pack.py:85).
-PACK_SCORE_ATOL = 0.02
-# The warm-up task of both paths: the canonical shapes, 8 steps.
-PACK_WARMUP_URI = "synthetic://images?classes=10&n=1024&w=32&h=32&c=3&seed=2&noise=0.35&flip=0.2"
 # -- trial packing ---------------------------------------------------------------
 
 
@@ -1124,6 +1141,8 @@ def pack_scaling(card):
         got = torch.autograd.grad(losses.sum(), list(st.params.values()))
     rel = {n: float((a - b[0]).abs().max() / a.abs().max().clamp_min(1e-30))
            for (n, _), a, b in zip(module.named_parameters(), want, got)}
+    differing = [n for (n, _), a, b in zip(module.named_parameters(), want, got)
+                 if not torch.equal(a, b[0])]
 
     def worst(prefix):
         return max(v for n, v in rel.items() if n.startswith(prefix))
@@ -1137,6 +1156,7 @@ def pack_scaling(card):
                                   for name, v in runs.items()},
             "f32_one_member_pack_vs_serial": {
                 "loss": [float(loss.detach()), float(losses[0].detach())],
+                "grads": len(want), "grads_differing": differing,
                 "grad_rel_max": {"convs": worst("convs."), "norms": worst("norms."),
                                  "dense": max(worst("fc1."), worst("fc2."))}}}
 
@@ -1403,6 +1423,356 @@ def service_journey(card):
     return line
 
 
+def packed_step_readings(card):
+    """``--packed-step``: phase 12's profiles of the serial step and of the
+    k=PACK_K packed step alone, on random batches resident on the card
+    (no task is generated), so two checkouts can be compared in one call."""
+    import torch
+
+    from rafiki_tpu_torch.models.vgg import Vgg
+    from rafiki_tpu_torch.ops.train import PackedTrainLoop, TrainLoop
+
+    fs = []
+    for m in PACK_MEMBERS[:PACK_K]:
+        model = Vgg(**dict(PACK_KNOBS, **m))
+        model._planned_steps = 50000 // PACK_KNOBS["batch_size"]
+        fs.append(model._loop_fns(NUM_CLASSES, INPUT_SHAPE))
+    k, bs = len(fs), PACK_KNOBS["batch_size"]
+    n = (2 * PROFILE_ITERS + 3) * k * bs
+    g = torch.Generator(device="cuda").manual_seed(0)
+    X = torch.rand((n,) + INPUT_SHAPE, device="cuda", generator=g)
+    Y = torch.randint(0, NUM_CLASSES, (n,), device="cuda", generator=g)
+    serial = TrainLoop(fs[1]["init_fn"], fs[1]["apply_eval"], fs[1]["loss_fn"], fs[1]["optimizer"],
+                       hyper=fs[1]["hyper"])
+    packed = PackedTrainLoop(fs[0]["init_fn"], fs[0]["apply_eval"], fs[0]["loss_fn"],
+                             fs[0]["optimizer"], seeds=list(range(k)),
+                             hypers=[f["hyper"] for f in fs])
+    it = iter(range(10 ** 6))
+
+    def serial_step():
+        i = next(it) % (n // bs)
+        serial.state, _ = serial.program.train_step(
+            serial.state, {"x": X[i * bs:(i + 1) * bs], "y": Y[i * bs:(i + 1) * bs]})
+
+    def packed_step():
+        i = next(it) % (n // (k * bs))
+        packed.program.train_step(packed.state, {
+            "x": X[i * k * bs:(i + 1) * k * bs].reshape((k, bs) + INPUT_SHAPE),
+            "y": Y[i * k * bs:(i + 1) * k * bs].reshape(k, bs)})
+
+    return {"phase": "packed_step_readings", "card": card[1], "power_limit": card[2],
+            "serial_step_profile": _profile_steps(serial_step, bs, card, "serial_step"),
+            "packed_step_profile": dict(_profile_steps(packed_step, bs, card, "packed_step"),
+                                        k=k)}
+
+
+# -- checkpoints, resume and orphan recovery ----------------------------------------
+# The canonical model and task, for 3 epochs. The task is cut from the
+# bench's 50,000 images to RESUME_IMAGES so both phases fit the script's
+# time limit; its shapes, noise and label flips are the canonical ones.
+RESUME_IMAGES = 20000
+RESUME_URI = TRAIN_URI.replace("n=50000", f"n={RESUME_IMAGES}")
+RESUME_SRC = BENCH_SRC.replace(b'"epochs": FixedKnob(1)', b'"epochs": FixedKnob(3)')
+RESUME_KNOBS = dict(depth=16, width_mult=1.0, dropout=0.2, learning_rate=1e-3, batch_size=256,
+                    epochs=3, seed=0)
+PACK_RESUME_KNOBS = (dict(RESUME_KNOBS, batch_size=128, learning_rate=1e-3, dropout=0.1),
+                     dict(RESUME_KNOBS, batch_size=128, learning_rate=3e-4, dropout=0.2))
+# The killed worker's silence the sweep waits for, at least, before it
+# calls the worker dead (stale_after_s is set 1 s below the silence).
+RESUME_SILENCE_S = 2.0
+RESUME_CHILD_TIMEOUT_S = 300
+
+
+class _FixedAdvisor:
+    """The advisor of a child worker: it proposes the given knobs."""
+
+    def __init__(self, knobs_list):
+        self.knobs_list = [dict(k) for k in knobs_list]
+
+    def propose(self):
+        return dict(self.knobs_list[0])
+
+    def propose_batch(self, n):
+        return [dict(k) for k in self.knobs_list[:n]]
+
+    def feedback(self, score, knobs):
+        pass
+
+
+def resume_child(data_dir: str, sub_id: str, service_id: str, knobs_json: str) -> int:
+    """``--resume-child``: a train worker on the card under the given
+    service row, its trials (one, or a pack of two under
+    RAFIKI_TRIAL_PACK) checkpointed every epoch (RAFIKI_CHECKPOINT_EVERY);
+    the parent kills it mid-trial."""
+    from rafiki_tpu_torch.config import Config
+    from rafiki_tpu_torch.store import MetaStore, ParamsStore
+    from rafiki_tpu_torch.utils.events import events
+    from rafiki_tpu_torch.worker.train import build_worker_from_store
+
+    cfg = Config(data_dir=__import__("pathlib").Path(data_dir)).ensure_dirs()
+    events.configure(cfg.logs_dir)
+    store, params = MetaStore(cfg.db_path), ParamsStore(cfg.params_dir)
+    worker = build_worker_from_store(store, params, sub_id, _FixedAdvisor(json.loads(knobs_json)),
+                                     worker_id="resume-child", async_persist=False)
+    worker.service_id = service_id
+    worker.run()
+    return 0
+
+
+def _resume_setup(trials: int):
+    """A fresh data dir holding the template, a job of ``trials`` trials
+    and a running train-worker service row."""
+    import tempfile
+    from pathlib import Path
+
+    from rafiki_tpu_torch.config import Config
+    from rafiki_tpu_torch.constants import ServiceStatus, ServiceType
+    from rafiki_tpu_torch.store import MetaStore
+
+    cfg = Config(data_dir=Path(tempfile.mkdtemp(prefix="rafiki-resume-")) / "data").ensure_dirs()
+    store = MetaStore(cfg.db_path)
+    model = store.create_model("bench-vgg-3", "IMAGE_CLASSIFICATION", None, RESUME_SRC, "BenchVgg")
+    job = store.create_train_job("resume", "IMAGE_CLASSIFICATION", None, RESUME_URI, EVAL_URI,
+                                 {"MODEL_TRIAL_COUNT": trials})
+    sub = store.create_sub_train_job(job["id"], model["id"])
+    svc = store.create_service(ServiceType.TRAIN_WORKER.value, job_id=job["id"], worker_index=0)
+    store.update_service(svc["id"], status=ServiceStatus.RUNNING.value, heartbeat=True)
+    store.close()
+    return cfg, sub["id"], svc["id"]
+
+
+def _kill_after_checkpoints(cfg, sub_id, svc_id, knobs_list, env_extra, label):
+    """Run the child worker and SIGKILL it once every one of its trials'
+    epoch-0 checkpoint is durable. Fails unless the child was alive
+    until the kill. Returns the trial ids and the seconds the child ran."""
+    import os
+    import signal
+
+    from rafiki_tpu_torch.store import MetaStore, ParamsStore
+
+    env = dict(os.environ, RAFIKI_CHECKPOINT_EVERY="1", **env_extra)
+    t0 = time.monotonic()
+    child = subprocess.Popen([sys.executable, __file__, "--resume-child", str(cfg.data_dir),
+                              sub_id, svc_id, json.dumps(knobs_list)], env=env)
+    store, params = MetaStore(cfg.db_path), ParamsStore(cfg.params_dir)
+    try:
+        while True:
+            if child.poll() is not None:
+                fail(f"{label}: the child worker exited with {child.returncode} before the kill")
+            if time.monotonic() - t0 > RESUME_CHILD_TIMEOUT_S:
+                fail(f"{label}: no epoch-0 checkpoint after {RESUME_CHILD_TIMEOUT_S} s")
+            tids = [t["id"] for t in store.get_trials_of_sub_train_job(sub_id)]
+            if len(tids) == len(knobs_list) and all(params.exists(f"{t}_ckpt_0") for t in tids):
+                break
+            time.sleep(0.02)
+        child.send_signal(signal.SIGKILL)
+        rc = child.wait(timeout=60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=60)
+        store.close()
+    if rc != -signal.SIGKILL:
+        fail(f"{label}: the child worker ended with {rc}, not by the kill")
+    return tids, time.monotonic() - t0
+
+
+def _wait_silence(store, svc_id) -> float:
+    """Wait until the killed worker's service has been silent for
+    RESUME_SILENCE_S; returns a stale_after_s 1 s below its silence."""
+    svc = store.get_service(svc_id)
+    silence = time.time() - svc["heartbeat_at"]
+    if silence < RESUME_SILENCE_S:
+        time.sleep(RESUME_SILENCE_S - silence)
+    return time.time() - svc["heartbeat_at"] - 1.0
+
+
+def _reference_blob(cls, knobs, ckpt_timer=None) -> bytes:
+    """An uninterrupted serial trial of ``knobs`` on the card: its params
+    blob (float32 in these phases)."""
+    m = cls(**knobs)
+    if ckpt_timer is not None:
+        m.set_checkpoint_sink(ckpt_timer)
+    m.train(RESUME_URI)
+    blob = m.dump_parameters()
+    m.destroy()
+    return blob
+
+
+def _resume_events(events, tids):
+    out = {t: {"written": [], "resumed": [], "restore_failed": []} for t in tids}
+    for name, key in (("checkpoint_written", "written"), ("trial_resumed", "resumed"),
+                      ("checkpoint_restore_failed", "restore_failed")):
+        for e in events.read(name):
+            if e.get("trial_id") in out:
+                out[e["trial_id"]][key].append(e)
+    return out
+
+
+def trial_resume(card):
+    """Phase 14: a canonical trial killed after its epoch-0 checkpoint,
+    recovered through the admin's POST /recovery. Returns the line."""
+    import shutil
+    import urllib.request
+
+    import torch
+
+    from rafiki_tpu_torch.admin import Admin
+    from rafiki_tpu_torch.admin.app import AdminApp
+    from rafiki_tpu_torch.model.base import load_model_class
+    from rafiki_tpu_torch.store import ParamsStore
+    from rafiki_tpu_torch.utils.events import events
+    from rafiki_tpu_torch.utils.httpd import start_server
+
+    cls = load_model_class(RESUME_SRC, "BenchVgg")
+    cfg, sub_id, svc_id = _resume_setup(1)
+    # The reference, and the seconds to take and write a checkpoint (and
+    # to restore it) on the card, each epoch.
+    timing = {"write_s": [], "bytes": [], "restore_s": []}
+    ref_store = ParamsStore(cfg.data_dir / "reference")
+
+    def ckpt_timer(epoch, make_blob):
+        t0 = time.monotonic()
+        blob = make_blob()
+        ref_store.save_checkpoint("reference", epoch, blob)
+        timing["write_s"].append(time.monotonic() - t0)
+        timing["bytes"].append(len(blob))
+        t0 = time.monotonic()
+        m = cls(**RESUME_KNOBS)
+        m.restore_checkpoint(ref_store.load(f"reference_ckpt_{epoch}"))
+        torch.cuda.synchronize()
+        timing["restore_s"].append(time.monotonic() - t0)
+        m.destroy()
+
+    t0 = time.monotonic()
+    ref = _reference_blob(cls, RESUME_KNOBS, ckpt_timer)
+    ref_s = time.monotonic() - t0
+    line = {"phase": "trial_resume", "card": card[1], "power_limit": card[2],
+            "knobs": RESUME_KNOBS, "train_uri": RESUME_URI,
+            "cut": f"task images {RESUME_IMAGES} of the canonical 50000",
+            "reference_s": ref_s, "reference_checkpoint": timing}
+    tids, child_s = _kill_after_checkpoints(cfg, sub_id, svc_id, [RESUME_KNOBS], {}, "trial_resume")
+    tid = tids[0]
+    admin = Admin(config=cfg)  # on the card
+    server, _ = start_server(AdminApp(admin))
+    try:
+        opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+        url = f"http://127.0.0.1:{server.server_port}"
+
+        def post(path, body, token=None):
+            headers = {"Content-Type": "application/json"}
+            if token:
+                headers["Authorization"] = f"Bearer {token}"
+            req = urllib.request.Request(url + path, data=json.dumps(body).encode(),
+                                         method="POST", headers=headers)
+            with opener.open(req, timeout=RESUME_CHILD_TIMEOUT_S) as r:
+                return r.status, json.loads(r.read())
+
+        _, tok = post("/tokens", {"email": cfg.superadmin_email,
+                                  "password": cfg.superadmin_password})
+        ckpt_bytes = admin.params_store.size(f"{tid}_ckpt_0")
+        stale = _wait_silence(admin.store, svc_id)
+        t0 = time.monotonic()
+        status, rows = post("/recovery", {"stale_after_s": stale, "wait": True}, tok["token"])
+        post_s = _synced_s(t0)
+        trial = admin.store.get_trial(tid)
+        stored = admin.params_store.load(trial["params_id"]) if trial["params_id"] else None
+        ev = _resume_events(events, [tid])[tid]
+        line.update({
+            "device": str(admin.services.device),
+            "child_s": child_s, "stale_after_s": stale, "post_status": status,
+            "recovered": [(r["id"], r["status"]) for r in rows],
+            "status": trial["status"], "score": trial["score"],
+            "checkpoint_bytes": ckpt_bytes,
+            "child_checkpoint_write_s": [e.get("seconds") for e in ev["written"]],
+            "restore_s": [e.get("seconds") for e in ev["resumed"]],
+            "resumed_from_epoch": [e.get("from_epoch") for e in ev["resumed"]],
+            "restore_failed": len(ev["restore_failed"]),
+            "post_to_completed_s": post_s,
+            "epochs_trained_after_resume": [RESUME_KNOBS["epochs"] - e.get("from_epoch")
+                                            for e in ev["resumed"]],
+            "params_byte_equal": stored == ref,
+            "checkpoints_left": admin.params_store.latest_checkpoint(tid) is not None,
+            "orphans_left": len(admin.store.get_orphaned_trials(stale)),
+        })
+    finally:
+        server.shutdown()
+        server.server_close()
+        admin.stop()
+        events.close()
+        shutil.rmtree(cfg.data_dir.parent, ignore_errors=True)
+    return line
+
+
+def pack_resume(card):
+    """Phase 15: two canonical trials trained as one pack, killed after
+    the round-0 checkpoints, each recovered serially through
+    ``recover_orphaned_trials``. Returns the line."""
+    import shutil
+
+    from rafiki_tpu_torch.model.base import load_model_class
+    from rafiki_tpu_torch.scheduler.recovery import recover_orphaned_trials
+    from rafiki_tpu_torch.store import MetaStore, ParamsStore
+    from rafiki_tpu_torch.utils.backend import resolve_device
+    from rafiki_tpu_torch.utils.events import events
+
+    cls = load_model_class(RESUME_SRC, "BenchVgg")
+    t0 = time.monotonic()
+    refs = [_reference_blob(cls, kn) for kn in PACK_RESUME_KNOBS]
+    ref_s = time.monotonic() - t0
+    cfg, sub_id, svc_id = _resume_setup(len(PACK_RESUME_KNOBS))
+    line = {"phase": "pack_resume", "card": card[1], "power_limit": card[2],
+            "device": str(resolve_device()),
+            "knobs": list(PACK_RESUME_KNOBS), "train_uri": RESUME_URI,
+            "cut": f"task images {RESUME_IMAGES} of the canonical 50000",
+            "serial_references_s": ref_s}
+    tids, child_s = _kill_after_checkpoints(cfg, sub_id, svc_id, list(PACK_RESUME_KNOBS),
+                                            {"RAFIKI_TRIAL_PACK": str(len(PACK_RESUME_KNOBS))},
+                                            "pack_resume")
+    events.configure(cfg.logs_dir)
+    store, params = MetaStore(cfg.db_path), ParamsStore(cfg.params_dir)
+    try:
+        trials = {t["id"]: t for t in store.get_trials_of_sub_train_job(sub_id)}
+        order = sorted(tids, key=lambda t: trials[t]["no"])
+        ckpt_bytes = [params.size(f"{t}_ckpt_0") for t in order]
+        stale = _wait_silence(store, svc_id)
+        t0 = time.monotonic()
+        rows = recover_orphaned_trials(store, params, stale_after_s=stale)
+        recover_s = _synced_s(t0)
+        ev = _resume_events(events, order)
+        rounds = {}
+        for t in order:
+            for e in ev[t]["written"]:
+                r = rounds.setdefault(e["epoch"], {"slice_s": e.get("slice_seconds"), "write_s": 0.0})
+                r["write_s"] += e.get("seconds") or 0.0
+        final = [store.get_trial(t) for t in order]
+        stored = [params.load(t["params_id"]) if t["params_id"] else None for t in final]
+        knobs_of = [final[i]["knobs"] for i in range(len(order))]
+        line.update({
+            "child_s": child_s, "stale_after_s": stale, "recover_s": recover_s,
+            "recovered": [(r["id"], r["status"]) for r in rows],
+            "status": [t["status"] for t in final], "scores": [t["score"] for t in final],
+            "member_knobs": knobs_of,
+            "checkpoint_bytes_per_member": ckpt_bytes,
+            "pack_checkpoint_s_per_round": {str(k): v["slice_s"] + v["write_s"]
+                                            for k, v in sorted(rounds.items())},
+            "pack_checkpoint_rounds": {str(k): v for k, v in sorted(rounds.items())},
+            "resumed_from_epoch": [[e.get("from_epoch") for e in ev[t]["resumed"]] for t in order],
+            "restore_s": [[e.get("seconds") for e in ev[t]["resumed"]] for t in order],
+            "restore_failed": sum(len(ev[t]["restore_failed"]) for t in order),
+            # Member i's params against the serial run of its own knobs.
+            "params_byte_equal": [kn in PACK_RESUME_KNOBS and stored[i] == refs[
+                PACK_RESUME_KNOBS.index(kn)] for i, kn in enumerate(knobs_of)],
+            "checkpoints_left": sum(params.latest_checkpoint(t) is not None for t in order),
+            "orphans_left": len(store.get_orphaned_trials(stale)),
+        })
+    finally:
+        store.close()
+        events.close()
+        shutil.rmtree(cfg.data_dir.parent, ignore_errors=True)
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -1416,6 +1786,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if sys.argv[1:] == ["--bf16-readings"]:
         return bf16_readings()
+    if sys.argv[1:2] == ["--resume-child"] and len(sys.argv) == 6:
+        return resume_child(*sys.argv[2:])
+    if sys.argv[1:] == ["--packed-step"]:
+        card = card_identity()
+        print(card[0])
+        print(json.dumps(packed_step_readings(card)))
+        return 0
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}")
     card = card_identity()
@@ -1586,6 +1963,10 @@ def main() -> int:
           f"{pack['packed_scores'][member]} < {ACC_FLOOR}")
     scaling = pack_scaling(card)
     print(json.dumps(scaling))
+    one = scaling["f32_one_member_pack_vs_serial"]
+    check(one["loss"][0] == one["loss"][1] and not one["grads_differing"],
+          f"pack_scaling: a one-member pack's float32 step is not the serial step: loss "
+          f"{one['loss']}, gradients differing {one['grads_differing']}")
     torch.cuda.empty_cache()
     tune_rows, pjob, best = tune_job(card, trial_pack=PACK_K)
     pjob["serial_job_completed_trials_per_hour"] = job["completed_trials_per_hour"]
@@ -1613,6 +1994,50 @@ def main() -> int:
     check(max(served["abs_diff"]) <= SERVED_ACC_ATOL,
           f"tune job packed: served accuracy disagrees with the stored score: {served}")
     del best
+
+    # -- 14.-15. checkpoints, resume and orphan recovery -----------------------
+    import os
+
+    torch.cuda.empty_cache()
+    prev_dtype = os.environ.get("RAFIKI_TPU_SERVING_PARAMS_DTYPE")
+    os.environ["RAFIKI_TPU_SERVING_PARAMS_DTYPE"] = "float32"  # blobs compared bit for bit
+    try:
+        resumed = trial_resume(card)
+        print(json.dumps(resumed))
+        torch.cuda.empty_cache()
+        presumed = pack_resume(card)
+        print(json.dumps(presumed))
+    finally:
+        if prev_dtype is None:
+            os.environ.pop("RAFIKI_TPU_SERVING_PARAMS_DTYPE", None)
+        else:
+            os.environ["RAFIKI_TPU_SERVING_PARAMS_DTYPE"] = prev_dtype
+    check(resumed["post_status"] == 200 and resumed["status"] == "COMPLETED"
+          and [s for _, s in resumed["recovered"]] == ["COMPLETED"],
+          f"trial_resume: POST /recovery {resumed['post_status']}, recovered "
+          f"{resumed['recovered']}, trial {resumed['status']}")
+    check(resumed["resumed_from_epoch"] and min(resumed["resumed_from_epoch"]) >= 1
+          and not resumed["restore_failed"],
+          f"trial_resume: resumed from {resumed['resumed_from_epoch']}, "
+          f"{resumed['restore_failed']} restores failed")
+    check(resumed["params_byte_equal"],
+          "trial_resume: the recovered trial's params differ from the uninterrupted run's")
+    check(not resumed["checkpoints_left"] and resumed["orphans_left"] == 0,
+          f"trial_resume: checkpoints left {resumed['checkpoints_left']}, orphans left "
+          f"{resumed['orphans_left']}")
+    check(presumed["status"] == ["COMPLETED"] * len(PACK_RESUME_KNOBS)
+          and len(presumed["recovered"]) == len(PACK_RESUME_KNOBS),
+          f"pack_resume: recovered {presumed['recovered']}, members {presumed['status']}")
+    check(all(r and min(r) >= 1 for r in presumed["resumed_from_epoch"])
+          and not presumed["restore_failed"],
+          f"pack_resume: resumed from {presumed['resumed_from_epoch']}, "
+          f"{presumed['restore_failed']} restores failed")
+    check(all(presumed["params_byte_equal"]),
+          f"pack_resume: members' params against their serial runs: "
+          f"{presumed['params_byte_equal']}")
+    check(presumed["checkpoints_left"] == 0 and presumed["orphans_left"] == 0,
+          f"pack_resume: checkpoints left {presumed['checkpoints_left']}, orphans left "
+          f"{presumed['orphans_left']}")
 
     # -- kernels and the result line -------------------------------------------
     print(json.dumps({"kernels": []}))

@@ -10,8 +10,9 @@ The REST app (app.py) is a thin shim over this class, which is equally
 usable in-process.
 
 ``device``: CUDA unless the caller asks for the CPU; it raises without
-CUDA. Not ported yet: ``recover_trials`` (the recovery sweep), and
-within-trial data parallelism, so ``devices_per_trial`` must be 1.
+CUDA. ``recover_trials`` re-runs orphaned trials on that device. Not
+ported yet: within-trial data parallelism, so ``devices_per_trial``
+must be 1.
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ class Admin:
         # Serializes inference-job creation per process: the duplicate
         # check below is check-then-act and the REST server is threaded.
         self._inference_lock = threading.Lock()
+        self._recoveries: List[threading.Thread] = []  # recover_trials(wait=False)
         events.configure(self.config.logs_dir)
         self._seed_superadmin()
 
@@ -299,9 +301,43 @@ class Admin:
                                "in this process")
         return gateway.predict(queries)
 
+    # -- recovery ------------------------------------------------------------
+
+    def recover_trials(self, stale_after_s: Optional[float] = None,
+                       wait: bool = True) -> List[dict]:
+        """Sweep for orphaned RUNNING trials (dead or silent workers) and
+        re-run them on the admin's device, each from its newest mid-trial
+        checkpoint when one exists. ``stale_after_s`` defaults to the
+        config's ``worker_stale_after_s``.
+
+        ``wait=False`` finds the orphans and re-runs them on a
+        background thread (re-training can outlast an HTTP request); the
+        rows returned are then the orphans as found. ``stop`` waits for
+        such a sweep to end."""
+        from rafiki_tpu_torch.scheduler.recovery import recover_orphaned_trials
+
+        stale = stale_after_s if stale_after_s is not None \
+            else self.config.worker_stale_after_s
+        orphans = self.store.get_orphaned_trials(stale)
+        if not orphans:
+            return []
+        kwargs = {"stale_after_s": stale, "orphans": orphans,
+                  "devices": [self.services.device]}
+        if wait:
+            return [_public_trial(t) for t in
+                    recover_orphaned_trials(self.store, self.params_store, **kwargs)]
+        sweep = threading.Thread(target=recover_orphaned_trials,
+                                 args=(self.store, self.params_store), kwargs=kwargs,
+                                 name="recovery-sweep", daemon=True)
+        self._recoveries.append(sweep)
+        sweep.start()
+        return [_public_trial(t) for t in orphans]
+
     # -- lifecycle -----------------------------------------------------------
 
     def stop(self) -> None:
+        for sweep in self._recoveries:
+            sweep.join()
         self.services.stop_all()
         self.store.close()
 

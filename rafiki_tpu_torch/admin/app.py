@@ -30,12 +30,14 @@ Route table:
   GET  /inference_jobs/<app>[/<v>]   inference job detail
   POST /inference_jobs/<app>[/<v>]/stop
   POST /predict/<app>                run queries through the ensemble
+  POST /recovery                     re-run orphaned trials (admin;
+                                     {"stale_after_s", "wait"}, wait
+                                     false by default)
   GET  /advisors/<id>/propose, POST /advisors/<id>/feedback
   GET  /healthz                      liveness
   GET  /metrics                      telemetry snapshot (JSON)
 
-Not ported yet: the web UI at ``/``, ``POST /recovery`` and
-``/metrics?format=prom``.
+Not ported yet: the web UI at ``/`` and ``/metrics?format=prom``.
 """
 
 from __future__ import annotations
@@ -80,6 +82,7 @@ _ROUTES = [
     ("GET", rf"/inference_jobs/{_APP}{_VERSION}", "get_inference_job"),
     ("POST", rf"/inference_jobs/{_APP}{_VERSION}/stop", "stop_inference_job"),
     ("POST", rf"/predict/{_APP}", "predict"),
+    ("POST", r"/recovery", "recover"),
     ("GET", r"/advisors/(?P<advisor_id>[^/]+)/propose", "advisor_propose"),
     ("POST", r"/advisors/(?P<advisor_id>[^/]+)/feedback", "advisor_feedback"),
 ]
@@ -313,6 +316,15 @@ class AdminApp:
         queries = body.get("queries", [])
         preds = self.admin.predict(app, queries, int(body.get("app_version", -1)))
         return json_response({"predictions": jsonable(preds)})
+
+    def ep_recover(self, request: Request) -> Response:
+        self._auth(request, [UserType.ADMIN.value])
+        body = self._body(request)
+        stale = body.get("stale_after_s")
+        # Asynchronous by default: re-training orphans can outlive any
+        # HTTP timeout.
+        return json_response(self.admin.recover_trials(
+            float(stale) if stale is not None else None, wait=bool(body.get("wait", False))))
 
     def ep_advisor_propose(self, request: Request, advisor_id: str) -> Response:
         self._auth(request)

@@ -2,7 +2,8 @@
 
 The port's own copy of ``rafiki_tpu/config.py``, cut to the fields the
 port reads: storage paths, the admin's address, the superadmin seed,
-auth, the trial heartbeat, and serving with its gateway limits. Each
+auth, the trial heartbeat and the age at which a silent worker counts as
+dead, and serving with its gateway limits. Each
 field keeps its name, default and environment override
 (``RAFIKI_TPU_<FIELD>``), so one environment configures both packages
 alike. Not ported yet: ``serving_params_dtype`` and the fields of the
@@ -43,8 +44,11 @@ class Config:
     jwt_ttl_hours: int = 24
 
     # Scheduling: the least seconds between two service heartbeats a
-    # trial's log sink writes (worker/train.py).
+    # trial's log sink writes (worker/train.py), and the heartbeat age
+    # past which a RUNNING trial's worker counts as dead (the recovery
+    # sweep's default, admin/admin.py recover_trials).
     trial_heartbeat_s: float = 5.0
+    worker_stale_after_s: float = 60.0
 
     # Serving
     predict_timeout_s: float = 10.0

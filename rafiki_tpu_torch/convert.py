@@ -24,7 +24,7 @@ call order).
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -71,10 +71,15 @@ def flax_names(module: nn.Module) -> Iterator[Tuple[str, str, nn.Module, str]]:
                 break
 
 
-def state_dict_to_flax(module: nn.Module) -> Dict[str, torch.Tensor]:
+def state_dict_to_flax(module: nn.Module,
+                       tensors: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
     """The module's parameters as the JAX package's flat params dict
-    (flax layouts, the module's dtypes and device; views, not copies)."""
+    (flax layouts, the module's dtypes and device; views, not copies).
+    With ``tensors`` (one per parameter, in ``module.parameters()``
+    order, such as Adam's moments), those under the parameters' names."""
     params = dict(module.named_parameters())
+    if tensors is not None:
+        params = dict(zip(params, tensors))
     return {fkey: _to_flax_layout(layer, pname, params[tkey].detach())
             for tkey, fkey, layer, pname in flax_names(module)}
 

@@ -21,23 +21,32 @@ Trial packing (docs/trial_packing.md): ``packable``, ``packing_key``,
 trials as one stacked program (``ops/train.py PackedTrainLoop``), each
 member ending where a serial ``train()`` of its trial ends.
 
-Not ported yet: ``make_optimizer`` (the custom-optimizer path),
-``dump_checkpoint`` / ``restore_checkpoint`` and the checkpoint sink
-(so ``train_packed`` takes no ``checkpoint_sink``), the learning-curve
-kill (so it takes no ``kill_predicate``), and the dp mesh.
+Mid-trial checkpoints: ``set_checkpoint_sink``, ``dump_checkpoint`` and
+``restore_checkpoint`` write and read the JAX package's payload (``arch``,
+``state_packed``, ``epoch``, ``planned_steps``, ``dataset_meta``; the
+RTPK1 tree is described above ``GENERATOR_KEY``), so a checkpoint of either
+package resumes in the other; ``train()`` starts at the restored epoch,
+and ``train_packed``'s ``checkpoint_sink`` writes one serial-format
+checkpoint per member. ``make_optimizer`` is the legacy complete-
+optimizer hook; ``parse_model_install_command`` checks a template's
+dependencies.
+
+Not ported yet: the learning-curve kill (so ``train_packed`` takes no
+``kill_predicate``) and the dp mesh.
 """
 
 from __future__ import annotations
 
 import abc
 import functools
+import importlib.util
 import inspect
 import math
 import os
 import pickle
 import sys
 import types
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -49,7 +58,7 @@ from rafiki_tpu_torch.model.knobs import KnobConfig, Knobs, validate_knobs
 from rafiki_tpu_torch.model.log import logger
 from rafiki_tpu_torch.ops import train as _ops
 from rafiki_tpu_torch.ops.layers import GroupNorm
-from rafiki_tpu_torch.ops.optim import scale_by_adam
+from rafiki_tpu_torch.ops.optim import Adam, AdamState, ScaleByAdamState, adam, linear_schedule, scale_by_adam
 from rafiki_tpu_torch.utils.backend import DeviceLike, resolve_device
 from rafiki_tpu_torch.utils.serial import dump_flat, load_flat
 
@@ -126,6 +135,8 @@ class TorchModel(BaseModel):
         self._arch = None
         self._seed = int(self.knobs.get("seed", 0))
         self._dataset_meta: Dict[str, Any] = {}
+        self._ckpt_sink = None  # set by the worker for mid-trial checkpoints
+        self._start_epoch = 0  # > 0 after restore_checkpoint
 
     @property
     def _module(self) -> Optional[nn.Module]:
@@ -165,6 +176,16 @@ class TorchModel(BaseModel):
         planned = getattr(self, "_planned_steps", None) or 1000
         return int(self.knobs.get("warmup_steps", min(100, max(1, planned // 10))))
 
+    def make_optimizer(self):
+        """Legacy override hook: return a complete optimizer (the lr baked
+        in; ``ops/optim.py adam``). A template that overrides it opts out
+        of the per-trial lr path: its step applies the optimizer's
+        updates as they are, every knob but the seed keys its program,
+        and its trials do not pack. Prefer ``make_base_optimizer`` and
+        the lr knob. The default is optax's ``adam(linear_schedule(0,
+        lr, warmup))``."""
+        return adam(linear_schedule(0.0, self.learning_rate, self._warmup_steps()))
+
     def preprocess(self, x: np.ndarray) -> np.ndarray:
         """Optional input transform. MUST NOT modify ``x`` in place;
         return a new array."""
@@ -193,17 +214,25 @@ class TorchModel(BaseModel):
             hyper["dropout"] = float(self.knobs["dropout"])
         return hyper
 
-    def _program_key(self, num_classes: int, input_shape: tuple, takes_dropout: bool):
+    def _program_key(self, num_classes: int, input_shape: tuple, takes_dropout: bool,
+                     custom_opt: bool):
         """What reaches the step's computation, apart from the knobs that
         reach it only through the hyper dict or not at all
         (``ops/train.py DYNAMIC_KNOBS``; ``dropout`` only when the module
         takes it as a rate): the template, the arch and the baked knobs.
-        The JAX package keys its program cache on it; the port keys trial
-        packing on it."""
-        dyn = set(_ops.DYNAMIC_KNOBS) if takes_dropout else set(_ops.DYNAMIC_KNOBS) - {"dropout"}
+        A custom ``make_optimizer`` may bake any knob and the planned
+        step count, so only the seed is left out and the planned steps
+        are keyed in. The JAX package keys its program cache on it; the
+        port keys trial packing on it."""
+        if custom_opt:
+            dyn = {"seed"}
+            extra = (getattr(self, "_planned_steps", None),)
+        else:
+            dyn = set(_ops.DYNAMIC_KNOBS) if takes_dropout else set(_ops.DYNAMIC_KNOBS) - {"dropout"}
+            extra = ()
         baked = tuple(sorted((k, repr(v)) for k, v in self.knobs.items() if k not in dyn))
         return (type(self).__module__, type(self).__qualname__, num_classes,
-                tuple(input_shape), baked, False)
+                tuple(input_shape), baked, custom_opt) + extra
 
     def _health_model_identity(self) -> Dict[str, Any]:
         return {"module": type(self).__module__, "qualname": type(self).__qualname__,
@@ -235,14 +264,22 @@ class TorchModel(BaseModel):
             return self.loss(batch, generator,
                              functools.partial(apply_train, module, hyper=hyper))
 
+        custom_opt = type(self).make_optimizer is not TorchModel.make_optimizer
+        hyper = self._dynamic_hyper(takes_dropout)
+        if custom_opt:
+            optimizer = self.make_optimizer()
+            hyper.pop("lr", None)  # the lr lives inside the custom optimizer
+            hyper.pop("warmup", None)
+        else:
+            optimizer = self.make_base_optimizer()
         return {
             "module": module,
             "init_fn": init_fn,
             "apply_eval": apply_eval,
             "loss_fn": loss_fn,
-            "optimizer": self.make_base_optimizer(),
-            "hyper": self._dynamic_hyper(takes_dropout),
-            "program_key": self._program_key(num_classes, input_shape, takes_dropout),
+            "optimizer": optimizer,
+            "hyper": hyper,
+            "program_key": self._program_key(num_classes, input_shape, takes_dropout, custom_opt),
         }
 
     def _build_loop(self, num_classes: int, input_shape: tuple,
@@ -298,9 +335,14 @@ class TorchModel(BaseModel):
             model=self._health_model_identity(), train_uri=dataset_uri, batch_size=self.batch_size, seed=self._seed,
             planned_steps=self._planned_steps)
         logger.define_plot("Training", ["loss", "acc"], x_axis="epoch")
-        for epoch in range(self.epochs):
+        for epoch in range(self._start_epoch, self.epochs):
             metrics = self._loop.run_epoch(ds, self.batch_size, epoch_seed=self._seed + epoch)
             logger.log(epoch=epoch, **metrics)
+            self._epochs_done = epoch
+            if self._ckpt_sink is not None:
+                # The sink decides whether to take this epoch's snapshot
+                # (a device-to-host copy of the whole train state).
+                self._ckpt_sink(epoch, self.dump_checkpoint)
             if self.should_stop_early(epoch, metrics):
                 break
 
@@ -317,8 +359,11 @@ class TorchModel(BaseModel):
     def packable(cls) -> bool:
         """Whether instances may join a trial pack. A pack shares one
         device-resident dataset, so a template with its own
-        ``preprocess`` (which may depend on per-trial knobs) may not."""
-        return cls.preprocess is TorchModel.preprocess
+        ``preprocess`` (which may depend on per-trial knobs) may not; and
+        a pack scales each member's updates by its own ``lr``, so neither
+        may a template with its own ``make_optimizer``."""
+        return (cls.preprocess is TorchModel.preprocess
+                and cls.make_optimizer is TorchModel.make_optimizer)
 
     def packing_key(self, ds: Dataset):
         """Two models train in one pack iff their keys are equal: the same
@@ -355,18 +400,26 @@ class TorchModel(BaseModel):
         live slices of it, which :meth:`evaluate_packed` scores in one
         shared pass.
 
-        ``checkpoint_sink`` (per-epoch checkpoints of the pack) and
-        ``kill_predicate`` (the learning-curve kill) are not ported yet;
+        ``checkpoint_sink(round, make_blobs)``, when given, fires after
+        each round, before ``on_epoch``; ``make_blobs()`` returns one
+        serial-format checkpoint blob per current member as ``[(model
+        index, epoch, blob), ...]``, each stamped with that member's own
+        epoch counter and sliced out of the live pack (the pack itself
+        is never serialized), so a killed pack's members resume serially
+        through :meth:`restore_checkpoint`. A member restored from a
+        checkpoint (``_start_epoch > 0``) is refused: it resumes serially.
+
+        ``kill_predicate`` (the learning-curve kill) is not ported yet;
         anything but None is refused.
         """
-        if checkpoint_sink is not None:
-            raise NotImplementedError("packed checkpoints are not ported to rafiki_tpu_torch")
         if kill_predicate is not None:
             raise NotImplementedError("the learning-curve kill is not ported to rafiki_tpu_torch")
         from rafiki_tpu_torch.obs.health import detector as _detector
 
         if not models:
             return []
+        if any(m._start_epoch > 0 for m in models):
+            raise ValueError("packed trials cannot resume from checkpoint")
         lead = models[0]
         ds = lead._prepared_dataset(dataset_uri)
         key = repr(lead.packing_key(ds))
@@ -412,6 +465,7 @@ class TorchModel(BaseModel):
             batch_size=batch_size, planned_steps=planned,
             member_info=lambda j: {"model": models[slots[j]]._health_model_identity(),
                                    "seed": models[slots[j]]._seed})
+        portable = _portable_meta(dict(ds.meta))
         rnd = 0
         while slots:
             # Serial parity: a member's shuffle seed is its seed plus its
@@ -420,6 +474,10 @@ class TorchModel(BaseModel):
                                    [models[mi]._seed + epochs_done[mi] for mi in slots])
             for j, mi in enumerate(slots):
                 histories[mi].append(dict(mts[j], epoch=epochs_done[mi]))
+            if checkpoint_sink is not None:
+                ents = [(mi, epochs_done[mi], models[mi]._seed) for mi in slots]
+                checkpoint_sink(rnd, lambda e=ents: cls._packed_checkpoint_blobs(
+                    packed, arch, e, planned, portable))
             if on_epoch is not None:
                 on_epoch(rnd)
             rnd += 1
@@ -479,6 +537,31 @@ class TorchModel(BaseModel):
                     slots.append(mi2)
                     epochs_done[mi2] = 0
         return histories
+
+    @staticmethod
+    def _packed_checkpoint_blobs(packed: _ops.PackedTrainLoop, arch, entries, planned_steps,
+                                 dataset_meta) -> List[tuple]:
+        """Serial-format checkpoint blobs out of a live pack, one per
+        current member. ``entries`` is ``[(model index, epoch, seed),
+        ...]`` in slot order; returns ``[(model index, epoch, blob),
+        ...]``. Each member's state comes from ``trial_state(i)``, and
+        every member's device-to-host copies start before any blob is
+        assembled, so the k transfers overlap. The payload is
+        :meth:`dump_checkpoint`'s: :meth:`restore_checkpoint` cannot
+        tell a pack-sliced snapshot from a serial one."""
+        trees = []
+        for i, (_, _, seed) in enumerate(entries):
+            state = packed.trial_state(i)
+            trees.append((_state_tree(state, seed), _generator_state(state[3])))
+        hosts = _to_host([t for t, _ in trees])
+        return [(mi, epoch, pickle.dumps({
+            "arch": arch,
+            "state_packed": dump_flat(host, cast_f32_to_bf16=False),
+            "epoch": epoch,
+            "planned_steps": planned_steps,
+            "dataset_meta": dataset_meta,
+            GENERATOR_KEY: gen,
+        })) for (mi, epoch, _), host, (_, gen) in zip(entries, hosts, trees)]
 
     @classmethod
     def evaluate_packed(cls, models: List["TorchModel"], dataset_uri: str) -> List[float]:
@@ -549,6 +632,164 @@ class TorchModel(BaseModel):
     def destroy(self) -> None:
         self._loop = None
 
+    # -- mid-trial checkpoints -----------------------------------------------
+
+    def set_checkpoint_sink(self, sink) -> None:
+        """Install a per-epoch checkpoint hook: ``sink(epoch, make_blob)``,
+        where ``make_blob()`` returns the whole train state's snapshot.
+        The train worker wires it to the params store, so a trial
+        outlives its worker."""
+        self._ckpt_sink = sink
+
+    def dump_checkpoint(self) -> bytes:
+        """The whole train state, to resume from: params, Adam's moments
+        and counts, the step, the hyper scalars and the dropout
+        generator (``dump_parameters`` holds the params alone, for
+        serving). Full precision, in the JAX package's payload and RTPK1
+        tree (see ``GENERATOR_KEY``), so either package restores it."""
+        if self._loop is None:
+            raise RuntimeError("No state to checkpoint: model not trained")
+        state = self._loop.state
+        payload = {
+            "arch": self._arch,
+            "state_packed": dump_flat(_to_host([_state_tree(state, self._seed)])[0],
+                                      cast_f32_to_bf16=False),
+            "epoch": getattr(self, "_epochs_done", 0),
+            "planned_steps": getattr(self, "_planned_steps", None),
+            "dataset_meta": _portable_meta(self._dataset_meta),
+            GENERATOR_KEY: _generator_state(state[3]),
+        }
+        return pickle.dumps(payload)
+
+    def restore_checkpoint(self, blob: bytes) -> int:
+        """Restore a ``dump_checkpoint`` snapshot of either package;
+        returns the epoch to resume from, which ``train()`` starts at. A
+        state that does not fit this template's layout keeps its params
+        and step, with a fresh optimizer, as the JAX package's salvage
+        does. The dropout generator is the blob's own where it was
+        written on this device type, else seeded from the trial's seed
+        as a fresh trial's is."""
+        payload = pickle.loads(blob)
+        if "state_packed" not in payload:
+            raise ValueError("checkpoint is in the legacy flax-msgpack format, which "
+                             "rafiki_tpu_torch cannot read")
+        num_classes, input_shape = payload["arch"]
+        self._dataset_meta = payload.get("dataset_meta", {})
+        if payload.get("planned_steps"):
+            self._planned_steps = payload["planned_steps"]
+        self._build_loop(num_classes, tuple(input_shape))
+        flat = load_flat(payload["state_packed"])
+        module, _, _, generator, hyper = self._loop.state
+        optimizer = self._loop.program.optimizer
+        try:
+            module.load_state_dict(flax_to_state_dict(_subtree(flat, "0"), module))
+        except (KeyError, ValueError) as e:
+            raise ValueError(f"checkpoint params do not fit the template: {e}") from e
+        try:
+            opt = _opt_from_tree(_subtree(flat, "1"), module, optimizer)
+            hyper = {k: v.float() for k, v in _subtree(flat, "4").items()}
+            if sorted(hyper) != sorted(self._loop.hyper):
+                raise KeyError(f"hyper keys {sorted(hyper)} != {sorted(self._loop.hyper)}")
+        except (KeyError, ValueError, TypeError):
+            opt = None  # salvage: the params and step, a fresh optimizer
+            hyper = self._loop.hyper
+        step = int(flat["2"]) if "2" in flat else 0
+        gen = payload.get(GENERATOR_KEY)
+        if gen is not None and gen["device"] == generator.device.type:
+            generator.set_state(torch.frombuffer(bytearray(gen["state"]), dtype=torch.uint8))
+        self._loop.state = (module, opt, step, generator, hyper)
+        self._start_epoch = int(payload["epoch"]) + 1
+        return self._start_epoch
+
+
+# -- checkpoint payloads ---------------------------------------------------
+#
+# The state tree is the JAX package's ``(params, opt_state, step, rng,
+# hyper)`` tuple, flattened as its RTPK1 blobs are: ``0/<flax params>``,
+# ``1/count``, ``1/mu/<...>``, ``1/nu/<...>`` (``1/0/...`` and
+# ``1/1/count`` for ``adam``'s chain), ``2`` (int32 step), ``3`` (a
+# uint32[2] threefry key) and ``4/<hyper>`` (float32). The port's
+# dropout stream is a torch generator, which threefry cannot carry:
+# ``3`` holds ``PRNGKey(seed)``, and the generator's state travels
+# under its own payload key, which the JAX package does not read.
+
+GENERATOR_KEY = "torch_generator"
+
+
+def _subtree(flat: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    p = prefix + "/"
+    return {k[len(p):]: v for k, v in flat.items() if k.startswith(p)}
+
+
+def _adam_tree(st: ScaleByAdamState, module: nn.Module, prefix: str) -> Dict[str, Any]:
+    params = list(module.parameters())
+    mu = st.mu if st.mu is not None else [torch.zeros_like(p) for p in params]
+    nu = st.nu if st.nu is not None else [torch.zeros_like(p) for p in params]
+    tree: Dict[str, Any] = {f"{prefix}count": np.int32(st.count)}
+    tree.update({f"{prefix}mu/{k}": v for k, v in state_dict_to_flax(module, mu).items()})
+    tree.update({f"{prefix}nu/{k}": v for k, v in state_dict_to_flax(module, nu).items()})
+    return tree
+
+
+def _state_tree(state, seed: int) -> Dict[str, Any]:
+    """A serial train state as the JAX package's flat checkpoint tree
+    (views of the device tensors)."""
+    module, opt, step, _, hyper = state
+    tree: Dict[str, Any] = {f"0/{k}": v for k, v in state_dict_to_flax(module).items()}
+    if isinstance(opt, AdamState):
+        tree.update(_adam_tree(opt.adam, module, "1/0/"))
+        tree["1/1/count"] = np.int32(opt.count)
+    else:
+        tree.update(_adam_tree(opt or ScaleByAdamState(0, None, None), module, "1/"))
+    tree["2"] = np.int32(step)
+    tree["3"] = np.array([0, int(seed) & 0xFFFFFFFF], np.uint32)
+    tree.update({f"4/{k}": v for k, v in hyper.items()})
+    return tree
+
+
+def _adam_from_tree(flat: Dict[str, torch.Tensor], module: nn.Module) -> ScaleByAdamState:
+    params = list(module.parameters())
+
+    def moments(name: str) -> List[torch.Tensor]:
+        sd = flax_to_state_dict(_subtree(flat, name), module)
+        return [torch.empty_like(p).copy_(sd[n]) for (n, _), p in
+                zip(module.named_parameters(), params)]
+
+    return ScaleByAdamState(count=int(flat["count"]), mu=moments("mu"), nu=moments("nu"))
+
+
+def _opt_from_tree(flat: Dict[str, torch.Tensor], module: nn.Module, optimizer):
+    """The optimizer state of ``optimizer``'s kind out of a checkpoint's
+    ``1/`` subtree; raises KeyError or ValueError where it does not fit."""
+    if isinstance(optimizer, Adam):
+        return AdamState(adam=_adam_from_tree(_subtree(flat, "0"), module),
+                         count=int(flat["1/count"]))
+    return _adam_from_tree(flat, module)
+
+
+def _generator_state(generator: torch.Generator) -> Dict[str, Any]:
+    return {"device": generator.device.type, "state": bytes(generator.get_state().numpy())}
+
+
+def _to_host(trees: Sequence[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """Every tensor of ``trees`` on the host. From a card, each copy goes
+    into pinned memory without waiting, all of them started before one
+    synchronize (the counterpart of jax's ``copy_to_host_async``)."""
+    out, cards = [], set()
+    for tree in trees:
+        host = {}
+        for k, v in tree.items():
+            if isinstance(v, torch.Tensor) and v.device.type == "cuda":
+                buf = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                buf.copy_(v.detach(), non_blocking=True)
+                cards.add(v.device)
+                v = buf
+            host[k] = v
+        out.append(host)
+    for device in cards:
+        torch.cuda.synchronize(device)
+    return out
+
 
 def _lecun_init(module: nn.Module, generator: torch.Generator) -> None:
     """Conv and dense kernels from flax's lecun_normal (a normal truncated
@@ -605,3 +846,14 @@ def load_model_class(model_file_bytes: bytes, model_class: str) -> type:
         del sys.modules[name]
         raise ValueError(f"{model_class} must subclass rafiki_tpu_torch BaseModel")
     return cls
+
+
+def parse_model_install_command(dependencies: Dict[str, str]) -> List[str]:
+    """The declared dependencies that do not import here (nothing is
+    installed; the reference generated a pip command instead)."""
+    missing = []
+    for dep in dependencies or {}:
+        pkg = {"scikit-learn": "sklearn", "Pillow": "PIL"}.get(dep, dep.replace("-", "_"))
+        if importlib.util.find_spec(pkg) is None:
+            missing.append(dep)
+    return missing

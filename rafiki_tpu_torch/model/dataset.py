@@ -1,7 +1,8 @@
 """Dataset utilities: URI-addressed datasets and fixed-shape batching.
 
 The port's own copy of ``rafiki_tpu/model/dataset.py`` (numpy only),
-covering what the training slice loads: ``Dataset`` with ``batches``,
+covering what the training slice loads: ``Dataset`` with ``batches``
+and ``split``,
 ``synthetic_images``, ``.npz`` image files, and the ``dataset_utils``
 front door with its process-wide LRU cache. The same URI gives the same
 arrays, byte for byte, as the JAX package's loader.
@@ -24,7 +25,7 @@ import os
 import threading
 import urllib.parse
 from dataclasses import dataclass, field
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -47,6 +48,19 @@ class Dataset:
     @property
     def size(self) -> int:
         return int(self.x.shape[0])
+
+    def split(self, frac: float, seed: int = 0) -> Tuple["Dataset", "Dataset"]:
+        """Deterministic shuffled split into (first, second) with
+        ``|first| = int(frac * N)``: the JAX package's permutation,
+        ``np.random.default_rng(seed).permutation(N)``."""
+        order = np.random.default_rng(seed).permutation(self.size)
+        k = int(self.size * frac)
+
+        def take(idx: np.ndarray) -> "Dataset":
+            return Dataset(self.x[idx], self.y[idx], self.classes,
+                           None if self.mask is None else self.mask[idx], dict(self.meta))
+
+        return take(order[:k]), take(order[k:])
 
     def batches(
         self,

@@ -54,27 +54,23 @@ def bundle(loss: torch.Tensor, grads: Sequence[torch.Tensor],
 
 
 def bundle_packed(losses: torch.Tensor, grads: Sequence[torch.Tensor],
-                  updates: Sequence[torch.Tensor], params: Sequence[torch.Tensor]
+                  updates: Sequence[Sequence[torch.Tensor]], params: Sequence[torch.Tensor]
                   ) -> Dict[str, torch.Tensor]:
     """Per-member health stats of a pack step, each of shape ``(k,)``:
-    ``losses`` is ``(k,)``, the others stacked ``(k, ...)`` leaves. Each
-    norm is taken per member slice of each leaf and then over the
-    member's L leaves, as :func:`bundle` takes it over one trial's."""
+    ``losses`` is ``(k,)``, ``grads`` and ``params`` stacked ``(k, ...)``
+    leaves, ``updates`` k lists of member updates. Each member's norms
+    are :func:`bundle`'s over its slices, so they are its serial norms."""
     k = losses.shape[0]
 
-    def norms(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
-        slices = [t.unbind(0) for t in leaves]
-        f32 = [s[i] if s[i].dtype == torch.float32 else s[i].float()
-               for i in range(k) for s in slices]
-        per_leaf = torch.stack(torch._foreach_norm(f32)).reshape(k, -1)
-        return torch.linalg.vector_norm(per_leaf, dim=1)
+    def norms(members: Sequence[Sequence[torch.Tensor]]) -> torch.Tensor:
+        return torch.stack([_norm(m) for m in members])
 
     flat = torch.cat([g.reshape(k, -1) for g in grads], dim=1)
     nonfinite = flat.shape[1] - torch.isfinite(flat).sum(dim=1)
     return {
-        "health_grad_norm": norms(grads),
+        "health_grad_norm": norms([[g[i] for g in grads] for i in range(k)]),
         "health_update_norm": norms(updates),
-        "health_param_norm": norms(params),
+        "health_param_norm": norms([[p[i] for p in params] for i in range(k)]),
         "health_nonfinite": nonfinite + (~torch.isfinite(losses)).to(nonfinite.dtype),
     }
 

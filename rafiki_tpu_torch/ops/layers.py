@@ -22,7 +22,8 @@ another order, so the stacked forward bit-matches the serial ones.
 The unwrapped convs record their backward under the pack's outer
 autograd like any op on the vmapped tensors underneath. ``linear`` does
 the same for the dense layers, whose vmapped form adds the bias after
-a rounded matmul.
+a rounded matmul, and ``GroupNorm`` where autograd records a pack's
+step (its class doc says why).
 """
 
 from __future__ import annotations
@@ -87,9 +88,41 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, padding: int = 0) -> torch.Ten
     return F.conv2d(x, weight, None, padding=padding)
 
 
+def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int,
+               eps: float, dtype: torch.dtype) -> torch.Tensor:
+    """GroupNorm of an NC... tensor with flax's numerics (module doc)."""
+    n, c = x.shape[0], x.shape[1]
+    spatial = x.shape[2:]
+    g = num_groups
+    ones = (1,) * len(spatial)
+    xf = x.float()
+    # Reduce over a contiguous copy: torch's CPU reduction order
+    # follows the memory layout, which differs between a channels-last
+    # activation and the same activation batched under vmap.
+    grouped = xf.contiguous().reshape((n, g, c // g) + tuple(spatial))
+    axes = tuple(range(2, grouped.dim()))
+    mean = grouped.mean(axes, keepdim=True)
+    mean2 = (grouped * grouped).mean(axes, keepdim=True)
+    var = torch.clamp_min(mean2 - mean * mean, 0.0)
+    # Per-group stats repeated to per-channel, as flax's jnp.repeat.
+    mean_c = mean.expand((n, g, c // g) + ones).reshape((n, c) + ones)
+    inv_c = torch.rsqrt(var + eps).expand((n, g, c // g) + ones).reshape((n, c) + ones)
+    mul = inv_c * weight.reshape((1, c) + ones)
+    y = (xf - mean_c) * mul + bias.reshape((1, c) + ones)
+    return y.to(dtype)
+
+
 class GroupNorm(nn.Module):
     """GroupNorm over NC... input with flax's numerics. ``weight`` is
-    flax's ``scale``."""
+    flax's ``scale``.
+
+    Where autograd records a pack's step (the ``weight`` stacked under
+    vmap, grad enabled), it runs once per member: the backward of the
+    vmapped form reduces the affine and statistic gradients over
+    ``(k, N, ...)`` shapes, which the card's reduction kernels split in
+    another order than the serial ``(N, ...)`` ones. Without grad (the
+    stacked serving forward, a pack's eval) the vmapped form stands:
+    its forward values are the serial ones."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6,
                  dtype: torch.dtype = torch.bfloat16):
@@ -106,25 +139,12 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n, c = x.shape[0], x.shape[1]
-        spatial = x.shape[2:]
-        g = self.num_groups
-        ones = (1,) * len(spatial)
-        xf = x.float()
-        # Reduce over a contiguous copy: torch's CPU reduction order
-        # follows the memory layout, which differs between a channels-last
-        # activation and the same activation batched under vmap.
-        grouped = xf.contiguous().reshape((n, g, c // g) + tuple(spatial))
-        axes = tuple(range(2, grouped.dim()))
-        mean = grouped.mean(axes, keepdim=True)
-        mean2 = (grouped * grouped).mean(axes, keepdim=True)
-        var = torch.clamp_min(mean2 - mean * mean, 0.0)
-        # Per-group stats repeated to per-channel, as flax's jnp.repeat.
-        mean_c = mean.expand((n, g, c // g) + ones).reshape((n, c) + ones)
-        inv_c = torch.rsqrt(var + self.eps).expand((n, g, c // g) + ones).reshape((n, c) + ones)
-        mul = inv_c * self.weight.reshape((1, c) + ones)
-        y = (xf - mean_c) * mul + self.bias.reshape((1, c) + ones)
-        return y.to(self.dtype)
+        def norm(w, xi, b):
+            return group_norm(xi, w, b, self.num_groups, self.eps, self.dtype)
+
+        if torch.is_grad_enabled() and _functorch.is_batchedtensor(self.weight):
+            return _per_member(norm, self.weight, x, self.bias)
+        return norm(self.weight, x, self.bias)
 
     def extra_repr(self) -> str:
         return f"{self.num_groups}, {self.num_channels}, eps={self.eps}, dtype={self.dtype}"

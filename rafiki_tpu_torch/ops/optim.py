@@ -23,18 +23,24 @@ same as from optax's zero-initialised state.
 
 A pack of k trials (``ops/train.py PackedTrainLoop``) keeps one step
 count per member: members admitted mid-pack sit at other steps than
-their pack-mates. There ``count`` is a tuple of k ints, each leaf is
-stacked along a leading trial axis, and the bias corrections are a
-vector of k float32 values, computed on the host as for one trial and
-broadcast over the leading axis. Every other operand is the serial
-one, and a division by a broadcast float32 value is the division by
-that scalar, so a member's update equals its serial update bit for bit.
+their pack-mates. There ``count`` is a tuple of k ints and each leaf is
+stacked along a leading trial axis. The moments update on the stacked
+leaves (elementwise products and sums, the same on every slice); the
+bias-corrected quotient runs once per member on its slices, with the
+serial ops and scalars. On the card a division by a host scalar and
+one by a broadcast device tensor run different kernels, which need not
+round alike, so only the serial ops give a member its serial update
+bit for bit.
+
+``adam`` and ``linear_schedule`` are optax's complete optimizer and
+schedule, for templates that override ``make_optimizer``: the update is
+the core's, scaled by ``-schedule(count)``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -51,18 +57,6 @@ class ScaleByAdamState:
 _COUNT_MAX = int(np.iinfo(np.int32).max)
 
 
-def member_vector(values: Sequence[float], like: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """The k float32 ``values`` on the device of ``like``'s stacked
-    leaves, as one ``(k, 1, ...)`` view per leaf to broadcast over it.
-    To a card the copy goes from pinned memory without waiting, so no
-    step waits for the device."""
-    t = torch.tensor(values, dtype=torch.float32)
-    device = like[0].device
-    if device.type == "cuda":
-        t = t.pin_memory().to(device, non_blocking=True)
-    return [t.view((len(values),) + (1,) * (leaf.dim() - 1)) for leaf in like]
-
-
 class ScaleByAdam:
     def __init__(self, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         self.b1, self.b2, self.eps = b1, b2, eps
@@ -76,40 +70,98 @@ class ScaleByAdam:
         return float(np.float32(1.0) - np.float32(beta) ** np.float32(count))
 
     def update(self, grads: Sequence[torch.Tensor], state: ScaleByAdamState
-               ) -> Tuple[List[torch.Tensor], ScaleByAdamState]:
+               ) -> Tuple[list, ScaleByAdamState]:
         """The updates for ``grads``; the moments are updated in place.
 
-        With an int ``count``, one trial. With a tuple of k counts, a
-        pack: ``grads``, the moments and the updates are stacked leaves,
-        and each member's slice gets its own bias corrections."""
+        With an int ``count``, one trial: a list of updates. With a tuple
+        of k counts, a pack: ``grads`` and the moments are stacked leaves,
+        and the updates are k lists, member i's computed from its own
+        slices of the moments by the serial ops, so they are its serial
+        updates bit for bit on every device."""
         grads = list(grads)
         if state.mu is None:
             mu = [torch.zeros_like(g) for g in grads]
             nu = [torch.zeros_like(g) for g in grads]
         else:
             mu, nu = state.mu, state.nu
-        if isinstance(state.count, int):
-            count = min(state.count + 1, _COUNT_MAX)
-            bc1 = self._bias_correction(self.b1, count)
-            bc2 = self._bias_correction(self.b2, count)
-        else:
-            count = tuple(min(c + 1, _COUNT_MAX) for c in state.count)
-            bc1 = member_vector([self._bias_correction(self.b1, c) for c in count], grads)
-            bc2 = member_vector([self._bias_correction(self.b2, c) for c in count], grads)
+        # The moments are elementwise products and sums: the same on a
+        # stacked leaf as on each member's slice.
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - self.b1))
         sq = torch._foreach_mul(grads, grads)
         torch._foreach_mul_(sq, 1.0 - self.b2)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_add_(nu, sq)
-        denom = torch._foreach_div(nu, bc2)
+        if isinstance(state.count, int):
+            count = min(state.count + 1, _COUNT_MAX)
+            return self._scale(mu, nu, count), ScaleByAdamState(count=count, mu=mu, nu=nu)
+        counts = tuple(min(c + 1, _COUNT_MAX) for c in state.count)
+        updates = [self._scale([m[i] for m in mu], [v[i] for v in nu], c)
+                   for i, c in enumerate(counts)]
+        return updates, ScaleByAdamState(count=counts, mu=mu, nu=nu)
+
+    def _scale(self, mu: List[torch.Tensor], nu: List[torch.Tensor],
+               count: int) -> List[torch.Tensor]:
+        """``(mu / bc1) / (sqrt(nu / bc2) + eps)`` for one trial."""
+        denom = torch._foreach_div(nu, self._bias_correction(self.b2, count))
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        updates = torch._foreach_div(mu, bc1)
+        updates = torch._foreach_div(mu, self._bias_correction(self.b1, count))
         torch._foreach_div_(updates, denom)
-        return updates, ScaleByAdamState(count=count, mu=mu, nu=nu)
+        return updates
 
 
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> ScaleByAdam:
     """optax's name for the transform."""
     return ScaleByAdam(b1, b2, eps)
+
+
+def linear_schedule(init_value: float, end_value: float,
+                    transition_steps: int) -> Callable[[int], float]:
+    """``optax.linear_schedule``: ``count -> (init - end) * (1 - c / T) +
+    end`` with ``c = clip(count, 0, T)``, in float32 as optax computes
+    it; a constant ``init_value`` when ``T <= 0``."""
+    def schedule(count: int) -> float:
+        if transition_steps <= 0:
+            return float(np.float32(init_value))
+        c = np.float32(min(max(int(count), 0), transition_steps))
+        frac = np.float32(1.0) - c / np.float32(transition_steps)
+        return float(np.float32(init_value - end_value) * frac + np.float32(end_value))
+    return schedule
+
+
+@dataclass
+class AdamState:
+    """``optax.adam``'s state: the core's, and ``scale_by_schedule``'s
+    count (the updates made before this one)."""
+    adam: ScaleByAdamState
+    count: int
+
+
+class Adam:
+    """``optax.adam(learning_rate)``, a complete optimizer: the lr-free
+    core, then ``-learning_rate(count)`` with ``count`` the number of
+    earlier updates (optax's ``scale_by_schedule``). A train step whose
+    hyper dict has no ``lr`` applies its updates as they are. One trial
+    only: a pack scales by each member's ``hyper["lr"]``."""
+
+    def __init__(self, learning_rate: Union[float, Callable[[int], float]],
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.core = ScaleByAdam(b1, b2, eps)
+        self.schedule = (learning_rate if callable(learning_rate)
+                         else (lambda count: float(np.float32(learning_rate))))
+
+    def init(self, params: Sequence[torch.Tensor]) -> AdamState:
+        return AdamState(adam=self.core.init(params), count=0)
+
+    def update(self, grads: Sequence[torch.Tensor], state: AdamState
+               ) -> Tuple[List[torch.Tensor], AdamState]:
+        updates, core = self.core.update(grads, state.adam)
+        torch._foreach_mul_(updates, -self.schedule(state.count))
+        return updates, AdamState(adam=core, count=min(state.count + 1, _COUNT_MAX))
+
+
+def adam(learning_rate: Union[float, Callable[[int], float]], b1: float = 0.9,
+         b2: float = 0.999, eps: float = 1e-8) -> Adam:
+    """optax's name for the complete optimizer."""
+    return Adam(learning_rate, b1, b2, eps)

@@ -29,10 +29,14 @@ generators and hyper values are stacked along a leading trial axis; the
 forward is ``torch.func.vmap`` over ``functional_call``, and the
 gradients are plain autograd of the sum of the k losses with respect to
 the stacked leaves (member i's loss reads only slice i, so slice i's
-gradient is member i's own). Convolutions run once per member
-(``ops/layers.py conv2d``) and each member's dropout mask comes from its
-own generator (:class:`PackedGenerators`), so member i computes what a
-serial ``TrainLoop(seed_i, hyper_i)`` computes. The JAX package caches
+gradient is member i's own). Convolutions, dense layers and, where
+autograd records, GroupNorm run once per member (``ops/layers.py``);
+Adam's bias-corrected quotient, the learning rate and the sentinel
+norms run once per member with the serial ops; each member's dropout
+mask comes from its own generator (:class:`PackedGenerators`); and on
+the card training selects cuDNN's deterministic algorithms. So member i
+computes bit for bit what a serial ``TrainLoop(seed_i, hyper_i)``
+computes, on the CPU and on the card. The JAX package caches
 compiled packed programs under ``packed_program_key``; the port has no
 program cache (see :class:`Program`), so it has no such key either.
 
@@ -64,7 +68,7 @@ from torch.profiler import record_function
 from rafiki_tpu_torch import telemetry
 from rafiki_tpu_torch.obs.health import DivergenceError, HealthMonitor
 from rafiki_tpu_torch.obs.health import sentinel as _sentinel
-from rafiki_tpu_torch.ops.optim import ScaleByAdamState, member_vector, scale_by_adam
+from rafiki_tpu_torch.ops.optim import ScaleByAdamState, adam, scale_by_adam
 from rafiki_tpu_torch.utils.backend import DeviceLike, resolve_device
 
 Batch = Dict[str, torch.Tensor]
@@ -162,6 +166,17 @@ def _count_correct(logits: torch.Tensor, y: torch.Tensor,
     return correct.sum(), mask.sum()
 
 
+def _deterministic_convs(device: torch.device) -> None:
+    """Train on the card with cuDNN's deterministic algorithms. Without
+    them a pack member's conv backward, on the serial step's shapes and
+    inputs, need not give the serial step's bits, and a member must be
+    its serial trial bit for bit (a killed pack's members resume
+    serially from their checkpoints). Process-wide and never undone, so
+    every trial of the process runs the same algorithms."""
+    if device.type == "cuda":
+        torch.backends.cudnn.deterministic = True
+
+
 def _make_step_fns(apply_fn, loss_fn, optimizer):
     """The single-trial step closures: (train_step, eval_step).
 
@@ -181,7 +196,8 @@ def _make_step_fns(apply_fn, loss_fn, optimizer):
                 if opt_state is None:
                     opt_state = optimizer.init(params)
                 updates, opt_state = optimizer.update(grads, opt_state)
-                torch._foreach_mul_(updates, -float(effective_lr(hyper, step_i)))
+                if "lr" in hyper:  # else the optimizer is complete (make_optimizer)
+                    torch._foreach_mul_(updates, -float(effective_lr(hyper, step_i)))
                 torch._foreach_add_(params, updates)
             # The sentinels read the step's tensors; they never touch the
             # dropout stream or the update arithmetic.
@@ -208,6 +224,7 @@ class Program:
     """
 
     def __init__(self, apply_fn, loss_fn, optimizer):
+        self.optimizer = optimizer
         self.train_step, self.eval_step = _make_step_fns(apply_fn, loss_fn, optimizer)
 
     def train_epoch(self, state: State, X: torch.Tensor, Y: torch.Tensor,
@@ -292,8 +309,10 @@ class TrainLoop:
         the CPU ``generator`` seeded with ``seed``.
     apply_fn: ``(module, batch) -> logits`` (eval mode).
     loss_fn: ``(module, batch, generator, hyper) -> (loss, metrics)``.
-    optimizer: lr-free update core (default: ``scale_by_adam()``); the
-        step scales its output by ``-effective_lr(hyper, step)``.
+    optimizer: with ``lr`` in ``hyper``, an lr-free update core (default
+        ``scale_by_adam()``) whose output the step scales by
+        ``-effective_lr(hyper, step)``; without, a complete optimizer
+        (default ``adam(1e-3)``) whose updates apply as they are.
     seed: seeds the init draw and the dropout stream.
     hyper: per-trial float32 scalars: ``lr``, ``warmup``, and
         ``dropout`` where the module takes a rate.
@@ -309,8 +328,10 @@ class TrainLoop:
                  hyper: Optional[Dict[str, float]] = None, initial_state=None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
-        self.program = Program(apply_fn, loss_fn,
-                               optimizer if optimizer is not None else scale_by_adam())
+        _deterministic_convs(self.device)
+        if optimizer is None:
+            optimizer = scale_by_adam() if "lr" in (hyper or {}) else adam(1e-3)
+        self.program = Program(apply_fn, loss_fn, optimizer)
         self.health = HealthMonitor(f"serial:{id(self)}")
         self._warm = False
         if initial_state is None:
@@ -324,6 +345,11 @@ class TrainLoop:
     @property
     def params(self) -> nn.Module:
         return self.state[0]
+
+    @property
+    def hyper(self) -> Hyper:
+        """The trial's float32 hyper scalars (``lr``, ``warmup``, ...)."""
+        return self.state[4]
 
     def _fits_device_fast_path(self, dataset) -> bool:
         """x/y datasets small enough to live on the device run as one
@@ -538,12 +564,13 @@ class PackedProgram:
             grads = torch.autograd.grad(losses.sum(), leaves)
         with torch.no_grad():
             with record_function("train.adam"):
+                # k lists of updates; each member's -effective_lr from its
+                # own step count, applied to its slices as a serial step.
                 updates, state.opt = self.optimizer.update(grads, state.opt)
-                # Each member's -effective_lr, from its own step count.
-                lrs = [-float(effective_lr(state.member_hyper(i), state.steps[i]))
-                       for i in range(k)]
-                torch._foreach_mul_(updates, member_vector(lrs, leaves))
-                torch._foreach_add_(leaves, updates)
+                for i in range(k):
+                    torch._foreach_mul_(updates[i], -float(effective_lr(state.member_hyper(i),
+                                                                        state.steps[i])))
+                    torch._foreach_add_([p[i] for p in leaves], updates[i])
             with record_function("train.sentinel"):
                 losses = losses.detach()
                 health = _sentinel.bundle_packed(losses, grads, updates, leaves)
@@ -620,6 +647,7 @@ class PackedTrainLoop:
             raise ValueError("a pack scales its updates by each member's hyper['lr']; "
                              "none was given")
         self.device = resolve_device(device)
+        _deterministic_convs(self.device)
         self.packing_key = packing_key
         self._init_fn = init_fn
         draws = [self._draw(s) for s in seeds]

@@ -6,10 +6,13 @@ with the same SQLite schema, queries and atomic trial-slot claim
 package reads the same in the other. Ported: users (with listing and
 banning), models (with listing), train jobs (+ per-model sub-jobs),
 trials (knobs JSON, score, params ref, status, logs), inference jobs
-and services. The orphan-adoption and recovery queries wait for the
-slice that first calls them; so does the chaos hook on service
-heartbeats. Writes are short transactions; trial claiming uses an
-atomic UPDATE so concurrent workers never double-run a trial.
+and services, and the recovery queries (``mark_trial_as_running``,
+the compare-and-swap ``adopt_trial``, ``mark_trial_as_terminated``,
+``get_orphaned_trials``) in the same SQL, so either package adopts the
+other's orphans. The dead-supervisor query of the sweep resume and the
+chaos hook on service heartbeats are not ported yet. Writes are short
+transactions; trial claiming uses an atomic UPDATE so concurrent
+workers never double-run a trial.
 """
 
 from __future__ import annotations
@@ -359,6 +362,68 @@ class MetaStore:
                 "UPDATE trials SET status=?, error=?, stopped_at=? WHERE id=?",
                 (TrialStatus.ERRORED.value, error[:4000], _now(), trial_id),
             )
+
+    def mark_trial_as_running(self, trial_id: str,
+                              service_id: Optional[str] = None,
+                              worker_id: Optional[str] = None) -> None:
+        """Re-adopt a trial for resume: back to RUNNING, stale error and
+        stop time cleared, and, when the adopter passes its identity,
+        rebound to the new service and worker, so a concurrent recovery
+        sweep sees a live owner."""
+        with self._conn() as c:
+            c.execute(
+                "UPDATE trials SET status=?, error=NULL, stopped_at=NULL,"
+                " started_at=?,"
+                " service_id=COALESCE(?, service_id),"
+                " worker_id=COALESCE(?, worker_id)"
+                " WHERE id=?",
+                (TrialStatus.RUNNING.value, _now(), service_id, worker_id, trial_id))
+
+    def adopt_trial(self, trial_id: str, prev_service_id: Optional[str],
+                    service_id: str, worker_id: str,
+                    expected_status: Optional[str] = None) -> bool:
+        """Take ownership of an orphaned trial, atomically: a
+        compare-and-swap on (status, service_id). It succeeds only while
+        the trial still has the status the sweep observed (RUNNING by
+        default) and is still bound to the service it observed, so two
+        concurrent sweeps adopt each orphan once (the loser's UPDATE
+        matches no row), and a worker that finished the trial meanwhile
+        keeps its terminal status."""
+        expected = expected_status or TrialStatus.RUNNING.value
+        with self._conn() as c:
+            cur = c.execute(
+                "UPDATE trials SET status=?, error=NULL, stopped_at=NULL,"
+                " started_at=?, service_id=?, worker_id=?"
+                " WHERE id=? AND status=? AND service_id IS ?",
+                (TrialStatus.RUNNING.value, _now(), service_id, worker_id,
+                 trial_id, expected, prev_service_id))
+            return cur.rowcount > 0
+
+    def mark_trial_as_terminated(self, trial_id: str) -> None:
+        with self._conn() as c:
+            c.execute("UPDATE trials SET status=?, stopped_at=? WHERE id=?",
+                      (TrialStatus.TERMINATED.value, _now(), trial_id))
+
+    def get_orphaned_trials(self, stale_after_s: float,
+                            sub_train_job_id: Optional[str] = None) -> List[dict]:
+        """RUNNING trials whose service is terminal, missing or
+        heartbeat-stale: trials whose worker died mid-trial. A trial
+        with no service row opted out of failure detection and is never
+        flagged."""
+        cutoff = _now() - stale_after_s
+        q = ("SELECT t.* FROM trials t LEFT JOIN services s ON t.service_id=s.id"
+             " WHERE t.status=? AND t.service_id IS NOT NULL AND ("
+             "   s.id IS NULL"
+             "   OR s.status IN ('STOPPED','ERRORED')"
+             "   OR s.heartbeat_at < ?)")
+        args: list = [TrialStatus.RUNNING.value, cutoff]
+        if sub_train_job_id is not None:
+            q += " AND t.sub_train_job_id=?"
+            args.append(sub_train_job_id)
+        rows = self._all(q, tuple(args))
+        for t in rows:
+            t["knobs"] = json.loads(t["knobs"])
+        return rows
 
     def get_trials_of_sub_train_job(self, sub_train_job_id: str) -> List[dict]:
         rows = self._all(

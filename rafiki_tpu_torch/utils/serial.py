@@ -42,6 +42,7 @@ _DTYPES = {
     "int64": (np.int64, torch.int64),
     "int32": (np.int32, torch.int32),
     "int16": (np.int16, torch.int16),
+    "uint32": (np.uint32, torch.uint32),
     "int8": (np.int8, torch.int8),
     "uint8": (np.uint8, torch.uint8),
     "bool": (np.bool_, torch.bool),

@@ -36,11 +36,26 @@ template base, a custom ``preprocess``, several devices or processes,
 a masked dataset) runs serially, and counts it in
 ``worker.pack_ineligible``.
 
-Not ported yet: mid-trial checkpoints and resume (with the pack's
-``run_assigned``, ``PackAborted`` and per-epoch pack checkpoints),
-orphan adoption, the learning-curve coordinator (early kill,
-speculation), and the chaos, journal, goodput-ledger and trace-context
-hooks.
+Mid-trial checkpoints (``checkpoint_every=n`` or
+``RAFIKI_CHECKPOINT_EVERY``, default 0 = off): every n-th epoch a trial
+writes its whole train state to the params store (a pack writes one
+serial-format checkpoint per member, each under its own epoch), and a
+write that fails is counted (``worker.checkpoint_write_failed``) and
+evented (``checkpoint_write_failed``), never raised: the trial goes on.
+``resume_trial`` re-runs an interrupted trial from its newest
+checkpoint (``trial_resumed``; ``checkpoint_restore_failed`` and a
+fresh start when the blob does not restore), ``adopt_orphans_of_service``
+re-runs the trials a dead predecessor left RUNNING, and a completed
+trial's checkpoints are deleted. ``build_worker_from_store`` builds a
+worker from the meta store's rows (the recovery sweep's,
+``scheduler/recovery.py``). Event ``checkpoint_written`` carries the
+blob's bytes and the seconds to take and write it (a pack member's:
+to write it, with ``slice_seconds`` to take the round's blobs);
+``trial_resumed`` the seconds to read and restore it.
+
+Not ported yet: the pack's ``run_assigned`` and ``PackAborted`` (the
+mesh sweep), the learning-curve coordinator (early kill, speculation),
+and the chaos, journal, goodput-ledger and trace-context hooks.
 """
 
 from __future__ import annotations
@@ -55,8 +70,8 @@ from typing import Any, Dict, List, Optional, Protocol
 
 from rafiki_tpu_torch import telemetry
 from rafiki_tpu_torch.config import get_config
-from rafiki_tpu_torch.constants import BudgetType
-from rafiki_tpu_torch.model.base import BaseModel, TorchModel
+from rafiki_tpu_torch.constants import BudgetType, TrialStatus
+from rafiki_tpu_torch.model.base import BaseModel, TorchModel, load_model_class
 from rafiki_tpu_torch.model.dataset import dataset_utils
 from rafiki_tpu_torch.model.knobs import Knobs, knob_config_signature
 from rafiki_tpu_torch.model.log import logger
@@ -109,6 +124,7 @@ class TrainWorker:
         service_id: Optional[str] = None,
         stop_event=None,
         async_persist: bool = True,
+        checkpoint_every: Optional[int] = None,
         trial_pack: Optional[int] = None,
     ):
         if not (isinstance(model_class, type) and issubclass(model_class, BaseModel)):
@@ -132,6 +148,10 @@ class TrainWorker:
         self._stop = stop_event
         self.trials_run = 0
         self._saver = _AsyncSaver(self) if async_persist else None
+        # Mid-trial checkpoint cadence in epochs; 0 = off.
+        if checkpoint_every is None:
+            checkpoint_every = int(os.environ.get("RAFIKI_CHECKPOINT_EVERY", "0"))
+        self.checkpoint_every = int(checkpoint_every)
         # Trial packing width (docs/trial_packing.md): 1 = off, the default.
         if trial_pack is None:
             trial_pack = int(os.environ.get("RAFIKI_TRIAL_PACK", "1"))
@@ -153,20 +173,29 @@ class TrainWorker:
 
     # -- one trial -----------------------------------------------------------
 
-    def run_trial(self, knobs: Knobs, budget_max: Optional[int] = None,
-                  trial: Optional[dict] = None) -> Optional[dict]:
+    def run_trial(self, knobs: Knobs, resume_trial_id: Optional[str] = None,
+                  budget_max: Optional[int] = None) -> Optional[dict]:
         """Run one trial of ``knobs``. With ``budget_max`` the row insert
         claims a trial-count slot in the same transaction; None back means
-        the budget drained, and nothing ran. ``trial`` is a row this
-        worker already claimed for ``knobs`` (a pack shrunk to one)."""
-        if trial is None:
+        the budget drained, and nothing ran. ``resume_trial_id`` is a row
+        already claimed: it is adopted (RUNNING again, its stale error
+        cleared, bound to this worker) and the trial resumes from its
+        newest checkpoint when one exists."""
+        resume = resume_trial_id is not None
+        if resume:
+            trial = self.store.get_trial(resume_trial_id)
+            if trial is None:
+                raise KeyError(f"No trial {resume_trial_id!r} to resume")
+            self.store.mark_trial_as_running(trial["id"], service_id=self.service_id,
+                                             worker_id=self.worker_id)
+        else:
             sig = knob_config_signature(self.model_class.get_knob_config(), knobs)
             trial = self.store.create_trial(
                 self.sub_id, self.model_class.__name__, knobs,
                 worker_id=self.worker_id, shape_sig=sig,
                 service_id=self.service_id, budget_max=budget_max)
-        if trial is None:
-            return None
+            if trial is None:
+                return None
         tid = trial["id"]
 
         def sink(entry):
@@ -189,6 +218,7 @@ class TrainWorker:
                     logger.capture(sink), self._device_scope(), self._profile_scope(tid):
                 with telemetry.span("trial.build", trial_id=tid):
                     model = self.model_class(**knobs)
+                    self._wire_checkpoints(model, tid, resume)
                 with telemetry.span("trial.train", trial_id=tid):
                     model.train(self.train_uri)
                 with telemetry.span("trial.evaluate", trial_id=tid):
@@ -236,14 +266,71 @@ class TrainWorker:
         except Exception:
             telemetry.inc("worker.feedback_errors")
 
+    def _wire_checkpoints(self, model: BaseModel, tid: str, resume: bool) -> None:
+        """On resume, restore the trial's newest checkpoint; with a
+        cadence, install the per-epoch checkpoint sink."""
+        if resume and hasattr(model, "restore_checkpoint"):
+            t0 = time.monotonic()
+            latest = self.params_store.latest_checkpoint(tid)
+            if latest is not None:
+                try:
+                    start = model.restore_checkpoint(latest[1])
+                    events.emit("trial_resumed", trial_id=tid, from_epoch=start,
+                                worker_id=self.worker_id, seconds=time.monotonic() - t0)
+                except Exception:
+                    # An unreadable checkpoint must not error the trial:
+                    # the knobs are fine, so it reruns from the start. The
+                    # cause is kept, to tell a format fault from one
+                    # stale blob.
+                    events.emit("checkpoint_restore_failed", trial_id=tid,
+                                worker_id=self.worker_id,
+                                error=traceback.format_exc(limit=5))
+        every = self.checkpoint_every
+        if every > 0 and hasattr(model, "set_checkpoint_sink"):
+            def sink(epoch: int, make_blob) -> None:
+                if (epoch + 1) % every == 0:
+                    self._save_checkpoint(tid, epoch, make_blob)
+
+            model.set_checkpoint_sink(sink)
+
+    def _save_checkpoint(self, tid: str, epoch: int, make_blob) -> None:
+        """Write one mid-trial checkpoint. A failed write (a full disk)
+        costs resumability, not the trial, whose real state is still in
+        device memory: it is counted and evented, and training goes on."""
+        t0 = time.monotonic()
+        try:
+            blob = make_blob()
+            self.params_store.save_checkpoint(tid, epoch, blob)
+            events.emit("checkpoint_written", trial_id=tid, epoch=epoch, worker_id=self.worker_id,
+                        bytes=len(blob), seconds=time.monotonic() - t0)
+        except Exception:
+            telemetry.inc("worker.checkpoint_write_failed")
+            events.emit("checkpoint_write_failed", trial_id=tid, epoch=epoch,
+                        worker_id=self.worker_id, error=traceback.format_exc(limit=3))
+
+    def resume_trial(self, trial_id: str) -> dict:
+        """Re-run an interrupted trial from its newest mid-trial
+        checkpoint (from the start without one). Synchronous: the saver
+        is drained (and restarted if a ``run()`` closed it), so the row
+        returned is terminal."""
+        trial = self.store.get_trial(trial_id)
+        if trial is None:
+            raise KeyError(f"No trial {trial_id!r}")
+        out = self.run_trial(trial["knobs"], resume_trial_id=trial_id)
+        if self._saver is not None:
+            self._saver.flush()
+            out = self.store.get_trial(trial_id)
+        return out
+
     def _persist(self, tid: str, model: BaseModel, score: float) -> None:
-        """Dump -> write -> mark completed (on the saver thread when
-        async persistence is on)."""
+        """Dump -> write -> mark completed -> drop the trial's checkpoints
+        (on the saver thread when async persistence is on)."""
         try:
             with telemetry.span("trial.persist", trial_id=tid):
                 blob = model.dump_parameters()
                 params_id = self.params_store.save(blob)
                 self.store.mark_trial_as_completed(tid, score, params_id)
+                self.params_store.delete_checkpoints(tid)  # superseded
             events.emit("trial_completed", trial_id=tid, score=score,
                         worker_id=self.worker_id)
         except Exception:
@@ -280,6 +367,25 @@ class TrainWorker:
         prof.export_chrome_trace(os.path.join(out, "trace.json"))
 
     # -- the loop ------------------------------------------------------------
+
+    def adopt_orphans_of_service(self, prev_service_id: str) -> int:
+        """Resume the RUNNING trials a dead predecessor worker left bound
+        to ``prev_service_id``. Each is taken by the compare-and-swap
+        ``adopt_trial`` first, so a recovery sweep racing this worker
+        loses it and every orphan re-runs once. The predecessor claimed
+        their budget slots, so the job still runs its exact trial count.
+        Returns the number resumed."""
+        n = 0
+        for t in self.store.get_trials_of_sub_train_job(self.sub_id):
+            if t["status"] != TrialStatus.RUNNING.value or t.get("service_id") != prev_service_id:
+                continue
+            if not self.store.adopt_trial(t["id"], prev_service_id, self.service_id,
+                                          self.worker_id):
+                continue  # a recovery sweep won it; its re-run owns it
+            self.resume_trial(t["id"])
+            self.trials_run += 1
+            n += 1
+        return n
 
     def run(self) -> int:
         """Pull trials until the budget is exhausted. Returns #trials run."""
@@ -401,19 +507,18 @@ class PackedTrialRunner:
         # shrinks to what the budget still allows.
         rows: List["tuple[str, Knobs]"] = []
         drained = False
-        claimed = None
         for kn in knobs_list:
             trial = self._create_row(kn, budget_max)
             if trial is None:
                 drained = True
                 break
-            claimed = claimed or trial
             rows.append((trial["id"], kn))
         if not rows:
             return 0, True
         if len(rows) == 1:
-            # The budget shrank the pack to one: run it serially on its row.
-            out = self.w.run_trial(rows[0][1], trial=claimed)
+            # The budget shrank the pack to one: run it serially on its
+            # claimed row, through the resume path.
+            out = self.w.run_trial(rows[0][1], resume_trial_id=rows[0][0])
             return (1 if out is not None else 0), drained
         return self._train_rows(rows, budget_max, drained)
 
@@ -474,10 +579,20 @@ class PackedTrialRunner:
                         out.append(m2)
                     return out
 
+                # Per-epoch checkpoints of the whole pack: one serial-
+                # format checkpoint per member, so a killed pack's
+                # members resume serially, each from its newest epoch.
+                every = w.checkpoint_every
+                ckpt_sink = None
+                if every > 0:
+                    def ckpt_sink(epoch: int, make_blobs) -> None:
+                        if (epoch + 1) % every == 0:
+                            self._save_pack_checkpoints(rows, epoch, make_blobs)
+
                 with telemetry.span("trial_pack.train"):
                     histories = w.model_class.train_packed(
-                        models, w.train_uri, on_epoch=heartbeat, backfill=backfill,
-                        on_evict=on_evict)
+                        models, w.train_uri, on_epoch=heartbeat, checkpoint_sink=ckpt_sink,
+                        backfill=backfill, on_evict=on_evict)
                 # Members evicted for divergence hold the divergent state:
                 # they are not scored (a NaN score would skew the advisor).
                 verdicts = [getattr(m, "_health_verdict", None) for m in models]
@@ -540,6 +655,35 @@ class PackedTrialRunner:
         telemetry.inc("worker.packed_rounds")
         return len(rows), drained
 
+    def _save_pack_checkpoints(self, rows, epoch: int, make_blobs) -> None:
+        """Write one round's per-member checkpoints, each member's under
+        its own epoch counter (evicted and backfilled members drift from
+        the round index). A failed write costs that trial's
+        resumability, never the pack: counted and evented, as a serial
+        trial's."""
+        w = self.w
+        t0 = time.monotonic()
+        try:
+            blobs = make_blobs()
+        except Exception:
+            telemetry.inc("worker.checkpoint_write_failed")
+            events.emit("checkpoint_write_failed", trial_id=rows[0][0], epoch=epoch,
+                        worker_id=w.worker_id, error=traceback.format_exc(limit=3))
+            return
+        slice_s = time.monotonic() - t0
+        for mi, member_epoch, blob in blobs:
+            tid = rows[mi][0]
+            t1 = time.monotonic()
+            try:
+                w.params_store.save_checkpoint(tid, member_epoch, blob)
+                events.emit("checkpoint_written", trial_id=tid, epoch=member_epoch,
+                            worker_id=w.worker_id, bytes=len(blob),
+                            seconds=time.monotonic() - t1, slice_seconds=slice_s)
+            except Exception:
+                telemetry.inc("worker.checkpoint_write_failed")
+                events.emit("checkpoint_write_failed", trial_id=tid, epoch=member_epoch,
+                            worker_id=w.worker_id, error=traceback.format_exc(limit=3))
+
 
 class _AsyncSaver:
     """One background thread persisting trial parameters off the
@@ -596,3 +740,23 @@ class _AsyncSaver:
         self.flush()
         self._q.put(None)
         self._thread.join(timeout=10)
+
+
+def build_worker_from_store(store: MetaStore, params_store: ParamsStore,
+                            sub_train_job_id: str, advisor: AdvisorHandle,
+                            worker_id: str = "worker-0", devices=None,
+                            stop_event=None, async_persist: bool = True) -> TrainWorker:
+    """A TrainWorker for a sub train job, built from the meta store's
+    rows alone: its job's datasets and budget, and its model's uploaded
+    template."""
+    sub_row = store.get_sub_train_job(sub_train_job_id)
+    if sub_row is None:
+        raise KeyError(f"No sub train job {sub_train_job_id!r}")
+    job = store.get_train_job(sub_row["train_job_id"])
+    model = store.get_model(sub_row["model_id"])
+    model_cls = load_model_class(model["model_file"], model["model_class"])
+    return TrainWorker(
+        store, params_store, sub_train_job_id, model_cls, advisor,
+        job["train_dataset_uri"], job["val_dataset_uri"], job["budget"],
+        worker_id=worker_id, devices=devices, job_created_at=job["created_at"],
+        stop_event=stop_event, async_persist=async_persist)

@@ -199,20 +199,17 @@ def _pack_run(device, dropout, batches, lrs, packed=True):
 # 3 steps: against the same pack on the CPU (learning rate 1e-3, seeds
 # 0-2, dropout 0, as the two devices' random streams differ), beside the
 # serial trials' own card-vs-CPU gap; and against serial trials on the
-# card (learning rates 1e-3/3e-3/2e-3, dropout 0.2). On the CPU a pack
-# is bit-equal to its serial trials; on the card it is not, as vmap
-# reduces some gradients over other shapes than the serial step does
-# (readings of one VGG16 step: conv weight gradients 1.2e-5 apart
-# relative, GroupNorm's 6e-7, loss and dense layers equal), and Adam
-# moves an element whose gradient is rounding noise by up to lr.
-# Readings (H100, the worst of the three members and steps, over two
-# runs): pack card vs CPU loss 6.2e-5 rel, grad norm 1.3e-2, params
-# 3.4e-2 of the distance moved, as the serial trials' own card-vs-CPU
-# gap (3.5e-2; seeds 1-2 of this small network at 8x8 amplify rounding);
-# pack vs serial on the card loss 2.6e-7, grad norm 2.4e-7, params
-# 8.6e-3. Bounds: about 3x.
+# card (learning rates 1e-3/3e-3/2e-3, dropout 0.2), which it must equal
+# bit for bit: GroupNorm runs once per member where autograd records,
+# Adam's quotient and the learning rate once per member with the serial
+# ops, and training selects cuDNN's deterministic algorithms.
+# Card vs CPU readings (H100, the worst of the three members and steps,
+# over two runs): pack loss 6.2e-5 rel, grad norm 1.3e-2, params 3.4e-2
+# of the distance moved, as the serial trials' own card-vs-CPU gap
+# (3.5e-2; seeds 1-2 of this small network at 8x8 amplify rounding).
+# Bounds: about 3x.
 PACK_CARD_VS_CPU_TOL = {"loss_rel": 2e-4, "grad_norm_rel": 4e-2, "param_rel_l2": 1e-1}
-PACK_VS_SERIAL_TOL = {"loss_rel": 8e-7, "grad_norm_rel": 8e-7, "param_rel_l2": 3e-2}
+PACK_VS_SERIAL_TOL = {"loss_rel": 0.0, "grad_norm_rel": 0.0, "param_rel_l2": 0.0}
 PACK_LRS = (1e-3, 3e-3, 2e-3)
 
 
@@ -221,7 +218,7 @@ def test_card_pack_matches_cpu_pack_and_card_serial(cuda):
     CPU, and the serial trials' card-vs-CPU gap beside it, held to
     PACK_CARD_VS_CPU_TOL; then against three serial trials on the card
     (one dropout stream per member on both paths), held to
-    PACK_VS_SERIAL_TOL."""
+    PACK_VS_SERIAL_TOL: equal loss, grad norm and params."""
     from rafiki_tpu_torch.convert import state_dict_to_flax
     from rafiki_tpu_torch.models.vgg import Vgg
 
@@ -252,6 +249,8 @@ def test_card_pack_matches_cpu_pack_and_card_serial(cuda):
             start = {k: v.clone() for k, v in state_dict_to_flax(src._module).items()}
             for (loss_a, gn_a, nf_a, p_a), (loss_b, gn_b, nf_b, p_b) in zip(got[seed], want[seed]):
                 assert nf_a == nf_b == 0
+                if name == "pack_vs_serial":
+                    assert all(torch.equal(p_a[k], p_b[k]) for k in p_a), (seed, lr)
                 num = sum(float(((p_a[k] - p_b[k]) ** 2).sum()) for k in p_a) ** 0.5
                 den = sum(float(((p_b[k] - start[k]) ** 2).sum()) for k in p_a) ** 0.5
                 r = {"loss_rel": abs(loss_a - loss_b) / loss_b,
@@ -263,3 +262,58 @@ def test_card_pack_matches_cpu_pack_and_card_serial(cuda):
                       ("pack_vs_serial", PACK_VS_SERIAL_TOL)):
         for key, bound in tol.items():
             assert worst[name][key] <= bound, (name, key, worst[name])
+
+
+def _resumed_dumps(device, packed):
+    """Three epochs of small bf16 VGG trials at dropout 0.2 on ``device``
+    (two as one pack when ``packed``) with a checkpoint every epoch; then
+    each trial resumed from its epoch-0 and epoch-1 checkpoints. Returns
+    per trial the uninterrupted run's params blob and the resumed ones."""
+    from rafiki_tpu_torch.models.vgg import Vgg
+
+    uri = "synthetic://images?classes=10&w=8&h=8&c=3&n=256&seed=0"
+    knobs = [dict(SMALL, dropout=0.2, epochs=3, learning_rate=lr) for lr in (1e-3, 3e-3)]
+
+    def model(i):
+        m = Vgg(device=device, **knobs[i])
+        m._seed = i
+        return m
+
+    ckpts = {}
+    if packed:
+        models = [model(0), model(1)]
+
+        def sink(rnd, make_blobs):
+            for mi, epoch, blob in make_blobs():
+                ckpts[(mi, epoch)] = blob
+
+        Vgg.train_packed(models, uri, checkpoint_sink=sink)
+    else:
+        models = []
+        for i in range(2):
+            m = model(i)
+            m.set_checkpoint_sink(lambda e, mk, i=i: ckpts.__setitem__((i, e), mk()))
+            m.train(uri)
+            models.append(m)
+    out = []
+    for i in range(2):
+        resumed = []
+        for epoch in (0, 1):
+            m = model(i)
+            assert m.restore_checkpoint(ckpts[(i, epoch)]) == epoch + 1
+            m.train(uri)
+            resumed.append(m.dump_parameters())
+        out.append((models[i].dump_parameters(), resumed))
+    return out
+
+
+def test_card_checkpoints_resume_bit_for_bit(cuda):
+    """A serial trial's and a pack member's checkpoints on the card carry
+    the CUDA dropout generator: a trial resumed from either ends byte-equal
+    to its uninterrupted serial run."""
+    serial = _resumed_dumps(cuda, packed=False)
+    packed = _resumed_dumps(cuda, packed=True)
+    for (want, resumed), (pack_full, pack_resumed) in zip(serial, packed):
+        assert pack_full == want
+        assert resumed == [want, want]
+        assert pack_resumed == [want, want]

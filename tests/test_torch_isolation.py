@@ -179,3 +179,55 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     assert local_devices("cpu") == [torch.device("cpu")]
     assert Vgg(device="cpu", **knobs).device == torch.device("cpu")
+
+
+def test_checkpoints_and_recovery_run_with_nothing_of_jax_loaded(tmp_path):
+    """The recovery sweep, the checkpoint payloads and the packages'
+    public API import, and a trial killed after its checkpoints is
+    recovered on the CPU from its newest one, with nothing of JAX or the
+    JAX package loaded."""
+    from tests.test_torch_checkpoint import FF3_SOURCE, KNOBS, TRAIN, VAL
+
+    mods = _port_modules()
+    for name in ("scheduler.recovery", "model", "models", "ops", "parallel", "bus",
+                 "predictor", "worker"):
+        assert f"rafiki_tpu_torch.{name}" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import torch\n"
+        "torch.set_num_threads(2)\n"
+        "from rafiki_tpu_torch.model import TorchModel, load_model_class, tune_model\n"
+        "from rafiki_tpu_torch.scheduler.recovery import recover_orphaned_trials\n"
+        "from rafiki_tpu_torch.store import MetaStore, ParamsStore\n"
+        "from rafiki_tpu_torch.worker import TrainWorker\n"
+        f"store = MetaStore({str(tmp_path / 'm.sqlite3')!r})\n"
+        f"params = ParamsStore({str(tmp_path / 'p')!r})\n"
+        f"row = store.create_model('ff3', 'IMAGE_CLASSIFICATION', None, {FF3_SOURCE!r}, 'FF3')\n"
+        f"job = store.create_train_job('app', 'IMAGE_CLASSIFICATION', None, {TRAIN!r}, {VAL!r},\n"
+        "                             {'MODEL_TRIAL_COUNT': 1})\n"
+        "sub = store.create_sub_train_job(job['id'], row['id'])\n"
+        "cls = load_model_class(row['model_file'], 'FF3')\n"
+        "class Dying(cls):\n"
+        "    def evaluate(self, uri):\n"
+        "        raise KeyboardInterrupt\n"
+        "svc = store.create_service('TRAIN_WORKER')\n"
+        f"w = TrainWorker(store, params, sub['id'], Dying, None, {TRAIN!r}, {VAL!r},\n"
+        "                {'MODEL_TRIAL_COUNT': 1}, async_persist=False, checkpoint_every=1,\n"
+        "                devices=[torch.device('cpu')])\n"
+        "w.service_id = svc['id']\n"
+        "try:\n"
+        f"    w.run_trial({KNOBS!r})\n"
+        "except KeyboardInterrupt:\n"
+        "    pass\n"
+        "store.update_service(svc['id'], status='ERRORED')\n"
+        "rows = recover_orphaned_trials(store, params, devices=[torch.device('cpu')])\n"
+        "assert [r['status'] for r in rows] == ['COMPLETED'], rows\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
