@@ -4,7 +4,7 @@ CUDA card.
 
     python3 chip_smoke.py                  # from the root of a checkout
     python3 chip_smoke.py --bf16-readings  # the readings behind BF16_GAP_ATOL
-    python3 chip_smoke.py --packed-step    # the serial and packed step alone
+    python3 chip_smoke.py --packed-step    # phase 16 alone: eager vs captured steps
 
 Drives ``rafiki_tpu_torch`` the way a user serves a top-k ensemble,
 the way a tuning job runs and the way a trial trains, at the full width
@@ -50,9 +50,7 @@ the 50k-image synthetic task, bf16 compute):
      against the score ``evaluate`` stored for it;
   8. one canonical trial (batch 128, dropout 0.1, lr 1e-3) through
      ``train -> evaluate -> dump_parameters``: every epoch's loss finite
-     and no ``DivergenceError``, eval accuracy above ACC_FLOOR, and a
-     device profile of 20 warm train steps, with the Adam and sentinel
-     ranges' device time apart;
+     and no ``DivergenceError``, eval accuracy above ACC_FLOOR;
   9. FeedForward at its widest knobs (3 x 256, batch 128) trained and
      evaluated;
  10. card-vs-CPU training parity: three float32 steps (TF32 off,
@@ -86,13 +84,13 @@ Trial packing, the same canonical model and task:
      on a 1024-image task of the same shapes, untimed. One line: serial
      and packed seconds (and per trial), the speedup, each member's
      packed score against its serial score, the pack's peak memory, and a
-     device profile of 20 warm packed steps. Fails unless every member's
-     packed score is within PACK_SCORE_ATOL of its serial score, the
-     member at lr 1e-3 / dropout 0.1 is above ACC_FLOOR, and every loss
-     is finite. Then one line of step times, a serial trial's and packs
-     of 1, 2 and 4 on the same card, and one float32 step of a
-     one-member pack against the serial step, gradient by gradient,
-     which must give every gradient bit for bit;
+     count of captured steps replayed on each path. Fails unless every
+     member's packed score is within PACK_SCORE_ATOL of its serial score,
+     the member at lr 1e-3 / dropout 0.1 is above ACC_FLOOR, and every
+     loss is finite. Then one line of captured step times, a serial
+     trial's and packs of 1, 2 and 4 on the same card, and one float32
+     step of a one-member pack against the serial step, gradient by
+     gradient, which must give every gradient bit for bit;
  13. tune_job_packed: phase 6's job again with
      ``run_train_job(..., trial_pack=PACK_K)``. Its line is tune_job's
      plus the ``trial_pack.size`` and ``trial_pack.fill_ratio``
@@ -125,6 +123,26 @@ stored in float32, compared byte for byte):
      its knobs. Prints each member's checkpoint bytes and the pack's
      checkpoint seconds per round.
 
+The captured step against the eager step:
+
+ 16. graph_step: the canonical serial step (batch 128, dropout 0.1, lr
+     1e-3) and the k=PACK_K packed step (PACK_MEMBERS), each run eagerly
+     (``Program.train_step``, the plain version) and captured
+     (``train_steps``: GRAPH_WARMUP_STEPS eager steps, one capture,
+     replays) from one initial state over the same batches of random
+     data on the card. Per path: CUDA-event ms a step, device busy ms,
+     idle share, device kernels and host launch calls a step; for the
+     captured path the capture seconds and the memory its graph
+     reserved. Fails unless the two paths end with the same params,
+     moments, counts and generator states, and every step's loss and
+     sentinels, bit for bit.
+
+Every training phase runs its epochs as captured CUDA graphs
+(``ops/graphs.py``). Each phase's line carries its seconds
+(``phase_s``) and the captured steps it replayed (``graph_replays``,
+with ``graph_captures`` and their seconds); the canonical trials'
+phases (6, 8, 11-16) fail without a replay.
+
 The port has no hand-written kernel yet (the JAX package has no Pallas
 kernel to port), so the kernel line is ``{"kernels": []}``. The last
 line is ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -132,9 +150,8 @@ nonzero before it; without a CUDA device the script exits 1 at once.
 
 ``--bf16-readings`` runs only the forward-parity measurement, over 16
 other trial seeds and 4 other query sets, and prints the readings.
-``--packed-step`` runs only phase 12's profiles of the serial and the
-k=4 packed step, on random batches resident on the card, so two
-checkouts can be compared in one call. ``--resume-child`` is the child
+``--packed-step`` runs only phase 16, on random batches resident on the
+card, so two checkouts can be compared in one call. ``--resume-child`` is the child
 worker of phases 14 and 15.
 """
 
@@ -579,9 +596,11 @@ def train_trials(card):
     from rafiki_tpu_torch.model.log import logger
     from rafiki_tpu_torch.models.vgg import Vgg
 
+    t_phase = time.monotonic()
     train_ds, eval_ds = dataset_utils.load(TRAIN_URI), dataset_utils.load(EVAL_URI)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    graphs = _graph_counters()
     trials, models, blobs = [], [], []
     for seed in TRIAL_SEEDS:
         m = Vgg(**TRAIN_KNOBS)
@@ -611,6 +630,7 @@ def train_trials(card):
         "epoch_s": epoch_s, "step_ms": epoch_s / steps * 1e3,
         "train_images_per_s": steps * TRAIN_KNOBS["batch_size"] / epoch_s,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        **_graph_since(graphs), "phase_s": time.monotonic() - t_phase,
     }
     return out, models, blobs
 
@@ -653,6 +673,7 @@ def tune_job(card, trial_pack=None):
     from rafiki_tpu_torch.scheduler import LocalScheduler
     from rafiki_tpu_torch.store import MetaStore, ParamsStore
 
+    t_phase = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="rafiki-tune-")
     try:
         store = MetaStore(f"{tmp}/meta.sqlite3")
@@ -728,6 +749,12 @@ def tune_job(card, trial_pack=None):
         "destroyed_memory_allocated_bytes": list(cls.destroyed_bytes),
         "memory_allocated_before_job": mem_before, "memory_allocated_after_job": mem_after,
         "errors": result.errors,
+        # Captured steps: one capture an epoch, per eval pass too.
+        "graph_replays": snap["counters"].get("train.graph_replays", 0.0),
+        "graph_captures": snap["counters"].get("train.graph_captures", 0.0),
+        "graph_capture_s": snap["histograms"].get("train.graph_capture_s"),
+        "graph_pool_bytes": snap["histograms"].get("train.graph_pool_bytes"),
+        "phase_s": time.monotonic() - t_phase,
     }
     if trial_pack is not None:
         hist, c = snap["histograms"], snap["counters"]
@@ -794,6 +821,7 @@ def train_ff(card):
     from rafiki_tpu_torch.model.log import logger
     from rafiki_tpu_torch.models.ff import FeedForward
 
+    graphs = _graph_counters()
     m = FeedForward(**FF_KNOBS)
     logs = []
     t0 = time.monotonic()
@@ -806,7 +834,8 @@ def train_ff(card):
     return {"phase": "train_ff", "card": card[1], "power_limit": card[2], "knobs": FF_KNOBS,
             "train_uri": FF_TRAIN_URI, "eval_uri": FF_EVAL_URI, "train_s": train_s,
             "epochs": [e["values"] for e in logs if e["type"] == "values"],
-            "eval_acc": acc, "reloaded_eval_acc": reloaded.evaluate(FF_EVAL_URI)}
+            "eval_acc": acc, "reloaded_eval_acc": reloaded.evaluate(FF_EVAL_URI),
+            **_graph_since(graphs), "phase_s": time.monotonic() - t0}
 
 
 def _f32_vgg_class():
@@ -826,12 +855,12 @@ def _f32_vgg_class():
 
 def training_parity(card):
     """Phase 10: PARITY_STEPS float32 train steps (TF32 off, dropout 0)
-    from the same params on the card and on the CPU. Returns the
-    readings after each step."""
-    import torch
-
+    from the same params on the card and on the CPU, fed from the host
+    through ``train_steps`` (on the card two eager steps, then a
+    captured one). Returns the readings after each step."""
     from rafiki_tpu_torch.convert import state_dict_to_flax
     from rafiki_tpu_torch.obs.health import sentinel
+    from rafiki_tpu_torch.ops.train import HostFeed
 
     cls = _f32_vgg_class()
     knobs = dict(TRAIN_KNOBS, dropout=0.0)
@@ -840,19 +869,23 @@ def training_parity(card):
                 "y": rng.integers(0, NUM_CLASSES, size=PARITY_BATCH).astype(np.int32)}
                for _ in range(PARITY_STEPS)]
     runs = {}
+    t_phase = time.monotonic()
+    graphs = _graph_counters()
     for name, device in (("card", "cuda"), ("cpu", "cpu")):
         m = cls(device=device, **knobs)
         m._planned_steps = PARITY_STEPS
         m.init_parameters(NUM_CLASSES, INPUT_SHAPE)  # the same seeded CPU draw on both
         loop, rows = m._loop, []
         start = {k: v.detach().cpu().clone() for k, v in state_dict_to_flax(m._module).items()}
-        for b in batches:
-            batch = {k: torch.from_numpy(v).to(loop.device) for k, v in b.items()}
-            loop.state, metrics = loop.program.train_step(loop.state, batch)
+
+        def on_step(t, metrics, m=m, rows=rows):
             rows.append({"loss": float(metrics["loss"]),
                          **{k: float(v) for k, v in sentinel.split(metrics)[1].items()},
                          "params": {k: v.detach().cpu().clone()
                                     for k, v in state_dict_to_flax(m._module).items()}})
+
+        feed = HostFeed((dict(b) for b in batches), PARITY_STEPS, loop.device)
+        loop.state, _ = loop.program.train_steps(loop.state, feed, on_step=on_step)
         runs[name] = rows
     steps = []
     for card_row, cpu_row in zip(runs["card"], runs["cpu"]):
@@ -869,82 +902,32 @@ def training_parity(card):
     return {"phase": "train_parity", "card": card[1], "power_limit": card[2],
             "model": f"VGG{knobs['depth']} w{knobs['width_mult']} float32",
             "batch": PARITY_BATCH, "steps": steps,
-            "tolerance": PARITY_TOL}
+            "tolerance": PARITY_TOL, **_graph_since(graphs),
+            "phase_s": time.monotonic() - t_phase}
 
 
-def train_step_profile(model, card):
-    """Phase 8, after the trial: where a warm train step's device time
-    goes, over PROFILE_ITERS steps of a trained canonical trial on fresh
-    batches gathered from the resident dataset, as the epoch does."""
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                 "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def _analyze_profile(prof, n, wall_us, event_ms, bs, card, phase):
+    """The readings of ``n`` steps under ``prof``: the device's busy time
+    and idle share, device kernels and host launch calls (kernel and
+    graph launches, async copies), the device and host time of the
+    step's forward, Adam and sentinel ranges where the steps ran them
+    eagerly (the backward: what they leave), and the costliest
+    operators, per step."""
     import torch
 
-    from rafiki_tpu_torch.model.dataset import dataset_utils
-    from rafiki_tpu_torch.ops.train import get_device_dataset
-
-    loop = model._loop
-    X, Y = get_device_dataset(dataset_utils.load(TRAIN_URI), loop.device)
-    bs = TRAIN_KNOBS["batch_size"]
-    idx = torch.randperm(X.shape[0], generator=torch.Generator().manual_seed(0))
-    idx = idx[: (2 * PROFILE_ITERS + 3) * bs].reshape(-1, bs).to(loop.device)
-    it = iter(idx)
-
-    def step():
-        ib = next(it)
-        loop.state, _ = loop.program.train_step(loop.state, {"x": X.index_select(0, ib),
-                                                             "y": Y.index_select(0, ib)})
-
-    return _profile_steps(step, bs, card, "train_step_profile")
-
-
-def packed_step_profile(packed, card):
-    """Phase 12, after the pack: the same profile over PROFILE_ITERS steps
-    of the trained pack, each member on its own batch."""
-    import torch
-
-    from rafiki_tpu_torch.model.dataset import dataset_utils
-    from rafiki_tpu_torch.ops.train import get_device_dataset
-
-    X, Y = get_device_dataset(dataset_utils.load(TRAIN_URI), packed.device)
-    k, bs = packed.k, PACK_KNOBS["batch_size"]
-    idx = torch.randperm(X.shape[0], generator=torch.Generator().manual_seed(0))
-    idx = idx[: (2 * PROFILE_ITERS + 3) * k * bs].reshape(-1, k * bs).to(packed.device)
-    it = iter(idx)
-
-    def step():
-        ib = next(it)
-        packed.program.train_step(packed.state, {
-            "x": X.index_select(0, ib).reshape((k, bs) + tuple(X.shape[1:])),
-            "y": Y.index_select(0, ib).reshape(k, bs)})
-
-    return dict(_profile_steps(step, bs, card, "packed_step_profile"), k=k)
-
-
-def _profile_steps(step, bs, card, phase):
-    """CUDA-event ms of ``step``, then under ``torch.profiler`` the
-    device's busy time and idle share, kernel launches, the device and
-    host time of the step's forward, Adam and sentinel ranges (the
-    backward: what they leave), and the costliest operators, per step."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        step()
-    event_ms = _event_ms(step, PROFILE_ITERS)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILE_ITERS):
-            step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = prof.events()
     # The step's record_function ranges also show on the device timeline
     # as user annotations spanning their kernels; they are no kernels.
-    kernels = [e for e in prof.events() if e.device_type == cuda
+    kernels = [e for e in events if e.device_type == cuda
                and not getattr(e, "is_user_annotation", False) and not e.name.startswith("train.")]
     busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in kernels])
     kernel_us = sum(e.time_range.end - e.time_range.start for e in kernels)
-    n = PROFILE_ITERS
+    calls = [e for e in events if e.device_type == cpu and e.name in _LAUNCH_CALLS]
 
     def under(e):
         """The device kernels launched by a CPU event and its children."""
@@ -955,18 +938,22 @@ def _profile_steps(step, bs, card, phase):
 
     # The forward, Adam and sentinel ranges are recorded in the step
     # itself (ops/train.py); the backward runs on autograd's own thread,
-    # so its kernels are what the ranges leave of the total.
+    # so its kernels are what the ranges leave of the total. A replayed
+    # graph runs no range.
     parts = {}
     for name in ("train.forward", "train.adam", "train.sentinel"):
-        evs = [e for e in prof.events() if e.name == name and e.device_type == cpu]
+        evs = [e for e in events if e.name == name and e.device_type == cpu]
+        if not evs:
+            continue
         ks = [k for e in evs for k in under(e)]
         parts[name[6:]] = {"device_ms": sum(k.duration for k in ks) / n / 1e3,
                            "launches": len(ks) / n,
                            "host_ms": sum(e.cpu_time_total for e in evs) / n / 1e3}
-    parts["backward"] = {
-        "device_ms": kernel_us / n / 1e3 - sum(p["device_ms"] for p in parts.values()),
-        "launches": len(kernels) / n - sum(p["launches"] for p in parts.values()),
-        "host_ms": event_ms - sum(p["host_ms"] for p in parts.values())}
+    if parts:
+        parts["backward"] = {
+            "device_ms": kernel_us / n / 1e3 - sum(p["device_ms"] for p in parts.values()),
+            "launches": len(kernels) / n - sum(p["launches"] for p in parts.values()),
+            "host_ms": event_ms - sum(p["host_ms"] for p in parts.values())}
 
     def self_device_us(a) -> float:
         # torch >= 2.4 names it self_device_time_total.
@@ -981,10 +968,185 @@ def _profile_steps(step, bs, card, phase):
             "device_busy_ms_per_step": busy_us / n / 1e3,
             "device_idle_share": 1.0 - busy_us / wall_us,
             "kernel_launches_per_step": len(kernels) / n,
+            "host_launch_calls_per_step": len(calls) / n,
+            "graph_launches_per_step": sum(e.name == "cudaGraphLaunch" for e in calls) / n,
             # host_ms of the backward: the step's CUDA-event time less the
             # host time of the three ranges.
             "per_part": parts,
             "top_ops_self_device_ms_per_step": {k[:80]: v / n / 1e3 for k, v in ops[:10]}}
+
+
+class _StepWindow:
+    """A per-step hook (``on_step(t, metrics)`` of ``train_steps``, or
+    called by hand after each eager step): CUDA events over the
+    PROFILE_ITERS steps from ``start``, then ``torch.profiler`` over the
+    next PROFILE_ITERS. An epoch under it runs ``start + 2 *
+    PROFILE_ITERS`` steps; the events record on the stream the steps
+    run on."""
+
+    def __init__(self, start: int, profile: bool = True):
+        self.start, self.profile = start, profile
+        self.n_steps = start + (2 if profile else 1) * PROFILE_ITERS
+        self.event_ms = None
+
+    def __call__(self, t, _metrics=None):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        if t == self.start - 1:
+            self._ev0 = torch.cuda.Event(enable_timing=True)
+            self._ev0.record()
+        elif t == self.start + PROFILE_ITERS - 1:
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev1.record()
+            ev1.synchronize()
+            self.event_ms = self._ev0.elapsed_time(ev1) / PROFILE_ITERS
+            if self.profile:
+                torch.cuda.synchronize()
+                self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                self._prof.start()
+                self._t0 = time.perf_counter()
+        elif self.profile and t == self.n_steps - 1:
+            torch.cuda.synchronize()
+            self.wall_us = (time.perf_counter() - self._t0) * 1e6
+            self._prof.stop()
+
+    def readings(self, bs, card, phase):
+        return _analyze_profile(self._prof, PROFILE_ITERS, self.wall_us, self.event_ms, bs,
+                                card, phase)
+
+
+def _graph_counters():
+    """The captured-step counters: replays, captures and capture seconds."""
+    from rafiki_tpu_torch import telemetry
+
+    snap = telemetry.snapshot()
+    hist = snap["histograms"].get("train.graph_capture_s") or {}
+    return {"graph_replays": snap["counters"].get("train.graph_replays", 0.0),
+            "graph_captures": snap["counters"].get("train.graph_captures", 0.0),
+            "graph_capture_s": hist.get("sum") or 0.0}
+
+
+def _graph_since(before):
+    return {k: v - before[k] for k, v in _graph_counters().items()}
+
+
+def graph_step(card):
+    """Phase 16 (and ``--packed-step``): the canonical serial step (batch
+    128, dropout 0.1, lr 1e-3) and the k=PACK_K packed step
+    (PACK_MEMBERS), each run eagerly (``train_step``, the plain version)
+    and captured (``train_steps``: two eager steps, a capture, replays)
+    from the same initial state over the same batches of random data
+    resident on the card. Per path: CUDA-event ms a step, then under
+    torch.profiler device busy ms, idle share, device kernels and host
+    launch calls a step; for the captured path the capture seconds and
+    the memory its graph reserved. Gate: after all the steps the two
+    paths' params, moments, counts, generator states and every step's
+    loss and sentinels are equal bit for bit."""
+    import torch
+
+    from rafiki_tpu_torch import telemetry
+    from rafiki_tpu_torch.models.vgg import Vgg
+    from rafiki_tpu_torch.ops.graphs import GRAPH_WARMUP_STEPS
+    from rafiki_tpu_torch.ops.train import PackedTrainLoop, ResidentFeed, TrainLoop
+
+    t_phase = time.monotonic()
+    bs, k = PACK_KNOBS["batch_size"], PACK_K
+    window = GRAPH_WARMUP_STEPS + 1
+    n_steps = _StepWindow(window).n_steps
+    def fns(members):
+        """Fresh closures for each loop: a template's init_fn fills one
+        module in place, which the loop then moves to the card."""
+        out = []
+        for m in members:
+            model = Vgg(**dict(PACK_KNOBS, **m))
+            model._planned_steps = 50000 // bs
+            out.append(model._loop_fns(NUM_CLASSES, INPUT_SHAPE))
+        return out
+
+    n = n_steps * k * bs
+    g = torch.Generator(device="cuda").manual_seed(0)
+    X = torch.rand((n,) + INPUT_SHAPE, device="cuda", generator=g)
+    Y = torch.randint(0, NUM_CLASSES, (n,), device="cuda", generator=g)
+    idx = torch.randperm(n, device="cuda", generator=g)
+    line = {"phase": "graph_step", "card": card[1], "power_limit": card[2], "batch": bs,
+            "k": k, "steps": n_steps, "warmup_steps": GRAPH_WARMUP_STEPS}
+
+    def serial():
+        f = fns([{"learning_rate": 1e-3, "dropout": 0.1}])[0]
+        return TrainLoop(f["init_fn"], f["apply_eval"], f["loss_fn"], f["optimizer"],
+                         hyper=f["hyper"], program_key=("chip_smoke", "graph_step"))
+
+    def packed():
+        fs = fns(PACK_MEMBERS[:k])
+        return PackedTrainLoop(fs[0]["init_fn"], fs[0]["apply_eval"], fs[0]["loss_fn"],
+                               fs[0]["optimizer"], seeds=list(range(k)),
+                               hypers=[f["hyper"] for f in fs],
+                               program_key=("chip_smoke", "graph_step"))
+
+    def state_of(loop):
+        if isinstance(loop, TrainLoop):
+            module, opt, step, gen, _ = loop.state
+            return ([p.detach() for p in module.parameters()], opt.mu + opt.nu,
+                    (step, opt.count), [gen.get_state()])
+        st = loop.state
+        return (list(st.params.values()), st.opt.mu + st.opt.nu, (st.steps, st.opt.count),
+                [gen.get_state() for gen in st.generators])
+
+    equal = {}
+    for name, make, rows in (("serial", serial, idx[: n_steps * bs].reshape(n_steps, bs)),
+                             ("packed", packed, idx.reshape(n_steps, k, bs))):
+        torch.cuda.synchronize()
+        eager = make()
+        win = _StepWindow(window)
+        steps = []
+        for t in range(n_steps):
+            flat = rows[t].reshape(-1)
+            batch = {"x": X.index_select(0, flat).reshape(tuple(rows[t].shape) + INPUT_SHAPE),
+                     "y": Y.index_select(0, flat).reshape(tuple(rows[t].shape))}
+            if isinstance(eager, TrainLoop):
+                eager.state, metrics = eager.program.train_step(eager.state, batch)
+            else:
+                metrics = eager.program.train_step(eager.state, batch)
+            steps.append(metrics)
+            win(t)
+        line[f"{name}_eager"] = win.readings(bs, card, f"{name}_eager")
+        want = {key: torch.stack([m[key] for m in steps]) for key in steps[0]}
+        del steps
+        captured = make()
+        telemetry.reset()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        win = _StepWindow(window)
+        if isinstance(captured, TrainLoop):
+            captured.state, got = captured.program.train_steps(
+                captured.state, ResidentFeed(X, Y, rows), on_step=win)
+        else:
+            got = captured.program.train_steps(captured.state, ResidentFeed(X, Y, rows),
+                                               on_step=win)
+        snap = telemetry.snapshot()
+        readings = win.readings(bs, card, f"{name}_captured")
+        readings.update({
+            "capture_s": snap["histograms"]["train.graph_capture_s"]["sum"],
+            "graph_pool_reserved_bytes": snap["histograms"]["train.graph_pool_bytes"]["sum"],
+            "max_memory_allocated_over_epoch_bytes": torch.cuda.max_memory_allocated() - before,
+            "graph_replays": snap["counters"].get("train.graph_replays", 0.0)})
+        line[f"{name}_captured"] = readings
+        a, b = state_of(eager), state_of(captured)
+        equal[name] = {
+            "params": all(torch.equal(x, y) for x, y in zip(a[0], b[0])),
+            "moments": all(torch.equal(x, y) for x, y in zip(a[1], b[1])),
+            "counts": a[2] == b[2],
+            "generators": all(torch.equal(x, y) for x, y in zip(a[3], b[3])),
+            "metrics": sorted(got) == sorted(want)
+            and all(torch.equal(got[key], want[key]) for key in want)}
+        line[f"{name}_speedup"] = (line[f"{name}_eager"]["event_ms_per_step"]
+                                   / readings["event_ms_per_step"])
+        del eager, captured, want, got
+        torch.cuda.empty_cache()
+    line["bit_equal"] = equal
+    line["phase_s"] = time.monotonic() - t_phase
+    return line
 
 
 # -- trial packing ---------------------------------------------------------------
@@ -1026,21 +1188,25 @@ def trial_pack(card):
         gc.collect()
         torch.cuda.empty_cache()
 
+    t_phase = time.monotonic()
     # Warm-up of both paths (first calls, allocator growth), untimed.
     serial(PACK_WARMUP_URI, PACK_WARMUP_URI)
     release(packed(PACK_WARMUP_URI, PACK_WARMUP_URI)[0])
+    graphs = _graph_counters()
     t0 = time.monotonic()
     ser = serial(TRAIN_URI, EVAL_URI)
     serial_s = _synced_s(t0)
+    serial_graphs = _graph_since(graphs)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     mem_before = torch.cuda.memory_allocated()
+    graphs = _graph_counters()
     t0 = time.monotonic()
     models, histories, scores = packed(TRAIN_URI, EVAL_URI)
     packed_s = _synced_s(t0)
+    packed_graphs = _graph_since(graphs)
     peak = torch.cuda.max_memory_allocated()
-    profile_row = packed_step_profile(models[0]._loop.packed, card)
     release(models)
     k = len(knobs)
     return {
@@ -1054,26 +1220,31 @@ def trial_pack(card):
         "serial_epochs": [r["epochs"] for r in ser], "packed_epochs": histories,
         "score_atol": PACK_SCORE_ATOL,
         "memory_allocated_before_pack": mem_before, "max_memory_allocated_bytes": peak,
-        "packed_step_profile": profile_row,
+        "serial_graphs": serial_graphs, "packed_graphs": packed_graphs,
+        "phase_s": time.monotonic() - t_phase,
     }
 
 
 def pack_scaling(card):
-    """Phase 12, after the pack: the step's event ms of a serial trial and
-    of packs of 1, 2 and 4 on fresh batches from the resident dataset,
-    run in the order serial, 1, 2, 4, 4, 2, 1, serial so a drift of the
-    host's speed reads on both sides; then one float32 step (TF32 off,
-    dropout 0) of a one-member pack against the serial step from the
-    same params, gradient by gradient."""
+    """Phase 12, after the pack: the captured step's event ms of a serial
+    trial and of packs of 1, 2 and 4 (each an epoch of GRAPH_WARMUP_STEPS
+    eager steps, a capture and PROFILE_ITERS timed replays on batches
+    from the resident dataset), run in the order serial, 1, 2, 4, 4, 2,
+    1, serial so a drift of the host's speed reads on both sides; then
+    one float32 step (TF32 off, dropout 0) of a one-member pack against
+    the serial step from the same params, gradient by gradient."""
     import functools
 
     import torch
 
     from rafiki_tpu_torch.model.dataset import dataset_utils
+    from rafiki_tpu_torch.ops.graphs import GRAPH_WARMUP_STEPS
     from rafiki_tpu_torch.ops.train import PackedGenerators, PackedTrainLoop, TrainLoop
-    from rafiki_tpu_torch.ops.train import get_device_dataset
+    from rafiki_tpu_torch.ops.train import ResidentFeed, get_device_dataset
     from rafiki_tpu_torch.utils.backend import resolve_device
 
+    t_phase = time.monotonic()
+    graphs = _graph_counters()
     X, Y = get_device_dataset(dataset_utils.load(TRAIN_URI), resolve_device())
     bs = PACK_KNOBS["batch_size"]
 
@@ -1085,50 +1256,48 @@ def pack_scaling(card):
             out.append(model._loop_fns(NUM_CLASSES, INPUT_SHAPE))
         return out
 
-    def serial_step(f):
-        loop = TrainLoop(f["init_fn"], f["apply_eval"], f["loss_fn"], f["optimizer"],
+    def serial_loop(f):
+        return TrainLoop(f["init_fn"], f["apply_eval"], f["loss_fn"], f["optimizer"],
                          hyper=f["hyper"])
-        it = iter(range(10 ** 6))
 
-        def step():
-            i = next(it) % (X.shape[0] // bs)
-            loop.state, _ = loop.program.train_step(
-                loop.state, {"x": X[i * bs:(i + 1) * bs], "y": Y[i * bs:(i + 1) * bs]})
-        return loop, step
+    def packed_loop(fs):
+        return PackedTrainLoop(fs[0]["init_fn"], fs[0]["apply_eval"], fs[0]["loss_fn"],
+                               fs[0]["optimizer"], seeds=[0] * len(fs),
+                               hypers=[f["hyper"] for f in fs])
 
-    def packed_step(fs):
-        k = len(fs)
-        loop = PackedTrainLoop(fs[0]["init_fn"], fs[0]["apply_eval"], fs[0]["loss_fn"],
-                               fs[0]["optimizer"], seeds=[0] * k, hypers=[f["hyper"] for f in fs])
-        it = iter(range(10 ** 6))
+    starts = iter(range(0, 10 ** 9, 7919))
 
-        def step():
-            i = next(it) % (X.shape[0] // (k * bs))
-            loop.program.train_step(loop.state, {
-                "x": X[i * k * bs:(i + 1) * k * bs].reshape((k, bs) + INPUT_SHAPE),
-                "y": Y[i * k * bs:(i + 1) * k * bs].reshape(k, bs)})
-        return loop, step
+    def epoch_ms(loop) -> float:
+        """One captured epoch of the loop; the event ms of its replays."""
+        win = _StepWindow(GRAPH_WARMUP_STEPS + 1, profile=False)
+        k = loop.k if isinstance(loop, PackedTrainLoop) else 1
+        rows = (torch.arange(win.n_steps * k * bs, device=X.device) + next(starts)) % X.shape[0]
+        rows = rows.reshape((win.n_steps, bs) if isinstance(loop, TrainLoop)
+                            else (win.n_steps, k, bs))
+        if isinstance(loop, TrainLoop):
+            loop.state, _ = loop.program.train_steps(loop.state, ResidentFeed(X, Y, rows),
+                                                     on_step=win)
+        else:
+            loop.program.train_steps(loop.state, ResidentFeed(X, Y, rows), on_step=win)
+        return win.event_ms
 
     from rafiki_tpu_torch.models.vgg import Vgg
 
-    steps = {"serial": serial_step(fns(1, Vgg)[0])[1]}
+    loops = {"serial": serial_loop(fns(1, Vgg)[0])}
     for k in (1, 2, 4):
-        steps[f"packed_{k}"] = packed_step(fns(k, Vgg))[1]
-    for step in steps.values():
-        for _ in range(3):
-            step()
+        loops[f"packed_{k}"] = packed_loop(fns(k, Vgg))
     order = ["serial", "packed_1", "packed_2", "packed_4"]
     runs = {name: [] for name in order}
     for name in order + order[::-1]:
-        runs[name].append(_event_ms(steps[name], PROFILE_ITERS))
-    del steps
+        runs[name].append(epoch_ms(loops[name]))
+    del loops
     torch.cuda.empty_cache()
 
     # One float32 step, one-member pack against serial, gradient by gradient.
     cls = _f32_vgg_class()
     f_serial, f_pack = fns(1, cls)[0], fns(1, cls)[0]
-    loop, _ = serial_step(f_serial)
-    packed, _ = packed_step([f_pack])
+    loop = serial_loop(f_serial)
+    packed = packed_loop([f_pack])
     x, y = X[:bs], Y[:bs]
     module = loop.params
     with torch.enable_grad():
@@ -1148,7 +1317,8 @@ def pack_scaling(card):
         return max(v for n, v in rel.items() if n.startswith(prefix))
 
     return {"phase": "pack_scaling", "card": card[1], "power_limit": card[2], "batch": bs,
-            "steps": PROFILE_ITERS,
+            "steps": PROFILE_ITERS, "captured": True, **_graph_since(graphs),
+            "phase_s": time.monotonic() - t_phase,
             "step_event_ms": {name: float(np.mean(v)) for name, v in runs.items()},
             "step_event_ms_runs": runs,
             "ms_per_trial_step": {name: float(np.mean(v)) / (1 if name == "serial" else
@@ -1251,10 +1421,14 @@ def service_journey(card):
         client.create_model("bench-vgg", "IMAGE_CLASSIFICATION", tmp / "bench_vgg.py",
                             "BenchVgg")
         t0 = time.monotonic()
+        graphs = _graph_counters()
         client.create_train_job("journey", "IMAGE_CLASSIFICATION", TRAIN_URI, EVAL_URI,
                                 {"MODEL_TRIAL_COUNT": JOURNEY_TRIALS}, advisor_kind="gp")
         job = client.wait_until_train_job_has_stopped("journey", timeout=900, poll_s=0.5)
         line["train_job_s"] = time.monotonic() - t0
+        line.update(_graph_since(graphs))
+        if line["graph_replays"] <= 0:
+            fail(f"service_journey: the train job replayed no captured step: {line}")
         trials = client.get_trials_of_train_job("journey")
         line["train_job_status"] = job["status"]
         line["trials"] = [{"no": t["no"], "status": t["status"], "score": t["score"],
@@ -1423,49 +1597,6 @@ def service_journey(card):
     return line
 
 
-def packed_step_readings(card):
-    """``--packed-step``: phase 12's profiles of the serial step and of the
-    k=PACK_K packed step alone, on random batches resident on the card
-    (no task is generated), so two checkouts can be compared in one call."""
-    import torch
-
-    from rafiki_tpu_torch.models.vgg import Vgg
-    from rafiki_tpu_torch.ops.train import PackedTrainLoop, TrainLoop
-
-    fs = []
-    for m in PACK_MEMBERS[:PACK_K]:
-        model = Vgg(**dict(PACK_KNOBS, **m))
-        model._planned_steps = 50000 // PACK_KNOBS["batch_size"]
-        fs.append(model._loop_fns(NUM_CLASSES, INPUT_SHAPE))
-    k, bs = len(fs), PACK_KNOBS["batch_size"]
-    n = (2 * PROFILE_ITERS + 3) * k * bs
-    g = torch.Generator(device="cuda").manual_seed(0)
-    X = torch.rand((n,) + INPUT_SHAPE, device="cuda", generator=g)
-    Y = torch.randint(0, NUM_CLASSES, (n,), device="cuda", generator=g)
-    serial = TrainLoop(fs[1]["init_fn"], fs[1]["apply_eval"], fs[1]["loss_fn"], fs[1]["optimizer"],
-                       hyper=fs[1]["hyper"])
-    packed = PackedTrainLoop(fs[0]["init_fn"], fs[0]["apply_eval"], fs[0]["loss_fn"],
-                             fs[0]["optimizer"], seeds=list(range(k)),
-                             hypers=[f["hyper"] for f in fs])
-    it = iter(range(10 ** 6))
-
-    def serial_step():
-        i = next(it) % (n // bs)
-        serial.state, _ = serial.program.train_step(
-            serial.state, {"x": X[i * bs:(i + 1) * bs], "y": Y[i * bs:(i + 1) * bs]})
-
-    def packed_step():
-        i = next(it) % (n // (k * bs))
-        packed.program.train_step(packed.state, {
-            "x": X[i * k * bs:(i + 1) * k * bs].reshape((k, bs) + INPUT_SHAPE),
-            "y": Y[i * k * bs:(i + 1) * k * bs].reshape(k, bs)})
-
-    return {"phase": "packed_step_readings", "card": card[1], "power_limit": card[2],
-            "serial_step_profile": _profile_steps(serial_step, bs, card, "serial_step"),
-            "packed_step_profile": dict(_profile_steps(packed_step, bs, card, "packed_step"),
-                                        k=k)}
-
-
 # -- checkpoints, resume and orphan recovery ----------------------------------------
 # The canonical model and task, for 3 epochs. The task is cut from the
 # bench's 50,000 images to RESUME_IMAGES so both phases fit the script's
@@ -1624,6 +1755,8 @@ def trial_resume(card):
     from rafiki_tpu_torch.utils.events import events
     from rafiki_tpu_torch.utils.httpd import start_server
 
+    t_phase = time.monotonic()
+    graphs = _graph_counters()
     cls = load_model_class(RESUME_SRC, "BenchVgg")
     cfg, sub_id, svc_id = _resume_setup(1)
     # The reference, and the seconds to take and write a checkpoint (and
@@ -1701,6 +1834,8 @@ def trial_resume(card):
         admin.stop()
         events.close()
         shutil.rmtree(cfg.data_dir.parent, ignore_errors=True)
+    # This process's captured steps: the reference and the recovered run.
+    line.update(_graph_since(graphs), phase_s=time.monotonic() - t_phase)
     return line
 
 
@@ -1716,6 +1851,8 @@ def pack_resume(card):
     from rafiki_tpu_torch.utils.backend import resolve_device
     from rafiki_tpu_torch.utils.events import events
 
+    t_phase = time.monotonic()
+    graphs = _graph_counters()
     cls = load_model_class(RESUME_SRC, "BenchVgg")
     t0 = time.monotonic()
     refs = [_reference_blob(cls, kn) for kn in PACK_RESUME_KNOBS]
@@ -1770,6 +1907,7 @@ def pack_resume(card):
         store.close()
         events.close()
         shutil.rmtree(cfg.data_dir.parent, ignore_errors=True)
+    line.update(_graph_since(graphs), phase_s=time.monotonic() - t_phase)
     return line
 
 
@@ -1791,7 +1929,7 @@ def main() -> int:
     if sys.argv[1:] == ["--packed-step"]:
         card = card_identity()
         print(card[0])
-        print(json.dumps(packed_step_readings(card)))
+        print(json.dumps(graph_step(card)))
         return 0
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}")
@@ -1816,6 +1954,7 @@ def main() -> int:
           f"blobs of {len(blobs[0])} bytes (bf16 RTPK1)")
 
     # -- 3. forward parity, card vs CPU ----------------------------------------
+    t_phase = time.monotonic()
     readings, served_probs = [], []  # served_probs: query set 0, per trial
     for b in blobs:
         r, p = forward_readings(b, range(QUERY_SETS))
@@ -1823,6 +1962,7 @@ def main() -> int:
         served_probs.append(p[0])
     fwd = {key: max(r[key] for r in readings) for key in readings[0] if key != "query_seed"}
     print(json.dumps(dict(fwd, phase="forward_parity", trials=K, query_sets=QUERY_SETS,
+                          phase_s=time.monotonic() - t_phase,
                           card=card[1], power_limit=card[2], f32_atol=F32_ATOL,
                           bf16_gap_atol=BF16_GAP_ATOL,
                           bf16_card_vs_cpu_atol=BF16_CARD_VS_CPU_ATOL)))
@@ -1841,6 +1981,7 @@ def main() -> int:
     x_card = torch.from_numpy(qarr).cuda()
 
     # -- 4. serving, both routes, and the device profile of each ---------------
+    t_phase = time.monotonic()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     stacked, reason = build_stacked([{"model_name": "vgg"}] * K, load(blobs), batch_size=BATCH)
@@ -1872,7 +2013,8 @@ def main() -> int:
     print(json.dumps(s_time))
     print(json.dumps(r_time))
     print(json.dumps(dict(errs, phase="route_parity", card=card[1], power_limit=card[2],
-                          route_atol=ROUTE_ATOL, cpu_atol=ENSEMBLE_ATOL)))
+                          route_atol=ROUTE_ATOL, cpu_atol=ENSEMBLE_ATOL,
+                          phase_s=time.monotonic() - t_phase)))
     for name, got in (("stacked", s_single), ("replicated", r_single)):
         check(got.shape == (N_SINGLE, NUM_CLASSES) and bool(np.isfinite(got).all()),
               f"{name}: outputs of shape {got.shape} or non-finite")
@@ -1899,6 +2041,7 @@ def main() -> int:
               f"tune trial {row['no']}: {row['status']} and not a contained divergence: "
               f"{row['error']}")
     check(job["gp_ei_proposals"] >= 1, f"tune job: no proposal from expected improvement {job}")
+    check(job["graph_replays"] > 0, f"tune job: no captured step replayed {job}")
     check(job["best_score"] is not None and job["best_score"] >= TUNE_TOP1_TARGET,
           f"tune job: best score {job['best_score']} < {TUNE_TOP1_TARGET}")
     ev = job["evaluated_memory_allocated_bytes"]
@@ -1906,7 +2049,9 @@ def main() -> int:
           f"tune job: memory allocated after the last trial {ev[-1:]} > after the first "
           f"{ev[:1]} + {TUNE_LEAK_BYTES}")
     check(len(best) == 2, f"tune job: {len(best)} completed trials to serve, expected 2")
+    t_phase = time.monotonic()
     served = served_accuracy(best, card)
+    served["phase_s"] = time.monotonic() - t_phase
     print(json.dumps(served))
     check(max(served["abs_diff"]) <= SERVED_ACC_ATOL,
           f"served accuracy disagrees with the stored score: {served}")
@@ -1924,8 +2069,7 @@ def main() -> int:
               f"trial seed {t['seed']}: non-finite loss {t['epochs']}")
         check(t["eval_acc"] >= ACC_FLOOR,
               f"trial seed {t['seed']}: eval accuracy {t['eval_acc']} < {ACC_FLOOR}")
-    profile_row = train_step_profile(trained[0], card)
-    print(json.dumps(profile_row))
+    check(vgg["graph_replays"] > 0, f"canonical trial: no captured step replayed {vgg}")
     del trained
     torch.cuda.empty_cache()
     try:
@@ -1957,6 +2101,10 @@ def main() -> int:
     check(max(pack["score_abs_diff"]) <= PACK_SCORE_ATOL,
           f"trial_pack: packed scores {pack['packed_scores']} against serial "
           f"{pack['serial_scores']}, atol {PACK_SCORE_ATOL}")
+    check(pack["serial_graphs"]["graph_replays"] > 0
+          and pack["packed_graphs"]["graph_replays"] > 0,
+          f"trial_pack: no captured step replayed: serial {pack['serial_graphs']}, packed "
+          f"{pack['packed_graphs']}")
     member = PACK_MEMBERS.index({"learning_rate": 1e-3, "dropout": 0.1})
     check(pack["packed_scores"][member] >= ACC_FLOOR,
           f"trial_pack: the lr 1e-3 dropout 0.1 member scored "
@@ -1984,12 +2132,15 @@ def main() -> int:
     check(pjob["best_score"] is not None and pjob["best_score"] >= TUNE_TOP1_TARGET,
           f"tune job packed: best score {pjob['best_score']} < {TUNE_TOP1_TARGET}")
     check(pjob["packed_rounds"] >= 1, f"tune job packed: no packed round {pjob}")
+    check(pjob["graph_replays"] > 0, f"tune job packed: no captured step replayed {pjob}")
     check(pjob["memory_allocated_after_job"] <= pjob["memory_allocated_before_job"]
           + TUNE_LEAK_BYTES,
           f"tune job packed: {pjob['memory_allocated_after_job']} bytes allocated after the "
           f"job, {pjob['memory_allocated_before_job']} before (+{TUNE_LEAK_BYTES} allowed)")
     check(len(best) == 2, f"tune job packed: {len(best)} completed trials to serve, expected 2")
+    t_phase = time.monotonic()
     served = dict(served_accuracy(best, card), phase="served_vs_evaluated_packed")
+    served["phase_s"] = time.monotonic() - t_phase
     print(json.dumps(served))
     check(max(served["abs_diff"]) <= SERVED_ACC_ATOL,
           f"tune job packed: served accuracy disagrees with the stored score: {served}")
@@ -2038,6 +2189,20 @@ def main() -> int:
     check(presumed["checkpoints_left"] == 0 and presumed["orphans_left"] == 0,
           f"pack_resume: checkpoints left {presumed['checkpoints_left']}, orphans left "
           f"{presumed['orphans_left']}")
+    check(resumed["graph_replays"] > 0 and presumed["graph_replays"] > 0,
+          f"resume phases: no captured step replayed: {resumed['graph_replays']}, "
+          f"{presumed['graph_replays']}")
+
+    # -- 16. the captured step against the eager step ---------------------------
+    torch.cuda.empty_cache()
+    steps = graph_step(card)
+    print(json.dumps(steps))
+    for name, equal in steps["bit_equal"].items():
+        check(all(equal.values()), f"graph_step: the captured {name} step is not the eager "
+                                   f"step bit for bit: {equal}")
+    for name in ("serial", "packed"):
+        check(steps[f"{name}_captured"]["graph_replays"] > 0,
+              f"graph_step: the {name} epoch replayed no captured step")
 
     # -- kernels and the result line -------------------------------------------
     print(json.dumps({"kernels": []}))

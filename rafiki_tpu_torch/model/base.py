@@ -222,8 +222,9 @@ class TorchModel(BaseModel):
         takes it as a rate): the template, the arch and the baked knobs.
         A custom ``make_optimizer`` may bake any knob and the planned
         step count, so only the seed is left out and the planned steps
-        are keyed in. The JAX package keys its program cache on it; the
-        port keys trial packing on it."""
+        are keyed in. The process-wide program cache (``ops/train.py
+        get_program``) and trial packing key on it, as the JAX package's
+        do."""
         if custom_opt:
             dyn = {"seed"}
             extra = (getattr(self, "_planned_steps", None),)
@@ -294,7 +295,8 @@ class TorchModel(BaseModel):
                 return module
         self._loop = _ops.TrainLoop(
             init_fn, fns["apply_eval"], fns["loss_fn"], fns["optimizer"],
-            seed=self._seed, hyper=fns["hyper"], device=self.device)
+            seed=self._seed, hyper=fns["hyper"], program_key=fns["program_key"],
+            device=self.device)
         self._loop.params.eval()
         self._arch = (num_classes, tuple(input_shape))
 
@@ -446,14 +448,15 @@ class TorchModel(BaseModel):
         packed = _ops.PackedTrainLoop(
             fns["init_fn"], fns["apply_eval"], fns["loss_fn"], fns["optimizer"],
             seeds=[m._seed for m in models], hypers=[hypers[i] for i in range(len(models))],
-            packing_key=key, device=lead.device)
+            program_key=fns["program_key"], packing_key=key, device=lead.device)
 
         def install_detached(mi: int, state, epoch: int) -> None:
             """An evicted member carries on in an ordinary serial loop."""
             m = models[mi]
             m._loop = _ops.TrainLoop(
                 fns["init_fn"], fns["apply_eval"], fns["loss_fn"], fns["optimizer"],
-                seed=m._seed, hyper=hypers[mi], initial_state=state, device=m.device)
+                seed=m._seed, hyper=hypers[mi], program_key=fns["program_key"],
+                initial_state=state, device=m.device)
             m._arch = arch
             m._epochs_done = epoch
 
@@ -668,7 +671,9 @@ class TorchModel(BaseModel):
         and step, with a fresh optimizer, as the JAX package's salvage
         does. The dropout generator is the blob's own where it was
         written on this device type, else seeded from the trial's seed
-        as a fresh trial's is."""
+        as a fresh trial's is. The loop's state is replaced between
+        epochs, and a captured step lives within one epoch
+        (``ops/graphs.py``), so no graph reads the tensors it replaces."""
         payload = pickle.loads(blob)
         if "state_packed" not in payload:
             raise ValueError("checkpoint is in the legacy flax-msgpack format, which "

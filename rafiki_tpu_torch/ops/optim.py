@@ -13,24 +13,33 @@ step multiplies the result by ``-effective_lr`` itself. All float32:
 
 ``torch.optim.Adam`` places eps and the bias correction differently,
 so it is not used. The arithmetic runs as multi-tensor ``_foreach``
-ops: one launch per operation over all leaves, not one per leaf. The
-bias corrections are computed on the host in float32 (the step count
-lives there), so no step reads back from the device.
+ops: one launch per operation over all leaves, not one per leaf.
+
+The per-step scalars (the bias corrections ``1 - b^count``, and the
+schedule's value for ``adam``) are computed on the host in float32 from
+the step count, which lives there, by :meth:`ScaleByAdam.step_scalars`,
+and the update reads them from a device tensor (``scalars``): the train
+step uploads a whole epoch's table of them at once, so a step reads no
+host number and a captured CUDA graph of it (``ops/graphs.py``) serves
+every step and every trial. A division by a host scalar and one by a
+device tensor need not round alike on the card, so the eager step and
+the captured one take the same device tensor. The update leaves the
+count to its caller's bookkeeping: it returns the state advanced by
+one, and :meth:`ScaleByAdam.advance` moves it by a whole epoch.
 
 The moments are allocated at the first update, as zeros: a loop that
 only serves holds no optimizer state, and the first update is the
-same as from optax's zero-initialised state.
+same as from optax's zero-initialised state. (A captured step comes
+after eager warm-up steps, so its moments exist.)
 
 A pack of k trials (``ops/train.py PackedTrainLoop``) keeps one step
 count per member: members admitted mid-pack sit at other steps than
-their pack-mates. There ``count`` is a tuple of k ints and each leaf is
-stacked along a leading trial axis. The moments update on the stacked
-leaves (elementwise products and sums, the same on every slice); the
-bias-corrected quotient runs once per member on its slices, with the
-serial ops and scalars. On the card a division by a host scalar and
-one by a broadcast device tensor run different kernels, which need not
-round alike, so only the serial ops give a member its serial update
-bit for bit.
+their pack-mates. There ``count`` is a tuple of k ints, each leaf is
+stacked along a leading trial axis and ``scalars`` has one row per
+member. The moments update on the stacked leaves (elementwise products
+and sums, the same on every slice); the bias-corrected quotient runs
+once per member on its slices, with the serial ops and the member's
+own scalars, so a member's update is its serial update bit for bit.
 
 ``adam`` and ``linear_schedule`` are optax's complete optimizer and
 schedule, for templates that override ``make_optimizer``: the update is
@@ -58,6 +67,9 @@ _COUNT_MAX = int(np.iinfo(np.int32).max)
 
 
 class ScaleByAdam:
+    #: The per-step scalars ``update`` reads, in column order.
+    scalar_names = ("bias_correction1", "bias_correction2")
+
     def __init__(self, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         self.b1, self.b2, self.eps = b1, b2, eps
 
@@ -69,9 +81,37 @@ class ScaleByAdam:
         """``1 - beta^count`` in float32, as optax computes it."""
         return float(np.float32(1.0) - np.float32(beta) ** np.float32(count))
 
-    def update(self, grads: Sequence[torch.Tensor], state: ScaleByAdamState
-               ) -> Tuple[list, ScaleByAdamState]:
+    def _member_scalars(self, count: int, n: int) -> np.ndarray:
+        rows = []
+        for t in range(n):
+            c = min(count + 1 + t, _COUNT_MAX)
+            rows.append((self._bias_correction(self.b1, c), self._bias_correction(self.b2, c)))
+        return np.asarray(rows, np.float32).reshape(n, len(self.scalar_names))
+
+    def step_scalars(self, state: ScaleByAdamState, n: int) -> np.ndarray:
+        """The float32 scalars of the ``n`` updates after ``state``, one
+        row per update: ``(n, 2)`` for one trial, ``(n, k, 2)`` for a
+        pack (each member from its own count)."""
+        if isinstance(state.count, int):
+            return self._member_scalars(state.count, n)
+        return np.stack([self._member_scalars(c, n) for c in state.count], axis=1)
+
+    def advance(self, state: ScaleByAdamState, n: int) -> ScaleByAdamState:
+        """``state`` with its count(s) moved on by ``n`` updates."""
+        if isinstance(state.count, int):
+            count = min(state.count + n, _COUNT_MAX)
+        else:
+            count = tuple(min(c + n, _COUNT_MAX) for c in state.count)
+        return ScaleByAdamState(count=count, mu=state.mu, nu=state.nu)
+
+    def update(self, grads: Sequence[torch.Tensor], state: ScaleByAdamState,
+               scalars: Optional[torch.Tensor] = None) -> Tuple[list, ScaleByAdamState]:
         """The updates for ``grads``; the moments are updated in place.
+
+        ``scalars`` is this update's row of :meth:`step_scalars` on the
+        grads' device (``(2,)``, or ``(k, 2)`` for a pack); without it the
+        row is computed from the count and uploaded, so a caller that
+        steps one update at a time gets the same arithmetic.
 
         With an int ``count``, one trial: a list of updates. With a tuple
         of k counts, a pack: ``grads`` and the moments are stacked leaves,
@@ -79,6 +119,8 @@ class ScaleByAdam:
         slices of the moments by the serial ops, so they are its serial
         updates bit for bit on every device."""
         grads = list(grads)
+        if scalars is None:
+            scalars = torch.from_numpy(self.step_scalars(state, 1)[0]).to(grads[0].device)
         if state.mu is None:
             mu = [torch.zeros_like(g) for g in grads]
             nu = [torch.zeros_like(g) for g in grads]
@@ -92,21 +134,21 @@ class ScaleByAdam:
         torch._foreach_mul_(sq, 1.0 - self.b2)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_add_(nu, sq)
+        new = self.advance(ScaleByAdamState(count=state.count, mu=mu, nu=nu), 1)
         if isinstance(state.count, int):
-            count = min(state.count + 1, _COUNT_MAX)
-            return self._scale(mu, nu, count), ScaleByAdamState(count=count, mu=mu, nu=nu)
-        counts = tuple(min(c + 1, _COUNT_MAX) for c in state.count)
-        updates = [self._scale([m[i] for m in mu], [v[i] for v in nu], c)
-                   for i, c in enumerate(counts)]
-        return updates, ScaleByAdamState(count=counts, mu=mu, nu=nu)
+            return self._scale(mu, nu, scalars), new
+        updates = [self._scale([m[i] for m in mu], [v[i] for v in nu], scalars[i])
+                   for i in range(len(state.count))]
+        return updates, new
 
     def _scale(self, mu: List[torch.Tensor], nu: List[torch.Tensor],
-               count: int) -> List[torch.Tensor]:
-        """``(mu / bc1) / (sqrt(nu / bc2) + eps)`` for one trial."""
-        denom = torch._foreach_div(nu, self._bias_correction(self.b2, count))
+               scalars: torch.Tensor) -> List[torch.Tensor]:
+        """``(mu / bc1) / (sqrt(nu / bc2) + eps)`` for one trial, the bias
+        corrections read from ``scalars``."""
+        denom = torch._foreach_div(nu, scalars[1])
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        updates = torch._foreach_div(mu, self._bias_correction(self.b1, count))
+        updates = torch._foreach_div(mu, scalars[0])
         torch._foreach_div_(updates, denom)
         return updates
 
@@ -143,7 +185,10 @@ class Adam:
     core, then ``-learning_rate(count)`` with ``count`` the number of
     earlier updates (optax's ``scale_by_schedule``). A train step whose
     hyper dict has no ``lr`` applies its updates as they are. One trial
-    only: a pack scales by each member's ``hyper["lr"]``."""
+    only: a pack scales by each member's ``hyper["lr"]``. The schedule's
+    value is the third per-step scalar, after the core's two."""
+
+    scalar_names = ScaleByAdam.scalar_names + ("neg_schedule",)
 
     def __init__(self, learning_rate: Union[float, Callable[[int], float]],
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
@@ -154,10 +199,24 @@ class Adam:
     def init(self, params: Sequence[torch.Tensor]) -> AdamState:
         return AdamState(adam=self.core.init(params), count=0)
 
-    def update(self, grads: Sequence[torch.Tensor], state: AdamState
-               ) -> Tuple[List[torch.Tensor], AdamState]:
-        updates, core = self.core.update(grads, state.adam)
-        torch._foreach_mul_(updates, -self.schedule(state.count))
+    def step_scalars(self, state: AdamState, n: int) -> np.ndarray:
+        """``(n, 3)`` float32: the core's bias corrections and
+        ``-schedule(count)`` of each of the next ``n`` updates."""
+        neg = np.asarray([-self.schedule(min(state.count + t, _COUNT_MAX)) for t in range(n)],
+                         np.float32)
+        return np.concatenate([self.core.step_scalars(state.adam, n), neg[:, None]], axis=1)
+
+    def advance(self, state: AdamState, n: int) -> AdamState:
+        return AdamState(adam=self.core.advance(state.adam, n),
+                         count=min(state.count + n, _COUNT_MAX))
+
+    def update(self, grads: Sequence[torch.Tensor], state: AdamState,
+               scalars: Optional[torch.Tensor] = None) -> Tuple[List[torch.Tensor], AdamState]:
+        grads = list(grads)
+        if scalars is None:
+            scalars = torch.from_numpy(self.step_scalars(state, 1)[0]).to(grads[0].device)
+        updates, core = self.core.update(grads, state.adam, scalars[:2])
+        torch._foreach_mul_(updates, scalars[2])
         return updates, AdamState(adam=core, count=min(state.count + 1, _COUNT_MAX))
 
 

@@ -1,4 +1,5 @@
-"""Training and forward programs of a trial, in eager PyTorch.
+"""Training and forward programs of a trial: eager on the CPU, captured
+CUDA graphs on the card.
 
 Counterpart of ``rafiki_tpu/ops/train.py``:
 
@@ -7,20 +8,35 @@ Counterpart of ``rafiki_tpu/ops/train.py``:
   * the step closures of ``_make_step_fns`` (``:158``): the loss and its
     gradients, Adam's lr-free core (``ops/optim.py``), ``-effective_lr``,
     the update, and the health sentinel bundle, in that order;
-  * ``Program`` (``:221``), ``get_device_dataset`` (``:448``) and
+  * ``Program`` (``:221``) with ``train_epoch`` (``:256``) and
+    ``eval_epoch`` (``:278``), ``get_device_dataset`` (``:448``) and
     ``TrainLoop`` (``:467``): an epoch over a dataset resident on the
     device (batches gathered there with ``index_select``, in the same
     ``np.random.default_rng(epoch_seed)`` order), or batch by batch
     from the host with one batch of prefetch;
+  * the process-wide program cache (``:329-417``): ``get_program``,
+    ``program_cache_stats`` (also the telemetry collector
+    ``program_cache``), ``clear_program_cache``, ``mesh_cache_key`` and
+    ``packed_program_key`` (``:871``);
   * the serving half: ``predict`` (the float32 softmax, ``:210``),
     ``eval_step`` (the masked argmax-correct count, ``:199``) and
     ``predict_proba`` (``:763``), which pads the last chunk to a full
-    batch by REPEATING ITS LAST ROW so the device sees one shape.
+    batch by REPEATING ITS LAST ROW so the device sees one shape;
+  * the standalone factories ``make_train_step``, ``make_eval_step``
+    and ``make_predict_fn`` (``:1247-1274``).
 
-Hyperparameters that change per trial (learning rate, warmup, dropout
-rate) are float32 scalars on the host, as the JAX package's are traced
-scalars: the step count lives on the host too, so the learning rate is
-computed there and no step reads back from the device.
+Where the JAX package compiles a step with ``jit`` and an epoch as a
+``lax.scan``, the port runs an epoch through ``ops/graphs.py
+StepRunner``: on the card a few eager steps, then one captured CUDA
+graph of the step replayed for the rest of the epoch; on the CPU every
+step eagerly, the plain version. One step body serves all three. It
+reads only device tensors: the hyper values the forward takes (the
+dropout rate) are on the device, and the per-step scalars (``-lr``
+after warmup, Adam's bias corrections) are computed on the host in
+float32, as the JAX package's traced values are, one row per step of
+the epoch, uploaded once per epoch; the step reads its row from a slot
+filled before it runs. So trials differing only in ``DYNAMIC_KNOBS``
+share one cached ``Program``, and a graph bakes no trial's value in.
 
 Trial packing (``PackedProgram`` ``:800``, ``PackedTrainLoop`` ``:879``,
 ``PackedSliceLoop`` ``:1190``): k trials of one program train as one
@@ -32,17 +48,23 @@ the stacked leaves (member i's loss reads only slice i, so slice i's
 gradient is member i's own). Convolutions, dense layers and, where
 autograd records, GroupNorm run once per member (``ops/layers.py``);
 Adam's bias-corrected quotient, the learning rate and the sentinel
-norms run once per member with the serial ops; each member's dropout
-mask comes from its own generator (:class:`PackedGenerators`); and on
-the card training selects cuDNN's deterministic algorithms. So member i
-computes bit for bit what a serial ``TrainLoop(seed_i, hyper_i)``
-computes, on the CPU and on the card. The JAX package caches
-compiled packed programs under ``packed_program_key``; the port has no
-program cache (see :class:`Program`), so it has no such key either.
+norms run once per member with the serial ops and scalars; each
+member's dropout mask comes from its own generator
+(:class:`PackedGenerators`); and on the card training selects cuDNN's
+deterministic algorithms. So member i computes bit for bit what a
+serial ``TrainLoop(seed_i, hyper_i)`` computes, on the CPU and on the
+card, eager or captured. The packed step is captured as the serial one
+is, at the pack's current width.
 
-Not ported with this slice: the dp mesh (``_ShardingPlan``), the chaos
-plane's ``train.nan`` poison column and ``collective.step``/``train.epoch``
-sites, the goodput ledger, the perf profiler and SLO ticks.
+A cached ``Program`` holds the step closures of the trial that built
+it, as the JAX package's does, but not its init draw: each loop draws
+its own params from its own ``init_fn``. Graphs are not cached: each
+epoch captures its own (``ops/graphs.py`` says why).
+
+Not ported with this slice: the dp mesh (``_ShardingPlan``; a ``plan``
+other than None is refused), the chaos plane's ``train.nan`` poison
+column and ``collective.step``/``train.epoch`` sites, the goodput
+ledger, the perf profiler and SLO ticks.
 
 ``torch.inference_mode`` is thread-local, so :func:`predict_proba`
 enters it itself, on whatever thread serves the query.
@@ -53,9 +75,10 @@ from __future__ import annotations
 import copy
 import functools
 import os
+import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Hashable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,6 +91,7 @@ from torch.profiler import record_function
 from rafiki_tpu_torch import telemetry
 from rafiki_tpu_torch.obs.health import DivergenceError, HealthMonitor
 from rafiki_tpu_torch.obs.health import sentinel as _sentinel
+from rafiki_tpu_torch.ops.graphs import StepRunner
 from rafiki_tpu_torch.ops.optim import ScaleByAdamState, adam, scale_by_adam
 from rafiki_tpu_torch.utils.backend import DeviceLike, resolve_device
 
@@ -133,7 +157,9 @@ def dropout(x: torch.Tensor, rate, generator: Optional[torch.Generator],
     kept elements are scaled by ``1 / max(1 - rate, 1e-6)``. The random
     stream is ``generator``'s (on ``x``'s device); the JAX package's
     threefry stream cannot be matched, so parity is checked at rate 0.
-    In a pack, ``generator`` is the members' :class:`PackedGenerators`."""
+    In a pack, ``generator`` is the members' :class:`PackedGenerators`.
+    The train step passes the rate as a tensor on ``x``'s device, so a
+    captured step reads it, not a value baked in at capture."""
     if deterministic or generator is None:
         return x
     rate = torch.as_tensor(rate, dtype=torch.float32)
@@ -149,11 +175,17 @@ def dropout(x: torch.Tensor, rate, generator: Optional[torch.Generator],
 
 def effective_lr(hyper: Hyper, step_i) -> torch.Tensor:
     """Linear warmup to ``hyper["lr"]`` over ``hyper["warmup"]`` steps,
-    in float32: ``lr * min((step + 1) / max(warmup, 1), 1)``."""
+    in float32: ``lr * min((step + 1) / max(warmup, 1), 1)``. ``step_i``
+    may be a tensor of steps (elementwise, the same arithmetic)."""
     warmup = torch.clamp_min(torch.as_tensor(hyper.get("warmup", 1.0), dtype=torch.float32), 1.0)
     step = torch.as_tensor(step_i).to(torch.float32)
     frac = torch.clamp_max((step + 1.0) / warmup, 1.0)
     return torch.as_tensor(hyper["lr"], dtype=torch.float32) * frac
+
+
+def _neg_lr(hyper: Hyper, step_i: int, n: int) -> np.ndarray:
+    """``-effective_lr`` of the ``n`` steps from ``step_i``, float32."""
+    return (-effective_lr(hyper, torch.arange(step_i, step_i + n))).numpy()
 
 
 def _count_correct(logits: torch.Tensor, y: torch.Tensor,
@@ -177,27 +209,42 @@ def _deterministic_convs(device: torch.device) -> None:
         torch.backends.cudnn.deterministic = True
 
 
-def _make_step_fns(apply_fn, loss_fn, optimizer):
-    """The single-trial step closures: (train_step, eval_step).
+def _on(tensors: Dict[str, torch.Tensor], device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: v.to(device) for k, v in tensors.items()}
+
+
+def _module_device(module: nn.Module) -> torch.device:
+    return next(module.parameters()).device
+
+
+def _make_step_fns(apply_fn, loss_fn, optimizer, dynamic_lr: bool = True):
+    """The single-trial step closures: (train_body, eval_step).
 
     ``apply_fn(module, batch) -> logits`` (eval mode);
     ``loss_fn(module, batch, generator, hyper) -> (loss, metrics)``.
+    ``train_body(module, opt_state, generator, hyper, scalars, batch)``
+    runs one step in place and returns ``(opt_state, metrics)``.
+    ``scalars`` is the step's row of :func:`_step_table` on the device:
+    ``-effective_lr`` first when the step scales by it (``dynamic_lr``
+    and an ``lr`` in ``hyper``; else the optimizer is complete, from
+    ``make_optimizer``, and its updates apply as they are), then the
+    optimizer's own per-step scalars.
     """
 
-    def train_step(state: State, batch: Batch) -> Tuple[State, Dict[str, torch.Tensor]]:
-        module, opt_state, step_i, generator, hyper = state
+    def train_body(module: nn.Module, opt_state, generator, hyper: Hyper,
+                   scalars: torch.Tensor, batch: Batch) -> Tuple[Any, Dict[str, torch.Tensor]]:
         params = list(module.parameters())
+        scale = dynamic_lr and "lr" in hyper
         with torch.enable_grad():
             with record_function("train.forward"):
                 loss, metrics = loss_fn(module, batch, generator, hyper)
             grads = torch.autograd.grad(loss, params)
         with torch.no_grad():
             with record_function("train.adam"):
-                if opt_state is None:
-                    opt_state = optimizer.init(params)
-                updates, opt_state = optimizer.update(grads, opt_state)
-                if "lr" in hyper:  # else the optimizer is complete (make_optimizer)
-                    torch._foreach_mul_(updates, -float(effective_lr(hyper, step_i)))
+                updates, opt_state = optimizer.update(grads, opt_state,
+                                                      scalars[1:] if scale else scalars)
+                if scale:
+                    torch._foreach_mul_(updates, scalars[0])
                 torch._foreach_add_(params, updates)
             # The sentinels read the step's tensors; they never touch the
             # dropout stream or the update arithmetic.
@@ -205,27 +252,200 @@ def _make_step_fns(apply_fn, loss_fn, optimizer):
                 loss = loss.detach()
                 health = _sentinel.bundle(loss, grads, updates, params)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        return (module, opt_state, step_i + 1, generator, hyper), dict(metrics, loss=loss, **health)
+        return opt_state, dict(metrics, loss=loss, **health)
 
     def eval_step(module: nn.Module, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
         return _count_correct(apply_fn(module, batch), batch["y"], batch.get("valid"))
 
-    return train_step, eval_step
+    return train_body, eval_step
+
+
+def _step_table(optimizer, opt_state, hyper: Hyper, step_i: int, n: int,
+                scale: bool) -> np.ndarray:
+    """``(n, m)`` float32: each of the ``n`` steps from ``step_i``, its
+    ``-effective_lr`` (when ``scale``) and the optimizer's scalars."""
+    table = optimizer.step_scalars(opt_state, n)
+    if scale:
+        table = np.concatenate([_neg_lr(hyper, step_i, n)[:, None], table], axis=1)
+    return np.ascontiguousarray(table, np.float32)
+
+
+def _reduce_series(series: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """An epoch's result from its per-step series: the last step's
+    metrics and the reduced health series (``sentinel.reduce_epoch``)."""
+    rest, health = _sentinel.split(series)
+    out = {k: v[-1] for k, v in rest.items()}
+    out.update(_sentinel.reduce_epoch(health))
+    return out
+
+
+class _SeriesSink:
+    """Copies each step's outputs into the epoch's per-step series (on
+    the device), so a captured step's outputs are kept before the next
+    replay overwrites them."""
+
+    def __init__(self, n_steps: int):
+        self.n = n_steps
+        self.series: Dict[str, torch.Tensor] = {}
+
+    def __call__(self, t: int, out: Dict[str, torch.Tensor]) -> None:
+        if not self.series:
+            self.series = {k: torch.empty((self.n,) + tuple(v.shape), dtype=v.dtype,
+                                          device=v.device) for k, v in out.items()}
+        keys = list(self.series)
+        torch._foreach_copy_([self.series[k][t] for k in keys], [out[k] for k in keys])
+
+
+# ---------------------------------------------------------------------------
+# Feeds: where a step's batch comes from
+# ---------------------------------------------------------------------------
+
+
+class ResidentFeed:
+    """Each step's batch gathered on the device from a resident ``X``/
+    ``Y`` by its row of ``idx``: ``(n_steps, batch)``, or ``(n_steps, k,
+    batch)`` for a pack (member i's batch is ``idx[t, i]``). The row is
+    copied into a static slot before the step, so the gather is part of
+    a captured step."""
+
+    def __init__(self, X: torch.Tensor, Y: torch.Tensor, idx: torch.Tensor):
+        self.X, self.Y, self.idx = X, Y, idx
+        self.n_steps = idx.shape[0]
+        self.rows = torch.empty_like(idx[0])
+        self.feed_s = 0.0
+
+    def prepare(self, t: int) -> None:
+        self.rows.copy_(self.idx[t])
+
+    def batch(self) -> Batch:
+        lead = tuple(self.rows.shape)
+        flat = self.rows.reshape(-1)
+        return {"x": self.X.index_select(0, flat).reshape(lead + tuple(self.X.shape[1:])),
+                "y": self.Y.index_select(0, flat).reshape(lead + tuple(self.Y.shape[1:]))}
+
+    def after(self, t: int) -> None:
+        pass
+
+
+class HostFeed:
+    """Each step's batch from the host: ``n_steps`` numpy batches, each
+    copied to the device (from pinned memory, non-blocking) right after
+    the previous step is dispatched, then into static slots before its
+    own step. ``feed_s`` sums the host seconds of the copies."""
+
+    def __init__(self, batches: Iterator[Dict[str, np.ndarray]], n_steps: int,
+                 device: torch.device):
+        self._batches, self.n_steps, self.device = batches, n_steps, device
+        self.feed_s = 0.0
+        self._next = self._put_next()
+        self.slots = {k: torch.empty_like(v) for k, v in self._next.items()}
+
+    def _put_next(self) -> Optional[Batch]:
+        batch = next(self._batches, None)
+        if batch is None:
+            return None
+        batch.pop("valid", None)
+        t0 = time.monotonic()
+        dev = _put_batch(batch, self.device)
+        self.feed_s += time.monotonic() - t0
+        return dev
+
+    def prepare(self, t: int) -> None:
+        for k, slot in self.slots.items():
+            slot.copy_(self._next[k])
+
+    def batch(self) -> Batch:
+        return dict(self.slots)
+
+    def after(self, t: int) -> None:
+        # One batch of prefetch: batch t+1's copy starts right after
+        # step t is dispatched, so its host work overlaps that step.
+        self._next = self._put_next() if t + 1 < self.n_steps else None
 
 
 class Program:
     """The trial-independent half of a training loop: the step closures
-    and the epoch loops over a device-resident dataset.
+    and the epoch loops over a feed. Safe to share across trials (and
+    threads) whose computation is identical: per-trial state (params,
+    optimizer state, step, generator, hyper) lives in :class:`TrainLoop`.
 
-    The JAX package compiles these once per program key and caches the
-    result process-wide (an LRU of 64), so back-to-back trials skip the
-    XLA compile. Eager PyTorch has nothing to compile: a Program holds
-    only closures, each TrainLoop builds its own, and there is no cache.
+    Two lr modes, as the JAX package's: with ``dynamic_lr`` (the
+    template path) the optimizer is lr-free and the step scales its
+    updates by ``-effective_lr(hyper, step)`` where ``hyper`` has an
+    ``lr``, so trials differing in lr and warmup share the Program;
+    without, the optimizer carries its own lr (``make_optimizer``).
+
+    ``train_step`` is one eager step (the plain version, for callers
+    that step by hand); ``train_steps``/``train_epoch`` and
+    ``eval_epoch`` run an epoch, captured on the card
+    (``ops/graphs.py``).
     """
 
-    def __init__(self, apply_fn, loss_fn, optimizer):
+    def __init__(self, apply_fn, loss_fn, optimizer, dynamic_lr: bool = True):
+        self.apply_fn = apply_fn
         self.optimizer = optimizer
-        self.train_step, self.eval_step = _make_step_fns(apply_fn, loss_fn, optimizer)
+        self.dynamic_lr = dynamic_lr
+        self._body, self.eval_step = _make_step_fns(apply_fn, loss_fn, optimizer, dynamic_lr)
+
+    def _scales(self, hyper: Hyper) -> bool:
+        return self.dynamic_lr and "lr" in hyper
+
+    def predict(self, module: nn.Module, batch: Batch) -> torch.Tensor:
+        """Class probabilities: the float32 softmax of the logits."""
+        return torch.softmax(self.apply_fn(module, batch).float(), dim=-1)
+
+    def train_step(self, state: State, batch: Batch) -> Tuple[State, Dict[str, torch.Tensor]]:
+        """One step, eagerly: the same body a captured epoch replays, its
+        row of per-step scalars computed and uploaded here."""
+        module, opt_state, step_i, generator, hyper = state
+        device = _module_device(module)
+        if opt_state is None:
+            opt_state = self.optimizer.init(list(module.parameters()))
+        scalars = torch.from_numpy(_step_table(self.optimizer, opt_state, hyper, step_i, 1,
+                                               self._scales(hyper))[0]).to(device)
+        opt_state, metrics = self._body(module, opt_state, generator, _on(hyper, device),
+                                        scalars, batch)
+        return (module, opt_state, step_i + 1, generator, hyper), metrics
+
+    def train_steps(self, state: State, feed, on_step=None
+                    ) -> Tuple[State, Dict[str, torch.Tensor]]:
+        """``feed.n_steps`` steps through a :class:`~rafiki_tpu_torch.ops.
+        graphs.StepRunner`. Returns the new state and the per-step
+        metric series, ``(n_steps,)`` each, on the device.
+        ``on_step(t, metrics)`` runs after step ``t`` is dispatched."""
+        module, opt_state, step_i, generator, hyper = state
+        n = feed.n_steps
+        device = _module_device(module)
+        if opt_state is None:
+            opt_state = self.optimizer.init(list(module.parameters()))
+        table = torch.from_numpy(_step_table(self.optimizer, opt_state, hyper, step_i, n,
+                                             self._scales(hyper))).to(device)
+        scalars = torch.empty_like(table[0])
+        hyper_dev = _on(hyper, device)
+        cell = [opt_state]
+        sink = _SeriesSink(n)
+
+        def prepare(t: int) -> None:
+            scalars.copy_(table[t])
+            feed.prepare(t)
+
+        def body() -> Dict[str, torch.Tensor]:
+            cell[0], metrics = self._body(module, cell[0], generator, hyper_dev, scalars,
+                                          feed.batch())
+            return metrics
+
+        def collect(t: int, metrics: Dict[str, torch.Tensor]) -> None:
+            sink(t, metrics)
+            feed.after(t)
+            if on_step is not None:
+                on_step(t, metrics)
+
+        runner = StepRunner(device, n, body, prepare, collect, generators=[generator])
+        runner.run()
+        # The body ran (and counted) once per eager step and once for the
+        # capture; the replays moved the device state, not the counts.
+        opt_state = self.optimizer.advance(cell[0], n - runner.calls)
+        return (module, opt_state, step_i + n, generator, hyper), sink.series
 
     def train_epoch(self, state: State, X: torch.Tensor, Y: torch.Tensor,
                     idx: torch.Tensor) -> Tuple[State, Dict[str, torch.Tensor]]:
@@ -233,26 +453,130 @@ class Program:
         tensor on the device), each batch gathered from the resident
         ``X``/``Y``. Returns the last step's metrics plus the epoch's
         reduced health series, all still on the device."""
-        steps = []
-        for ib in idx:
-            state, metrics = self.train_step(
-                state, {"x": X.index_select(0, ib), "y": Y.index_select(0, ib)})
-            steps.append(metrics)
-        rest, health = _sentinel.split({k: torch.stack([m[k] for m in steps])
-                                        for k in steps[0]})
-        out = {k: v[-1] for k, v in rest.items()}
-        out.update(_sentinel.reduce_epoch(health))
-        return state, out
+        state, series = self.train_steps(state, ResidentFeed(X, Y, idx))
+        return state, _reduce_series(series)
 
     def eval_epoch(self, module: nn.Module, X: torch.Tensor, Y: torch.Tensor,
                    idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Summed (correct, counted) over the rows of ``idx``."""
-        c = n = torch.zeros((), dtype=torch.int64, device=X.device)
-        for ib in idx:
-            dc, dn = self.eval_step(module, {"x": X.index_select(0, ib),
-                                             "y": Y.index_select(0, ib)})
-            c, n = c + dc, n + dn
-        return c, n
+        return _eval_steps(lambda batch: self.eval_step(module, batch), X, Y, idx, ())
+
+
+def _eval_steps(step, X: torch.Tensor, Y: torch.Tensor, idx: torch.Tensor,
+                shape: Tuple[int, ...]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(correct, counted) summed over the rows of ``idx``, each a
+    ``step(batch)``, through a StepRunner: int64 of ``shape``."""
+    feed = ResidentFeed(X, Y, idx)
+    c = torch.zeros(shape, dtype=torch.int64, device=X.device)
+    n = torch.zeros(shape, dtype=torch.int64, device=X.device)
+
+    def body() -> Dict[str, torch.Tensor]:
+        dc, dn = step(feed.batch())
+        return {"c": dc, "n": dn}
+
+    def collect(t: int, out: Dict[str, torch.Tensor]) -> None:
+        c.add_(out["c"])
+        n.add_(out["n"])
+
+    StepRunner(X.device, feed.n_steps, body, feed.prepare, collect).run()
+    return c, n
+
+
+# ---------------------------------------------------------------------------
+# Process-wide program cache
+# ---------------------------------------------------------------------------
+#
+# A worker runs many trials back to back; trials of one program key
+# share one Program, as the JAX package's share one compiled program.
+# The per-key lock builds a Program once even under concurrent callers.
+# The cache is capped (LRU); live loops keep their Program through
+# their own reference, so eviction is always safe.
+
+_PROGRAM_CACHE_CAP = 64
+
+_programs: Dict[Hashable, Any] = {}  # insertion-ordered: LRU by re-insertion
+_build_locks: Dict[Hashable, threading.Lock] = {}
+# last_miss_ts (epoch seconds, comparable to the meta store's trial
+# timestamps) tells which trials ran after the last build.
+_stats = {"hits": 0, "misses": 0, "evictions": 0, "last_miss_ts": 0.0}
+_guard = threading.Lock()
+
+
+def mesh_cache_key(mesh) -> Hashable:
+    """The mesh part of a program key: None without a mesh (the dp mesh
+    is not ported; any other mesh is refused)."""
+    if mesh is None:
+        return None
+    raise NotImplementedError("the dp mesh is not ported to rafiki_tpu_torch")
+
+
+def get_program(key: Hashable, builder: Callable[[], Any]) -> Any:
+    """Return the cached program for ``key``, building it (once, even
+    under concurrent callers) if absent.
+
+    Contract: ``key`` must fully determine the builder's inputs (the
+    apply/loss closures, the optimizer): on a hit the caller's builder
+    is IGNORED in favor of the cached program. ``TorchModel`` keys every
+    knob that reaches the step; direct callers must do the same.
+    """
+    with _guard:
+        prog = _programs.get(key)
+        if prog is not None:
+            _programs[key] = _programs.pop(key)  # refresh LRU position
+            _stats["hits"] += 1
+            telemetry.inc("program_cache.hits")
+            return prog
+        lock = _build_locks.setdefault(key, threading.Lock())
+    with lock:
+        with _guard:
+            prog = _programs.get(key)
+            if prog is not None:
+                _stats["hits"] += 1
+                telemetry.inc("program_cache.hits")
+                return prog
+        try:
+            with telemetry.span("program.build"):
+                prog = builder()
+        except BaseException:
+            # A builder that raises leaves no lock entry behind:
+            # _build_locks must not outgrow the capped _programs.
+            with _guard:
+                _build_locks.pop(key, None)
+            raise
+        with _guard:
+            # Publish and retire the build lock atomically: popping the
+            # lock first would let a concurrent caller install a fresh
+            # lock and build a duplicate.
+            _programs[key] = prog
+            _stats["misses"] += 1
+            _stats["last_miss_ts"] = time.time()
+            _build_locks.pop(key, None)
+            evicted = 0
+            while len(_programs) > _PROGRAM_CACHE_CAP:
+                _programs.pop(next(iter(_programs)))
+                _stats["evictions"] += 1
+                evicted += 1
+        telemetry.inc("program_cache.misses")
+        if evicted:
+            telemetry.inc("program_cache.evictions", evicted)
+    return prog
+
+
+def program_cache_stats() -> Dict[str, Any]:
+    with _guard:
+        return dict(_stats, size=len(_programs))
+
+
+# The cache's lifetime stats also surface through the telemetry
+# registry, as the collector ``program_cache``.
+telemetry.register_collector("program_cache", program_cache_stats)
+
+
+def clear_program_cache() -> None:
+    with _guard:
+        _programs.clear()
+        _build_locks.clear()
+        _stats.update(hits=0, misses=0, evictions=0, last_miss_ts=0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -296,7 +620,7 @@ def _put_batch(batch: Dict[str, np.ndarray], device: torch.device) -> Batch:
 
 
 # ---------------------------------------------------------------------------
-# TrainLoop: per-trial state driving a Program
+# TrainLoop: per-trial state driving a (possibly shared) Program
 # ---------------------------------------------------------------------------
 
 
@@ -315,7 +639,11 @@ class TrainLoop:
         (default ``adam(1e-3)``) whose updates apply as they are.
     seed: seeds the init draw and the dropout stream.
     hyper: per-trial float32 scalars: ``lr``, ``warmup``, and
-        ``dropout`` where the module takes a rate.
+        ``dropout`` where the module takes a rate. The state keeps them
+        on the host; the step reads device copies.
+    program_key: optional hashable. When given, the Program comes from
+        the process-wide cache under ``(program_key, mesh_cache_key(None),
+        dynamic_lr)``; the init draw is always this loop's own.
     initial_state: optional ``(module, opt_state, step, generator,
         hyper)`` tuple to adopt instead of running ``init_fn``;
         ``opt_state`` None means no moments yet (a fresh optimizer).
@@ -325,21 +653,32 @@ class TrainLoop:
 
     def __init__(self, init_fn: Optional[Callable[[torch.Generator], nn.Module]],
                  apply_fn, loss_fn, optimizer=None, seed: int = 0,
-                 hyper: Optional[Dict[str, float]] = None, initial_state=None,
+                 hyper: Optional[Dict[str, float]] = None,
+                 program_key: Optional[Hashable] = None, initial_state=None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         _deterministic_convs(self.device)
         if optimizer is None:
             optimizer = scale_by_adam() if "lr" in (hyper or {}) else adam(1e-3)
-        self.program = Program(apply_fn, loss_fn, optimizer)
-        self.health = HealthMonitor(f"serial:{id(self)}")
-        self._warm = False
         if initial_state is None:
             module = init_fn(torch.Generator().manual_seed(seed))
             generator = torch.Generator(device=self.device).manual_seed(seed)
             initial_state = (module, None, 0, generator, hyper or {})
         module, opt_state, step, generator, hyper = initial_state
         hyper = {k: torch.as_tensor(v, dtype=torch.float32).cpu() for k, v in hyper.items()}
+        dynamic_lr = "lr" in hyper
+
+        def build() -> Program:
+            return Program(apply_fn, loss_fn, optimizer, dynamic_lr=dynamic_lr)
+
+        if program_key is not None:
+            self._perf_key = (program_key, mesh_cache_key(None), dynamic_lr)
+            self.program = get_program(self._perf_key, build)
+        else:
+            self._perf_key = ("serial", "anon", id(self))
+            self.program = build()
+        self.health = HealthMonitor(f"serial:{id(self)}")
+        self._warm = False
         self.state: State = (module.to(self.device), opt_state, int(step), generator, hyper)
 
     @property
@@ -364,59 +703,28 @@ class TrainLoop:
             raise ValueError(
                 f"Dataset has {dataset.size} examples < batch_size={batch_size}; "
                 f"the epoch would run zero steps")
-        fast = on_metrics is None and self._fits_device_fast_path(dataset)
         t_epoch = time.monotonic()
         n_steps = dataset.size // batch_size
-        if fast:
+        if on_metrics is None and self._fits_device_fast_path(dataset):
             X, Y = get_device_dataset(dataset, self.device)
             perm = np.random.default_rng(epoch_seed).permutation(dataset.size)
             idx = torch.from_numpy(perm[: n_steps * batch_size].reshape(n_steps, batch_size))
-            self.state, metrics = self.program.train_epoch(
-                self.state, X, Y, idx.to(self.device))
-            out = {k: float(v) for k, v in metrics.items()}
-            self._record_epoch(t_epoch, feed_s=0.0)
-            self._health_check(out, t_epoch, epoch_seed)
-            return out
-        count = 0
-        metrics = None
-        feed_s = 0.0
-        health_steps = []
-        # One batch of prefetch: batch i+1's copy to the device starts
-        # right after step i is dispatched, so it overlaps that step.
-        batches = dataset.batches(batch_size, shuffle=True, seed=epoch_seed,
-                                  drop_remainder=True)
+            feed = ResidentFeed(X, Y, idx.to(self.device))
+            on_step = None
+        else:
+            feed = HostFeed(dataset.batches(batch_size, shuffle=True, seed=epoch_seed,
+                                            drop_remainder=True), n_steps, self.device)
 
-        def put_next():
-            nonlocal feed_s
-            batch = next(batches, None)
-            if batch is None:
-                return None
-            batch.pop("valid", None)
-            t_feed = time.monotonic()
-            dev = _put_batch(batch, self.device)
-            feed_s += time.monotonic() - t_feed
-            return dev
-
-        dev_batch = put_next()
-        while dev_batch is not None:
-            self.state, metrics = self.program.train_step(self.state, dev_batch)
-            # Device scalars kept as they are: the health series reaches
-            # the host once, at the epoch-boundary reduction.
-            health_steps.append({k: v for k, v in metrics.items()
-                                 if k.startswith(_sentinel.PREFIX)})
-            dev_batch = put_next()
-            if on_metrics is not None and (count % 50 == 0):
-                on_metrics(count, {k: float(v) for k, v in metrics.items()
+            def on_step(t: int, metrics: Dict[str, torch.Tensor]) -> None:
+                if on_metrics is not None and t % 50 == 0:
+                    on_metrics(t, {k: float(v) for k, v in metrics.items()
                                    if not k.startswith(_sentinel.PREFIX)})
-            count += 1
-        out = {k: float(v) for k, v in metrics.items()
-               if not k.startswith(_sentinel.PREFIX)} if count else {}
-        self._record_epoch(t_epoch, feed_s)
-        if count:
-            series = {k: torch.stack([h[k] for h in health_steps])
-                      for k in health_steps[0]}
-            out.update({k: float(v) for k, v in _sentinel.reduce_epoch(series).items()})
-            self._health_check(out, t_epoch, epoch_seed)
+
+        self.state, series = self.program.train_steps(self.state, feed, on_step)
+        # The health series reaches the host once, at the epoch boundary.
+        out = {k: float(v) for k, v in _reduce_series(series).items()}
+        self._record_epoch(t_epoch, feed.feed_s)
+        self._health_check(out, t_epoch, epoch_seed)
         return out
 
     def _health_check(self, out: Dict[str, float], t0: float, epoch_seed: int) -> None:
@@ -457,7 +765,8 @@ class TrainLoop:
                 total_correct, total = total_correct + c, total + n
                 start = n_steps * batch_size
             # (correct, counted) accumulate on the device; the host reads
-            # them once at the end.
+            # them once at the end. The remainder is one batch of its own
+            # shape: it runs eagerly.
             for batch in dataset.batches(batch_size, shuffle=False, drop_remainder=False,
                                          start=start):
                 c, n = self.program.eval_step(module, _put_batch(batch, self.device))
@@ -528,29 +837,49 @@ class PackedProgram:
     ``(k, batch, ...)``) so each keeps its serial shuffle order; eval
     shares one batch across the members (``in_dims=(0, 0, None)``).
     ``module`` gives the architecture only (it is copied to the meta
-    device). The width k is not part of the program: evict and admit
-    change it freely.
+    device). The closures do not depend on the width k, but the program
+    cache keys a packed program on it (``packed_program_key``), as the
+    JAX package's compiles one per width. ``functional_call`` swaps a
+    member's params into the module it is given, so each thread calls a
+    copy of its own (``_thread_base``): packs of one key on two workers'
+    threads share the cached program.
     """
 
     def __init__(self, module: nn.Module, apply_fn, loss_fn, optimizer):
         self.base = copy.deepcopy(module).to("meta")
         self.optimizer = optimizer
+        self._local = threading.local()
         _, eval_step = _make_step_fns(apply_fn, loss_fn, optimizer)
 
         def member_loss(params, buffers, x, y, hyper, generators):
-            return loss_fn(_Bound(self.base, params, buffers), {"x": x, "y": y},
+            return loss_fn(_Bound(self._thread_base(), params, buffers), {"x": x, "y": y},
                            generators, hyper)
 
         def member_eval(params, buffers, batch):
-            return eval_step(_Bound(self.base, params, buffers), batch)
+            return eval_step(_Bound(self._thread_base(), params, buffers), batch)
 
         self._member_loss = member_loss
         self._v_eval = vmap(member_eval, in_dims=(0, 0, None))
 
-    def train_step(self, state: PackedState, batch: Batch) -> Dict[str, torch.Tensor]:
-        """One step of every member (``state`` is updated in place).
-        Returns ``(k,)`` metrics: the loss, the template's metrics and
-        the per-member health bundle."""
+    def _thread_base(self) -> nn.Module:
+        base = getattr(self._local, "base", None)
+        if base is None:
+            base = self._local.base = copy.deepcopy(self.base)
+        return base
+
+    def _step_table(self, state: PackedState, n: int) -> np.ndarray:
+        """``(n, k, 3)`` float32: each member's ``-effective_lr`` from its
+        own step count and its Adam scalars from its own count."""
+        neg_lr = np.stack([_neg_lr(state.member_hyper(i), s, n)
+                           for i, s in enumerate(state.steps)], axis=1)
+        table = np.concatenate([neg_lr[..., None], self.optimizer.step_scalars(state.opt, n)],
+                               axis=2)
+        return np.ascontiguousarray(table, np.float32)
+
+    def _body(self, state: PackedState, scalars: torch.Tensor,
+              batch: Batch) -> Dict[str, torch.Tensor]:
+        """One step of every member, in place, reading member i's scalars
+        from ``scalars[i]``. Returns ``(k,)`` metrics."""
         k = state.k
         leaves = list(state.params.values())
         v_loss = vmap(functools.partial(self._member_loss,
@@ -564,12 +893,11 @@ class PackedProgram:
             grads = torch.autograd.grad(losses.sum(), leaves)
         with torch.no_grad():
             with record_function("train.adam"):
-                # k lists of updates; each member's -effective_lr from its
-                # own step count, applied to its slices as a serial step.
-                updates, state.opt = self.optimizer.update(grads, state.opt)
+                # k lists of updates; each member's -effective_lr, applied
+                # to its slices as a serial step applies its own.
+                updates, state.opt = self.optimizer.update(grads, state.opt, scalars[:, 1:])
                 for i in range(k):
-                    torch._foreach_mul_(updates[i], -float(effective_lr(state.member_hyper(i),
-                                                                        state.steps[i])))
+                    torch._foreach_mul_(updates[i], scalars[i, 0])
                     torch._foreach_add_([p[i] for p in leaves], updates[i])
             with record_function("train.sentinel"):
                 losses = losses.detach()
@@ -578,9 +906,48 @@ class PackedProgram:
         metrics = {key: v.detach() for key, v in metrics.items()}
         return dict(metrics, loss=losses, **health)
 
+    def train_step(self, state: PackedState, batch: Batch) -> Dict[str, torch.Tensor]:
+        """One step of every member, eagerly (``state`` is updated in
+        place): the body a captured epoch replays. Returns ``(k,)``
+        metrics: the loss, the template's metrics and the per-member
+        health bundle."""
+        device = next(iter(state.params.values())).device
+        scalars = torch.from_numpy(self._step_table(state, 1)[0]).to(device)
+        return self._body(state, scalars, batch)
+
     def eval_step(self, state: PackedState, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(k,)`` (correct, counted) of every member over one shared batch."""
         return self._v_eval(state.params, state.buffers, batch)
+
+    def train_steps(self, state: PackedState, feed, on_step=None) -> Dict[str, torch.Tensor]:
+        """``feed.n_steps`` steps of every member through a StepRunner
+        (``state`` is updated in place). Returns the per-step metric
+        series, ``(n_steps, k)`` each, on the device."""
+        n = feed.n_steps
+        device = next(iter(state.params.values())).device
+        table = torch.from_numpy(self._step_table(state, n)).to(device)
+        scalars = torch.empty_like(table[0])
+        steps = list(state.steps)
+        sink = _SeriesSink(n)
+
+        def prepare(t: int) -> None:
+            scalars.copy_(table[t])
+            feed.prepare(t)
+
+        def collect(t: int, metrics: Dict[str, torch.Tensor]) -> None:
+            sink(t, metrics)
+            feed.after(t)
+            if on_step is not None:
+                on_step(t, metrics)
+
+        runner = StepRunner(device, n, lambda: self._body(state, scalars, feed.batch()),
+                            prepare, collect, generators=state.generators)
+        runner.run()
+        # The body counted its eager steps and the capture; the replays
+        # moved the device state only.
+        state.opt = self.optimizer.advance(state.opt, n - runner.calls)
+        state.steps = [s + n for s in steps]
+        return sink.series
 
     def train_epoch(self, state: PackedState, X: torch.Tensor, Y: torch.Tensor,
                     idx: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -588,30 +955,20 @@ class PackedProgram:
         device): member i's batch is gathered from the resident ``X``/
         ``Y`` by ``idx[t, i]``. Returns the last step's ``(k,)`` metrics
         and the epoch's health series reduced per member, on the device."""
-        k, batch = idx.shape[1], idx.shape[2]
-        health_steps = []
-        metrics: Dict[str, torch.Tensor] = {}
-        for ib in idx:
-            flat = ib.reshape(-1)
-            metrics = self.train_step(state, {
-                "x": X.index_select(0, flat).reshape((k, batch) + tuple(X.shape[1:])),
-                "y": Y.index_select(0, flat).reshape((k, batch) + tuple(Y.shape[1:]))})
-            health_steps.append(_sentinel.split(metrics)[1])
-        out = _sentinel.split(metrics)[0]
-        out.update(_sentinel.reduce_epoch({key: torch.stack([h[key] for h in health_steps])
-                                           for key in health_steps[0]}))
-        return out
+        return _reduce_series(self.train_steps(state, ResidentFeed(X, Y, idx)))
 
     def eval_epoch(self, state: PackedState, X: torch.Tensor, Y: torch.Tensor,
                    idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Per-member summed (correct, counted) over the rows of ``idx``
         (``(n_steps, batch)``: one batch stream shared by the members)."""
-        c = n = torch.zeros((state.k,), dtype=torch.int64, device=X.device)
-        for ib in idx:
-            dc, dn = self.eval_step(state, {"x": X.index_select(0, ib),
-                                            "y": Y.index_select(0, ib)})
-            c, n = c + dc, n + dn
-        return c, n
+        return _eval_steps(lambda batch: self.eval_step(state, batch), X, Y, idx, (state.k,))
+
+
+def packed_program_key(program_key: Hashable, k: int, dynamic_lr: bool) -> Hashable:
+    """Cache key of a PackedProgram. The leading tag keeps packed and
+    serial keys (``(program_key, mesh_key, dynamic_lr)``) apart in the
+    process-wide cache, even for one base key."""
+    return ("packed", int(k), program_key, bool(dynamic_lr))
 
 
 class PackedTrainLoop:
@@ -624,7 +981,9 @@ class PackedTrainLoop:
     ``TrainLoop(init_fn, ..., seed=seeds[i], hyper=hypers[i])`` computes;
     only the launches are shared. ``init_fn`` may return the same module
     object on every call (``TorchModel._loop_fns`` does): each member's
-    params are copied out before the next draw.
+    params are copied out before the next draw. With ``program_key`` the
+    PackedProgram of the current width comes from the process-wide cache
+    (``packed_program_key``); evict and admit fetch the new width's.
 
     A pack never raises on divergence: each epoch leaves one
     ``Optional[verdict]`` per live member on ``last_verdicts``, and the
@@ -634,6 +993,7 @@ class PackedTrainLoop:
     def __init__(self, init_fn: Callable[[torch.Generator], nn.Module], apply_fn, loss_fn,
                  optimizer=None, seeds: Optional[Sequence[int]] = None,
                  hypers: Optional[Sequence[Dict[str, float]]] = None,
+                 program_key: Optional[Hashable] = None,
                  packing_key: Optional[str] = None, device: DeviceLike = None):
         if not seeds:
             raise ValueError("PackedTrainLoop needs at least one seed")
@@ -651,8 +1011,11 @@ class PackedTrainLoop:
         self.packing_key = packing_key
         self._init_fn = init_fn
         draws = [self._draw(s) for s in seeds]
-        self.program = PackedProgram(draws[0][2], apply_fn, loss_fn,
-                                     optimizer if optimizer is not None else scale_by_adam())
+        # The build inputs outlive __init__: evict and admit change the
+        # width, and a width change fetches that width's program.
+        self._fns = (copy.deepcopy(draws[0][2]).to("meta"), apply_fn, loss_fn,
+                     optimizer if optimizer is not None else scale_by_adam())
+        self._program_key = program_key
         names, buffer_names = list(draws[0][0]), list(draws[0][1])
         hyper = {name: torch.tensor([float(h[name]) for h in hypers], dtype=torch.float32)
                  for name in hypers[0]}
@@ -666,6 +1029,7 @@ class PackedTrainLoop:
             generators=[torch.Generator(device=self.device).manual_seed(int(s)) for s in seeds],
             hyper=hyper,
             hyper_dev={name: v.to(self.device) for name, v in hyper.items()})
+        self._set_program()
         self.health = HealthMonitor(f"packed:{id(self)}", k=self.k)
         self.last_verdicts: List[Optional[Dict[str, Any]]] = [None] * self.k
         self._warm = False
@@ -673,6 +1037,23 @@ class PackedTrainLoop:
     @property
     def k(self) -> int:
         return self.state.k
+
+    def _set_program(self) -> None:
+        """(Re)fetch the PackedProgram of the current width: the packed
+        key holds k, so a width change after evict or admit builds (once,
+        then cached) the new width's program, as the JAX package's
+        compiles it. A member's computation does not depend on k."""
+        module, apply_fn, loss_fn, optimizer = self._fns
+
+        def build() -> PackedProgram:
+            return PackedProgram(module, apply_fn, loss_fn, optimizer)
+
+        if self._program_key is not None:
+            self._perf_key = packed_program_key(self._program_key, self.k, True)
+            self.program = get_program(self._perf_key, build)
+        else:
+            self._perf_key = ("packed", "anon", id(self), self.k)
+            self.program = build()
 
     def _draw(self, seed: int):
         """One member's initial (params, buffers), drawn as
@@ -742,6 +1123,7 @@ class PackedTrainLoop:
         self.health.evict_member(i)
         if i < len(self.last_verdicts):
             self.last_verdicts.pop(i)
+        self._set_program()
         telemetry.inc("trial_pack.evictions")
         return evicted
 
@@ -773,6 +1155,7 @@ class PackedTrainLoop:
         st.hyper_dev = {n: torch.cat([v, value[n].to(v.device)]) for n, v in st.hyper_dev.items()}
         self.health.admit_member()
         self.last_verdicts.append(None)
+        self._set_program()
         telemetry.inc("trial_pack.backfills")
         return self.k - 1
 
@@ -800,25 +1183,16 @@ class PackedTrainLoop:
         idx = np.stack([np.random.default_rng(int(s)).permutation(dataset.size)
                         [: n_steps * batch_size].reshape(n_steps, batch_size)
                         for s in epoch_seeds], axis=1)
-        feed_s = 0.0
         if self._fits_device_fast_path(dataset):
             X, Y = get_device_dataset(dataset, self.device)
-            metrics = self.program.train_epoch(self.state, X, Y,
-                                               torch.from_numpy(idx).to(self.device))
+            feed = ResidentFeed(X, Y, torch.from_numpy(idx).to(self.device))
         else:
-            health_steps = []
-            for ib in idx:
-                t_feed = time.monotonic()
-                batch = _put_batch({"x": dataset.x[ib], "y": dataset.y[ib]}, self.device)
-                feed_s += time.monotonic() - t_feed
-                metrics = self.program.train_step(self.state, batch)
-                health_steps.append(_sentinel.split(metrics)[1])
-            metrics = _sentinel.split(metrics)[0]
-            metrics.update(_sentinel.reduce_epoch(
-                {key: torch.stack([h[key] for h in health_steps]) for key in health_steps[0]}))
+            feed = HostFeed(({"x": dataset.x[ib], "y": dataset.y[ib]} for ib in idx), n_steps,
+                            self.device)
+        metrics = _reduce_series(self.program.train_steps(self.state, feed))
         host = {key: v.cpu().numpy() for key, v in metrics.items()}
         rows = [{key: float(v[i]) for key, v in host.items()} for i in range(self.k)]
-        self._record_epoch(t_epoch, feed_s)
+        self._record_epoch(t_epoch, feed.feed_s)
         return self._health_check(rows, t_epoch, epoch_seeds)
 
     def _health_check(self, rows: List[Dict[str, float]], t0: float,
@@ -904,6 +1278,7 @@ class PackedSliceLoop:
         return predict_proba(self.params, x, batch_size, self.device)
 
 
+
 # ---------------------------------------------------------------------------
 # Serving half
 # ---------------------------------------------------------------------------
@@ -938,3 +1313,41 @@ def predict_proba(module: nn.Module, x: np.ndarray, batch_size: int,
             probs = predict(module, xt).cpu().numpy()
             outs.append(probs[: batch_size - pad] if pad else probs)
     return np.concatenate(outs) if outs else np.zeros((0,))
+
+
+# ---------------------------------------------------------------------------
+# Standalone builders (the legacy surface; Program is the primary API)
+# ---------------------------------------------------------------------------
+
+
+def _no_plan(plan) -> None:
+    if plan is not None:
+        raise NotImplementedError("the dp mesh is not ported to rafiki_tpu_torch; plan must be None")
+
+
+def _no_loss(module, batch, generator, hyper):
+    return torch.zeros(()), {}
+
+
+def make_train_step(loss_fn, optimizer, plan=None, dynamic_lr: bool = False):
+    """A train step ``(state, batch) -> (state, metrics)`` over the
+    5-tuple state ``(module, opt_state, step, generator, hyper)``; with
+    ``dynamic_lr`` the updates are scaled by ``-effective_lr(hyper,
+    step)``. It runs eagerly, one call per step: a captured step needs
+    the static slots of an epoch (``Program.train_steps``)."""
+    _no_plan(plan)
+    return Program(lambda module, batch: None, loss_fn, optimizer,
+                   dynamic_lr=dynamic_lr).train_step
+
+
+def make_eval_step(apply_fn, plan=None):
+    """An eval step ``(module, batch) -> (#correct, #valid)`` on the
+    device."""
+    _no_plan(plan)
+    return Program(apply_fn, _no_loss, None, dynamic_lr=False).eval_step
+
+
+def make_predict_fn(apply_fn, plan=None):
+    """A forward ``(module, batch) -> probabilities`` (float32 softmax)."""
+    _no_plan(plan)
+    return Program(apply_fn, _no_loss, None, dynamic_lr=False).predict

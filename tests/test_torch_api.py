@@ -31,10 +31,7 @@ torch.set_num_threads(2)
 PACKAGES = ("model", "models", "ops", "parallel", "bus", "predictor", "worker")
 RENAMED = {"JaxModel": "TorchModel"}
 UNPORTED = {
-    # ROADMAP Queue 1 item 2: the compiled step and its program cache.
-    "get_program": 2, "program_cache_stats": 2, "clear_program_cache": 2,
-    "make_train_step": 2, "make_eval_step": 2, "make_predict_fn": 2,
-    # Item 7: within-trial data parallelism.
+    # ROADMAP Queue 1 item 7: within-trial data parallelism.
     "data_parallel_mesh": 7,
     # Item 13: the multiprocessing bus.
     "make_mp_bus": 13,

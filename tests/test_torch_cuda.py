@@ -310,10 +310,140 @@ def _resumed_dumps(device, packed):
 def test_card_checkpoints_resume_bit_for_bit(cuda):
     """A serial trial's and a pack member's checkpoints on the card carry
     the CUDA dropout generator: a trial resumed from either ends byte-equal
-    to its uninterrupted serial run."""
+    to its uninterrupted serial run. The epochs run as captured graphs
+    (two eager steps, then replays), before and after the checkpoints."""
+    from rafiki_tpu_torch import telemetry
+
+    replays = telemetry.get_counter("train.graph_replays")
     serial = _resumed_dumps(cuda, packed=False)
     packed = _resumed_dumps(cuda, packed=True)
+    assert telemetry.get_counter("train.graph_replays") > replays
     for (want, resumed), (pack_full, pack_resumed) in zip(serial, packed):
         assert pack_full == want
         assert resumed == [want, want]
         assert pack_resumed == [want, want]
+
+
+# -- captured steps (ops/graphs.py) against eager ones ---------------------------
+
+GRAPH_STEPS = 24
+GRAPH_BATCH = 32
+# (seed, lr, warmup, dropout): the warmup ramp ends inside the run.
+GRAPH_TRIALS = [(0, 3e-3, 10.0, 0.3), (7, 1e-3, 3.0, 0.1)]
+
+
+def _graph_data(device, n_steps, batch, k=None):
+    g = torch.Generator().manual_seed(11)
+    n = 512
+    X = torch.rand((n, 8, 8, 3), generator=g).to(device)
+    Y = torch.randint(0, 10, (n,), generator=g).to(device)
+    shape = (n_steps, batch) if k is None else (n_steps, k, batch)
+    idx = torch.randint(0, n, shape, generator=g).to(device)
+    return X, Y, idx
+
+
+def _graph_fns(device, lr):
+    from rafiki_tpu_torch.models.vgg import Vgg
+
+    m = Vgg(device=device, **dict(SMALL, learning_rate=lr, dropout=0.2))
+    m._planned_steps = GRAPH_STEPS
+    return m._loop_fns(10, (8, 8, 3))
+
+
+def _graph_loop(device, trial, key=("card-graph", "vgg11")):
+    from rafiki_tpu_torch.ops.train import TrainLoop
+
+    seed, lr, warmup, rate = trial
+    f = _graph_fns(device, lr)
+    return TrainLoop(f["init_fn"], f["apply_eval"], f["loss_fn"], f["optimizer"], seed=seed,
+                     hyper={"lr": lr, "warmup": warmup, "dropout": rate}, program_key=key,
+                     device=device)
+
+
+def _assert_loops_equal(a, b):
+    (ma, oa, sa, ga, _), (mb, ob, sb, gb, _) = a.state, b.state
+    assert (sa, oa.count) == (sb, ob.count)
+    for (name, pa), pb in zip(ma.named_parameters(), mb.parameters()):
+        assert torch.equal(pa, pb), name
+    for x, y in zip(oa.mu + oa.nu, ob.mu + ob.nu):
+        assert torch.equal(x, y)
+    assert torch.equal(ga.get_state(), gb.get_state())
+
+
+def test_card_graphed_step_matches_eager(cuda):
+    """Two trials of other lr, warmup and dropout share one cached
+    Program; each runs GRAPH_STEPS steps eagerly (``train_step``), as a
+    captured epoch over the resident data (``train_steps``) and as one
+    fed from the host. Params, moments, counts, every step's loss and
+    sentinels, and the dropout generator's state are equal bit for bit;
+    the graphed runs replayed. The eval epoch, captured, counts what the
+    eager eval steps count."""
+    from rafiki_tpu_torch import telemetry
+    from rafiki_tpu_torch.ops.graphs import GRAPH_WARMUP_STEPS
+    from rafiki_tpu_torch.ops.train import HostFeed, ResidentFeed
+
+    X, Y, idx = _graph_data(cuda, GRAPH_STEPS, GRAPH_BATCH)
+    programs = set()
+    for trial in GRAPH_TRIALS:
+        eager, resident, fed = (_graph_loop(cuda, trial) for _ in range(3))
+        programs.add(id(eager.program))
+        steps = []
+        for t in range(GRAPH_STEPS):
+            batch = {"x": X.index_select(0, idx[t]), "y": Y.index_select(0, idx[t])}
+            eager.state, metrics = eager.program.train_step(eager.state, batch)
+            steps.append(metrics)
+        want = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+        replays = telemetry.get_counter("train.graph_replays")
+        resident.state, got = resident.program.train_steps(resident.state,
+                                                           ResidentFeed(X, Y, idx))
+        assert (telemetry.get_counter("train.graph_replays") - replays
+                == GRAPH_STEPS - GRAPH_WARMUP_STEPS)
+        x_host, y_host, idx_host = X.cpu().numpy(), Y.cpu().numpy(), idx.cpu().numpy()
+        feed = HostFeed(({"x": x_host[ib], "y": y_host[ib]} for ib in idx_host), GRAPH_STEPS,
+                        cuda)
+        fed.state, got_fed = fed.program.train_steps(fed.state, feed)
+        for series in (got, got_fed):
+            assert set(series) == set(want)
+            for k in want:
+                assert torch.equal(series[k], want[k]), k
+        _assert_loops_equal(resident, eager)
+        _assert_loops_equal(fed, eager)
+        with torch.inference_mode():
+            module = eager.params
+            c, n = eager.program.eval_epoch(module, X, Y, idx)
+            sums = [eager.program.eval_step(module, {"x": X.index_select(0, ib),
+                                                     "y": Y.index_select(0, ib)}) for ib in idx]
+        assert (int(c), int(n)) == (sum(int(a) for a, _ in sums), sum(int(b) for _, b in sums))
+    assert len(programs) == 1
+
+
+def test_card_graphed_pack_matches_graphed_serial(cuda):
+    """A k=4 pack and its four serial trials, all captured: every
+    member's params, moments, steps and per-step metrics are its serial
+    trial's bit for bit (PACK_VS_SERIAL_TOL: exact)."""
+    from rafiki_tpu_torch.ops.train import PackedTrainLoop, ResidentFeed
+
+    trials = GRAPH_TRIALS + [(3, 2e-3, 5.0, 0.2), (9, 5e-4, 1.0, 0.0)]
+    k = len(trials)
+    X, Y, idx = _graph_data(cuda, 12, GRAPH_BATCH, k=k)
+    f = _graph_fns(cuda, trials[0][1])
+    packed = PackedTrainLoop(f["init_fn"], f["apply_eval"], f["loss_fn"], f["optimizer"],
+                             seeds=[t[0] for t in trials],
+                             hypers=[{"lr": lr, "warmup": w, "dropout": d}
+                                     for _, lr, w, d in trials],
+                             program_key=("card-graph", "vgg11"), device=cuda)
+    series = packed.program.train_steps(packed.state, ResidentFeed(X, Y, idx))
+    st = packed.state
+    for i, trial in enumerate(trials):
+        loop = _graph_loop(cuda, trial)
+        loop.state, want = loop.program.train_steps(loop.state,
+                                                    ResidentFeed(X, Y, idx[:, i].contiguous()))
+        module, opt, step, generator, _ = loop.state
+        assert (st.steps[i], st.opt.count[i]) == (step, opt.count) == (12, 12)
+        for (name, p), q in zip(module.named_parameters(), st.params.values()):
+            assert torch.equal(p, q[i]), (i, name)
+        for a, b in zip(opt.mu + opt.nu, st.opt.mu + st.opt.nu):
+            assert torch.equal(a, b[i])
+        assert torch.equal(generator.get_state(), st.generators[i].get_state())
+        for key, v in want.items():
+            assert torch.equal(series[key][:, i], v), (i, key)

@@ -497,10 +497,11 @@ def test_stats_and_metrics_keys_alike():
 
     got = both(keys)
     assert got["port"][0] == got["jax"][0]
-    # The port's snapshot: the registry, the spans and the gateway
-    # collector. The JAX package's has those, the gateway's rollup, and
-    # the collectors of its other planes.
-    assert got["port"][1] == {"counters", "gauges", "histograms", "spans", "ts", "gateway"}
+    # The port's snapshot: the registry, the spans, the gateway collector
+    # and the program cache's. The JAX package's has those, the gateway's
+    # rollup, and the collectors of its other planes.
+    assert got["port"][1] == {"counters", "gauges", "histograms", "spans", "ts", "gateway",
+                              "program_cache"}
     assert got["jax"][1] >= got["port"][1] | DROPPED_COLLECTORS
 
 

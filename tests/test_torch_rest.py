@@ -165,11 +165,12 @@ def test_login_and_auth_required_alike(servers):
     status, body = same(servers, "GET", "/models", token=tok)
     assert status == 200 and body == {"jax": [], "port": []}
     assert same(servers, "GET", "/healthz")[0] == 200
-    # /metrics: the port's snapshot holds the registry and the spans; the
-    # JAX package's adds the collectors of planes the port lacks.
+    # /metrics: the port's snapshot holds the registry, the spans and the
+    # program cache's collector; the JAX package's adds the collectors of
+    # planes the port lacks.
     metrics = {k: call(servers.url[k], "GET", "/metrics") for k in ("jax", "port")}
     assert metrics["port"][0] == metrics["jax"][0] == 200
-    base = {"counters", "gauges", "histograms", "spans", "ts"}
+    base = {"counters", "gauges", "histograms", "spans", "ts", "program_cache"}
     assert base <= set(metrics["port"][1]) <= base | {"gateway"}
     assert base <= set(metrics["jax"][1])
 
