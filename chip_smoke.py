@@ -5,11 +5,13 @@ CUDA card.
     python3 chip_smoke.py                  # from the root of a checkout
     python3 chip_smoke.py --bf16-readings  # the readings behind BF16_GAP_ATOL
     python3 chip_smoke.py --packed-step    # phase 16 alone: eager vs captured steps
+    python3 chip_smoke.py --zoo            # phases 17-18 alone: DenseNet job, zoo trials
 
 Drives ``rafiki_tpu_torch`` the way a user serves a top-k ensemble,
 the way a tuning job runs and the way a trial trains, at the full width
 of the bench's canonical model (VGG16, width_mult=1.0, 32x32x3 inputs,
-10 classes).
+10 classes), then the rest of the model zoo at the widest of each
+template's knobs (phases 17-18).
 
 Serving, k=3 trials of random weights, batch 64:
 
@@ -137,11 +139,46 @@ The captured step against the eager step:
      moments, counts and generator states, and every step's loss and
      sentinels, bit for bit.
 
+The rest of the model zoo:
+
+ 17. densenet_job: a ``BenchDenseNet`` template (DenseNet-BC depth 58,
+     growth 24, the widest of its knob space; one epoch, tuning the
+     learning rate and batch 64/128) uploaded as source, as a GP job of
+     DENSENET_TRIALS trials through ``LocalScheduler.run_train_job`` on
+     the canonical task; its top-2 served through the stacked route
+     against their stored scores (as 7); a k=2 pack of two DenseNet
+     trials (``train_packed`` -> ``evaluate_packed``, one epoch) against
+     the job's serial trials at batch 128; the step at batch 128, eager
+     under the profiler (forward, backward, Adam, sentinels, costliest
+     operators) and captured (CUDA-event ms, device busy ms), as 16
+     reads them; and one float32 step of a one-member pack against the
+     serial step, gradient by gradient. One line per trial, then the
+     phase's line: job wall and completed trials per hour, the cold
+     trial and warm trial seconds by batch size, peak memory, the
+     pack's seconds against two serial trials'. Fails unless the job
+     COMPLETED with an expected-improvement proposal and a best score
+     of TUNE_TOP1_TARGET, the memory left after each trial does not
+     grow, the top-2 serve within SERVED_ACC_ATOL, every epoch replayed
+     its captured step and every float32 gradient is bit-equal;
+ 18. zoo_trials: one Transformer trial at its widest knobs (embed 128,
+     4 heads, 2 layers, batch 64) on ``synthetic://text`` (vocab 81, 5
+     classes, 50,000 sequences of 128 tokens) and one PosBiLstm trial
+     (embed 128, hidden 128, batch 64) on ``synthetic://corpus`` (vocab
+     100, 8 tags, 20,000 sequences of up to 32 tokens) through train ->
+     evaluate -> dump -> load -> predict on the card, with seconds and
+     replays; PosBigramHmm trained and predicting on the host; every
+     registry name resolved. Fails unless both scores pass
+     ``tests/test_zoo.py``'s floor (ZOO_SCORE_FLOOR), each float32
+     forward agrees card against CPU within F32_ATOL, PosBiLstm gives
+     one tag per query token, the HMM passes the floor, and each
+     registry name resolves or, for SkDt and SkSvm without
+     scikit-learn, raises the reference's ValueError.
+
 Every training phase runs its epochs as captured CUDA graphs
 (``ops/graphs.py``). Each phase's line carries its seconds
 (``phase_s``) and the captured steps it replayed (``graph_replays``,
 with ``graph_captures`` and their seconds); the canonical trials'
-phases (6, 8, 11-16) fail without a replay.
+phases (6, 8, 11-18) fail without a replay.
 
 The port has no hand-written kernel yet (the JAX package has no Pallas
 kernel to port), so the kernel line is ``{"kernels": []}``. The last
@@ -151,7 +188,8 @@ nonzero before it; without a CUDA device the script exits 1 at once.
 ``--bf16-readings`` runs only the forward-parity measurement, over 16
 other trial seeds and 4 other query sets, and prints the readings.
 ``--packed-step`` runs only phase 16, on random batches resident on the
-card, so two checkouts can be compared in one call. ``--resume-child`` is the child
+card, so two checkouts can be compared in one call. ``--zoo`` runs only
+phases 17 and 18. ``--resume-child`` is the child
 worker of phases 14 and 15.
 """
 
@@ -303,6 +341,67 @@ JOURNEY_ATOL = 1e-5
 MB_THREADS = 16
 MB_REQUESTS = 8
 MB_GATEWAY = {"max_batch": 8, "max_batch_wait_ms": 5}
+
+# -- the rest of the zoo -------------------------------------------------------
+# Phase 17: DenseNet at the widest of its knob space (depth 58, growth
+# 24), tuning the learning rate and the batch size. The GP proposes
+# from expected improvement after 8 warm-up proposals, so 9 trials.
+DENSENET_TRIALS = 9
+DENSENET_SRC = b'''
+import torch
+
+from rafiki_tpu_torch.model.knobs import CategoricalKnob, FixedKnob, FloatKnob
+from rafiki_tpu_torch.models.densenet import DenseNet
+
+
+class BenchDenseNet(DenseNet):
+    """DenseNet-BC depth 58, growth 24, one epoch: tunable lr and batch."""
+
+    #: torch.cuda.memory_allocated() once each trial has evaluated, and
+    #: once each trial's model is destroyed (on the params saver's thread).
+    evaluated_bytes = []
+    destroyed_bytes = []
+
+    @staticmethod
+    def get_knob_config():
+        return {
+            "depth": FixedKnob(58),
+            "growth": FixedKnob(24),
+            "learning_rate": FloatKnob(1e-4, 3e-2, is_exp=True),
+            "batch_size": CategoricalKnob([64, 128], affects_shape=True),
+            "epochs": FixedKnob(1),
+            "seed": FixedKnob(0),
+        }
+
+    def evaluate(self, dataset_uri):
+        score = super().evaluate(dataset_uri)
+        torch.cuda.synchronize()
+        BenchDenseNet.evaluated_bytes.append(torch.cuda.memory_allocated())
+        return score
+
+    def destroy(self):
+        super().destroy()
+        torch.cuda.synchronize()
+        BenchDenseNet.destroyed_bytes.append(torch.cuda.memory_allocated())
+'''
+DENSENET_KNOBS = dict(depth=58, growth=24, batch_size=128, epochs=1, seed=0)
+DENSENET_PROFILE_ITERS = 5
+# The k=2 pack: two members of one packing key, other seeds and rates.
+DENSENET_PACK = ({"learning_rate": 1e-3, "seed": 0}, {"learning_rate": 3e-4, "seed": 1})
+# Phase 18: the Transformer and PosBiLstm at their widest knobs, on the
+# vocabularies and classes of their templates' own harness runs, at a
+# size that gives the card seconds of work.
+TRANSFORMER_KNOBS = dict(embed_dim=128, num_heads=4, num_layers=2, learning_rate=1e-3,
+                         batch_size=64, epochs=2, seed=0)
+TEXT_TRAIN_URI = "synthetic://text?vocab=81&classes=5&n=50000&len=128&seed=0"
+TEXT_EVAL_URI = "synthetic://text?vocab=81&classes=5&n=10000&len=128&seed=1"
+POS_KNOBS = dict(embed_dim=128, hidden=128, learning_rate=3e-3, batch_size=64, epochs=2, seed=0)
+POS_TRAIN_URI = "synthetic://corpus?vocab=100&tags=8&n=20000&len=32&seed=0"
+POS_EVAL_URI = "synthetic://corpus?vocab=100&tags=8&n=4000&len=32&seed=1"
+# tests/test_zoo.py's floors for both templates. Their float32 forwards,
+# card against CPU, are held to F32_ATOL, the VGG forward's bound
+# (readings: 1.2e-7 and 2.4e-7).
+ZOO_SCORE_FLOOR = 0.5
 
 
 def fail(msg: str) -> None:
@@ -635,13 +734,13 @@ def train_trials(card):
     return out, models, blobs
 
 
-def _bench_class():
-    """The BenchVgg class the scheduler loaded from BENCH_SRC last
+def _bench_class(src=BENCH_SRC, name="BenchVgg"):
+    """The template class the scheduler loaded from ``src`` last
     (``load_model_class`` registers each load under one module name)."""
-    module = sys.modules.get(f"_rafiki_model_{abs(hash(BENCH_SRC)) % (1 << 30):x}")
-    if module is None or not hasattr(module, "BenchVgg"):
-        fail("the scheduler did not load BenchVgg")
-    return module.BenchVgg
+    module = sys.modules.get(f"_rafiki_model_{abs(hash(src)) % (1 << 30):x}")
+    if module is None or not hasattr(module, name):
+        fail(f"the scheduler did not load {name}")
+    return getattr(module, name)
 
 
 def _memory_without_cublas_workspaces() -> int:
@@ -657,9 +756,12 @@ def _memory_without_cublas_workspaces() -> int:
     return torch.cuda.memory_allocated()
 
 
-def tune_job(card, trial_pack=None):
-    """Phase 6 (and 13, with ``trial_pack``): the bench's canonical train
-    job through the port's entry points, in a temporary directory.
+def tune_job(card, trial_pack=None, src=BENCH_SRC, name="BenchVgg", trials=TUNE_TRIALS,
+             phase=None):
+    """Phase 6 (and 13, with ``trial_pack``; 17 with DenseNet's ``src``):
+    a GP train job of ``trials`` trials of the template ``name`` uploaded
+    as ``src`` (the bench's canonical job by default) on the canonical
+    task, through the port's entry points, in a temporary directory.
     Returns the per-trial lines in completion order, the job line, and
     the top-2 trials with their stored blobs."""
     import gc
@@ -678,9 +780,9 @@ def tune_job(card, trial_pack=None):
     try:
         store = MetaStore(f"{tmp}/meta.sqlite3")
         params = ParamsStore(f"{tmp}/params")
-        model = store.create_model("bench-vgg", "IMAGE_CLASSIFICATION", None, BENCH_SRC, "BenchVgg")
+        model = store.create_model(name.lower(), "IMAGE_CLASSIFICATION", None, src, name)
         job = store.create_train_job("bench", "IMAGE_CLASSIFICATION", None, TRAIN_URI, EVAL_URI,
-                                     {"MODEL_TRIAL_COUNT": TUNE_TRIALS})
+                                     {"MODEL_TRIAL_COUNT": trials})
         store.create_sub_train_job(job["id"], model["id"])
         telemetry.reset()
         # Earlier phases' reference cycles (worker threads, the bus) hold
@@ -700,7 +802,7 @@ def tune_job(card, trial_pack=None):
         best = [dict(t, blob=params.load(t["params_id"])) for t in result.best_trials]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    cls = _bench_class()
+    cls = _bench_class(src, name)
     n_train = dataset_utils.load(TRAIN_URI).size
     train_s = {r["tags"]["trial_id"]: r["dur_s"] for r in telemetry.span_records()
                if r["name"] == "trial.train"}
@@ -722,7 +824,7 @@ def tune_job(card, trial_pack=None):
     for t in completed:
         by_bs.setdefault(t["batch_size"], []).append(t["trial_s"])
     line = {
-        "phase": "tune_job" if trial_pack is None else "tune_job_packed",
+        "phase": phase or ("tune_job" if trial_pack is None else "tune_job_packed"),
         "card": card[1], "power_limit": card[2],
         "status": result.status, "trials": len(trials), "completed": len(completed),
         "errored": len(trials) - len(completed), "job_wall_s": wall,
@@ -771,11 +873,12 @@ def tune_job(card, trial_pack=None):
     return trials, line, best
 
 
-def served_accuracy(trials, card):
-    """Phase 7: the tune job's top trials' stored blobs loaded into
-    serving models, stacked, and run over the eval set: each trial's
-    argmax accuracy through the stacked route's forward, against the
-    score the job stored for it, and the ensemble's."""
+def served_accuracy(trials, card, template=None, name="BenchVgg"):
+    """Phase 7 (and 17): the tune job's top trials' stored blobs loaded
+    into serving models of ``template`` (``Vgg`` by default), stacked,
+    and run over the eval set: each trial's argmax accuracy through the
+    stacked route's forward, against the score the job stored for it,
+    and the ensemble's."""
     import torch
 
     from rafiki_tpu_torch.model.dataset import dataset_utils
@@ -786,11 +889,11 @@ def served_accuracy(trials, card):
     ds = dataset_utils.load(EVAL_URI)
     models = []
     for t in trials:
-        m = Vgg(**t["knobs"])
+        m = (template or Vgg)(**t["knobs"])
         m.load_parameters(t["blob"])
         models.append(m)
     bs = TRAIN_KNOBS["batch_size"]
-    stacked, reason = build_stacked([{"model_name": "BenchVgg"}] * len(models), models,
+    stacked, reason = build_stacked([{"model_name": name}] * len(models), models,
                                     batch_size=bs)
     if stacked is None:
         fail(f"stacked route refused the trained trials: {reason}")
@@ -980,13 +1083,13 @@ class _StepWindow:
     """A per-step hook (``on_step(t, metrics)`` of ``train_steps``, or
     called by hand after each eager step): CUDA events over the
     PROFILE_ITERS steps from ``start``, then ``torch.profiler`` over the
-    next PROFILE_ITERS. An epoch under it runs ``start + 2 *
-    PROFILE_ITERS`` steps; the events record on the stream the steps
+    next ``profile_iters`` (PROFILE_ITERS by default). An epoch under it
+    runs ``n_steps`` steps; the events record on the stream the steps
     run on."""
 
-    def __init__(self, start: int, profile: bool = True):
-        self.start, self.profile = start, profile
-        self.n_steps = start + (2 if profile else 1) * PROFILE_ITERS
+    def __init__(self, start: int, profile: bool = True, profile_iters: int = PROFILE_ITERS):
+        self.start, self.profile, self.profile_iters = start, profile, profile_iters
+        self.n_steps = start + PROFILE_ITERS + (profile_iters if profile else 0)
         self.event_ms = None
 
     def __call__(self, t, _metrics=None):
@@ -1012,7 +1115,7 @@ class _StepWindow:
             self._prof.stop()
 
     def readings(self, bs, card, phase):
-        return _analyze_profile(self._prof, PROFILE_ITERS, self.wall_us, self.event_ms, bs,
+        return _analyze_profile(self._prof, self.profile_iters, self.wall_us, self.event_ms, bs,
                                 card, phase)
 
 
@@ -1233,13 +1336,11 @@ def pack_scaling(card):
     1, serial so a drift of the host's speed reads on both sides; then
     one float32 step (TF32 off, dropout 0) of a one-member pack against
     the serial step from the same params, gradient by gradient."""
-    import functools
-
     import torch
 
     from rafiki_tpu_torch.model.dataset import dataset_utils
     from rafiki_tpu_torch.ops.graphs import GRAPH_WARMUP_STEPS
-    from rafiki_tpu_torch.ops.train import PackedGenerators, PackedTrainLoop, TrainLoop
+    from rafiki_tpu_torch.ops.train import PackedTrainLoop, TrainLoop
     from rafiki_tpu_torch.ops.train import ResidentFeed, get_device_dataset
     from rafiki_tpu_torch.utils.backend import resolve_device
 
@@ -1295,23 +1396,8 @@ def pack_scaling(card):
 
     # One float32 step, one-member pack against serial, gradient by gradient.
     cls = _f32_vgg_class()
-    f_serial, f_pack = fns(1, cls)[0], fns(1, cls)[0]
-    loop = serial_loop(f_serial)
-    packed = packed_loop([f_pack])
-    x, y = X[:bs], Y[:bs]
-    module = loop.params
-    with torch.enable_grad():
-        loss, _ = f_serial["loss_fn"](module, {"x": x, "y": y}, loop.state[3], loop.state[4])
-        want = torch.autograd.grad(loss, list(module.parameters()))
-        st = packed.state
-        v_loss = torch.func.vmap(functools.partial(packed.program._member_loss,
-                                                   generators=PackedGenerators(st.generators)))
-        losses, _ = v_loss(st.params, st.buffers, x[None], y[None], st.hyper_dev)
-        got = torch.autograd.grad(losses.sum(), list(st.params.values()))
-    rel = {n: float((a - b[0]).abs().max() / a.abs().max().clamp_min(1e-30))
-           for (n, _), a, b in zip(module.named_parameters(), want, got)}
-    differing = [n for (n, _), a, b in zip(module.named_parameters(), want, got)
-                 if not torch.equal(a, b[0])]
+    one = one_member_pack_vs_serial(fns(1, cls)[0], fns(1, cls)[0], X[:bs], Y[:bs])
+    rel = one.pop("grad_rel")
 
     def worst(prefix):
         return max(v for n, v in rel.items() if n.startswith(prefix))
@@ -1324,11 +1410,41 @@ def pack_scaling(card):
             "ms_per_trial_step": {name: float(np.mean(v)) / (1 if name == "serial" else
                                                             int(name.split("_")[1]))
                                   for name, v in runs.items()},
-            "f32_one_member_pack_vs_serial": {
-                "loss": [float(loss.detach()), float(losses[0].detach())],
-                "grads": len(want), "grads_differing": differing,
-                "grad_rel_max": {"convs": worst("convs."), "norms": worst("norms."),
-                                 "dense": max(worst("fc1."), worst("fc2."))}}}
+            "f32_one_member_pack_vs_serial": dict(
+                one, grad_rel_max={"convs": worst("convs."), "norms": worst("norms."),
+                                   "dense": max(worst("fc1."), worst("fc2."))})}
+
+
+def one_member_pack_vs_serial(f_serial, f_pack, x, y):
+    """One step's loss and gradients of a serial TrainLoop and of a
+    one-member PackedTrainLoop built from the same template closures
+    (two ``_loop_fns`` of one model) on the batch ``x``, ``y``: the
+    losses, the gradients that differ at all, and each gradient's max
+    difference relative to its max."""
+    import functools
+
+    import torch
+
+    from rafiki_tpu_torch.ops.train import PackedGenerators, PackedTrainLoop, TrainLoop
+
+    loop = TrainLoop(f_serial["init_fn"], f_serial["apply_eval"], f_serial["loss_fn"],
+                     f_serial["optimizer"], hyper=f_serial["hyper"])
+    packed = PackedTrainLoop(f_pack["init_fn"], f_pack["apply_eval"], f_pack["loss_fn"],
+                             f_pack["optimizer"], seeds=[0], hypers=[f_pack["hyper"]])
+    module = loop.params
+    with torch.enable_grad():
+        loss, _ = f_serial["loss_fn"](module, {"x": x, "y": y}, loop.state[3], loop.state[4])
+        want = torch.autograd.grad(loss, list(module.parameters()))
+        st = packed.state
+        v_loss = torch.func.vmap(functools.partial(packed.program._member_loss,
+                                                   generators=PackedGenerators(st.generators)))
+        losses, _ = v_loss(st.params, st.buffers, x[None], y[None], st.hyper_dev)
+        got = torch.autograd.grad(losses.sum(), list(st.params.values()))
+    names = [n for n, _ in module.named_parameters()]
+    return {"loss": [float(loss.detach()), float(losses[0].detach())], "grads": len(want),
+            "grads_differing": [n for n, a, b in zip(names, want, got) if not torch.equal(a, b[0])],
+            "grad_rel": {n: float((a - b[0]).abs().max() / a.abs().max().clamp_min(1e-30))
+                         for n, a, b in zip(names, want, got)}}
 
 
 # -- the service journey --------------------------------------------------------
@@ -1911,6 +2027,346 @@ def pack_resume(card):
     return line
 
 
+# -- the rest of the zoo ------------------------------------------------------
+
+
+def _densenet_f32_class():
+    from rafiki_tpu_torch.models.densenet import DenseNet, _DenseNet
+
+    class DenseNetF32(DenseNet):
+        """The DenseNet network with float32 compute."""
+
+        def build_module(self, num_classes, input_shape):
+            import torch
+
+            return _DenseNet(int(self.knobs["depth"]), int(self.knobs["growth"]), num_classes,
+                             int(input_shape[-1]), dtype=torch.float32)
+
+    return DenseNetF32
+
+
+def densenet_step(card):
+    """Phase 17's step readings: the DenseNet step at batch 128 (lr 1e-3)
+    on the canonical task resident on the card, eager (``train_step``,
+    under the profiler: the device time of the forward, Adam, the
+    sentinels and the rest, the backward, and the costliest operators)
+    and captured (``train_steps``: CUDA-event ms, device busy ms, idle
+    share), as phase 16 reads them; then one float32 step of a
+    one-member pack against the serial step, gradient by gradient."""
+    import torch
+
+    from rafiki_tpu_torch.model.dataset import dataset_utils
+    from rafiki_tpu_torch.models.densenet import DenseNet
+    from rafiki_tpu_torch.ops.graphs import GRAPH_WARMUP_STEPS
+    from rafiki_tpu_torch.ops.train import ResidentFeed, TrainLoop, get_device_dataset
+    from rafiki_tpu_torch.utils.backend import resolve_device
+
+    X, Y = get_device_dataset(dataset_utils.load(TRAIN_URI), resolve_device())
+    bs = DENSENET_KNOBS["batch_size"]
+
+    def fns(cls):
+        model = cls(**dict(DENSENET_KNOBS, learning_rate=1e-3))
+        model._planned_steps = X.shape[0] // bs
+        return model._loop_fns(NUM_CLASSES, INPUT_SHAPE)
+
+    def loop():
+        f = fns(DenseNet)
+        return TrainLoop(f["init_fn"], f["apply_eval"], f["loss_fn"], f["optimizer"],
+                         hyper=f["hyper"])
+
+    # Five profiled steps of about 3,900 kernels each: the profiler's
+    # event processing, not the steps, sets this phase's time.
+    window = GRAPH_WARMUP_STEPS + 1
+    n_steps = _StepWindow(window, profile_iters=DENSENET_PROFILE_ITERS).n_steps
+    rows = (torch.arange(n_steps * bs, device=X.device) % X.shape[0]).reshape(n_steps, bs)
+    out = {}
+    eager, win = loop(), _StepWindow(window, profile_iters=DENSENET_PROFILE_ITERS)
+    for t in range(n_steps):
+        batch = {"x": X.index_select(0, rows[t]), "y": Y.index_select(0, rows[t])}
+        eager.state, _ = eager.program.train_step(eager.state, batch)
+        win(t)
+    out["eager"] = win.readings(bs, card, "densenet_eager")
+    del eager
+    captured, win = loop(), _StepWindow(window, profile_iters=DENSENET_PROFILE_ITERS)
+    torch.cuda.reset_peak_memory_stats()
+    captured.state, _ = captured.program.train_steps(captured.state, ResidentFeed(X, Y, rows),
+                                                     on_step=win)
+    out["captured"] = dict(win.readings(bs, card, "densenet_captured"),
+                           max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    del captured
+    torch.cuda.empty_cache()
+    cls = _densenet_f32_class()
+    one = one_member_pack_vs_serial(fns(cls), fns(cls), X[:bs], Y[:bs])
+    one["grad_rel_max"] = max(one.pop("grad_rel").values())
+    out["f32_one_member_pack_vs_serial"] = one
+    return out
+
+
+def densenet_pack(card):
+    """Phase 17's pack: two DenseNet trials (DENSENET_PACK) as one pack,
+    ``train_packed`` -> ``evaluate_packed`` on the canonical task, one
+    epoch; its seconds, scores, peak memory and captured steps."""
+    import gc
+
+    import torch
+
+    from rafiki_tpu_torch.model.log import logger
+    from rafiki_tpu_torch.models.densenet import DenseNet
+
+    models = []
+    for member in DENSENET_PACK:
+        m = DenseNet(**dict(DENSENET_KNOBS, learning_rate=member["learning_rate"]))
+        m._seed = member["seed"]
+        models.append(m)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    graphs = _graph_counters()
+    t0 = time.monotonic()
+    with logger.capture(lambda e: None):
+        histories = DenseNet.train_packed(models, TRAIN_URI)
+    train_s = _synced_s(t0)
+    t0 = time.monotonic()
+    scores = DenseNet.evaluate_packed(models, EVAL_URI)
+    eval_s = _synced_s(t0)
+    line = {"k": len(models), "members": list(DENSENET_PACK), "train_s": train_s,
+            "evaluate_s": eval_s, "scores": scores, "epochs": histories,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            **_graph_since(graphs)}
+    for m in models:
+        m.destroy()
+    return line
+
+
+def densenet_job(card):
+    """Phase 17: BenchDenseNet (DENSENET_SRC, uploaded as source) as a GP
+    job of DENSENET_TRIALS trials on the canonical task, its top-2
+    served through the stacked route against their stored scores, a k=2
+    pack against the job's serial trials at its batch size, and the
+    step readings of ``densenet_step``. Returns the per-trial lines and
+    the phase's line."""
+    import torch
+
+    from rafiki_tpu_torch.models.densenet import DenseNet
+
+    t_phase = time.monotonic()
+    rows, job, best = tune_job(card, src=DENSENET_SRC, name="BenchDenseNet",
+                               trials=DENSENET_TRIALS, phase="densenet_job")
+    # tune_job resets the telemetry: its line's counters are the job's.
+    job_graphs = {k: job[k] for k in ("graph_replays", "graph_captures")}
+    graphs = _graph_counters()
+    split = {"job_s": time.monotonic() - t_phase}
+    t0 = time.monotonic()
+    served = served_accuracy(best, card, DenseNet, "BenchDenseNet") if len(best) == 2 else None
+    split["served_s"] = time.monotonic() - t0
+    del best
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    pack = densenet_pack(card)
+    split["pack_s"] = time.monotonic() - t0
+    bs = DENSENET_KNOBS["batch_size"]
+    warm = [r["train_s"] for r in rows[1:] if r["batch_size"] == bs and r["train_s"]]
+    pack["serial_train_s_per_trial"] = float(np.mean(warm)) if warm else None
+    if warm:
+        pack["speedup_vs_serial"] = len(DENSENET_PACK) * pack["serial_train_s_per_trial"] / \
+            pack["train_s"]
+    t0 = time.monotonic()
+    step = densenet_step(card)
+    split["step_s"] = time.monotonic() - t0
+    cold = rows[0] if rows else {}
+    by_bs = {}
+    for r in rows[1:]:
+        if r["status"] == "COMPLETED":
+            by_bs.setdefault(str(r["batch_size"]), []).append(r["trial_s"])
+    line = dict(job, knobs=DENSENET_KNOBS, trial_count=DENSENET_TRIALS,
+                cold_trial={"trial_s": cold.get("trial_s"), "batch_size": cold.get("batch_size")},
+                warm_trial_s_by_batch_size=by_bs, job_graphs=job_graphs, served=served,
+                pack=pack, step=step, phase_split_s=split,
+                phase_s=time.monotonic() - t_phase)
+    line["graph_replays"] = job_graphs["graph_replays"] + _graph_since(graphs)["graph_replays"]
+    return rows, line
+
+
+def _zoo_f32_forward_gap(model, f32_module, x):
+    """A trained trial's float32 forward, card against CPU: its params
+    (float32, as trained) in a float32 build of its network on each
+    device, the same queries; max abs difference of the probabilities."""
+    import copy
+
+    import torch
+
+    with torch.inference_mode():
+        f32_module.load_state_dict(model._module.state_dict())
+        card = torch.softmax(f32_module.cuda()(torch.from_numpy(x).cuda()).float(), -1).cpu()
+        cpu = torch.softmax(copy.deepcopy(f32_module).cpu()(torch.from_numpy(x)).float(), -1)
+    return float((card - cpu).abs().max())
+
+
+def _zoo_trial(cls, knobs, train_uri, eval_uri, f32_module_of, queries):
+    """train -> evaluate -> dump_parameters -> load_parameters -> predict
+    on the card for one trial of ``cls``; returns its readings."""
+    from rafiki_tpu_torch.model.dataset import dataset_utils
+    from rafiki_tpu_torch.model.log import logger
+
+    graphs = _graph_counters()
+    m = cls(**knobs)
+    logs = []
+    t0 = time.monotonic()
+    with logger.capture(logs.append):
+        m.train(train_uri)
+    train_s = _synced_s(t0)
+    t0 = time.monotonic()
+    score = m.evaluate(eval_uri)
+    eval_s = _synced_s(t0)
+    blob = m.dump_parameters()
+    fresh = cls(**knobs)
+    fresh.load_parameters(blob)
+    t0 = time.monotonic()
+    preds = fresh.predict(queries)
+    predict_s = _synced_s(t0)
+    ds = dataset_utils.load(train_uri)
+    x = ds.x[:64]
+    gap = _zoo_f32_forward_gap(m, f32_module_of(m), x)
+    out = {"knobs": knobs, "train_uri": train_uri, "eval_uri": eval_uri,
+           "train_examples": ds.size, "length": int(ds.x.shape[1]),
+           "steps_per_epoch": ds.size // knobs["batch_size"], "train_s": train_s,
+           "evaluate_s": eval_s, "score": score, "reloaded_score": fresh.evaluate(eval_uri),
+           "predict_s": predict_s, "blob_bytes": len(blob),
+           "epochs": [e["values"] for e in logs if e["type"] == "values"],
+           "f32_card_vs_cpu": gap, **_graph_since(graphs)}
+    m.destroy()
+    fresh.destroy()
+    return out, preds
+
+
+def zoo_trials(card):
+    """Phase 18: one Transformer trial (TRANSFORMER_KNOBS, the text task)
+    and one PosBiLstm trial (POS_KNOBS, the corpus task) through train ->
+    evaluate -> dump -> load -> predict on the card, each with its float32
+    forward card against CPU; PosBigramHmm trained and predicting on the
+    host; and every registry name resolved. Returns the phase's line."""
+    import torch
+
+    from rafiki_tpu_torch.model.dataset import dataset_utils
+    from rafiki_tpu_torch.models import MODEL_REGISTRY, get_model_class
+    from rafiki_tpu_torch.models.pos_bilstm import PosBiLstm, _BiLstmTagger
+    from rafiki_tpu_torch.models.pos_hmm import PosBigramHmm
+    from rafiki_tpu_torch.models.transformer import Transformer, _Encoder
+
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(18)
+    length = dataset_utils.load(TEXT_TRAIN_URI).x.shape[1]
+    text_q = rng.integers(1, 81, size=(3, length)).tolist()
+    pos_q = [rng.integers(1, 100, size=n).tolist() for n in (5, 32, 1, 40)]
+
+    def encoder_f32(m):
+        k = m.knobs
+        return _Encoder(int(m._dataset_meta["vocab"]), k["embed_dim"], k["num_heads"],
+                        k["num_layers"], m._arch[0], m._arch[1][0], dtype=torch.float32)
+
+    def tagger_f32(m):
+        k = m.knobs
+        return _BiLstmTagger(int(m._dataset_meta["vocab"]), k["embed_dim"], k["hidden"],
+                             m._arch[0], dtype=torch.float32)
+
+    tr, tr_preds = _zoo_trial(Transformer, TRANSFORMER_KNOBS, TEXT_TRAIN_URI, TEXT_EVAL_URI,
+                              encoder_f32, text_q)
+    tr["predictions_shape"] = list(np.asarray(tr_preds).shape)
+    torch.cuda.empty_cache()
+    pos, pos_preds = _zoo_trial(PosBiLstm, POS_KNOBS, POS_TRAIN_URI, POS_EVAL_URI, tagger_f32,
+                                pos_q)
+    pos["query_lengths"] = [len(q) for q in pos_q]
+    pos["prediction_lengths"] = [len(p) for p in pos_preds]
+    t0 = time.monotonic()
+    hmm = PosBigramHmm(smoothing=0.1, seed=0)
+    hmm.train(POS_TRAIN_URI)
+    hmm_line = {"score": hmm.evaluate(POS_EVAL_URI),
+                "prediction_lengths": [len(p) for p in hmm.predict(pos_q)],
+                "seconds": time.monotonic() - t0}
+    registry = {}
+    for name in MODEL_REGISTRY:
+        try:
+            registry[name] = get_model_class(name).__module__
+        except ValueError as e:
+            registry[name] = f"ValueError: {e}"
+    return {"phase": "zoo_trials", "card": card[1], "power_limit": card[2],
+            "transformer": tr, "pos_bilstm": pos, "pos_bigram_hmm": hmm_line,
+            "registry": registry, "f32_atol": F32_ATOL, "score_floor": ZOO_SCORE_FLOOR,
+            "phase_s": time.monotonic() - t_phase}
+
+
+def zoo_phases(card, check) -> None:
+    """Phases 17 and 18, their lines and their gates."""
+    import torch
+
+    torch.cuda.empty_cache()
+    rows, dn = densenet_job(card)
+    for row in rows:
+        print(json.dumps(dict(row, phase="densenet_trial")))
+    print(json.dumps(dn))
+    torch.cuda.empty_cache()
+    zoo = zoo_trials(card)
+    print(json.dumps(zoo))
+    zoo_checks(check, rows, dn, zoo)
+
+
+def zoo_checks(check, rows, dn, zoo) -> None:
+    """Phases 17 and 18's gates."""
+    check(dn["status"] == "COMPLETED" and dn["trials"] == DENSENET_TRIALS and not dn["errors"],
+          f"densenet_job: {dn['status']}, {dn['trials']} trials, errors {dn['errors']}")
+    for row in rows:
+        check(row["status"] == "COMPLETED" or (row["error"] or "").startswith("diverged:"),
+              f"densenet_job, trial {row['no']}: {row['status']} and not a contained "
+              f"divergence: {row['error']}")
+    check(dn["gp_ei_proposals"] >= 1, f"densenet_job: no proposal from expected improvement {dn}")
+    check(dn["best_score"] is not None and dn["best_score"] >= TUNE_TOP1_TARGET,
+          f"densenet_job: best score {dn['best_score']} < {TUNE_TOP1_TARGET}")
+    ev = dn["evaluated_memory_allocated_bytes"]
+    check(len(ev) == dn["completed"] and ev and ev[-1] <= ev[0] + TUNE_LEAK_BYTES,
+          f"densenet_job: memory allocated after the last trial {ev[-1:]} > after the first "
+          f"{ev[:1]} + {TUNE_LEAK_BYTES}")
+    # Every epoch, train and eval, of every trial and of the pack
+    # captured its step once and replayed it.
+    # (A contained divergence ends its trial before the eval pass.)
+    for name, g, epochs in (("job", dn["job_graphs"], dn["trials"] + dn["completed"]),
+                            ("pack", dn["pack"], 2)):
+        check(g["graph_captures"] >= epochs and g["graph_replays"] > g["graph_captures"],
+              f"densenet_job ({name}): {g['graph_captures']} captures and "
+              f"{g['graph_replays']} replays for {epochs} epochs")
+    check(dn["served"] is not None and max(dn["served"]["abs_diff"]) <= SERVED_ACC_ATOL,
+          f"densenet_job: served accuracy disagrees with the stored score: {dn['served']}")
+    check(all(np.isfinite(ep["loss"]) for h in dn["pack"]["epochs"] for ep in h),
+          f"densenet_job: non-finite loss in the pack {dn['pack']['epochs']}")
+    one = dn["step"]["f32_one_member_pack_vs_serial"]
+    check(one["loss"][0] == one["loss"][1] and not one["grads_differing"],
+          f"densenet_job: a one-member pack's float32 step is not the serial step: loss "
+          f"{one['loss']}, gradients differing {one['grads_differing']}")
+    for name in ("transformer", "pos_bilstm"):
+        t = zoo[name]
+        check(t["score"] > ZOO_SCORE_FLOOR and t["reloaded_score"] > ZOO_SCORE_FLOOR,
+              f"zoo_trials {name}: scores {t['score']}, reloaded {t['reloaded_score']} <= "
+              f"{ZOO_SCORE_FLOOR}")
+        check(all(np.isfinite(ep["loss"]) for ep in t["epochs"]),
+              f"zoo_trials {name}: non-finite loss {t['epochs']}")
+        check(t["f32_card_vs_cpu"] <= F32_ATOL,
+              f"zoo_trials {name}: float32 forward card vs CPU {t['f32_card_vs_cpu']} > {F32_ATOL}")
+        check(t["graph_captures"] >= t["knobs"]["epochs"] and t["graph_replays"] > 0,
+              f"zoo_trials {name}: {t['graph_captures']} captures, {t['graph_replays']} replays")
+    check(zoo["transformer"]["predictions_shape"] == [3, 5],
+          f"zoo_trials transformer: predictions of shape {zoo['transformer']['predictions_shape']}")
+    pos, hmm = zoo["pos_bilstm"], zoo["pos_bigram_hmm"]
+    check(pos["prediction_lengths"] == [min(n, pos["length"]) for n in pos["query_lengths"]],
+          f"zoo_trials pos_bilstm: {pos['prediction_lengths']} tags for queries of "
+          f"{pos['query_lengths']} tokens")
+    check(hmm["score"] > ZOO_SCORE_FLOOR and hmm["prediction_lengths"] == pos["query_lengths"],
+          f"zoo_trials pos_bigram_hmm: {hmm}")
+    for name, got in zoo["registry"].items():
+        ok = got.startswith("rafiki_tpu_torch.models.") or (
+            name in ("SkDt", "SkSvm") and got.startswith("ValueError: ")
+            and "is not available" in got)
+        check(ok, f"zoo_trials: registry {name!r} -> {got}")
+
+
 def main() -> int:
     import torch
 
@@ -1931,7 +2387,7 @@ def main() -> int:
         print(card[0])
         print(json.dumps(graph_step(card)))
         return 0
-    if sys.argv[1:]:
+    if sys.argv[1:] not in ([], ["--zoo"]):
         fail(f"unknown arguments {sys.argv[1:]}")
     card = card_identity()
     print(card[0])
@@ -1943,6 +2399,14 @@ def main() -> int:
         if not ok:
             failures.append(msg)
             print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+
+    if sys.argv[1:] == ["--zoo"]:
+        zoo_phases(card, check)
+        if failures:
+            print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
+            return 1
+        print(json.dumps({"zoo": "ok", "device": torch.cuda.get_device_name(0)}))
+        return 0
 
     from rafiki_tpu_torch.ops.train import predict
     from rafiki_tpu_torch.parallel.serving import build_stacked
@@ -2203,6 +2667,10 @@ def main() -> int:
     for name in ("serial", "packed"):
         check(steps[f"{name}_captured"]["graph_replays"] > 0,
               f"graph_step: the {name} epoch replayed no captured step")
+    del steps
+
+    # -- 17.-18. the rest of the zoo ---------------------------------------------
+    zoo_phases(card, check)
 
     # -- kernels and the result line -------------------------------------------
     print(json.dumps({"kernels": []}))

@@ -370,8 +370,15 @@ class TorchModel(BaseModel):
     def packing_key(self, ds: Dataset):
         """Two models train in one pack iff their keys are equal: the same
         program (template, arch, baked knobs), the same step geometry
-        (batch size, epochs) and the same hyper key set."""
+        (batch size, epochs) and the same hyper key set. Like ``train``,
+        it adopts ``ds``'s planned steps and meta (a text template sizes
+        its embedding from the meta's ``vocab``), so the module a pack
+        is built from is the one a serial trial would build. (The JAX
+        package's ``train_packed`` builds the pack's module before the
+        members read the meta, so its packed Transformer embeds a
+        vocabulary of 2 and trains to NaN.)"""
         num_classes, input_shape = ds.classes, tuple(ds.x.shape[1:])
+        self._dataset_meta = dict(ds.meta)
         self._planned_steps = self.epochs * max(1, ds.size // self.batch_size)
         fns = self._loop_fns(num_classes, input_shape)
         return (fns["program_key"], self.batch_size, self.epochs, tuple(sorted(fns["hyper"])))
@@ -443,7 +450,6 @@ class TorchModel(BaseModel):
         hypers = {}
         for i, m in enumerate(models):
             m._planned_steps = planned
-            m._dataset_meta = dict(ds.meta)
             hypers[i] = m._loop_fns(num_classes, input_shape)["hyper"]
         packed = _ops.PackedTrainLoop(
             fns["init_fn"], fns["apply_eval"], fns["loss_fn"], fns["optimizer"],
@@ -531,7 +537,6 @@ class TorchModel(BaseModel):
                     if m2.device != lead.device:
                         raise ValueError("backfill model is on another device than the pack")
                     m2._planned_steps = planned
-                    m2._dataset_meta = dict(ds.meta)
                     mi2 = len(models)
                     hypers[mi2] = m2._loop_fns(num_classes, input_shape)["hyper"]
                     models.append(m2)
@@ -797,11 +802,16 @@ def _to_host(trees: Sequence[Dict[str, Any]]) -> List[Dict[str, Any]]:
 
 
 def _lecun_init(module: nn.Module, generator: torch.Generator) -> None:
-    """Conv and dense kernels from flax's lecun_normal (a normal truncated
-    at two standard deviations, variance 1/fan_in), biases 0, norm
-    scales 1; drawn in module order from ``generator``."""
+    """flax's default initializers, drawn in module order from
+    ``generator``: conv and dense kernels from lecun_normal (a normal
+    truncated at two standard deviations, variance 1/fan_in), biases 0,
+    GroupNorm scales 1; a layer with ``flax_init`` (the embedding,
+    LayerNorm, attention and LSTM cells of ``ops/layers.py``, and a
+    module's own params such as ``pos_embed``) draws its own."""
     with torch.no_grad():
         for layer in module.modules():
+            if hasattr(layer, "flax_init"):
+                layer.flax_init(generator)
             if isinstance(layer, (nn.Conv2d, nn.Linear)):
                 fan_in = layer.weight[0].numel()
                 std = math.sqrt(1.0 / fan_in) / _TRUNC_STD

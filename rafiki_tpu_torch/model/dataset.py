@@ -1,31 +1,36 @@
 """Dataset utilities: URI-addressed datasets and fixed-shape batching.
 
-The port's own copy of ``rafiki_tpu/model/dataset.py`` (numpy only),
-covering what the training slice loads: ``Dataset`` with ``batches``
-and ``split``,
-``synthetic_images``, ``.npz`` image files, and the ``dataset_utils``
-front door with its process-wide LRU cache. The same URI gives the same
+The port's own copy of ``rafiki_tpu/model/dataset.py`` (numpy only):
+``Dataset`` with ``batches`` and ``split``; the synthetic generators
+``synthetic_images``, ``synthetic_corpus`` (token-tag sequences with a
+mask) and ``synthetic_text`` (fixed-length sequences, one label each);
+the reference's on-disk formats, a zip of image files with
+``images.csv`` (Pillow, imported only when such a zip is read), a zip of
+a TSV corpus (``corpus_token_id`` hashes its tokens) and ``.npz`` files
+of either kind; and the ``dataset_utils`` front door with its
+process-wide LRU cache and ``save_npz``. The same URI gives the same
 arrays, byte for byte, as the JAX package's loader.
-
-Not copied yet: the corpus and text generators, corpus ``.npz`` files
-and the zip formats (image files, TSV corpora) of the reference; their
-models are not ported. ``dataset_utils.load`` raises ``ValueError``
-for them.
 
 URI schemes:
   synthetic://images?classes=10&w=28&h=28&c=1&n=2048&seed=0
-  /path/to/dataset.npz        (npz with arrays x, y)
-  file:///path/to/dataset.npz
+  synthetic://corpus?vocab=200&tags=10&n=512&len=24&seed=0
+  synthetic://text?vocab=80&classes=5&n=256&len=16&seed=0
+  /path/to/dataset.zip        (zip of images + images.csv, or of a .tsv corpus)
+  /path/to/dataset.npz        (npz with arrays x, y[, mask])
+  file:///path/to/dataset.zip
 """
 
 from __future__ import annotations
 
+import csv
+import io
 import json
 import os
 import threading
 import urllib.parse
+import zipfile
 from dataclasses import dataclass, field
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -35,8 +40,9 @@ class Dataset:
     """An in-memory dataset of (x, y) numpy arrays.
 
     For images: x is (N, H, W, C) float32 in [0, 1], y is (N,) int32.
-    ``mask`` (optional, (N, L) bool) marks the valid tokens of padded
-    sequence data.
+    For corpora: x is (N, L) int32 token ids, y is (N, L) int32 tag ids
+    with -1 padding, plus ``mask`` (N, L) bool. For text: x is (N, L)
+    int32 token ids, y is (N,) int32, no mask.
     """
 
     x: np.ndarray
@@ -125,22 +131,153 @@ def synthetic_images(classes=10, w=28, h=28, c=1, n=2048, seed=0, noise=0.35,
     return Dataset(x, y, classes, meta={"kind": "images", "synthetic": True})
 
 
-def _load_npz_images(path: str) -> Dataset:
+def synthetic_corpus(vocab=200, tags=10, n=512, length=24, seed=0, noise=0.05,
+                     dist=0) -> Dataset:
+    """Token sequences with a fixed random token->tag mapping (+ noise).
+
+    A model that learns the per-token mapping reaches about
+    ``1 - noise``. ``dist`` seeds the mapping, ``seed`` the draws. Each
+    row has its own length (at least ``max(2, length // 2)``); past it
+    tokens are 0, tags -1 and ``mask`` False.
+    """
+    tok2tag = (np.random.default_rng(dist)
+               .integers(0, tags, size=vocab).astype(np.int32))
+    rng = np.random.default_rng(seed + 1_000_003)
+    x = rng.integers(1, vocab, size=(n, length)).astype(np.int32)  # 0 = pad
+    y = tok2tag[x]
+    flip = rng.uniform(size=y.shape) < noise
+    y = np.where(flip, rng.integers(0, tags, size=y.shape), y).astype(np.int32)
+    lens = rng.integers(max(2, length // 2), length + 1, size=n)
+    mask = np.arange(length)[None, :] < lens[:, None]
+    x = np.where(mask, x, 0).astype(np.int32)
+    y = np.where(mask, y, -1).astype(np.int32)
+    return Dataset(x, y, tags, mask=mask, meta={"kind": "corpus", "synthetic": True, "vocab": vocab})
+
+
+def synthetic_text(vocab=80, classes=5, n=256, length=16, seed=0, noise=0.1,
+                   dist=0) -> Dataset:
+    """Fixed-length token sequences with one label per sequence.
+
+    Token t (1-based) signals class ``(t - 1) % classes``; each sequence
+    draws ``1 - noise`` of its positions from its own class's tokens and
+    the rest uniformly. There is no mask, so the dataset rides the
+    device-resident path. ``dist`` is accepted for URI symmetry and, as
+    in the reference, seeds nothing.
+    """
+    rng = np.random.default_rng(seed + 1_000_003)
+    y = rng.integers(0, classes, size=n).astype(np.int32)
+    m = max(1, (vocab - 1) // classes)  # class tokens per class
+    sig_tok = 1 + y[:, None] + classes * rng.integers(0, m, size=(n, length))
+    noise_tok = rng.integers(1, vocab, size=(n, length))
+    sig = rng.uniform(size=(n, length)) >= noise
+    x = np.where(sig, sig_tok, noise_tok).astype(np.int32)
+    return Dataset(x, y, classes,
+                   meta={"kind": "text", "synthetic": True, "vocab": vocab})
+
+
+def load_dataset_of_image_files(uri: str) -> Dataset:
+    """The reference's image-zip format: image files plus ``images.csv``
+    with header ``path,class``, each image scaled to [0, 1] (a
+    grayscale image gets a channel axis). Pillow is imported here, so
+    only a caller that reads such a zip needs it."""
+    path = _resolve_path(uri)
+    if path.endswith(".npz"):
+        return _load_npz(path, kind="images")
+    from PIL import Image
+
+    xs: List[np.ndarray] = []
+    ys: List[int] = []
+    with zipfile.ZipFile(path) as zf:
+        with zf.open("images.csv") as f:
+            rows = list(csv.DictReader(io.TextIOWrapper(f, "utf-8")))
+        for row in rows:
+            with zf.open(row["path"]) as imf:
+                arr = np.asarray(Image.open(imf), dtype=np.float32) / 255.0
+            if arr.ndim == 2:
+                arr = arr[:, :, None]
+            xs.append(arr)
+            ys.append(int(row["class"]))
+    x = np.stack(xs)
+    y = np.asarray(ys, dtype=np.int32)
+    return Dataset(x, y, classes=int(y.max()) + 1, meta={"kind": "images", "uri": uri})
+
+
+# Canonical corpus encoding: ids are functions of the text, not of one
+# zip's order, so a train zip and a val zip loaded apart agree. Tokens
+# are feature-hashed into a fixed table (unseen tokens get a consistent
+# bucket), tags are numbered in sorted order, and every sentence is cut
+# or padded to one length (one program for every zip).
+CORPUS_HASH_VOCAB = 8192
+CORPUS_MAX_LEN = 64
+
+
+def corpus_token_id(token: str) -> int:
+    """Stable token id in [1, CORPUS_HASH_VOCAB): a blake2b feature hash
+    (0 is the padding id). The corpus loader applies the same mapping,
+    so predict() queries built from raw tokens with it match."""
+    import hashlib
+
+    h = int.from_bytes(hashlib.blake2b(token.encode("utf-8"), digest_size=8).digest(), "big")
+    return 1 + h % (CORPUS_HASH_VOCAB - 1)
+
+
+def load_dataset_of_corpus(uri: str, tag_col: str = "tag") -> Dataset:
+    """The reference's corpus-zip format: a ``.tsv`` of token/tag rows
+    with blank lines between sentences, encoded canonically (above)."""
+    path = _resolve_path(uri)
+    if path.endswith(".npz"):
+        return _load_npz(path, kind="corpus")
+    sents: List[List[Tuple[str, str]]] = []
+    with zipfile.ZipFile(path) as zf:
+        name = next(n for n in zf.namelist() if n.endswith(".tsv"))
+        with zf.open(name) as f:
+            cur: List[Tuple[str, str]] = []
+            for line in io.TextIOWrapper(f, "utf-8"):
+                line = line.rstrip("\n")
+                if not line:
+                    if cur:
+                        sents.append(cur)
+                        cur = []
+                    continue
+                tok, tag = line.split("\t")[:2]
+                cur.append((tok, tag))
+            if cur:
+                sents.append(cur)
+    tagset = {t: i for i, t in enumerate(sorted({tag for s in sents for _, tag in s}))}
+    length = CORPUS_MAX_LEN
+    n = len(sents)
+    x = np.zeros((n, length), dtype=np.int32)
+    y = np.full((n, length), -1, dtype=np.int32)
+    mask = np.zeros((n, length), dtype=bool)
+    for i, s in enumerate(sents):
+        for j, (tok, tag) in enumerate(s[:length]):
+            x[i, j] = corpus_token_id(tok)
+            y[i, j] = tagset[tag]
+            mask[i, j] = True
+    return Dataset(x, y, classes=len(tagset), mask=mask,
+                   meta={"kind": "corpus", "uri": uri,
+                         "vocab": CORPUS_HASH_VOCAB, "tag_map": tagset})
+
+
+def _load_npz(path: str, kind: str) -> Dataset:
     with np.load(path, allow_pickle=False) as z:
-        if "mask" in z or z["x"].ndim == 2:
-            raise ValueError(f"{path!r} holds a corpus; its models are not ported")
         x = z["x"]
         y = z["y"].astype(np.int32)
+        mask = z["mask"] if "mask" in z else None
         saved_meta = (json.loads(str(z["meta_json"]))
                       if "meta_json" in z else {})
-    classes = int(y.max()) + 1
+    classes = int(y.max()) + 1 if kind == "images" else int(y[y >= 0].max()) + 1
     if saved_meta.get("classes"):
         classes = int(saved_meta.pop("classes"))
-    if x.dtype == np.uint8:
+    if kind == "images" and x.dtype == np.uint8:
         x = x.astype(np.float32) / 255.0
-    meta = {"kind": "images", "uri": path}
+    meta = {"kind": kind, "uri": path}
+    if kind == "corpus":
+        # Derived only when the npz carries no meta: a hashed corpus
+        # saved by save_npz keeps its fixed table size.
+        meta["vocab"] = int(x.max()) + 1
     meta.update(saved_meta)
-    return Dataset(x, y, classes=classes, meta=meta)
+    return Dataset(x, y, classes=classes, mask=mask, meta=meta)
 
 
 def _resolve_path(uri: str) -> str:
@@ -202,12 +339,49 @@ class DatasetUtils:
             if parsed.netloc == "images":
                 return synthetic_images(**{k: q[k] for k in q if k in
                                            ("classes", "w", "h", "c", "n", "seed", "noise", "dist", "flip")})
-            raise ValueError(f"Unknown or unported synthetic dataset: {parsed.netloc!r}")
+            if parsed.netloc in ("corpus", "text"):
+                kw = dict(q)
+                if "len" in kw:
+                    kw["length"] = kw.pop("len")
+                if parsed.netloc == "corpus":
+                    return synthetic_corpus(**{k: kw[k] for k in kw if k in
+                                               ("vocab", "tags", "n", "length", "seed", "noise",
+                                                "dist")})
+                return synthetic_text(**{k: kw[k] for k in kw if k in
+                                         ("vocab", "classes", "n", "length", "seed", "noise",
+                                          "dist")})
+            raise ValueError(f"Unknown synthetic dataset: {parsed.netloc!r}")
         path = _resolve_path(uri)
         if path.endswith(".npz"):
-            return _load_npz_images(path)
-        raise ValueError(f"rafiki_tpu_torch loads synthetic:// and .npz datasets; "
-                         f"not {uri!r}")
+            with np.load(path, allow_pickle=False) as z:
+                kind = "corpus" if ("mask" in z or z["x"].ndim == 2) else "images"
+            return _load_npz(path, kind)
+        # A zip: a .tsv inside makes it a corpus, else image files.
+        with zipfile.ZipFile(path) as zf:
+            names = zf.namelist()
+        if any(n.endswith(".tsv") for n in names):
+            return load_dataset_of_corpus(uri)
+        return load_dataset_of_image_files(uri)
+
+    load_dataset_of_image_files = staticmethod(load_dataset_of_image_files)
+    load_dataset_of_corpus = staticmethod(load_dataset_of_corpus)
+
+    @staticmethod
+    def save_npz(dataset: Dataset, path: str) -> str:
+        """Write ``dataset`` as an ``.npz`` the loaders read back: x, y,
+        the mask if any, and the JSON-able meta (vocab size, tag map,
+        class count) under ``meta_json``."""
+        arrays = {"x": dataset.x, "y": dataset.y}
+        if dataset.mask is not None:
+            arrays["mask"] = dataset.mask
+        portable = {k: v for k, v in dataset.meta.items()
+                    if isinstance(v, (str, int, float, bool))}
+        if isinstance(dataset.meta.get("tag_map"), dict):
+            portable["tag_map"] = dataset.meta["tag_map"]
+        portable["classes"] = dataset.classes
+        arrays["meta_json"] = np.asarray(json.dumps(portable))
+        np.savez_compressed(path, **arrays)
+        return path
 
 
 dataset_utils = DatasetUtils()

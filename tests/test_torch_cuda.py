@@ -447,3 +447,185 @@ def test_card_graphed_pack_matches_graphed_serial(cuda):
         assert torch.equal(generator.get_state(), st.generators[i].get_state())
         for key, v in want.items():
             assert torch.equal(series[key][:, i], v), (i, key)
+
+
+# -- the rest of the zoo -------------------------------------------------------
+
+ZOO_KNOBS = {
+    "densenet": dict(depth=22, growth=12, learning_rate=1e-3, batch_size=64, epochs=1, seed=0),
+    "transformer": dict(embed_dim=32, num_heads=2, num_layers=1, learning_rate=1e-3,
+                        batch_size=32, epochs=1, seed=0),
+    "pos_bilstm": dict(embed_dim=32, hidden=32, learning_rate=1e-3, batch_size=32, epochs=1,
+                       seed=0),
+}
+ZOO_ARCH = {"densenet": (5, (16, 16, 3), 0), "transformer": (5, (16,), 81),
+            "pos_bilstm": (6, (12,), 80)}
+
+
+def _zoo_model(family, device, dtype=torch.bfloat16):
+    """A template of ``family`` computing in ``dtype``, its params drawn
+    from the seeded CPU init (the same on every device)."""
+    from rafiki_tpu_torch.models.densenet import DenseNet, _DenseNet
+    from rafiki_tpu_torch.models.pos_bilstm import PosBiLstm, _BiLstmTagger
+    from rafiki_tpu_torch.models.transformer import Transformer, _Encoder
+
+    nc, shape, vocab = ZOO_ARCH[family]
+    build = {
+        "densenet": (DenseNet, lambda: _DenseNet(22, 12, nc, 3, dtype=dtype)),
+        "transformer": (Transformer, lambda: _Encoder(vocab, 32, 2, 1, nc, 16, dtype=dtype)),
+        "pos_bilstm": (PosBiLstm, lambda: _BiLstmTagger(vocab, 32, 32, nc, dtype=dtype)),
+    }[family]
+
+    class Template(build[0]):
+        def build_module(self, num_classes, input_shape):
+            return build[1]()
+
+    m = Template(device=device, **ZOO_KNOBS[family])
+    m._dataset_meta = {"vocab": vocab}
+    m._planned_steps = 8
+    m.init_parameters(nc, shape)
+    return m
+
+
+def _zoo_batches(family, n_steps, batch, seed=3):
+    nc, shape, vocab = ZOO_ARCH[family]
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_steps):
+        if family == "densenet":
+            x = rng.uniform(0, 1, size=(batch,) + shape).astype(np.float32)
+            y = rng.integers(0, nc, size=batch).astype(np.int32)
+        elif family == "transformer":
+            x = rng.integers(0, vocab, size=(batch,) + shape).astype(np.int32)
+            y = rng.integers(0, nc, size=batch).astype(np.int32)
+        else:  # a corpus batch: labels -1 past each row's length
+            x = rng.integers(1, vocab, size=(batch,) + shape).astype(np.int32)
+            lens = rng.integers(shape[0] // 2, shape[0] + 1, size=batch)
+            mask = np.arange(shape[0])[None, :] < lens[:, None]
+            x = np.where(mask, x, 0).astype(np.int32)
+            y = np.where(mask, rng.integers(0, nc, size=x.shape), -1).astype(np.int32)
+        out.append({"x": x, "y": y})
+    return out
+
+
+# Card vs CPU, float32 with TF32 off, three steps from the same params
+# (lr 1e-3): DenseNet 22/12 at 16x16 and the Transformer (embed 32, 2
+# heads, 1 layer); the logits of the first forward, then the loss, the
+# gradient norm and the params after each step (as TRAIN_PARITY_TOL).
+# An attention key bias has a zero gradient (the softmax over keys
+# cancels it), so Adam moves it by up to lr a step on rounding noise:
+# it is held to that and left out of the params' gap. Readings (H100,
+# max over the steps): logits 9.5e-7 / 4.8e-7, loss 1.4e-7 / 0 rel,
+# grad norm 7.4e-8 / 6.8e-8, params 2.7e-5 of the distance moved for
+# DenseNet (6.0e-3 for the Transformer with its key bias in). Bounds:
+# about 3x, the Transformer's params held to DenseNet's bound.
+ZOO_F32_LOGIT_ATOL = 3e-6
+ZOO_TRAIN_PARITY_TOL = {"loss_rel": 5e-7, "grad_norm_rel": 3e-7, "param_rel_l2": 1e-4}
+
+
+@pytest.mark.parametrize("family", ["densenet", "transformer"])
+def test_card_zoo_f32_forward_and_steps_match_cpu(cuda, family):
+    from rafiki_tpu_torch.convert import state_dict_to_flax
+
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    batches = _zoo_batches(family, 3, 16)
+    try:
+        runs = {}
+        for name, device in (("cpu", "cpu"), ("card", cuda)):
+            m = _zoo_model(family, device, torch.float32)
+            loop, rows = m._loop, []
+            with torch.no_grad():
+                logits = m._module(torch.from_numpy(batches[0]["x"]).to(loop.device)).cpu()
+            for b in batches:
+                loop.state, metrics = loop.program.train_step(
+                    loop.state, {k: torch.from_numpy(v).to(loop.device) for k, v in b.items()})
+                rows.append((float(metrics["loss"]), float(metrics["health_grad_norm"]),
+                             {k: v.detach().cpu().clone()
+                              for k, v in state_dict_to_flax(m._module).items()}))
+            runs[name] = (logits, rows)
+        start = {k: v.detach().cpu().clone()
+                 for k, v in state_dict_to_flax(_zoo_model(family, "cpu", torch.float32)._module).items()}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    gap = float((runs["card"][0] - runs["cpu"][0]).abs().max())
+    print(family, "logits", gap)
+    assert gap <= ZOO_F32_LOGIT_ATOL
+    lr = ZOO_KNOBS[family]["learning_rate"]
+    for step, ((loss_a, gn_a, p_a), (loss_b, gn_b, p_b)) in enumerate(
+            zip(runs["card"][1], runs["cpu"][1])):
+        for k in [k for k in p_a if k.endswith("/key/bias")]:
+            for p in (p_a.pop(k), p_b.pop(k)):
+                assert float((p - start[k]).abs().max()) <= lr * (step + 1), k
+        num = sum(float(((p_a[k] - p_b[k]) ** 2).sum()) for k in p_a) ** 0.5
+        den = sum(float(((p_b[k] - start[k]) ** 2).sum()) for k in p_a) ** 0.5
+        r = {"loss_rel": abs(loss_a - loss_b) / loss_b, "grad_norm_rel": abs(gn_a - gn_b) / gn_b,
+             "param_rel_l2": num / den}
+        print(family, r)
+        for key, bound in ZOO_TRAIN_PARITY_TOL.items():
+            assert r[key] <= bound, (key, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_card_one_member_densenet_pack_is_its_serial_step(cuda, dtype):
+    """A one-member DenseNet pack and its serial trial, both captured
+    over the same 8 batches resident on the card: params, moments and
+    every step's metrics bit for bit (PACK_VS_SERIAL_TOL: exact)."""
+    from rafiki_tpu_torch.ops.train import PackedTrainLoop, ResidentFeed, TrainLoop
+
+    m = _zoo_model("densenet", cuda, dtype)
+    f = m._loop_fns(*ZOO_ARCH["densenet"][:2])
+    bs = _zoo_batches("densenet", 8, 32)
+    X = torch.from_numpy(np.concatenate([b["x"] for b in bs])).to(cuda)
+    Y = torch.from_numpy(np.concatenate([b["y"] for b in bs])).to(cuda)
+    idx = torch.arange(8 * 32, device=cuda).reshape(8, 32)
+    loop = TrainLoop(f["init_fn"], f["apply_eval"], f["loss_fn"], f["optimizer"],
+                     hyper=f["hyper"], device=cuda)
+    loop.state, want = loop.program.train_steps(loop.state, ResidentFeed(X, Y, idx))
+    f = m._loop_fns(*ZOO_ARCH["densenet"][:2])
+    packed = PackedTrainLoop(f["init_fn"], f["apply_eval"], f["loss_fn"], f["optimizer"],
+                             seeds=[0], hypers=[f["hyper"]], device=cuda)
+    series = packed.program.train_steps(packed.state, ResidentFeed(X, Y, idx[:, None]))
+    module, opt, _, _, _ = loop.state
+    st = packed.state
+    for (name, p), q in zip(module.named_parameters(), st.params.values()):
+        assert torch.equal(p, q[0]), name
+    for a, b in zip(opt.mu + opt.nu, st.opt.mu + st.opt.nu):
+        assert torch.equal(a, b[0])
+    for key, v in want.items():
+        assert torch.equal(series[key][:, 0], v), key
+
+
+@pytest.mark.parametrize("family", ["transformer", "pos_bilstm"])
+def test_card_captured_zoo_epoch_matches_eager(cuda, family):
+    """12 steps of the Transformer (resident data) and of PosBiLstm (a
+    masked corpus fed from the host), eager (``train_step``) and as one
+    captured epoch (``train_steps``): params, moments, counts and every
+    step's loss and sentinels bit for bit; the captured run replayed."""
+    from rafiki_tpu_torch import telemetry
+    from rafiki_tpu_torch.ops.graphs import GRAPH_WARMUP_STEPS
+    from rafiki_tpu_torch.ops.train import HostFeed, ResidentFeed
+
+    n = 12
+    batches = _zoo_batches(family, n, 32)
+    eager, captured = _zoo_model(family, cuda), _zoo_model(family, cuda)
+    steps = []
+    for b in batches:
+        eager._loop.state, metrics = eager._loop.program.train_step(
+            eager._loop.state, {k: torch.from_numpy(v).to(cuda) for k, v in b.items()})
+        steps.append(metrics)
+    want = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+    if family == "transformer":
+        X = torch.from_numpy(np.concatenate([b["x"] for b in batches])).to(cuda)
+        Y = torch.from_numpy(np.concatenate([b["y"] for b in batches])).to(cuda)
+        feed = ResidentFeed(X, Y, torch.arange(n * 32, device=cuda).reshape(n, 32))
+    else:
+        feed = HostFeed(iter([dict(b) for b in batches]), n, cuda)
+    replays = telemetry.get_counter("train.graph_replays")
+    loop = captured._loop
+    loop.state, got = loop.program.train_steps(loop.state, feed)
+    assert telemetry.get_counter("train.graph_replays") - replays == n - GRAPH_WARMUP_STEPS
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    _assert_loops_equal(loop, eager._loop)

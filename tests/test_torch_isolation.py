@@ -156,6 +156,68 @@ def test_a_packed_train_job_runs_with_nothing_of_jax_loaded(tmp_path):
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+def test_the_zoo_and_a_packed_densenet_job_run_with_nothing_of_jax_loaded(tmp_path):
+    """The zoo's modules and its registry import, every registry name
+    resolves, a job of two DenseNet trials packed by
+    ``LocalScheduler.run_train_job(trial_pack=2)`` completes in one
+    packed round on the CPU, and a Transformer and a PosBiLstm trial
+    run through the model harness, with nothing of JAX, the JAX package
+    or scikit-learn loaded."""
+    zoo = ("models", "models.densenet", "models.transformer", "models.pos_bilstm",
+           "models.pos_hmm", "models.sk", "ops.layers", "convert", "model.dataset")
+    mods = _port_modules()
+    for name in zoo:
+        assert f"rafiki_tpu_torch.{name}" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import torch\n"
+        "torch.set_num_threads(2)\n"
+        "from rafiki_tpu_torch import telemetry\n"
+        "from rafiki_tpu_torch.model.dev import test_model_class\n"
+        "from rafiki_tpu_torch.models import MODEL_REGISTRY, get_model_class\n"
+        "from rafiki_tpu_torch.scheduler import LocalScheduler\n"
+        "from rafiki_tpu_torch.store import MetaStore, ParamsStore\n"
+        "assert all(get_model_class(n).__name__ == n for n in MODEL_REGISTRY)\n"
+        "src = open('rafiki_tpu_torch/models/densenet.py', 'rb').read()\n"
+        f"store = MetaStore({str(tmp_path / 'm.sqlite3')!r})\n"
+        f"params = ParamsStore({str(tmp_path / 'p')!r})\n"
+        "model = store.create_model('dn', 'IMAGE_CLASSIFICATION', None, src, 'DenseNet')\n"
+        "uri = 'synthetic://images?classes=4&n=64&w=8&h=8&c=3&seed={}'\n"
+        "job = store.create_train_job('app', 'IMAGE_CLASSIFICATION', None, uri.format(0),\n"
+        "                             uri.format(1), {'MODEL_TRIAL_COUNT': 2})\n"
+        "store.create_sub_train_job(job['id'], model['id'])\n"
+        "class Fixed:\n"
+        "    def __call__(self, advisor_id, n):\n"
+        "        return [dict(depth=22, growth=12, batch_size=64, epochs=1, seed=0,\n"
+        "                     learning_rate=1e-3 * (j + 1)) for j in range(n)]\n"
+        "sched = LocalScheduler(store, params)\n"
+        "sched.advisors.propose_batch = Fixed()\n"
+        "res = sched.run_train_job(job['id'], devices=[torch.device('cpu')], trial_pack=2)\n"
+        "assert res.status == 'COMPLETED', res\n"
+        "assert [t['status'] for t in res.trials] == ['COMPLETED'] * 2, res.trials\n"
+        "assert telemetry.get_counter('worker.packed_rounds') == 1\n"
+        "text = 'synthetic://text?vocab=81&classes=5&n={}&len=16&seed={}'\n"
+        "test_model_class(get_model_class('Transformer'), 'TEXT_CLASSIFICATION',\n"
+        "                 text.format(64, 0), text.format(32, 1), queries=[[1] * 16],\n"
+        "                 knobs=dict(embed_dim=32, num_heads=2, num_layers=1,\n"
+        "                            learning_rate=1e-3, batch_size=32, epochs=1, seed=0),\n"
+        "                 device='cpu')\n"
+        "corpus = 'synthetic://corpus?vocab=80&tags=6&n={}&len=12&seed={}'\n"
+        "test_model_class(get_model_class('PosBiLstm'), 'POS_TAGGING', corpus.format(64, 0),\n"
+        "                 corpus.format(32, 1), queries=[[5, 9, 3]],\n"
+        "                 knobs=dict(embed_dim=32, hidden=32, learning_rate=1e-3,\n"
+        "                            batch_size=32, epochs=1, seed=0), device='cpu')\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN + ('sklearn',)!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     from rafiki_tpu_torch.models.ff import FeedForward
     from rafiki_tpu_torch.models.vgg import Vgg

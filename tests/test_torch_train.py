@@ -265,17 +265,25 @@ def test_dataset_loader_gives_the_jax_loaders_bytes(uri, tmp_path):
 
 
 def test_dataset_cache_and_refusals(tmp_path):
+    """The cache returns one object per URI; an unknown synthetic kind
+    and a missing zip are refused as the JAX package refuses them; a
+    corpus ``.npz`` loads as a corpus (the text and corpus formats are
+    held byte for byte in ``test_torch_zoo.py``)."""
     utils = port_dataset.DatasetUtils()
     uri = IMAGES_8.format(n=8, seed=0)
     assert utils.load(uri) is utils.load(uri)
-    with pytest.raises(ValueError, match="corpus"):
-        utils.load("synthetic://corpus?n=4")
-    with pytest.raises(ValueError, match="zip"):
-        utils.load(str(tmp_path / "d.zip"))
+    with pytest.raises(ValueError, match="Unknown synthetic dataset"):
+        utils.load("synthetic://sounds?n=4")
+    missing = str(tmp_path / "d.zip")
+    with pytest.raises(FileNotFoundError):
+        jax_dataset.DatasetUtils().load(missing)
+    with pytest.raises(FileNotFoundError):
+        utils.load(missing)
     corpus = str(tmp_path / "c.npz")
     np.savez(corpus, x=np.ones((4, 6), np.int32), y=np.zeros((4, 6), np.int32))
-    with pytest.raises(ValueError, match="corpus"):
-        utils.load(corpus)
+    got, ref = utils.load(corpus), jax_dataset.DatasetUtils().load(corpus)
+    assert got.meta == ref.meta and got.meta["kind"] == "corpus"
+    assert got.x.tobytes() == ref.x.tobytes() and got.classes == ref.classes
 
 
 # -- the training loop --------------------------------------------------------
