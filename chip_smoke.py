@@ -6,6 +6,7 @@ CUDA card.
     python3 chip_smoke.py --bf16-readings  # the readings behind BF16_GAP_ATOL
     python3 chip_smoke.py --packed-step    # phase 16 alone: eager vs captured steps
     python3 chip_smoke.py --zoo            # phases 17-18 alone: DenseNet job, zoo trials
+    python3 chip_smoke.py --obs            # phase 19 alone: journal, profile, trace
 
 Drives ``rafiki_tpu_torch`` the way a user serves a top-k ensemble,
 the way a tuning job runs and the way a trial trains, at the full width
@@ -174,6 +175,28 @@ The rest of the model zoo:
      registry name resolves or, for SkDt and SkSvm without
      scikit-learn, raises the reference's ValueError.
 
+The observability plane:
+
+ 19. observability: with ``RAFIKI_LOG_DIR`` set to a temporary
+     directory (``obs.configure_from_env``), the admin server on the
+     card runs a GP job of OBS_TRIALS ``ObsVgg`` trials (the canonical
+     knobs, two epochs, the learning rate tuned) with trial packing at
+     k=OBS_PACK (one pack of two, one serial trial), serves its top-2
+     stacked and answers one query through ``Client``, the HTTP
+     predictor and the gateway; then the journal is closed and read
+     back through the port's CLI (``rafiki_tpu_torch/obs/cli.py``):
+     ``profile`` (per program: FLOPs a step, steps an epoch, the warm
+     epoch p50, achieved TFLOP/s and MFU against the card's peak, next
+     to its name and power limit) and ``trace`` (the query's records
+     across the HTTP span, the gateway, the bus envelope and the
+     inference worker), and the host cost of the hooks a warm epoch
+     journals is timed. Fails unless both programs have a FLOP count
+     and, on a known H100, an MFU; every ``perf/step`` record carries
+     ``steps``; the serial step's count equals the analytic count of
+     VGG16's convolutions and dense layers at batch 128 (OBS_FLOPS_RTOL)
+     and the pack's is OBS_PACK times it; and the query's records
+     stitch into one trace (OBS_TRACE_PAIRS).
+
 Every training phase runs its epochs as captured CUDA graphs
 (``ops/graphs.py``). Each phase's line carries its seconds
 (``phase_s``) and the captured steps it replayed (``graph_replays``,
@@ -189,8 +212,9 @@ nonzero before it; without a CUDA device the script exits 1 at once.
 other trial seeds and 4 other query sets, and prints the readings.
 ``--packed-step`` runs only phase 16, on random batches resident on the
 card, so two checkouts can be compared in one call. ``--zoo`` runs only
-phases 17 and 18. ``--resume-child`` is the child
-worker of phases 14 and 15.
+phases 17 and 18, ``--obs`` only phase 19. ``--resume-child`` is the
+child worker of phases 14 and 15; it journals when its parent sets
+``RAFIKI_LOG_DIR``.
 """
 
 from __future__ import annotations
@@ -1750,12 +1774,16 @@ def resume_child(data_dir: str, sub_id: str, service_id: str, knobs_json: str) -
     """``--resume-child``: a train worker on the card under the given
     service row, its trials (one, or a pack of two under
     RAFIKI_TRIAL_PACK) checkpointed every epoch (RAFIKI_CHECKPOINT_EVERY);
-    the parent kills it mid-trial."""
+    the parent kills it mid-trial. Journals under RAFIKI_LOG_DIR when the
+    parent sets it, as a worker process of the JAX package does."""
+    from rafiki_tpu_torch import obs
     from rafiki_tpu_torch.config import Config
     from rafiki_tpu_torch.store import MetaStore, ParamsStore
     from rafiki_tpu_torch.utils.events import events
     from rafiki_tpu_torch.worker.train import build_worker_from_store
 
+    if obs.configure_from_env(role="train-worker"):
+        obs.recorder.install()
     cfg = Config(data_dir=__import__("pathlib").Path(data_dir)).ensure_dirs()
     events.configure(cfg.logs_dir)
     store, params = MetaStore(cfg.db_path), ParamsStore(cfg.params_dir)
@@ -2367,6 +2395,267 @@ def zoo_checks(check, rows, dn, zoo) -> None:
         check(ok, f"zoo_trials: registry {name!r} -> {got}")
 
 
+# -- the observability plane -----------------------------------------------------
+# Phase 19: a journaled GP job of OBS_TRIALS canonical VGG16 trials (two
+# epochs each, so every program has a warm epoch) with trial packing at
+# k=OBS_PACK: the budget of three runs one pack of two and one serial
+# trial, so both programs are counted and timed. The template tunes the
+# learning rate only, in the range where the canonical trial trains, so
+# every proposal shares one packing key.
+OBS_TRIALS = 3
+OBS_PACK = 2
+OBS_SRC = b'''
+from rafiki_tpu_torch.model.knobs import FixedKnob, FloatKnob
+from rafiki_tpu_torch.models.vgg import Vgg
+
+
+class ObsVgg(Vgg):
+    """The canonical trial's knobs (VGG16 w1.0, batch 128, dropout 0.1),
+    two epochs, tuning the learning rate."""
+
+    @staticmethod
+    def get_knob_config():
+        return {
+            "depth": FixedKnob(16),
+            "width_mult": FixedKnob(1.0),
+            "dropout": FixedKnob(0.1),
+            "learning_rate": FloatKnob(3e-4, 1e-3, is_exp=True),
+            "batch_size": FixedKnob(128),
+            "epochs": FixedKnob(2),
+            "seed": FixedKnob(0),
+        }
+'''
+# The captured VGG16 step's FLOP count against the analytic count of its
+# convolutions and dense layers at batch 128 (full 3x3 windows, forward
+# plus the weight- and input-gradient products, no input gradient for
+# the first conv): both count the same products, so they must be equal.
+OBS_FLOPS_RTOL = 0.0
+# The record pairs one gateway query must stitch into one trace: the
+# HTTP span, the gateway, the bus envelope and the inference worker.
+OBS_TRACE_PAIRS = (("span", "predictor_http.decode"), ("span", "gateway.predict"),
+                   ("bus", "add_query"), ("bus", "pop_query"),
+                   ("span", "inference.forward"), ("gather", "predictor.gather"),
+                   ("serving", "request"))
+# Hook calls timed for the journal's cost of one warm epoch.
+OBS_HOOK_CALLS = 2000
+
+
+def vgg_step_flops(depth, width_mult, input_shape, num_classes, batch) -> int:
+    """The analytic FLOP count of a ``Vgg`` train step (2 a multiply-add):
+    each 3x3 conv's full window and each dense layer, forward plus the
+    weight- and input-gradient products, no input gradient for the
+    first conv."""
+    from rafiki_tpu_torch.models.vgg import _CFGS
+
+    h, w, cin = input_shape
+    total, first = 0, True
+    for v in _CFGS[depth]:
+        if v == "M":
+            if min(h, w) >= 2:
+                h, w = h // 2, w // 2
+            continue
+        ch = max(8, int(v * width_mult))
+        total += 2 * batch * h * w * ch * cin * 9 * (2 if first else 3)
+        first, cin = False, ch
+    hidden = max(64, int(512 * width_mult))
+    for a, b in ((h * w * cin, hidden), (hidden, num_classes)):
+        total += 3 * 2 * batch * a * b
+    return total
+
+
+def _journal_hook_cost_us() -> float:
+    """Host microseconds of the hooks a warm epoch runs into the journal
+    (``ledger.add``, ``profiler.note_epoch``, ``slo.maybe_tick``), timed
+    over OBS_HOOK_CALLS calls into a throwaway journal."""
+    import shutil
+    import tempfile
+
+    from rafiki_tpu_torch.obs.journal import journal
+    from rafiki_tpu_torch.obs.ledger import ledger
+    from rafiki_tpu_torch.obs.perf import profiler, slo
+
+    tmp = tempfile.mkdtemp(prefix="rafiki-hooks-")
+    journal.configure(tmp, role="hooks")
+    try:
+        t0 = time.perf_counter()
+        for _ in range(OBS_HOOK_CALLS):
+            ledger.add("step_s", 1e-3)
+            profiler.note_epoch(("hooks",), 1e-3, steps=1)
+            slo.maybe_tick()
+        return (time.perf_counter() - t0) / OBS_HOOK_CALLS * 1e6
+    finally:
+        journal.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def observability(card):
+    """Phase 19: the journaled job and query, read back through the
+    port's CLI. Returns the phase's line and its failures."""
+    import gc
+    import io
+    import os
+    import shutil
+    import tempfile
+    from contextlib import redirect_stdout
+    from pathlib import Path
+
+    import torch
+
+    from rafiki_tpu_torch import obs
+    from rafiki_tpu_torch.admin.app import serve
+    from rafiki_tpu_torch.client import Client
+    from rafiki_tpu_torch.config import Config, get_config, set_config
+    from rafiki_tpu_torch.model.dataset import dataset_utils
+    from rafiki_tpu_torch.obs import cli
+    from rafiki_tpu_torch.obs.perf import profiler
+
+    t_phase = time.monotonic()
+    line = {"phase": "observability", "card": card[1], "power_limit": card[2]}
+    bad = []
+    tmp = Path(tempfile.mkdtemp(prefix="rafiki-obs-"))
+    log_dir = tmp / "log"
+    prev_config, prev_env = get_config(), {k: os.environ.get(k) for k in
+                                           ("RAFIKI_LOG_DIR", "RAFIKI_TRIAL_PACK")}
+    cfg = Config(data_dir=tmp / "data")
+    set_config(cfg)
+    os.environ.update(RAFIKI_LOG_DIR=str(log_dir), RAFIKI_TRIAL_PACK=str(OBS_PACK))
+    # Earlier phases ran these programs' first epochs unjournaled: start
+    # the profiler afresh so this job's programs are counted.
+    profiler.reset()
+    if not obs.configure_from_env(role="chip-smoke"):
+        fail("observability: RAFIKI_LOG_DIR did not configure the journal")
+    port = _free_port()
+    stop = threading.Event()
+    server = threading.Thread(target=serve, name="obs-admin", daemon=True,
+                              kwargs=dict(host="127.0.0.1", port=port, device="cuda",
+                                          stop_event=stop))
+    server.start()
+    try:
+        client = Client(admin_port=port, timeout_s=300)
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                _get_json(f"http://127.0.0.1:{port}/healthz")
+                break
+            except OSError:
+                if time.monotonic() > deadline or not server.is_alive():
+                    fail("observability: the admin server never answered")
+                time.sleep(0.1)
+        client.login(cfg.superadmin_email, cfg.superadmin_password)
+        (tmp / "obs_vgg.py").write_bytes(OBS_SRC)
+        client.create_model("obs-vgg", "IMAGE_CLASSIFICATION", tmp / "obs_vgg.py", "ObsVgg")
+        t0 = time.monotonic()
+        client.create_train_job("obs", "IMAGE_CLASSIFICATION", TRAIN_URI, EVAL_URI,
+                                {"MODEL_TRIAL_COUNT": OBS_TRIALS}, advisor_kind="gp")
+        job = client.wait_until_train_job_has_stopped("obs", timeout=900, poll_s=0.5)
+        line["train_job_s"] = time.monotonic() - t0
+        trials = client.get_trials_of_train_job("obs")
+        line["trials"] = [{"no": t["no"], "status": t["status"], "score": t["score"],
+                           "learning_rate": t["knobs"]["learning_rate"]} for t in trials]
+        if job["status"] != "COMPLETED" or sum(t["status"] == "COMPLETED" for t in trials) < 2:
+            fail(f"observability: train job {job['status']}: {line['trials']}")
+        t0 = time.monotonic()
+        inf = client.create_inference_job("obs", max_models=2)
+        x = dataset_utils.load(EVAL_URI).x[:1]
+        out = client.predict_via_predictor(inf["predictor_host"], x.tolist())
+        line["serve_s"] = time.monotonic() - t0
+        if len(out) != 1 or isinstance(out[0], dict):
+            fail(f"observability: the query failed: {out}")
+        client.stop_inference_job("obs")
+    finally:
+        stop.set()
+        server.join(timeout=120)
+        obs.journal.journal.close()  # later phases run unjournaled
+        set_config(prev_config)
+        for k, v in prev_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if server.is_alive():
+        fail("observability: the admin server did not stop")
+
+    # -- read back through the CLI ----------------------------------------------
+    records = obs.journal.read_dir(log_dir)
+    line["journal_records"] = len(records)
+    steps = [r for r in records if (r["kind"], r["name"]) == ("perf", "step")]
+    if not steps or any(r.get("steps") is None for r in steps):
+        bad.append(f"observability: {len(steps)} perf/step records, "
+                   f"{sum(r.get('steps') is None for r in steps)} without steps")
+    rows = {r["kind"]: r for r in cli.profile_rows(str(log_dir)) if r["kind"]}
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        cli.main(["--dir", str(log_dir), "profile"])
+    line["profile_text"] = buf.getvalue().splitlines()
+    known_card = profiler.card_model(torch.cuda.get_device_name(0)) is not None
+    for kind in ("serial", "packed"):
+        row = rows.get(kind)
+        if row is None:
+            bad.append(f"observability: no {kind} program in the profile: {sorted(rows)}")
+            continue
+        line[kind] = {
+            "k": row["k"], "flops_per_step": row["flops"], "steps_per_epoch": row.get("steps"),
+            "warm_epoch_p50_s": row.get("step_p50_s"), "epochs": row["epochs"],
+            "cold_epochs": row["cold_epochs"], "dtype": row["dtype"],
+            "achieved_tflops": (row["achieved_flops_s"] / 1e12
+                                if row.get("achieved_flops_s") else None),
+            "peak_tflops": (row["peak_flops_basis"] / 1e12
+                            if row.get("peak_flops_basis") else None),
+            "mfu": row.get("mfu_vs_peak"),
+            "cost_capture_s": next((r["cost_capture_s"] for r in records
+                                    if r.get("key_hash") == row["key_hash"]
+                                    and r["name"] == "cost"), None)}
+        if not row["flops"]:
+            bad.append(f"observability: the {kind} program's flops are null on the card")
+        if known_card and row.get("mfu_vs_peak") is None:
+            bad.append(f"observability: the {kind} program has no MFU on a known H100: {row}")
+    analytic = vgg_step_flops(16, 1.0, INPUT_SHAPE, NUM_CLASSES, 128)
+    line["analytic_flops_per_step"] = analytic
+    line["flops_rtol"] = OBS_FLOPS_RTOL
+    serial, packed = rows.get("serial", {}), rows.get("packed", {})
+    if not serial.get("flops") or abs(serial["flops"] - analytic) > OBS_FLOPS_RTOL * analytic:
+        bad.append(f"observability: the serial step counts {serial.get('flops')} flops, the "
+                   f"analytic count is {analytic}")
+    if not packed.get("flops") or packed["flops"] != OBS_PACK * analytic:
+        bad.append(f"observability: the k={OBS_PACK} packed step counts {packed.get('flops')} "
+                   f"flops, not {OBS_PACK} x {analytic}")
+
+    # -- one query, one trace ---------------------------------------------------------
+    requests = [r for r in records if (r["kind"], r["name"]) == ("serving", "request")]
+    tid = requests[-1].get("trace_id") if requests else None
+    traced = [r for r in records if tid and r.get("trace_id") == tid]
+    pairs = {(r["kind"], r["name"]) for r in traced}
+    line["trace"] = {"trace_id": tid, "records": len(traced),
+                     "processes": len({(r["role"], r["pid"]) for r in traced}),
+                     "missing": [f"{k}/{n}" for k, n in OBS_TRACE_PAIRS if (k, n) not in pairs]}
+    if tid is None or line["trace"]["missing"]:
+        bad.append(f"observability: the query does not stitch into one trace: {line['trace']}")
+    else:
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            cli.main(["--dir", str(log_dir), "trace", tid])
+        line["trace_text"] = buf.getvalue().splitlines()
+
+    # -- the journal's cost of a warm epoch ---------------------------------------
+    line["journal_hooks_us_per_epoch"] = _journal_hook_cost_us()
+    p50 = serial.get("step_p50_s")
+    line["journal_hooks_share_of_warm_epoch"] = (
+        line["journal_hooks_us_per_epoch"] * 1e-6 / p50 if p50 else None)
+    shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["phase_s"] = time.monotonic() - t_phase
+    return line, bad
+
+
+def observability_phase(card, check) -> None:
+    """Phase 19 and its checks (also ``--obs``)."""
+    line, bad = observability(card)
+    print(json.dumps(line))
+    for msg in bad:
+        check(False, msg)
+
+
 def main() -> int:
     import torch
 
@@ -2387,7 +2676,7 @@ def main() -> int:
         print(card[0])
         print(json.dumps(graph_step(card)))
         return 0
-    if sys.argv[1:] not in ([], ["--zoo"]):
+    if sys.argv[1:] not in ([], ["--zoo"], ["--obs"]):
         fail(f"unknown arguments {sys.argv[1:]}")
     card = card_identity()
     print(card[0])
@@ -2406,6 +2695,13 @@ def main() -> int:
             print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
             return 1
         print(json.dumps({"zoo": "ok", "device": torch.cuda.get_device_name(0)}))
+        return 0
+    if sys.argv[1:] == ["--obs"]:
+        observability_phase(card, check)
+        if failures:
+            print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
+            return 1
+        print(json.dumps({"obs": "ok", "device": torch.cuda.get_device_name(0)}))
         return 0
 
     from rafiki_tpu_torch.ops.train import predict
@@ -2671,6 +2967,10 @@ def main() -> int:
 
     # -- 17.-18. the rest of the zoo ---------------------------------------------
     zoo_phases(card, check)
+
+    # -- 19. the observability plane ----------------------------------------------
+    torch.cuda.empty_cache()
+    observability_phase(card, check)
 
     # -- kernels and the result line -------------------------------------------
     print(json.dumps({"kernels": []}))

@@ -26,7 +26,13 @@ Ported so far:
   * the service: the admin REST API (``admin/``, ``python -m
     rafiki_tpu_torch serve``), its ``Client``, and per inference job a
     published HTTP predictor behind the serving gateway (``gateway/``:
-    admission, breakers, quorum gather, microbatching, drain).
+    admission, breakers, quorum gather, microbatching, drain);
+  * the observability plane (``obs/``): trace ids across threads and
+    bus envelopes, per-process JSONL journals under ``RAFIKI_LOG_DIR``
+    in the JAX package's layout, the goodput ledger, the flight
+    recorder, Prometheus text, SLO burn rates, and the perf profiler
+    (each training program's FLOPs and MFU on the card), read by
+    ``python -m rafiki_tpu_torch.obs``.
 """
 
 __version__ = "0.1.0"

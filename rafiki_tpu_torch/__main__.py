@@ -7,8 +7,11 @@ plane is one process, so the CLI is the deployment surface:
   python -m rafiki_tpu_torch version
 
 ``serve`` runs the admin REST server; jobs train and serve on the CUDA
-card unless ``--device cpu`` is given. The benchmark command is not
-ported yet.
+card unless ``--device cpu`` is given. With ``RAFIKI_LOG_DIR`` set the
+process journals there (``journal-admin-<pid>.jsonl``; read it with
+``python -m rafiki_tpu_torch.obs``), adopts ``RAFIKI_TRACE_ID``, and
+leaves a flight record on a fatal error or an interrupt. The benchmark
+command is not ported yet.
 """
 
 from __future__ import annotations
@@ -31,7 +34,11 @@ def main(argv=None) -> int:
 
     args = parser.parse_args(argv)
     if args.command == "serve":
+        from rafiki_tpu_torch import obs
         from rafiki_tpu_torch.admin.app import serve
+
+        if obs.configure_from_env(role="admin"):
+            obs.recorder.install()
 
         try:
             serve(host=args.host, port=args.port, device=args.device)

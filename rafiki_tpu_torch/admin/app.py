@@ -35,9 +35,10 @@ Route table:
                                      false by default)
   GET  /advisors/<id>/propose, POST /advisors/<id>/feedback
   GET  /healthz                      liveness
-  GET  /metrics                      telemetry snapshot (JSON)
+  GET  /metrics                      telemetry snapshot (JSON;
+                                     ?format=prom: Prometheus text)
 
-Not ported yet: the web UI at ``/`` and ``/metrics?format=prom``.
+Not ported yet: the web UI at ``/``.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ from typing import Any, Dict, List, Optional
 from rafiki_tpu_torch import telemetry
 from rafiki_tpu_torch.admin.admin import Admin, NotFoundError
 from rafiki_tpu_torch.constants import UserType
+from rafiki_tpu_torch.obs import prom
 from rafiki_tpu_torch.utils.auth import AuthError, check_user_type, decode_token
 from rafiki_tpu_torch.utils.backend import DeviceLike
 from rafiki_tpu_torch.utils.httpd import AppServer, Request, Response, json_response
@@ -183,9 +185,11 @@ class AdminApp:
     def ep_metrics(self, request: Request) -> Response:
         # Read-only process introspection, unauthenticated like
         # /healthz: the snapshot carries timings and counts, never
-        # trial data or credentials.
+        # trial data or credentials. ?format=prom serves the same
+        # snapshot in Prometheus text exposition for scrapers.
         if request.args.get("format") == "prom":
-            raise ValueError("format=prom is not served by this admin")
+            return Response(prom.to_prometheus(telemetry.snapshot()).encode(),
+                            content_type="text/plain; version=0.0.4")
         return json_response(telemetry.snapshot())
 
     def ep_login(self, request: Request) -> Response:

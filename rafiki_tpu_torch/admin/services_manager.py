@@ -14,9 +14,12 @@ The manager holds one device: CUDA unless the caller asks for the CPU
 so the manager opens it in every thread it starts (the train job's,
 the inference workers') and wherever it builds a model.
 
+The route decision of each inference job is journaled
+(``serving/route``, as in the JAX package) and evented
+(``inference_route``, the port's own event).
+
 Not in the port yet: compile prewarm, the resume reaper, the job
-admission gate, co-hosted serving and autoscale, and the journal
-records.
+admission gate, co-hosted serving and autoscale.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from rafiki_tpu_torch.constants import (
 )
 from rafiki_tpu_torch.gateway import Gateway, GatewayConfig
 from rafiki_tpu_torch.model.base import load_model_class
+from rafiki_tpu_torch.obs.journal import journal as _journal
 from rafiki_tpu_torch.parallel.serving import build_stacked
 from rafiki_tpu_torch.predictor.app import start_predictor_server
 from rafiki_tpu_torch.predictor.predictor import Predictor
@@ -171,10 +175,12 @@ class ServicesManager:
             warmup_s = round(stacked.warmup(), 6)
             events.emit("inference_stacked", job_id=inference_job_id, k=len(best_trials))
         # The route decision: which serving shape this job got and why.
-        events.emit("inference_route", job_id=inference_job_id,
-                    route="stacked" if stacked is not None else "replicated",
-                    reason=route_reason, k=len(best_trials), workers=len(serve_models),
-                    warmup_s=warmup_s)
+        route = dict(job_id=inference_job_id,
+                     route="stacked" if stacked is not None else "replicated",
+                     reason=route_reason, k=len(best_trials), workers=len(serve_models),
+                     warmup_s=warmup_s)
+        _journal.record("serving", "route", **route)
+        events.emit("inference_route", **route)
 
         for i, model in enumerate(serve_models):
             worker_id = f"{inference_job_id[:8]}-iw{i}"

@@ -12,14 +12,21 @@ The port's own copy of the in-process bus of ``rafiki_tpu/bus/queues.py``
   put_prediction(query_id, worker_id, prediction)
   get_predictions(query_id, n, timeout)  — predictor gather-wait
 
-Envelopes are ``(query_id, query)``, or ``(query_id, query, trace)``
-when the caller passes an explicit ``trace`` dict, as in the JAX
-package. Liveness is a LEASE refreshed by each worker's heartbeat
-thread; ``get_workers(max_age_s=...)`` sees only fresh leases and
+Trace envelopes, as in the JAX package: when a trace context is
+active (or an explicit ``trace`` dict is passed), ``add_query``
+enqueues ``(query_id, query, trace)`` instead of the bare 2-tuple,
+journals the fan-out hop (``bus/add_query``), and ``pop_queries`` hands
+the envelope through, so the inference worker re-binds the trace and
+its spans and journal records stitch into the same end-to-end trace as
+the gateway's. Untraced messages stay 2-tuples. The trace dict holds
+``trace_id``, the enqueuing span as ``parent_span`` and the tenant,
+where there are; the JAX package's hop marks are not ported.
+
+Liveness is a LEASE refreshed by each worker's heartbeat thread;
+``get_workers(max_age_s=...)`` sees only fresh leases and
 ``reap_stale`` deletes corpses.
 
-Not in the port yet: the multiprocessing bus, the chaos hooks, and the
-trace-context / hop / journal planes that stamp envelopes.
+Not in the port yet: the multiprocessing bus and the chaos hooks.
 """
 
 from __future__ import annotations
@@ -32,12 +39,35 @@ from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
 from rafiki_tpu_torch import telemetry
+from rafiki_tpu_torch.obs import context as _trace_context
+from rafiki_tpu_torch.obs.journal import journal as _journal
+
+
+def _current_trace() -> Optional[Dict[str, Any]]:
+    """The active trace as a plain envelope field (None when untraced:
+    the message stays a 2-tuple)."""
+    tid = _trace_context.current_trace_id()
+    if tid is None:
+        return None
+    trace: Dict[str, Any] = {"trace_id": tid}
+    parent = telemetry.current_span_id()
+    if parent:
+        trace["parent_span"] = parent
+    tenant = _trace_context.current_tenant()
+    if tenant:
+        trace["tenant"] = tenant
+    return trace
 
 
 def _envelope(query_id: str, query: Any,
               trace: Optional[Dict[str, Any]]) -> tuple:
+    trace = trace or _current_trace()
     if trace is None:
         return (query_id, query)
+    # Journal the fan-out hop so the bus appears in the stitched trace.
+    _journal.record("bus", "add_query", query_id=query_id,
+                    trace_id=trace.get("trace_id"),
+                    parent_span=trace.get("parent_span"))
     # Copy: an explicit trace arg may be a caller-owned dict shared
     # across queries.
     return (query_id, query, dict(trace))

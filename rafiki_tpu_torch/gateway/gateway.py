@@ -20,11 +20,18 @@ The port's own copy of ``rafiki_tpu/gateway/gateway.py``
   * **graceful drain** — stop admitting, flush inflight, flip
     ``/healthz`` to draining.
 
+``predict`` is the trace edge, as in the JAX package: a request
+carries a caller trace id (``X-Rafiki-Trace-Id`` upstream) or gets a
+fresh one, and the bus envelopes, worker spans and journal records
+stitch to it. The journal gets the gateway's config
+(``gateway/config``), each request (``serving/request``), breaker
+transitions, blackout retries and sheds; each request ticks the SLO
+engine.
+
 Left out with the planes the port does not have yet: the chaos hook,
-the trace context and hop marks, the ``ServingRollup`` time-series,
-the journal records, SLO ticks and tenancy. ``stats()`` keeps every
-key of the JAX package's; the rollup's ``serving`` telemetry collector
-is absent.
+hop marks, the ``ServingRollup`` time-series and tenancy (the
+``serving/request`` record's ``tenant`` is null). ``stats()`` keeps every key of the JAX package's; the rollup's
+``serving`` telemetry collector is absent.
 
 One Gateway fronts one inference job's Predictor. Its counters flow
 both into gateway-local stats (``GET /gateway``) and into the
@@ -43,6 +50,9 @@ from rafiki_tpu_torch import telemetry
 from rafiki_tpu_torch.gateway.admission import AdmissionController, ShedError
 from rafiki_tpu_torch.gateway.breaker import CircuitBreaker
 from rafiki_tpu_torch.gateway.microbatch import BatchMember, MicroBatcher
+from rafiki_tpu_torch.obs import context as trace_context
+from rafiki_tpu_torch.obs.journal import journal as _journal
+from rafiki_tpu_torch.obs.perf import slo as _slo
 from rafiki_tpu_torch.predictor.predictor import default_quorum
 
 POLICIES = ("replicate-all", "least-loaded")
@@ -150,14 +160,36 @@ class Gateway:
         # serves one job, and tests that build several gateways only
         # ever assert on the live one.
         telemetry.register_collector("gateway", self.stats)
+        # The live limits, for post-mortems and capacity models.
+        _journal.record("gateway", "config",
+                        max_inflight=self.cfg.max_inflight,
+                        max_queue=self.cfg.max_queue,
+                        default_deadline_s=self.cfg.default_deadline_s,
+                        min_replies=self.cfg.min_replies,
+                        hedge_grace_s=self.cfg.hedge_grace_s,
+                        policy=self.cfg.policy,
+                        breaker_failures=self.cfg.breaker_failures,
+                        breaker_cooldown_s=self.cfg.breaker_cooldown_s,
+                        max_batch=self.cfg.max_batch,
+                        max_batch_wait_ms=self.cfg.max_batch_wait_ms,
+                        blackout_retries=self.cfg.blackout_retries,
+                        tenants_enabled=False, tenant_quota_frac=None)
 
     # -- the predict path ----------------------------------------------------
 
     def predict(self, queries: List[Any],
-                deadline_s: Optional[float] = None) -> List[Any]:
+                deadline_s: Optional[float] = None,
+                trace_id: Optional[str] = None) -> List[Any]:
         """Admit → route → quorum-gather → feed breakers. Raises
         :class:`ShedError` when admission refuses, RuntimeError when
-        the job has no live workers."""
+        the job has no live workers.
+
+        This is the trace edge: the request runs under ``trace_id``, the
+        active trace, or a fresh one."""
+        with trace_context.trace(trace_id):
+            return self._predict(queries, deadline_s)
+
+    def _predict(self, queries: List[Any], deadline_s: Optional[float]) -> List[Any]:
         deadline_s = (deadline_s or self.cfg.default_deadline_s
                       or self.predictor.timeout_s)
         deadline = time.monotonic() + deadline_s
@@ -195,6 +227,11 @@ class Gateway:
         elapsed = time.monotonic() - t0
         self._absorb(report, elapsed)
         telemetry.observe("gateway.predict_s", elapsed)
+        _journal.record("serving", "request", queries=len(queries),
+                        e2e_s=round(elapsed, 6), ok=report.timeouts == 0,
+                        hedged=report.hedged, timeouts=report.timeouts,
+                        tenant=None)
+        _slo.maybe_tick()
         return report.outputs
 
     def _predict_batched(self, queries: List[Any], deadline: float) -> List[Any]:
@@ -212,7 +249,15 @@ class Gateway:
             self.admission.release()
         if member.error is not None:
             raise member.error
-        telemetry.observe("gateway.predict_s", time.monotonic() - member.enq_t)
+        report = member.report
+        elapsed = time.monotonic() - member.enq_t
+        telemetry.observe("gateway.predict_s", elapsed)
+        _journal.record("serving", "request", queries=len(queries),
+                        e2e_s=round(elapsed, 6), ok=report.timeouts == 0,
+                        hedged=report.hedged, timeouts=report.timeouts,
+                        batched=True, flush_reason=member.flush_reason,
+                        tenant=None)
+        _slo.maybe_tick()
         return member.outputs
 
     def _execute_batch(self, members: List[BatchMember],
@@ -285,17 +330,19 @@ class Gateway:
                 return report
             if not retries_left:
                 return report
-            self._note_blackout(report)
+            self._note_blackout(report, attempt)
             time.sleep(min(BLACKOUT_BACKOFF_S,
                            max(0.0, deadline - time.monotonic())))
         raise RuntimeError("unreachable")  # pragma: no cover
 
-    def _note_blackout(self, report) -> None:
-        """Feed a blackout attempt into the breakers."""
+    def _note_blackout(self, report, attempt: int) -> None:
+        """Feed a blackout attempt into the breakers and the journal."""
         if report is not None:
             for w in report.workers:
-                self._breaker(w).record_failure()
+                self._record(w, ok=False)
         telemetry.inc("gateway.blackout_retries")
+        _journal.record("gateway", "blackout_retry", attempt=attempt + 1,
+                        workers=(list(report.workers) if report is not None else []))
 
     # -- routing -------------------------------------------------------------
 
@@ -327,15 +374,26 @@ class Gateway:
                     self.cfg.breaker_failures, self.cfg.breaker_cooldown_s)
             return br
 
+    def _record(self, worker_id: str, ok: bool, latency_s: float = 0.0) -> None:
+        """One outcome into a worker's breaker; a state change is
+        journaled (``gateway/breaker_transition``), so a post-mortem sees
+        why fan-out avoided a worker."""
+        br = self._breaker(worker_id)
+        before = br.snapshot().get("state")
+        if ok:
+            br.record_success(latency_s=latency_s)
+        else:
+            br.record_failure()
+        after = br.snapshot().get("state")
+        if after != before:
+            _journal.record("gateway", "breaker_transition", worker_id=worker_id,
+                            from_state=before, to_state=after)
+
     def _absorb(self, report, elapsed_s: float) -> None:
         """Feed one batch's gather report into breakers and stats."""
         n_queries = len(report.outputs)
         for w in report.workers:
-            br = self._breaker(w)
-            if report.replies.get(w, 0) > 0:
-                br.record_success(latency_s=elapsed_s)
-            else:
-                br.record_failure()
+            self._record(w, report.replies.get(w, 0) > 0, elapsed_s)
         with self._lock:
             self._hedged += report.hedged
             self._timeouts += report.timeouts
@@ -369,6 +427,7 @@ class Gateway:
         # Reasons are a closed enum of admission code paths, refining
         # the stable literal gateway.shed aggregate above.
         telemetry.inc(f"gateway.shed_{reason}")
+        _journal.record("gateway", "shed", reason=reason)
 
     # -- drain ---------------------------------------------------------------
 

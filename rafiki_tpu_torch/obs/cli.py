@@ -1,0 +1,275 @@
+"""``python -m rafiki_tpu_torch.obs`` — read the merged cross-process journals.
+
+The port's counterpart of ``rafiki_tpu/obs/cli.py``, with the verbs of
+the planes the port has. Subcommands (all read ``journal-*.jsonl*``
+under ``--dir``, default ``$RAFIKI_LOG_DIR`` then the configured
+``logs_dir``):
+
+    trace <id>     every record carrying the trace id (prefix match),
+                   time-ordered across processes, one line per hop —
+                   the stitched end-to-end view of one query or trial
+    tail [-n N]    the last N records fleet-wide
+    slowest [-n N] the N slowest finished spans
+    profile [key]  per-program join of the FLOP count (``perf/cost``)
+                   with the measured epochs (``perf/step``): flops per
+                   step, steps per epoch, the median warm epoch,
+                   achieved FLOP/s and MFU; ``key`` prefix-matches the
+                   program key hash or substring-matches the key repr
+    slo            current SLO burn state (latest ``slo/state``) plus
+                   the breach/recovery history
+
+The journals of either package read the same: ``trace``, ``tail``,
+``slowest`` and ``slo`` print what the JAX package's CLI prints.
+``profile`` multiplies a step's flops by the epoch's ``steps`` where
+the ``perf/step`` record carries them (the port's do; a JAX package
+journal's count as one step, as its own CLI reads them) and takes the
+MFU denominator from ``--peak-flops`` or else from the ``perf/cost``
+record's ``peak_flops`` (the card and compute dtype the step ran on).
+
+Output is one human line per record by default, ``--json`` for JSONL.
+Exit code 1 when a requested trace has no records. Importing this
+module imports no torch: it reads journals on any machine.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import Any, Dict, List, Optional
+
+from rafiki_tpu_torch.obs import journal as journal_mod
+
+
+def _default_dir() -> str:
+    d = os.environ.get(journal_mod.ENV_VAR)
+    if d:
+        return d
+    from rafiki_tpu_torch.config import get_config
+    return str(get_config().logs_dir)
+
+
+def _fmt_record(rec: Dict[str, Any], t0: float) -> str:
+    dt = rec.get("ts", 0.0) - t0
+    who = f"{rec.get('role', '?')}/{rec.get('pid', '?')}"
+    head = f"+{dt:9.3f}s  {who:<18} {rec.get('kind', '?'):<7} {rec.get('name', '?')}"
+    parts = []
+    if rec.get("dur_s") is not None:
+        parts.append(f"dur={rec['dur_s']:.4f}s")
+    for k in ("trial_id", "worker_id", "query_id", "site", "mode", "event",
+              "reason", "path", "error"):
+        if rec.get(k) is not None:
+            parts.append(f"{k}={rec[k]}")
+    tags = rec.get("tags")
+    if isinstance(tags, dict):
+        parts.extend(f"{k}={v}" for k, v in tags.items())
+    return head + ("  [" + " ".join(parts) + "]" if parts else "")
+
+
+def _emit(records: List[Dict[str, Any]], as_json: bool) -> None:
+    if as_json:
+        for rec in records:
+            print(json.dumps(rec, default=str))
+        return
+    t0 = records[0].get("ts", 0.0) if records else 0.0
+    for rec in records:
+        print(_fmt_record(rec, t0))
+
+
+def cmd_trace(log_dir: str, trace_id: str, as_json: bool) -> int:
+    records = [r for r in journal_mod.read_dir(log_dir)
+               if str(r.get("trace_id", "")).startswith(trace_id)]
+    if not records:
+        print(f"no journal records for trace {trace_id!r} under {log_dir}",
+              file=sys.stderr)
+        return 1
+    _emit(records, as_json)
+    if not as_json:
+        pids = {(r.get("role"), r.get("pid")) for r in records}
+        wall = records[-1].get("ts", 0.0) - records[0].get("ts", 0.0)
+        print(f"-- trace {records[0].get('trace_id')}: {len(records)} records "
+              f"across {len(pids)} processes, {wall:.3f}s")
+    return 0
+
+
+def cmd_tail(log_dir: str, n: int, as_json: bool) -> int:
+    _emit(journal_mod.read_dir(log_dir)[-n:], as_json)
+    return 0
+
+
+def cmd_slowest(log_dir: str, n: int, as_json: bool) -> int:
+    spans = [r for r in journal_mod.read_dir(log_dir)
+             if r.get("kind") == "span" and r.get("dur_s") is not None]
+    spans.sort(key=lambda r: r["dur_s"], reverse=True)
+    _emit(spans[:n], as_json)
+    return 0
+
+
+def profile_rows(log_dir: str, key: Optional[str] = None,
+                 peak_flops: Optional[float] = None) -> List[Dict[str, Any]]:
+    """The ``profile`` verb's rows: one per program, joining its latest
+    ``perf/cost`` with its ``perf/step`` records."""
+    costs: Dict[str, Dict[str, Any]] = {}
+    steps: Dict[str, List[Any]] = {}
+    colds: Dict[str, List[float]] = {}
+    for r in journal_mod.read_dir(log_dir):
+        if r.get("kind") != "perf":
+            continue
+        h = r.get("key_hash")
+        if not h:
+            continue
+        if r.get("name") == "cost":
+            costs[h] = r  # latest wins: re-captures supersede
+        elif r.get("name") == "step":
+            dt = r.get("dt")
+            if dt is None:
+                continue
+            compute = float(dt) - float(r.get("feed_s") or 0.0)
+            if r.get("cold"):
+                colds.setdefault(h, []).append(compute)
+            else:
+                steps.setdefault(h, []).append((compute, int(r.get("steps") or 1)))
+    hashes = sorted(set(costs) | set(steps) | set(colds))
+    if key:
+        hashes = [h for h in hashes
+                  if h.startswith(key) or key in str(costs.get(h, {}).get("key", ""))]
+    rows = []
+    for h in hashes:
+        c = costs.get(h, {})
+        warm = sorted(steps.get(h, []))
+        row: Dict[str, Any] = {
+            "key_hash": h,
+            "key": c.get("key"),
+            "kind": c.get("program_kind"),
+            "k": c.get("k"),
+            "flops": c.get("flops"),
+            "bytes_accessed": c.get("bytes_accessed"),
+            "peak_hbm_bytes": c.get("peak_hbm_bytes"),
+            "device": c.get("device"),
+            "dtype": c.get("dtype"),
+            "epochs": len(warm),
+            "cold_epochs": len(colds.get(h, [])),
+        }
+        if warm:
+            row["step_p50_s"], row["steps"] = warm[len(warm) // 2]
+            row["step_min_s"] = warm[0][0]
+        if c.get("flops") and c.get("bytes_accessed"):
+            row["arith_intensity"] = c["flops"] / c["bytes_accessed"]
+        if c.get("flops") and warm:
+            row["achieved_flops_s"] = c["flops"] * row["steps"] / row["step_p50_s"]
+            peak = peak_flops or c.get("peak_flops")
+            row["peak_flops_basis"] = peak
+            row["mfu_vs_peak"] = row["achieved_flops_s"] / peak if peak else None
+        rows.append(row)
+    return rows
+
+
+def cmd_profile(log_dir: str, key: Optional[str], as_json: bool,
+                peak_flops: Optional[float]) -> int:
+    """Join perf/cost x perf/step journal records into per-program
+    MFU rows (the cross-process sibling of the live ``perf`` collector)."""
+    rows = profile_rows(log_dir, key, peak_flops)
+    if not rows:
+        print(f"no perf records{f' matching {key!r}' if key else ''} "
+              f"under {log_dir}", file=sys.stderr)
+        return 1
+    if as_json:
+        print(json.dumps({"programs": rows}, default=str))
+        return 0
+    for row in rows:
+        print(f"program {row['key_hash']}  kind={row['kind'] or '?'} "
+              f"k={row['k'] or '?'} epochs={row['epochs']}"
+              f" (+{row['cold_epochs']} cold)")
+        if row.get("key"):
+            print(f"  key: {row['key']}")
+        if row.get("flops"):
+            print(f"  count: {row['flops']:.4e} flops a step "
+                  f"({row.get('dtype') or '?'} on {row.get('device') or '?'})")
+        if row.get("step_p50_s") is not None:
+            print(f"  observed: p50 warm epoch {row['step_p50_s']:.4f}s of "
+                  f"{row['steps']} steps (min {row['step_min_s']:.4f}s)")
+        if row.get("achieved_flops_s"):
+            mfu = row.get("mfu_vs_peak")
+            print(f"  achieved: {row['achieved_flops_s'] / 1e12:.3f} TFLOP/s -> "
+                  + (f"MFU {mfu * 100:.3f}% of {row['peak_flops_basis'] / 1e12:.1f} "
+                     "TFLOP/s peak" if mfu is not None else "MFU n/a (no known peak)"))
+    return 0
+
+
+def cmd_slo(log_dir: str, as_json: bool) -> int:
+    """Latest slo/state snapshot + full breach/recovery history."""
+    records = journal_mod.read_dir(log_dir)
+    state = None
+    breaches: List[Dict[str, Any]] = []
+    recoveries: List[Dict[str, Any]] = []
+    for r in records:
+        if r.get("kind") != "slo":
+            continue
+        if r.get("name") == "state":
+            state = r
+        elif r.get("name") == "breach":
+            breaches.append(r)
+        elif r.get("name") == "recover":
+            recoveries.append(r)
+    if state is None and not breaches:
+        print(f"no slo records under {log_dir} (is the engine ticking? "
+              f"see docs/perf.md)", file=sys.stderr)
+        return 1
+    if as_json:
+        print(json.dumps({"state": state, "breaches": breaches,
+                          "recoveries": recoveries}, default=str))
+        return 0
+    if state is not None:
+        print(f"slo state @ ts={state.get('ts')}:")
+        for name, st in sorted((state.get("state") or {}).items()):
+            mark = "BREACH" if st.get("breaching") else "ok"
+            val = st.get("value")
+            burn = st.get("burn")
+            print(f"  {name:<24} {mark:<7} value="
+                  f"{'n/a' if val is None else format(val, '.4g')} "
+                  f"threshold={st.get('threshold')}"
+                  + (f" burn={burn:.2f}x" if burn is not None else ""))
+    print(f"breaches: {len(breaches)}, recoveries: {len(recoveries)}")
+    for b in breaches[-8:]:
+        print(f"  ts={b.get('ts')} {b.get('slo')} value={b.get('value')} "
+              f"threshold={b.get('threshold')} ({b.get('source')})")
+    return 0
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m rafiki_tpu_torch.obs",
+        description="merge and query the per-process observability journals")
+    p.add_argument("--dir", default=None,
+                   help="journal directory (default: $RAFIKI_LOG_DIR, "
+                        "then the configured logs_dir)")
+    p.add_argument("--json", action="store_true",
+                   help="emit raw JSONL instead of formatted lines")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    sp = sub.add_parser("trace", help="stitch one trace across processes")
+    sp.add_argument("trace_id")
+    sp = sub.add_parser("tail", help="last N records fleet-wide")
+    sp.add_argument("-n", type=int, default=32)
+    sp = sub.add_parser("slowest", help="N slowest spans")
+    sp.add_argument("-n", type=int, default=16)
+    sp = sub.add_parser("profile",
+                        help="per-program FLOP count x epoch-time join")
+    sp.add_argument("key", nargs="?", default=None,
+                    help="program key-hash prefix or key substring")
+    sp.add_argument("--peak-flops", type=float, default=None,
+                    help="MFU denominator (default: the peak of the card "
+                         "and dtype the cost record names)")
+    sub.add_parser("slo", help="current SLO burn state + breach history")
+    args = p.parse_args(argv)
+
+    log_dir = args.dir or _default_dir()
+    if args.cmd == "trace":
+        return cmd_trace(log_dir, args.trace_id, args.json)
+    if args.cmd == "tail":
+        return cmd_tail(log_dir, args.n, args.json)
+    if args.cmd == "profile":
+        return cmd_profile(log_dir, args.key, args.json, args.peak_flops)
+    if args.cmd == "slo":
+        return cmd_slo(log_dir, args.json)
+    return cmd_slowest(log_dir, args.n, args.json)

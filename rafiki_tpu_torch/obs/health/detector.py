@@ -20,10 +20,11 @@ sick member. ``HealthMonitor(key, k)`` with ``k > 0`` follows the
 pack's live width through :meth:`~HealthMonitor.evict_member` and
 :meth:`~HealthMonitor.admit_member`.
 
-Left out until their planes are ported: the journal record, the
-badput ledger charge, the flight record and replay capsules
-(``snapshot_state`` returns None, as the JAX package's does with
-capsules off).
+On a trip the monitor also charges the trial's wall so far to the
+goodput ledger's ``badput_s``, journals ``health/divergence`` (the
+verdict) and dumps a flight record, as the JAX package's does. Left
+out until their plane is ported: replay capsules (``snapshot_state``
+returns None, as the JAX package's does with capsules off).
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ from collections import deque
 from typing import Any, Dict, List, Optional
 
 from rafiki_tpu_torch import telemetry
+from rafiki_tpu_torch.obs.journal import journal
+from rafiki_tpu_torch.obs.ledger import ledger
 
 #: Kill switch for detection ("0"/"off" disables it; the per-step
 #: bundle still runs).
@@ -57,9 +60,8 @@ _STATS: Dict[str, float] = {"divergences": 0, "capsules": 0, "evictions": 0,
 
 
 def stats() -> Dict[str, float]:
-    """The health plane's process-wide counts. ``capsules`` and
-    ``badput_charged_s`` stay 0 until capsules and the ledger are
-    ported."""
+    """The health plane's process-wide counts. ``capsules`` stays 0
+    until capsules are ported."""
     out = dict(_STATS)
     out["badput_charged_s"] = round(float(out["badput_charged_s"]), 6)
     return out
@@ -238,9 +240,15 @@ class HealthMonitor:
     def _trip(self, st: _MemberState, kind: str, health: Dict[str, float],
               epoch_seed: Optional[int], member: Optional[int]) -> Dict[str, Any]:
         st.tripped = True
+        wasted = st.bank
+        if wasted > 0.0:
+            # The trial's whole wall so far is retroactively badput: the
+            # epochs ran but computed garbage.
+            ledger.add("badput_s", wasted)
+            _STATS["badput_charged_s"] += wasted
         _STATS["divergences"] += 1
         telemetry.inc("health.divergences")
-        return {
+        verdict = {
             "divergence": kind,
             "key": self.key,
             "member": member,
@@ -254,3 +262,8 @@ class HealthMonitor:
             "context": self._member_ctx(member),
             "diagnosis": self._diagnosis(kind, st, health),
         }
+        journal.record("health", "divergence", **verdict)
+        from rafiki_tpu_torch.obs import recorder
+
+        recorder.dump("health:divergence", extra={"health": verdict})
+        return verdict

@@ -61,10 +61,17 @@ it, as the JAX package's does, but not its init draw: each loop draws
 its own params from its own ``init_fn``. Graphs are not cached: each
 epoch captures its own (``ops/graphs.py`` says why).
 
+Each epoch's wall feeds the goodput ledger (a loop's first epoch as
+``compile_s``, the others as ``step_s``, host feed as ``feed_s``), the
+perf profiler (``note_epoch`` with the epoch's step count) and an SLO
+tick, as the JAX package's do. A loop's first epoch asks the profiler
+for a FLOP count of its program (``obs/perf/profiler.py
+capture_cost``): the count wraps the first eager step of the epoch, so
+it adds no step and never runs under a capture.
+
 Not ported with this slice: the dp mesh (``_ShardingPlan``; a ``plan``
 other than None is refused), the chaos plane's ``train.nan`` poison
-column and ``collective.step``/``train.epoch`` sites, the goodput
-ledger, the perf profiler and SLO ticks.
+column and ``collective.step``/``train.epoch`` sites.
 
 ``torch.inference_mode`` is thread-local, so :func:`predict_proba`
 enters it itself, on whatever thread serves the query.
@@ -91,6 +98,8 @@ from torch.profiler import record_function
 from rafiki_tpu_torch import telemetry
 from rafiki_tpu_torch.obs.health import DivergenceError, HealthMonitor
 from rafiki_tpu_torch.obs.health import sentinel as _sentinel
+from rafiki_tpu_torch.obs.ledger import ledger
+from rafiki_tpu_torch.obs.perf import profiler, slo
 from rafiki_tpu_torch.ops.graphs import StepRunner
 from rafiki_tpu_torch.ops.optim import ScaleByAdamState, adam, scale_by_adam
 from rafiki_tpu_torch.utils.backend import DeviceLike, resolve_device
@@ -211,6 +220,15 @@ def _deterministic_convs(device: torch.device) -> None:
 
 def _on(tensors: Dict[str, torch.Tensor], device: torch.device) -> Dict[str, torch.Tensor]:
     return {k: v.to(device) for k, v in tensors.items()}
+
+
+def _compute_dtype(module: nn.Module) -> torch.dtype:
+    """The dtype a template's module computes in (its ``dtype``, as the
+    zoo's modules carry it), else its parameters'."""
+    dtype = getattr(module, "dtype", None)
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return next(module.parameters()).dtype
 
 
 def _module_device(module: nn.Module) -> torch.device:
@@ -407,12 +425,13 @@ class Program:
                                         scalars, batch)
         return (module, opt_state, step_i + 1, generator, hyper), metrics
 
-    def train_steps(self, state: State, feed, on_step=None
+    def train_steps(self, state: State, feed, on_step=None, cost=None
                     ) -> Tuple[State, Dict[str, torch.Tensor]]:
         """``feed.n_steps`` steps through a :class:`~rafiki_tpu_torch.ops.
         graphs.StepRunner`. Returns the new state and the per-step
         metric series, ``(n_steps,)`` each, on the device.
-        ``on_step(t, metrics)`` runs after step ``t`` is dispatched."""
+        ``on_step(t, metrics)`` runs after step ``t`` is dispatched;
+        ``cost`` (a profiler ``CostCapture``) counts the first step."""
         module, opt_state, step_i, generator, hyper = state
         n = feed.n_steps
         device = _module_device(module)
@@ -440,6 +459,8 @@ class Program:
             if on_step is not None:
                 on_step(t, metrics)
 
+        if cost is not None:
+            body = cost.wrap(body)
         runner = StepRunner(device, n, body, prepare, collect, generators=[generator])
         runner.run()
         # The body ran (and counted) once per eager step and once for the
@@ -720,10 +741,16 @@ class TrainLoop:
                     on_metrics(t, {k: float(v) for k, v in metrics.items()
                                    if not k.startswith(_sentinel.PREFIX)})
 
-        self.state, series = self.program.train_steps(self.state, feed, on_step)
+        cost = None if self._warm else profiler.capture_cost(
+            self._perf_key, "serial", 1, self.device, _compute_dtype(self.state[0]))
+        try:
+            self.state, series = self.program.train_steps(self.state, feed, on_step, cost)
+        finally:
+            if cost is not None:
+                cost.close()
         # The health series reaches the host once, at the epoch boundary.
         out = {k: float(v) for k, v in _reduce_series(series).items()}
-        self._record_epoch(t_epoch, feed.feed_s)
+        self._record_epoch(t_epoch, feed.feed_s, n_steps)
         self._health_check(out, t_epoch, epoch_seed)
         return out
 
@@ -736,18 +763,24 @@ class TrainLoop:
         if verdict is not None:
             raise DivergenceError(verdict)
 
-    def _record_epoch(self, t0: float, feed_s: float) -> None:
+    def _record_epoch(self, t0: float, feed_s: float, steps: int) -> None:
         """The ``train.*`` telemetry: the first epoch of a loop pays the
-        first-call costs (cuDNN's algorithm choice, allocator growth),
-        so its wall lands in ``train.cold_epoch_s``, the others in
-        ``train.epoch_s``."""
+        first-call costs (cuDNN's algorithm choice, allocator growth,
+        the first capture), so its wall lands in ``train.cold_epoch_s``,
+        the others in ``train.epoch_s``. The same split feeds the goodput
+        ledger (cold as ``compile_s``, warm as ``step_s``), the profiler
+        and an SLO tick."""
         dt = time.monotonic() - t0
         cold = not self._warm
         self._warm = True
         telemetry.observe("train.cold_epoch_s" if cold else "train.epoch_s", dt)
         if feed_s > 0.0:
             telemetry.inc("train.host_feed_s", feed_s)
+            ledger.add("feed_s", feed_s)
         telemetry.inc("train.step_s", max(dt - feed_s, 0.0))
+        ledger.add("compile_s" if cold else "step_s", max(dt - feed_s, 0.0))
+        profiler.note_epoch(self._perf_key, dt, feed_s=feed_s, cold=cold, steps=steps)
+        slo.maybe_tick()
 
     def evaluate(self, dataset, batch_size: int) -> float:
         module = self.state[0]
@@ -919,10 +952,12 @@ class PackedProgram:
         """``(k,)`` (correct, counted) of every member over one shared batch."""
         return self._v_eval(state.params, state.buffers, batch)
 
-    def train_steps(self, state: PackedState, feed, on_step=None) -> Dict[str, torch.Tensor]:
+    def train_steps(self, state: PackedState, feed, on_step=None,
+                    cost=None) -> Dict[str, torch.Tensor]:
         """``feed.n_steps`` steps of every member through a StepRunner
         (``state`` is updated in place). Returns the per-step metric
-        series, ``(n_steps, k)`` each, on the device."""
+        series, ``(n_steps, k)`` each, on the device. ``cost`` (a
+        profiler ``CostCapture``) counts the first step."""
         n = feed.n_steps
         device = next(iter(state.params.values())).device
         table = torch.from_numpy(self._step_table(state, n)).to(device)
@@ -940,8 +975,12 @@ class PackedProgram:
             if on_step is not None:
                 on_step(t, metrics)
 
-        runner = StepRunner(device, n, lambda: self._body(state, scalars, feed.batch()),
-                            prepare, collect, generators=state.generators)
+        def body() -> Dict[str, torch.Tensor]:
+            return self._body(state, scalars, feed.batch())
+
+        if cost is not None:
+            body = cost.wrap(body)
+        runner = StepRunner(device, n, body, prepare, collect, generators=state.generators)
         runner.run()
         # The body counted its eager steps and the capture; the replays
         # moved the device state only.
@@ -1189,10 +1228,17 @@ class PackedTrainLoop:
         else:
             feed = HostFeed(({"x": dataset.x[ib], "y": dataset.y[ib]} for ib in idx), n_steps,
                             self.device)
-        metrics = _reduce_series(self.program.train_steps(self.state, feed))
+        cost = None if self._warm else profiler.capture_cost(
+            self._perf_key, "packed", self.k, self.device, _compute_dtype(self._fns[0]))
+        try:
+            series = self.program.train_steps(self.state, feed, cost=cost)
+        finally:
+            if cost is not None:
+                cost.close()
+        metrics = _reduce_series(series)
         host = {key: v.cpu().numpy() for key, v in metrics.items()}
         rows = [{key: float(v[i]) for key, v in host.items()} for i in range(self.k)]
-        self._record_epoch(t_epoch, feed.feed_s)
+        self._record_epoch(t_epoch, feed.feed_s, n_steps)
         return self._health_check(rows, t_epoch, epoch_seeds)
 
     def _health_check(self, rows: List[Dict[str, float]], t0: float,
@@ -1206,16 +1252,23 @@ class PackedTrainLoop:
         return [{k: v for k, v in r.items() if not k.startswith(_sentinel.PREFIX)}
                 for r in rows]
 
-    def _record_epoch(self, t0: float, feed_s: float) -> None:
+    def _record_epoch(self, t0: float, feed_s: float, steps: int) -> None:
         """``train.packed_cold_epoch_s`` for the pack's first epoch (it
-        pays the first-call costs), ``train.packed_epoch_s`` after."""
+        pays the first-call costs), ``train.packed_epoch_s`` after; the
+        ledger, the profiler (``kind="packed"``, the width and the
+        packing key) and an SLO tick as in :meth:`TrainLoop._record_epoch`."""
         dt = time.monotonic() - t0
         cold = not self._warm
         self._warm = True
         telemetry.observe("train.packed_cold_epoch_s" if cold else "train.packed_epoch_s", dt)
         if feed_s > 0.0:
             telemetry.inc("train.host_feed_s", feed_s)
+            ledger.add("feed_s", feed_s)
         telemetry.inc("train.step_s", max(dt - feed_s, 0.0))
+        ledger.add("compile_s" if cold else "step_s", max(dt - feed_s, 0.0))
+        profiler.note_epoch(self._perf_key, dt, feed_s=feed_s, cold=cold, kind="packed",
+                            k=self.k, packing_key=self.packing_key, steps=steps)
+        slo.maybe_tick()
 
     def evaluate(self, dataset, batch_size: int) -> np.ndarray:
         """``(k,)`` accuracies from one eval pass shared by the members."""

@@ -14,26 +14,29 @@ ensembled predictions. Every request goes through the serving
   503  no live workers, or gateway draining (``Retry-After`` set)
   500  anything else
 
-The port has no trace plane yet: ``trace_id`` (body and
-``X-Rafiki-Trace-Id`` header) echoes the caller's header or is a fresh
-``uuid4().hex``. ``/metrics?format=prom`` is not ported. A request's
-server time is split into three telemetry spans:
-``predictor_http.decode`` (JSON body to the queries, numeric queries
-to arrays; the arrays alone in the nested ``predictor_http.rows``),
-``gateway.predict`` and ``predictor_http.encode``.
+Each request runs under one trace: the caller's ``X-Rafiki-Trace-Id``
+header, or a fresh id, echoed in the body's ``trace_id`` and the
+response header, so callers can ``python -m rafiki_tpu_torch.obs trace
+<id>`` it. A request's server time is split into three
+telemetry spans, all under its trace: ``predictor_http.decode`` (JSON
+body to the queries, numeric queries to arrays; the arrays alone in the
+nested ``predictor_http.rows``), ``gateway.predict`` and
+``predictor_http.encode``. ``GET /metrics?format=prom`` serves the
+snapshot as Prometheus text (``obs/prom.py``).
 """
 
 from __future__ import annotations
 
 import json
 import math
-import uuid
 from typing import Any, List, Union
 
 import numpy as np
 
 from rafiki_tpu_torch import telemetry
 from rafiki_tpu_torch.gateway import Gateway, ShedError
+from rafiki_tpu_torch.obs import context as trace_context
+from rafiki_tpu_torch.obs import prom
 from rafiki_tpu_torch.predictor.predictor import Predictor
 from rafiki_tpu_torch.utils.httpd import Request, Response, json_response, start_server
 from rafiki_tpu_torch.utils.jsonable import jsonable
@@ -74,8 +77,8 @@ class PredictorApp:
                 return json_response({"status": "ok"})
             if route == ("GET", "/metrics"):
                 if request.args.get("format") == "prom":
-                    return json_response({"error": "format=prom is not served by "
-                                                   "this predictor"}, 400)
+                    return Response(prom.to_prometheus(telemetry.snapshot()).encode(),
+                                    content_type="text/plain; version=0.0.4")
                 return json_response(telemetry.snapshot())
             if route == ("GET", "/gateway"):
                 return json_response(self.gateway.stats())
@@ -96,6 +99,12 @@ class PredictorApp:
             return json_response({"error": f"{type(e).__name__}: {e}"}, 500)
 
     def _predict(self, request: Request) -> Response:
+        # Trace propagation in: a client (or upstream proxy) may pin the
+        # trace id; otherwise one is minted here. Either way it is echoed.
+        with trace_context.trace(request.headers.get("X-Rafiki-Trace-Id")) as tid:
+            return self._predict_traced(request, tid)
+
+    def _predict_traced(self, request: Request, trace_id: str) -> Response:
         with telemetry.span("predictor_http.decode", bytes=len(request.body)):
             body = request.get_json()
             if not isinstance(body, dict) or not isinstance(body.get("queries"), list):
@@ -116,7 +125,6 @@ class PredictorApp:
                     return json_response({"error": "deadline_s must be > 0"}, 400)
             with telemetry.span("predictor_http.rows", queries=len(queries)):
                 queries = _as_rows(queries)
-        trace_id = request.headers.get("X-Rafiki-Trace-Id") or uuid.uuid4().hex
         preds = self.gateway.predict(queries, deadline_s=deadline_s)
         with telemetry.span("predictor_http.encode", queries=len(preds)):
             response = Response(json.dumps({"predictions": jsonable(preds),

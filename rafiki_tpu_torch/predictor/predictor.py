@@ -10,8 +10,13 @@ respond. When every lease is stale the batch fails fast with
 ``predict_batch_detailed`` sends a whole microbatch as ONE
 ``BATCH_KEY`` envelope per worker; workers reply with a per-query list.
 
-Not in the port yet: the tenancy program tag (``wrap_query``), and the
-trace-context, hop, journal and SLO hooks.
+Each batch runs under a trace (the caller's, the gateway's, or a fresh
+one), so its bus envelopes and the workers' spans stitch to it; each
+gather journals its quorum decision (``gather/predictor.gather``) and
+ticks the SLO engine, as in the JAX package.
+
+Not in the port yet: the tenancy program tag (``wrap_query``) and the
+hop marks.
 """
 
 from __future__ import annotations
@@ -23,6 +28,9 @@ import uuid
 from typing import Any, Dict, List, Optional
 
 from rafiki_tpu_torch import telemetry
+from rafiki_tpu_torch.obs import context as trace_context
+from rafiki_tpu_torch.obs.journal import journal as _journal
+from rafiki_tpu_torch.obs.perf import slo as _slo
 from rafiki_tpu_torch.predictor.ensemble import ensemble_predictions
 
 #: Straggler grace once the gather quorum arrived.
@@ -128,7 +136,14 @@ class Predictor:
                          hedge_grace_s: Optional[float] = None) -> GatherReport:
         """The full-control entry: an explicit fan-out set, a per-request
         gather budget, and a reply quorum. Returns per-worker reply
-        counts alongside the ensembled outputs."""
+        counts alongside the ensembled outputs. The batch runs under the
+        active trace, or a fresh one."""
+        with trace_context.trace():
+            return self._predict_detailed(queries, workers, timeout_s, min_replies,
+                                          hedge_grace_s)
+
+    def _predict_detailed(self, queries, workers, timeout_s, min_replies,
+                          hedge_grace_s) -> GatherReport:
         workers, timeout_s, quorum, grace = self._fanout(
             workers, min_replies, hedge_grace_s, timeout_s)
         telemetry.inc("predictor.queries", len(queries))
@@ -169,6 +184,12 @@ class Predictor:
             telemetry.inc("predictor.query_timeouts", timeouts)
         if hedged:
             telemetry.inc("predictor.hedged_gathers", hedged)
+        # The quorum decision: which workers answered, who straggled.
+        _journal.record("gather", "predictor.gather", job_id=self.job_id,
+                        queries=len(queries), workers=list(workers),
+                        quorum=quorum, replies=replies, timeouts=timeouts,
+                        hedged=hedged, dur_s=round(elapsed, 6))
+        _slo.maybe_tick()
         return GatherReport(outputs=out, workers=list(workers),
                             quorum=quorum, replies=replies,
                             timeouts=timeouts, hedged=hedged,
@@ -183,7 +204,15 @@ class Predictor:
         """ONE fan-out for a whole microbatch: the combined query list
         rides a single ``BATCH_KEY`` envelope per worker. Replies
         ensemble per query index across workers under the same
-        quorum/hedge semantics as :meth:`predict_detailed`."""
+        quorum/hedge semantics as :meth:`predict_detailed`. The batch runs
+        under the active trace, or a fresh one (the gateway's flusher
+        thread has none, so a microbatch gets its own)."""
+        with trace_context.trace():
+            return self._predict_batch_detailed(queries, workers, timeout_s, min_replies,
+                                                hedge_grace_s)
+
+    def _predict_batch_detailed(self, queries, workers, timeout_s, min_replies,
+                                hedge_grace_s) -> BatchGatherReport:
         workers, timeout_s, quorum, grace = self._fanout(
             workers, min_replies, hedge_grace_s, timeout_s)
         n = len(queries)
@@ -219,6 +248,11 @@ class Predictor:
             telemetry.inc("predictor.query_timeouts", timeouts)
         if hedged:
             telemetry.inc("predictor.hedged_gathers", hedged)
+        _journal.record("gather", "predictor.gather", job_id=self.job_id,
+                        queries=n, workers=list(workers), quorum=quorum,
+                        replies=replies, timeouts=timeouts, hedged=hedged,
+                        batched=True, dur_s=round(elapsed, 6))
+        _slo.maybe_tick()
         return BatchGatherReport(outputs=out, workers=list(workers),
                                  quorum=quorum, replies=replies,
                                  timeouts=timeouts, hedged=hedged,

@@ -16,9 +16,10 @@ Exports:
     spans fall off instead of growing the process (same philosophy as
     the bus's expired-query ring).
 
-Port note: the JAX package also stamps each span with the active trace
-id and copies it into the durable journal; the port has neither plane
-yet, so spans stay in-process.
+Each span is stamped with the active trace id
+(:mod:`rafiki_tpu_torch.obs.context`) and, once finished, copied into
+the durable journal (a no-op unless the process journals), as the JAX
+package's spans are.
 """
 
 from __future__ import annotations
@@ -29,12 +30,15 @@ import uuid
 from collections import deque
 from typing import Any, Dict, List, Optional
 
+from rafiki_tpu_torch.obs import context as _trace_context
+from rafiki_tpu_torch.obs.journal import journal as _journal
+
 
 class Span:
     """Context manager recording one timed, possibly-nested phase."""
 
     __slots__ = ("name", "tags", "_tracer", "_t0", "_start_ts",
-                 "_parent", "_span_id", "_parent_id")
+                 "_parent", "_span_id", "_parent_id", "_trace_id")
 
     def __init__(self, tracer: "Tracer", name: str, tags: Dict[str, Any]):
         self._tracer = tracer
@@ -45,6 +49,7 @@ class Span:
         self._parent: Optional[str] = None
         self._span_id = ""
         self._parent_id: Optional[str] = None
+        self._trace_id: Optional[str] = None
 
     @property
     def span_id(self) -> str:
@@ -55,6 +60,7 @@ class Span:
         if stack:
             self._parent, self._parent_id = stack[-1]
         self._span_id = uuid.uuid4().hex[:16]
+        self._trace_id = _trace_context.current_trace_id()
         stack.append((self.name, self._span_id))
         self._start_ts = time.time()
         self._t0 = time.monotonic()
@@ -105,10 +111,20 @@ class Tracer:
             "span_id": span._span_id,
             "parent_id": span._parent_id,
         }
+        if span._trace_id:
+            rec["trace_id"] = span._trace_id
         if span.tags:
             rec["tags"] = span.tags
         if error:
             rec["error"] = True
+        # Durable copy first (the journal has its own lock; a no-op
+        # unless the process journals).
+        _journal.record(
+            "span", span.name, ts=span._start_ts,
+            dur_s=rec["dur_s"], span_id=span._span_id,
+            parent_id=span._parent_id, trace_id=span._trace_id,
+            **({"tags": span.tags} if span.tags else {}),
+            **({"error": True} if error else {}))
         with self._lock:
             agg = self._agg.get(span.name)
             if agg is None:

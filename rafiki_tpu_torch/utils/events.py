@@ -1,9 +1,9 @@
 """Structured JSONL event stream.
 
-The port's own copy of ``rafiki_tpu/utils/events.py`` without the
-journal hook (the observability journal is not ported). Every
-lifecycle transition (job/trial/service) appends one JSON object per
-line to ``<logs_dir>/events.jsonl``.
+The port's own copy of ``rafiki_tpu/utils/events.py``. Every lifecycle
+transition (job/trial/service) appends one JSON object per line to
+``<logs_dir>/events.jsonl``, and is mirrored into the per-process
+journal (``kind="event"``; a no-op unless the process journals).
 
 Append semantics: each process opens the file in append mode and
 writes whole lines; on POSIX, O_APPEND writes of < PIPE_BUF bytes are
@@ -28,6 +28,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Any, Iterator, Optional
+
+from rafiki_tpu_torch.obs.journal import journal as _journal
 
 
 class EventLog:
@@ -55,6 +57,9 @@ class EventLog:
         return self._path
 
     def emit(self, event: str, **fields: Any) -> None:
+        # Mirror into the per-process journal so trial lifecycle and
+        # checkpoint events land in the same stream spans do.
+        _journal.record("event", event, **fields)
         with self._lock:
             if self._fh is None:
                 return

@@ -14,16 +14,24 @@ leaves the worker serving.
 The model's ``predict`` enters ``torch.inference_mode`` itself, on this
 worker's thread (the mode is thread-local), and returns host lists.
 
+Traced envelopes ``(qid, query, trace)`` (``bus/queues.py``): each
+traced query journals its pop (``bus/pop_query``) under its own trace,
+and the batch's forward span binds to the first trace of the batch, as
+in the JAX package, so a gateway query stitches across the worker.
+
 Not in the port yet: the process entrypoint, co-hosted job ids, and
-the journal, hop, trace-context and chaos hooks.
+the hop and chaos hooks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Any, List, Optional
 
 from rafiki_tpu_torch import telemetry
+from rafiki_tpu_torch.obs import context as trace_context
+from rafiki_tpu_torch.obs.journal import journal as _journal
 from rafiki_tpu_torch.predictor.predictor import BATCH_KEY
 
 
@@ -67,8 +75,18 @@ class InferenceWorker:
             self.drained.set()
 
     def _serve(self, items: List[tuple]) -> None:
-        # Envelopes are (qid, query) or traced (qid, query, trace).
+        # Envelopes are (qid, query) or traced (qid, query, trace). A
+        # microbatch can mix traces: the forward span binds to the first
+        # one, and every traced query journals its own pop.
         qids = [item[0] for item in items]
+        traces = [item[2] if len(item) > 2 else None for item in items]
+        for qid, tr in zip(qids, traces):
+            if tr:
+                _journal.record("bus", "pop_query", query_id=qid, worker_id=self.worker_id,
+                                trace_id=tr.get("trace_id"), parent_span=tr.get("parent_span"))
+        lead = next((t for t in traces if t), None)
+        bind = (trace_context.trace(lead.get("trace_id")) if lead
+                else contextlib.nullcontext())
         flat: List[Any] = []
         spans = []  # (offset, n, is_batch) per envelope
         for item in items:
@@ -81,7 +99,7 @@ class InferenceWorker:
                 spans.append((len(flat), 1, False))
                 flat.append(q)
         try:
-            with telemetry.span("inference.forward", worker_id=self.worker_id):
+            with bind, telemetry.span("inference.forward", worker_id=self.worker_id):
                 flat_preds = self.model.predict(flat)
             telemetry.inc("inference.queries_served", len(flat))
         except Exception as e:  # a bad query batch must not kill the worker

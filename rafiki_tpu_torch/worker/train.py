@@ -53,9 +53,16 @@ blob's bytes and the seconds to take and write it (a pack member's:
 to write it, with ``slice_seconds`` to take the round's blobs);
 ``trial_resumed`` the seconds to read and restore it.
 
+Observability, as in the JAX package: one trial (or one pack) is one
+trace, minted fresh, and one goodput-ledger entity (``trial:<id>``,
+``pack:<worker>:k<k>``); checkpoint writes and persists are charged to
+``checkpoint_s``; every epoch's eval values are journaled as
+``trial/epoch_eval`` (the learning-curve record, with the trial's
+wall seconds so far). All of it is a no-op unless the process journals.
+
 Not ported yet: the pack's ``run_assigned`` and ``PackAborted`` (the
 mesh sweep), the learning-curve coordinator (early kill, speculation),
-and the chaos, journal, goodput-ledger and trace-context hooks.
+and the chaos hooks.
 """
 
 from __future__ import annotations
@@ -75,8 +82,11 @@ from rafiki_tpu_torch.model.base import BaseModel, TorchModel, load_model_class
 from rafiki_tpu_torch.model.dataset import dataset_utils
 from rafiki_tpu_torch.model.knobs import Knobs, knob_config_signature
 from rafiki_tpu_torch.model.log import logger
+from rafiki_tpu_torch.obs import context as trace_context
 from rafiki_tpu_torch.obs.health import DivergenceError
 from rafiki_tpu_torch.obs.health import detector as _health
+from rafiki_tpu_torch.obs.journal import journal
+from rafiki_tpu_torch.obs.ledger import ledger
 from rafiki_tpu_torch.store import MetaStore, ParamsStore
 from rafiki_tpu_torch.utils.backend import default_device
 from rafiki_tpu_torch.utils.events import events
@@ -90,6 +100,28 @@ class AdvisorHandle(Protocol):
     def propose(self) -> Knobs: ...
 
     def feedback(self, score: float, knobs: Knobs) -> None: ...
+
+
+def _journal_epoch_eval(trial_id: str, entry: Dict[str, Any],
+                        wall_s: Optional[float],
+                        packed: bool = False) -> None:
+    """Durable per-epoch learning-curve record (``trial/epoch_eval``):
+    eval curves survive the worker process instead of living only in
+    the trial log. No-op for non-epoch log entries and when no journal
+    is configured."""
+    if entry.get("type") != "values":
+        return
+    values = entry.get("values") or {}
+    if "epoch" not in values:
+        return
+    score = values.get("acc", values.get("loss"))
+    journal.record(
+        "trial", "epoch_eval", trial_id=trial_id,
+        epoch=int(values["epoch"]),
+        score=None if score is None else float(score),
+        loss=values.get("loss"), acc=values.get("acc"),
+        wall_s=None if wall_s is None else round(float(wall_s), 6),
+        packed=packed)
 
 
 class InProcAdvisorHandle:
@@ -197,9 +229,11 @@ class TrainWorker:
             if trial is None:
                 return None
         tid = trial["id"]
+        t_trial0 = time.monotonic()
 
         def sink(entry):
             self.store.add_trial_log(tid, entry)
+            _journal_epoch_eval(tid, entry, wall_s=time.monotonic() - t_trial0)
             if self.service_id is not None:
                 # Epoch logs double as liveness, throttled so chatty
                 # loggers don't turn every line into a sqlite write.
@@ -208,6 +242,11 @@ class TrainWorker:
                     self._last_heartbeat = now
                     self.store.update_service(self.service_id, heartbeat=True)
 
+        # One trial = one trace: spans, journal records and the ledger
+        # entity stitch under it. A resumed trial mints a fresh trace; the
+        # journal links the attempts through the trial_id field.
+        trace_scope = contextlib.ExitStack()
+        trace_scope.enter_context(trace_context.trace(trace_context.new_trace_id()))
         events.emit("trial_started", trial_id=tid, sub_job_id=self.sub_id,
                     model=self.model_class.__name__, worker_id=self.worker_id,
                     knobs=knobs)
@@ -215,6 +254,7 @@ class TrainWorker:
         persisted_async = False
         try:
             with telemetry.span("trial.total", trial_id=tid, worker_id=self.worker_id), \
+                    ledger.entity(f"trial:{tid}"), \
                     logger.capture(sink), self._device_scope(), self._profile_scope(tid):
                 with telemetry.span("trial.build", trial_id=tid):
                     model = self.model_class(**knobs)
@@ -255,6 +295,7 @@ class TrainWorker:
             self._floor_feedback(knobs)
             return self.store.get_trial(tid)
         finally:
+            trace_scope.close()
             if model is not None and not persisted_async:
                 model.destroy()
 
@@ -307,6 +348,8 @@ class TrainWorker:
             telemetry.inc("worker.checkpoint_write_failed")
             events.emit("checkpoint_write_failed", trial_id=tid, epoch=epoch,
                         worker_id=self.worker_id, error=traceback.format_exc(limit=3))
+        finally:
+            ledger.add("checkpoint_s", time.monotonic() - t0, entity=f"trial:{tid}")
 
     def resume_trial(self, trial_id: str) -> dict:
         """Re-run an interrupted trial from its newest mid-trial
@@ -325,12 +368,16 @@ class TrainWorker:
     def _persist(self, tid: str, model: BaseModel, score: float) -> None:
         """Dump -> write -> mark completed -> drop the trial's checkpoints
         (on the saver thread when async persistence is on)."""
+        t0 = time.monotonic()
         try:
             with telemetry.span("trial.persist", trial_id=tid):
                 blob = model.dump_parameters()
                 params_id = self.params_store.save(blob)
                 self.store.mark_trial_as_completed(tid, score, params_id)
                 self.params_store.delete_checkpoints(tid)  # superseded
+            # Persist runs on the saver thread (no bound entity there),
+            # so the charge names its trial.
+            ledger.add("checkpoint_s", time.monotonic() - t0, entity=f"trial:{tid}")
             events.emit("trial_completed", trial_id=tid, score=score,
                         worker_id=self.worker_id)
         except Exception:
@@ -532,13 +579,23 @@ class PackedTrialRunner:
             events.emit("trial_started", trial_id=tid, sub_job_id=w.sub_id,
                         model=w.model_class.__name__, worker_id=w.worker_id, knobs=kn)
         models: List[BaseModel] = []
+        pack_entity = f"pack:{w.worker_id}:k{k}"
         try:
-            with telemetry.span("trial_pack.total", worker_id=w.worker_id, k=k), \
-                    w._device_scope():
+            # One pack = one trace + one ledger entity: the pack's
+            # compile/step/feed/checkpoint split is shared across its trials.
+            with trace_context.trace(trace_context.new_trace_id()), \
+                    telemetry.span("trial_pack.total", worker_id=w.worker_id, k=k), \
+                    ledger.entity(pack_entity), w._device_scope():
                 with telemetry.span("trial_pack.build"):
                     models = [w.model_class(**kn) for _, kn in rows]
 
+                t_pack0 = time.monotonic()
+                round_walls: List[float] = []
+
                 def heartbeat(_round: int) -> None:
+                    # The pack-relative wall at each round's end, for the
+                    # members' epoch_eval records below.
+                    round_walls.append(time.monotonic() - t_pack0)
                     if w.service_id is not None:
                         now = time.monotonic()
                         if now - w._last_heartbeat >= w.heartbeat_min_interval_s:
@@ -628,8 +685,13 @@ class PackedTrialRunner:
 
             with logger.capture(sink):
                 logger.define_plot("Training", ["loss", "acc"], x_axis="epoch")
-                for h in histories[i]:
+                for pos, h in enumerate(histories[i]):
                     logger.log(**h)
+                    # Position in a member's history is the round it ran
+                    # at (backfilled members borrow the pack's early walls).
+                    _journal_epoch_eval(tid, {"type": "values", "values": h},
+                                        wall_s=(round_walls[pos] if pos < len(round_walls)
+                                                else None), packed=True)
             if verdicts[i] is not None:
                 # The serial DivergenceError arm's contract: ERRORED with
                 # the diagnosis, floor feedback, nothing persisted.
@@ -669,6 +731,7 @@ class PackedTrialRunner:
             telemetry.inc("worker.checkpoint_write_failed")
             events.emit("checkpoint_write_failed", trial_id=rows[0][0], epoch=epoch,
                         worker_id=w.worker_id, error=traceback.format_exc(limit=3))
+            ledger.add("checkpoint_s", time.monotonic() - t0)
             return
         slice_s = time.monotonic() - t0
         for mi, member_epoch, blob in blobs:
@@ -683,6 +746,8 @@ class PackedTrialRunner:
                 telemetry.inc("worker.checkpoint_write_failed")
                 events.emit("checkpoint_write_failed", trial_id=tid, epoch=member_epoch,
                             worker_id=w.worker_id, error=traceback.format_exc(limit=3))
+        # Charged to the bound pack entity (the sink runs inside it).
+        ledger.add("checkpoint_s", time.monotonic() - t0)
 
 
 class _AsyncSaver:

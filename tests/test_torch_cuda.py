@@ -629,3 +629,42 @@ def test_card_captured_zoo_epoch_matches_eager(cuda, family):
     for k in want:
         assert torch.equal(got[k], want[k]), k
     _assert_loops_equal(loop, eager._loop)
+
+
+def test_card_counted_step_equals_its_cpu_count_and_has_an_mfu(cuda, tmp_path):
+    """The profiler's FLOP count of a VGG trial's step on the card equals
+    its count on the CPU (the same ops, counted on the first eager step
+    of the captured epoch); a counted epoch leaves the card's params
+    bit-equal to an uncounted one; on an H100 the program's MFU is
+    non-null."""
+    from rafiki_tpu_torch.models.vgg import Vgg
+    from rafiki_tpu_torch.obs.journal import journal, read_dir
+    from rafiki_tpu_torch.obs.perf import profiler
+
+    uri = "synthetic://images?classes=10&n=512&w=32&h=32&c=3&seed=0"
+    knobs = dict(SMALL, epochs=2)
+
+    def run(device, journaled):
+        profiler.reset()
+        if journaled:
+            journal.configure(tmp_path / str(device), role="card-test")
+        try:
+            m = Vgg(device=device, **knobs)
+            m.train(uri)
+            params = {k: v.detach().cpu() for k, v in m._loop.params.state_dict().items()}
+            return params, profiler.snapshot()["programs"]
+        finally:
+            journal.close()
+
+    counted, progs = run("cuda", True)
+    plain, _ = run("cuda", False)
+    assert all(torch.equal(counted[k], plain[k]) for k in counted)
+    [card] = progs.values()
+    _, cpu_progs = run("cpu", True)
+    [cpu] = cpu_progs.values()
+    assert card["flops"] == cpu["flops"] > 0 and card["steps"] == 512 // 64
+    assert card["dtype"] == "bfloat16" and card["device"] == torch.cuda.get_device_name(0)
+    recs = [r for r in read_dir(tmp_path / "cuda") if (r["kind"], r["name"]) == ("perf", "step")]
+    assert recs and all(r["steps"] == 512 // 64 for r in recs)
+    if profiler.card_model(torch.cuda.get_device_name(0)) is not None:
+        assert card.get("mfu") is not None and 0 < card["mfu"] < 1

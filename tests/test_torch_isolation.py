@@ -293,3 +293,83 @@ def test_checkpoints_and_recovery_run_with_nothing_of_jax_loaded(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_the_obs_plane_and_a_journaled_job_run_with_nothing_of_jax_loaded(tmp_path):
+    """The observability plane imports, and a journaled job of two
+    FeedForward trials on the CPU writes its spans, events, ledger and
+    perf records, which the port's CLI reads back (a FLOP count and an
+    epoch for the trials' program), with nothing of JAX or the JAX
+    package loaded."""
+    obs = ("obs", "obs.context", "obs.journal", "obs.ledger", "obs.prom", "obs.recorder",
+           "obs.cli", "obs.perf", "obs.perf.anomaly", "obs.perf.profiler", "obs.perf.slo")
+    mods = _port_modules()
+    for name in obs:
+        assert f"rafiki_tpu_torch.{name}" in mods
+    code = (
+        "import importlib, io, json, sys\n"
+        "from contextlib import redirect_stdout\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import torch\n"
+        "torch.set_num_threads(2)\n"
+        "from rafiki_tpu_torch import obs\n"
+        "from rafiki_tpu_torch.obs import cli\n"
+        "from rafiki_tpu_torch.scheduler import LocalScheduler\n"
+        "from rafiki_tpu_torch.store import MetaStore, ParamsStore\n"
+        "assert obs.configure_from_env(role='job')\n"
+        "src = open('rafiki_tpu_torch/models/ff.py', 'rb').read()\n"
+        f"store = MetaStore({str(tmp_path / 'm.sqlite3')!r})\n"
+        f"params = ParamsStore({str(tmp_path / 'p')!r})\n"
+        "model = store.create_model('ff', 'IMAGE_CLASSIFICATION', None, src, 'FeedForward')\n"
+        "uri = 'synthetic://images?classes=4&n=128&w=8&h=8&seed={}'\n"
+        "job = store.create_train_job('app', 'IMAGE_CLASSIFICATION', None, uri.format(0),\n"
+        "                             uri.format(1), {'MODEL_TRIAL_COUNT': 2})\n"
+        "store.create_sub_train_job(job['id'], model['id'])\n"
+        "sched = LocalScheduler(store, params)\n"
+        "sched.advisors.propose = lambda advisor_id: dict(hidden_layers=1, hidden_units=32,\n"
+        "    batch_size=32, epochs=2, seed=0, learning_rate=1e-3)\n"
+        "res = sched.run_train_job(job['id'], devices=[torch.device('cpu')])\n"
+        "assert res.status == 'COMPLETED', res\n"
+        "obs.journal.journal.close()\n"
+        f"[row] = cli.profile_rows({str(tmp_path / 'log')!r})\n"
+        "assert row['flops'] > 0 and row['epochs'] == 2 and row['steps'] == 4, row\n"
+        "buf = io.StringIO()\n"
+        "with redirect_stdout(buf):\n"
+        f"    assert cli.main(['--dir', {str(tmp_path / 'log')!r}, 'tail', '-n', '500']) == 0\n"
+        "for line in ('event   trial_started', 'span    trial.total', 'ledger  trial:',\n"
+        "             'perf    cost', 'trial   epoch_eval'):\n"
+        "    assert line in buf.getvalue(), line\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["RAFIKI_LOG_DIR"] = str(tmp_path / "log")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_the_obs_cli_reads_journals_without_torch(tmp_path):
+    """``python -m rafiki_tpu_torch.obs tail <dir>`` in an interpreter
+    where torch cannot be imported: the forensics CLI reads journals on
+    a machine with no accelerator stack."""
+    from rafiki_tpu_torch.obs.journal import Journal
+
+    j = Journal(tmp_path, role="w")
+    j.record("event", "trial_started", trial_id="t1")
+    j.record("span", "trial.total", dur_s=1.5)
+    j.close()
+    code = ("import runpy, sys\n"
+            "sys.modules['torch'] = None\n"
+            f"sys.argv = ['obs', '--dir', {str(tmp_path)!r}, 'tail']\n"
+            "try:\n"
+            "    runpy.run_module('rafiki_tpu_torch.obs', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "assert sys.modules['torch'] is None\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "trial_started" in out.stdout and "trial.total" in out.stdout

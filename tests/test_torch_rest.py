@@ -165,14 +165,18 @@ def test_login_and_auth_required_alike(servers):
     status, body = same(servers, "GET", "/models", token=tok)
     assert status == 200 and body == {"jax": [], "port": []}
     assert same(servers, "GET", "/healthz")[0] == 200
-    # /metrics: the port's snapshot holds the registry, the spans and the
-    # program cache's collector; the JAX package's adds the collectors of
-    # planes the port lacks.
+    # /metrics: the port's snapshot holds the registry, the spans, the
+    # program cache's collector and the observability plane's (perf, slo,
+    # goodput); the JAX package's adds the collectors of planes the port
+    # lacks.
     metrics = {k: call(servers.url[k], "GET", "/metrics") for k in ("jax", "port")}
     assert metrics["port"][0] == metrics["jax"][0] == 200
-    base = {"counters", "gauges", "histograms", "spans", "ts", "program_cache"}
+    base = {"counters", "gauges", "histograms", "spans", "ts", "program_cache", "perf", "slo",
+            "goodput"}
     assert base <= set(metrics["port"][1]) <= base | {"gateway"}
-    assert base <= set(metrics["jax"][1])
+    # The JAX package registers its perf and slo collectors at their first
+    # use (a train epoch, a gateway request), the port at import.
+    assert base - {"perf", "slo"} <= set(metrics["jax"][1])
 
 
 def test_role_enforcement_alike(servers):
