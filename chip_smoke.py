@@ -7,6 +7,7 @@ CUDA card.
     python3 chip_smoke.py --packed-step    # phase 16 alone: eager vs captured steps
     python3 chip_smoke.py --zoo            # phases 17-18 alone: DenseNet job, zoo trials
     python3 chip_smoke.py --obs            # phase 19 alone: journal, profile, trace
+    python3 chip_smoke.py --chaos          # phase 20 alone: poisoned pack, replay, scenarios
 
 Drives ``rafiki_tpu_torch`` the way a user serves a top-k ensemble,
 the way a tuning job runs and the way a trial trains, at the full width
@@ -197,6 +198,34 @@ The observability plane:
      and the pack's is OBS_PACK times it; and the query's records
      stitch into one trace (OBS_TRACE_PAIRS).
 
+Fault injection and divergence capsules:
+
+ 20. chaos: with a journal and ``RAFIKI_CHAOS`` set to CHAOS_SPEC, four
+     canonical trials (CHAOS_KNOBS: batch 128, dropout 0, lr 3e-4 to
+     1e-3, 3 epochs of the canonical task cut to CHAOS_IMAGES images)
+     as claimed rows of one pack, ``PackedTrialRunner(worker, 4).
+     run_assigned(rows, budget_max=4)``: member 2's gradients are
+     NaN-poisoned at step 39 of its first epoch. Fails unless the fault
+     fired once for ``@m2``; the 4 rows end with member 2 ERRORED
+     (``diverged``) and 3 COMPLETED and scored; ``health.divergences``,
+     ``health.contained`` and ``health.evictions`` count; the journal
+     holds ``health/divergence`` and ``health/capsule``; and the
+     survivors' float32 params blobs are byte-equal to unfaulted serial
+     runs of their knobs on the card. Then ``python -m
+     rafiki_tpu_torch.obs replay <capsule> --json`` in a fresh process
+     on the card must reproduce the bad step (poisoned, ``bad_step + 1``
+     = 40 steps of 78, under the capture's numerics switches). Then the
+     canonical captured step of phase 16, with no plane and with a plane
+     active that does not fire (CHAOS_QUIET_SPEC), must capture a graph
+     of the same kernel nodes (read through libcuda), with no poison
+     multiply, and the same step under a firing plane a graph of more;
+     the profiler's kernels a step of each are printed beside phase 16's.
+     Then the six chaos
+     scenarios of ``rafiki_tpu_torch/chaos`` run with the card visible,
+     each passing. The line prints the snapshot's device ms an epoch,
+     the capsule's bytes and write seconds, the replay's seconds and the
+     phase's.
+
 Every training phase runs its epochs as captured CUDA graphs
 (``ops/graphs.py``). Each phase's line carries its seconds
 (``phase_s``) and the captured steps it replayed (``graph_replays``,
@@ -212,7 +241,9 @@ nonzero before it; without a CUDA device the script exits 1 at once.
 other trial seeds and 4 other query sets, and prints the readings.
 ``--packed-step`` runs only phase 16, on random batches resident on the
 card, so two checkouts can be compared in one call. ``--zoo`` runs only
-phases 17 and 18, ``--obs`` only phase 19. ``--resume-child`` is the
+phases 17 and 18, ``--obs`` only phase 19, ``--chaos`` only phase 20
+(its clean-step check then holds the two runs of phase 20 to each
+other, with no phase 16 count to add). ``--resume-child`` is the
 child worker of phases 14 and 15; it journals when its parent sets
 ``RAFIKI_LOG_DIR``.
 """
@@ -1245,15 +1276,17 @@ def graph_step(card):
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
         win = _StepWindow(window)
-        if isinstance(captured, TrainLoop):
-            captured.state, got = captured.program.train_steps(
-                captured.state, ResidentFeed(X, Y, rows), on_step=win)
-        else:
-            got = captured.program.train_steps(captured.state, ResidentFeed(X, Y, rows),
-                                               on_step=win)
+        with _KeptGraphs() as kept:
+            if isinstance(captured, TrainLoop):
+                captured.state, got = captured.program.train_steps(
+                    captured.state, ResidentFeed(X, Y, rows), on_step=win)
+            else:
+                got = captured.program.train_steps(captured.state, ResidentFeed(X, Y, rows),
+                                                   on_step=win)
         snap = telemetry.snapshot()
         readings = win.readings(bs, card, f"{name}_captured")
         readings.update({
+            "graph_kernel_nodes": _graph_kernel_nodes(kept[0]),
             "capture_s": snap["histograms"]["train.graph_capture_s"]["sum"],
             "graph_pool_reserved_bytes": snap["histograms"]["train.graph_pool_bytes"]["sum"],
             "max_memory_allocated_over_epoch_bytes": torch.cuda.max_memory_allocated() - before,
@@ -2656,6 +2689,419 @@ def observability_phase(card, check) -> None:
         check(False, msg)
 
 
+# -- fault injection and divergence capsules -------------------------------------
+# Phase 20: a k=4 pack of the canonical model (RESUME_SRC: BenchVgg for 3
+# epochs) on the canonical task cut to CHAOS_IMAGES images (78 steps an
+# epoch at batch 128; shapes, noise and label flips as the canonical
+# task's), member 2's gradients NaN-poisoned at step 78 // 2 = 39 of its
+# first epoch. The learning rates stay below the 2e-3 at which batch-128
+# training collapses (ROADMAP Queue 3).
+CHAOS_IMAGES = 10000
+CHAOS_URI = TRAIN_URI.replace("n=50000", f"n={CHAOS_IMAGES}")
+CHAOS_SPEC = "seed=19;train.nan:nan:times=1:match=@m2"
+CHAOS_KNOBS = tuple(dict(RESUME_KNOBS, batch_size=128, dropout=0.0, learning_rate=lr)
+                    for lr in (3e-4, 5e-4, 7e-4, 1e-3))
+CHAOS_SICK = 2
+# An active plane that never fires: the clean step's kernels must stay.
+CHAOS_QUIET_SPEC = "seed=19;train.nan:nan:match=@m9"
+# A plane that fires at once: the step that multiplies by the column.
+CHAOS_LOUD_SPEC = "seed=19;train.nan:nan"
+CHAOS_REPLAY_TIMEOUT_S = 300
+# A serial trial of the pack's first knobs with dropout on, poisoned at
+# once (CHAOS_LOUD_SPEC): its capsule carries a dropout stream to restore.
+CHAOS_DROPOUT_KNOBS = dict(CHAOS_KNOBS[0], dropout=0.1)
+
+
+def _changed_capsule(path, out, what):
+    """A copy of the capsule at ``path`` with one part of its pre-epoch
+    state changed: every value of the first parameter moved by 1e-3
+    (``params``), or the dropout generator reseeded (``generator``). Its
+    replay must not reproduce."""
+    import pickle
+
+    import torch
+
+    from rafiki_tpu_torch.model.base import GENERATOR_KEY
+    from rafiki_tpu_torch.obs.health import capsule
+    from rafiki_tpu_torch.utils.serial import dump_flat, load_flat
+
+    doc = capsule.load(path)
+    if what == "generator":
+        gen = doc[GENERATOR_KEY]
+        other = torch.Generator(device=gen["device"]).manual_seed(12345).get_state()
+        doc[GENERATOR_KEY] = dict(gen, state=bytes(other.numpy()))
+    else:
+        flat = load_flat(doc["state_packed"])
+        key = next(k for k in sorted(flat) if k.startswith("0/"))
+        flat[key] = flat[key] + 1e-3
+        doc["state_packed"] = dump_flat(flat, cast_f32_to_bf16=False)
+    out.write_bytes(pickle.dumps(doc))
+    return out
+
+
+def _graph_kernel_nodes(graph) -> int:
+    """The kernel nodes of a captured CUDA graph, read through libcuda
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``): the kernels a replay of
+    the step launches, counted exactly (the profiler's activity records
+    can drop some under a long run)."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_size_t)]
+    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        fail("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        fail("cuGraphGetNodes failed")
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            fail("cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels
+
+
+class _KeptGraphs:
+    """Inside ``with _KeptGraphs() as kept:`` every CUDA graph the port
+    captures is made with ``keep_graph=True`` and kept in ``kept``, so
+    its kernel nodes can be counted (``_graph_kernel_nodes``)."""
+
+    def __enter__(self):
+        import torch
+
+        self._real, kept = torch.cuda.CUDAGraph, []
+
+        def keep_graph():
+            kept.append(self._real(keep_graph=True))
+            return kept[-1]
+
+        torch.cuda.CUDAGraph = keep_graph
+        return kept
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.CUDAGraph = self._real
+
+
+def _captured_serial_step(card, label, profile=True):
+    """The canonical serial step (batch 128, dropout 0.1, lr 1e-3) captured
+    over random batches resident on the card, as phase 16's captured path
+    runs it, with the poison column its loop's ``train.nan`` site gives
+    (None unless a plane fires). Returns the readings (with the captured
+    graph's kernel nodes) and the loop."""
+    import torch
+
+    from rafiki_tpu_torch.models.vgg import Vgg
+    from rafiki_tpu_torch.ops.graphs import GRAPH_WARMUP_STEPS
+    from rafiki_tpu_torch.ops.train import ResidentFeed, TrainLoop
+
+    bs = PACK_KNOBS["batch_size"]
+    win = _StepWindow(GRAPH_WARMUP_STEPS + 1, profile=profile)
+    model = Vgg(**dict(PACK_KNOBS, learning_rate=1e-3, dropout=0.1))
+    model._planned_steps = 50000 // bs
+    f = model._loop_fns(NUM_CLASSES, INPUT_SHAPE)
+    loop = TrainLoop(f["init_fn"], f["apply_eval"], f["loss_fn"], f["optimizer"],
+                     hyper=f["hyper"], program_key=("chip_smoke", "graph_step"))
+    n = win.n_steps * bs
+    g = torch.Generator(device="cuda").manual_seed(0)
+    X = torch.rand((n,) + INPUT_SHAPE, device="cuda", generator=g)
+    Y = torch.randint(0, NUM_CLASSES, (n,), device="cuda", generator=g)
+    rows = torch.randperm(n, device="cuda", generator=g).reshape(win.n_steps, bs)
+    poison = loop._chaos_poison(win.n_steps)
+    with _KeptGraphs() as kept:
+        loop.state, _ = loop.program.train_steps(loop.state, ResidentFeed(X, Y, rows),
+                                                 on_step=win, poison=poison)
+    readings = (win.readings(bs, card, label) if profile
+                else {"phase": label, "event_ms_per_step": win.event_ms})
+    readings["poisoned"] = poison is not None
+    readings["graph_kernel_nodes"] = _graph_kernel_nodes(kept[0])
+    return readings, loop
+
+
+def chaos(card, phase16_nodes=None):
+    """Phase 20 (and ``--chaos``): the NaN-poisoned pack contained, its
+    capsule replayed in a fresh process, the clean step's kernels, and
+    the six chaos scenarios. Returns the phase's line and its failures."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from rafiki_tpu_torch import chaos as chaos_plane
+    from rafiki_tpu_torch import telemetry
+    from rafiki_tpu_torch.chaos.runner import format_report, run_scenarios
+    from rafiki_tpu_torch.model.base import load_model_class
+    from rafiki_tpu_torch.model.knobs import knob_config_signature
+    from rafiki_tpu_torch.obs.health import DivergenceError, capsule
+    from rafiki_tpu_torch.obs.journal import journal, read_dir
+    from rafiki_tpu_torch.store import MetaStore, ParamsStore
+    from rafiki_tpu_torch.worker.train import PackedTrialRunner, TrainWorker
+
+    t_phase = time.monotonic()
+    line = {"phase": "chaos", "card": card[1], "power_limit": card[2], "spec": CHAOS_SPEC,
+            "knobs": list(CHAOS_KNOBS), "train_uri": CHAOS_URI,
+            "cut": f"task images {CHAOS_IMAGES} of the canonical 50000"}
+    bad = []
+    tmp = Path(tempfile.mkdtemp(prefix="rafiki-chaos-"))
+    log_dir = tmp / "log"
+    saved_env = {k: os.environ.get(k) for k in ("RAFIKI_CHAOS", "RAFIKI_TPU_SERVING_PARAMS_DTYPE")}
+    # Float32 blobs: the survivors' stored params are compared byte for byte.
+    os.environ["RAFIKI_TPU_SERVING_PARAMS_DTYPE"] = "float32"
+    take, write = capsule.DeviceSnapshot.take, capsule.write
+    snapshot_ms, write_s = [], []
+
+    def timed_take(self, state):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        take(self, state)
+        end.record()
+        end.synchronize()
+        snapshot_ms.append(start.elapsed_time(end))
+
+    def timed_write(*args, **kwargs):
+        t0 = time.monotonic()
+        try:
+            return write(*args, **kwargs)
+        finally:
+            write_s.append(time.monotonic() - t0)
+
+    capsule.DeviceSnapshot.take, capsule.write = timed_take, timed_write
+    try:
+        # -- 1. the poisoned pack ------------------------------------------------
+        journal.configure(log_dir, role="chaos")
+        store, params = MetaStore(tmp / "meta.sqlite3"), ParamsStore(tmp / "params")
+        model_row = store.create_model("bench-vgg-3", "IMAGE_CLASSIFICATION", None, RESUME_SRC,
+                                       "BenchVgg")
+        job = store.create_train_job("chaos", "IMAGE_CLASSIFICATION", None, CHAOS_URI, EVAL_URI,
+                                     {"MODEL_TRIAL_COUNT": len(CHAOS_KNOBS)})
+        sub = store.create_sub_train_job(job["id"], model_row["id"])
+        cls = load_model_class(RESUME_SRC, "BenchVgg")
+        worker = TrainWorker(store, params, sub["id"], cls, _FixedAdvisor(CHAOS_KNOBS), CHAOS_URI,
+                             EVAL_URI, {"MODEL_TRIAL_COUNT": len(CHAOS_KNOBS)},
+                             worker_id="chaos-w0", async_persist=False)
+        rows = []
+        for kn in CHAOS_KNOBS:
+            t = store.create_trial(sub["id"], "BenchVgg", kn, budget_max=len(CHAOS_KNOBS),
+                                   shape_sig=knob_config_signature(cls.get_knob_config(), kn))
+            rows.append((t["id"], kn))
+        os.environ["RAFIKI_CHAOS"] = CHAOS_SPEC
+        plane = chaos_plane.reset_from_env()
+        telemetry.reset()  # the health counters read from zero
+        graphs = _graph_counters()
+        t0 = time.monotonic()
+        try:
+            carried = PackedTrialRunner(worker, len(CHAOS_KNOBS)).run_assigned(
+                rows, budget_max=len(CHAOS_KNOBS))
+        finally:
+            pack_s = _synced_s(t0)
+            fired = plane.schedule()
+            os.environ.pop("RAFIKI_CHAOS", None)
+            chaos_plane.reset_from_env()
+        counters = telemetry.snapshot()["counters"]
+        trials = {t["id"]: t for t in store.get_trials_of_train_job(job["id"])}
+        status = [trials[tid]["status"] for tid, _ in rows]
+        # The references below run unjournaled: no snapshot, no capsule.
+        journal.close()
+        recs = read_dir(log_dir)
+        div = [r for r in recs if r["kind"] == "health" and r["name"] == "divergence"]
+        caps = [r for r in recs if r["kind"] == "health" and r["name"] == "capsule"]
+        cap_path = div[0].get("capsule") if div else None
+        line.update({
+            "pack_s": pack_s, "rows_carried": carried, "fired": [list(f) for f in fired],
+            "status": status, "scores": [trials[tid]["score"] for tid, _ in rows],
+            "sick_error": (trials[rows[CHAOS_SICK][0]]["error"] or "")[:200],
+            "divergence": {k: div[0].get(k) for k in ("member", "bad_step", "divergence",
+                                                       "nonfinite", "badput_s")} if div else None,
+            "health_counters": {k: counters.get(f"health.{k}", 0.0)
+                                for k in ("divergences", "contained", "evictions", "capsules")},
+            "snapshot_device_ms_per_epoch": list(snapshot_ms),
+            "capsule_bytes": os.path.getsize(cap_path) if cap_path else None,
+            "capsule_write_s": write_s,
+        })
+        if not (len(fired) == 1 and fired[0][0] == "train.nan" and "@m2" in fired[0][3]):
+            bad.append(f"chaos: the train.nan fault fired {fired}, want once for @m2")
+        if carried != len(CHAOS_KNOBS) or len(trials) != len(CHAOS_KNOBS):
+            bad.append(f"chaos: {carried} rows carried, {len(trials)} rows, want "
+                       f"{len(CHAOS_KNOBS)} each")
+        want = ["COMPLETED"] * len(CHAOS_KNOBS)
+        want[CHAOS_SICK] = "ERRORED"
+        if status != want or "diverged" not in line["sick_error"]:
+            bad.append(f"chaos: statuses {status}, want {want}; member {CHAOS_SICK}'s error "
+                       f"{line['sick_error']!r}")
+        survivors = [i for i in range(len(CHAOS_KNOBS)) if i != CHAOS_SICK]
+        if any(trials[rows[i][0]]["score"] is None for i in survivors):
+            bad.append(f"chaos: a survivor has no score: {line['scores']}")
+        if min(line["health_counters"][k] for k in ("divergences", "contained", "evictions")) < 1:
+            bad.append(f"chaos: health counters {line['health_counters']}")
+        if not div or not caps or not cap_path:
+            bad.append(f"chaos: journal holds {len(div)} health/divergence and {len(caps)} "
+                       f"health/capsule records, capsule {cap_path}")
+        # The survivors against unfaulted serial runs of their knobs on the card.
+        t0 = time.monotonic()
+        equal = []
+        for i in survivors:
+            ref = cls(**CHAOS_KNOBS[i])
+            ref.train(CHAOS_URI)
+            blob = ref.dump_parameters()
+            ref.destroy()
+            equal.append(params.load(trials[rows[i][0]]["params_id"]) == blob)
+        line["serial_references_s"] = _synced_s(t0)
+        line["survivors_params_byte_equal"] = equal
+        if not all(equal):
+            bad.append(f"chaos: survivors' params against their serial runs: {equal}")
+        store.close()
+
+        # -- 2. the replay, in a fresh process on the card -------------------------
+        if cap_path:
+            env = {k: v for k, v in os.environ.items() if k != "RAFIKI_CHAOS"}
+            t0 = time.monotonic()
+            out = subprocess.run([sys.executable, "-m", "rafiki_tpu_torch.obs", "replay", cap_path,
+                                  "--json"], cwd=os.path.dirname(os.path.abspath(__file__)),
+                                 env=env, capture_output=True, text=True,
+                                 timeout=CHAOS_REPLAY_TIMEOUT_S)
+            line["replay_s"] = time.monotonic() - t0
+            line["replay_rc"] = out.returncode
+            try:
+                verdict = json.loads(out.stdout.strip().splitlines()[-1])
+            except (ValueError, IndexError):
+                verdict = None
+                bad.append(f"chaos: replay printed no verdict: rc {out.returncode} "
+                           f"{out.stdout[-500:]} {out.stderr[-2000:]}")
+            if verdict is not None:
+                line["replay"] = {k: verdict.get(k) for k in (
+                    "reproduced", "poisoned", "steps_replayed", "bad_step", "member",
+                    "mismatches", "captured_env", "replay_env")}
+                line["replay"]["bad_loss"] = (verdict.get("comparisons") or {}).get(
+                    "health_bad_loss")
+                bad_step = line["divergence"]["bad_step"] if line["divergence"] else None
+                if not (out.returncode == 0 and verdict["reproduced"] and verdict["poisoned"]
+                        and verdict["steps_replayed"] == (bad_step or 0) + 1
+                        and bad_step == (CHAOS_IMAGES // 128) // 2):
+                    bad.append(f"chaos: replay rc {out.returncode}: {line['replay']}")
+                if verdict["captured_env"] != verdict["replay_env"]:
+                    bad.append(f"chaos: replay env {verdict['replay_env']} is not the capture "
+                               f"env {verdict['captured_env']}")
+                if not (verdict.get("comparisons") or {}).get("health_bad_loss", {}).get("match"):
+                    bad.append(f"chaos: the replay's loss at the bad step: "
+                               f"{(verdict.get('comparisons') or {}).get('health_bad_loss')}")
+            # The replay re-ran the member's prefix: the capsule with its
+            # pre-epoch params moved does not reproduce (here, on the card).
+            changed = capsule.replay(_changed_capsule(cap_path, tmp / "params.rcap", "params"),
+                                     device="cuda")
+            line["changed_params_replay"] = {k: changed[k] for k in ("reproduced", "mismatches")}
+            if changed["reproduced"] or changed["mismatches"] != ["health_bad_loss"]:
+                bad.append(f"chaos: a capsule with changed params replayed "
+                           f"{line['changed_params_replay']}")
+
+        # -- 2b. a serial trial with dropout: the generator's state replays too ------
+        journal.configure(log_dir, role="chaos")
+        chaos_plane.install(chaos_plane.FaultPlane.from_spec(CHAOS_LOUD_SPEC))
+        verdict = None
+        t0 = time.monotonic()
+        try:
+            cls(**CHAOS_DROPOUT_KNOBS).train(CHAOS_URI)
+        except DivergenceError as e:
+            verdict = e.verdict
+        finally:
+            chaos_plane.uninstall()
+            journal.close()
+            torch.cuda.empty_cache()
+        dropout_cap = (verdict or {}).get("capsule")
+        line["dropout_trial"] = {"knobs": CHAOS_DROPOUT_KNOBS, "s": time.monotonic() - t0,
+                                 "bad_step": (verdict or {}).get("bad_step")}
+        if not dropout_cap:
+            bad.append(f"chaos: the dropout trial banked no capsule: {verdict}")
+        else:
+            same = capsule.replay(dropout_cap, device="cuda")
+            other = capsule.replay(_changed_capsule(dropout_cap, tmp / "generator.rcap",
+                                                    "generator"), device="cuda")
+            line["dropout_trial"].update({
+                "replay": {k: same[k] for k in ("reproduced", "mismatches", "steps_replayed")},
+                "changed_generator_replay": {k: other[k] for k in ("reproduced", "mismatches")}})
+            if not same["reproduced"] or other["reproduced"] \
+                    or other["mismatches"] != ["health_bad_loss"]:
+                bad.append(f"chaos: the dropout trial's capsule: {line['dropout_trial']}")
+
+        # -- 3. clean steps keep their kernels ---------------------------------------
+        torch.cuda.empty_cache()
+        plain, loop = _captured_serial_step(card, "clean_step_no_plane")
+        del loop
+        journal.configure(log_dir, role="chaos")  # capsules on: snapshots are taken
+        chaos_plane.install(chaos_plane.FaultPlane.from_spec(CHAOS_QUIET_SPEC))
+        try:
+            quiet, loop = _captured_serial_step(card, "clean_step_quiet_plane")
+            loop.health.snapshot_state(loop.state)  # the buffers' allocation
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            loop.health.snapshot_state(loop.state)
+            end.record()
+            end.synchronize()
+            line["serial_snapshot_device_ms"] = start.elapsed_time(end)
+            del loop
+        finally:
+            chaos_plane.uninstall()
+            journal.close()
+        chaos_plane.install(chaos_plane.FaultPlane.from_spec(CHAOS_LOUD_SPEC))
+        try:
+            loud, loop = _captured_serial_step(card, "poisoned_step", profile=False)
+            del loop
+        finally:
+            chaos_plane.uninstall()
+        line["clean_step"] = {"no_plane": plain, "quiet_plane": quiet, "poisoned": loud,
+                              "phase16_graph_kernel_nodes": phase16_nodes}
+        nodes = [r["graph_kernel_nodes"] for r in (plain, quiet, loud)]
+        # The gate counts the captured graph's kernel nodes, which drop no
+        # record (the profiler's kernels a step are printed beside them).
+        want_nodes = nodes[0] if phase16_nodes is None else phase16_nodes
+        if nodes[0] != want_nodes or nodes[1] != want_nodes or plain["poisoned"] \
+                or quiet["poisoned"]:
+            bad.append(f"chaos: the clean captured step's kernel nodes {nodes[:2]} (no plane, "
+                       f"quiet plane) against phase 16's {phase16_nodes}, poisoned "
+                       f"{plain['poisoned']}, {quiet['poisoned']}")
+        if not (loud["poisoned"] and nodes[2] > nodes[0]):
+            bad.append(f"chaos: the poisoned step's graph ({nodes[2]} kernel nodes, poisoned "
+                       f"{loud['poisoned']}) does not show the multiply against {nodes[0]}")
+        torch.cuda.empty_cache()
+    finally:
+        capsule.DeviceSnapshot.take, capsule.write = take, write
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        journal.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    line.update(_graph_since(graphs))
+
+    # -- 4. the six scenarios, with the card visible ----------------------------------
+    t0 = time.monotonic()
+    reports = run_scenarios(device="cuda")
+    line["scenarios_s"] = time.monotonic() - t0
+    line["scenarios"] = {r.name: {"passed": r.passed, "s": r.duration_s,
+                                  "fired": len(r.schedule)} for r in reports}
+    for r in reports:
+        if not r.passed:
+            bad.append(f"chaos: scenario failed:\n{format_report(r)}")
+    line["phase_s"] = time.monotonic() - t_phase
+    return line, bad
+
+
+def chaos_phase(card, check, phase16_nodes=None) -> None:
+    """Phase 20 and its checks (also ``--chaos``, which runs no phase 16
+    and so has no node count to hold the clean step to)."""
+    line, bad = chaos(card, phase16_nodes)
+    print(json.dumps(line))
+    for msg in bad:
+        check(False, msg)
+
+
 def main() -> int:
     import torch
 
@@ -2676,7 +3122,7 @@ def main() -> int:
         print(card[0])
         print(json.dumps(graph_step(card)))
         return 0
-    if sys.argv[1:] not in ([], ["--zoo"], ["--obs"]):
+    if sys.argv[1:] not in ([], ["--zoo"], ["--obs"], ["--chaos"]):
         fail(f"unknown arguments {sys.argv[1:]}")
     card = card_identity()
     print(card[0])
@@ -2702,6 +3148,13 @@ def main() -> int:
             print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
             return 1
         print(json.dumps({"obs": "ok", "device": torch.cuda.get_device_name(0)}))
+        return 0
+    if sys.argv[1:] == ["--chaos"]:
+        chaos_phase(card, check)
+        if failures:
+            print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
+            return 1
+        print(json.dumps({"chaos": "ok", "device": torch.cuda.get_device_name(0)}))
         return 0
 
     from rafiki_tpu_torch.ops.train import predict
@@ -2963,6 +3416,7 @@ def main() -> int:
     for name in ("serial", "packed"):
         check(steps[f"{name}_captured"]["graph_replays"] > 0,
               f"graph_step: the {name} epoch replayed no captured step")
+    phase16_nodes = steps["serial_captured"]["graph_kernel_nodes"]
     del steps
 
     # -- 17.-18. the rest of the zoo ---------------------------------------------
@@ -2971,6 +3425,10 @@ def main() -> int:
     # -- 19. the observability plane ----------------------------------------------
     torch.cuda.empty_cache()
     observability_phase(card, check)
+
+    # -- 20. fault injection and divergence capsules ---------------------------------
+    torch.cuda.empty_cache()
+    chaos_phase(card, check, phase16_nodes)
 
     # -- kernels and the result line -------------------------------------------
     print(json.dumps({"kernels": []}))

@@ -26,7 +26,13 @@ Liveness is a LEASE refreshed by each worker's heartbeat thread;
 ``get_workers(max_age_s=...)`` sees only fresh leases and
 ``reap_stale`` deletes corpses.
 
-Not in the port yet: the multiprocessing bus and the chaos hooks.
+Chaos sites, as in the JAX package: ``bus.add_query`` (``drop`` a
+fan-out message), ``bus.put_prediction`` (``drop`` a reply) and
+``bus.heartbeat`` (``skip`` a lease refresh), each keyed by the worker
+id.
+
+Not in the port yet: the multiprocessing bus (and its ``bus.proxy``
+site).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
 from rafiki_tpu_torch import telemetry
+from rafiki_tpu_torch.chaos import hook as _chaos
 from rafiki_tpu_torch.obs import context as _trace_context
 from rafiki_tpu_torch.obs.journal import journal as _journal
 
@@ -117,6 +124,8 @@ class InProcBus:
                 self._depth = max(0, self._depth - q.qsize())
 
     def heartbeat(self, job_id: str, worker_id: str) -> None:
+        if _chaos("bus.heartbeat", worker_id) == "skip":
+            return  # injected missed beat: the lease ages as if dead
         with self._lock:
             if worker_id in self._workers.get(job_id, ()):  # never resurrect
                 self._worker_ts[(job_id, worker_id)] = time.monotonic()
@@ -169,6 +178,9 @@ class InProcBus:
 
     def add_query(self, worker_id: str, query_id: str, query: Any,
                   trace: Optional[Dict[str, Any]] = None) -> None:
+        if _chaos("bus.add_query", worker_id) == "drop":
+            telemetry.inc("bus.queries_dropped_chaos")
+            return  # injected loss: the gather just sees one fewer reply
         item = _envelope(query_id, query, trace)
         with self._lock:
             q = self._queues.get(worker_id)
@@ -217,6 +229,8 @@ class InProcBus:
 
     def put_prediction(self, query_id: str, worker_id: str, prediction: Any,
                        hops: Optional[list] = None) -> None:
+        if _chaos("bus.put_prediction", worker_id) == "drop":
+            return  # injected reply loss
         item = ((worker_id, prediction) if hops is None
                 else (worker_id, prediction, hops))
         with self._pred_cv:

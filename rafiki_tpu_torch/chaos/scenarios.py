@@ -1,0 +1,584 @@
+"""The recovery scenario catalog.
+
+The port's own copy of ``rafiki_tpu/chaos/scenarios.py``: the registry,
+its helpers, TorchModel counterparts of ``ChaosFF`` and ``EvictFF``,
+and the six scenarios whose planes the port has, each with the JAX
+package's spec, checks (by name) and vacuous-pass rejection. Each is a
+declarative bundle: a ``RAFIKI_CHAOS`` fault spec, extra environment,
+and a body that stands up a real in-process cluster (sqlite meta
+store, params store, bus, thread workers), lets the injected faults
+land and checks the recovery invariants through ``check()``. The
+runner (``runner.py``) owns env install and teardown, telemetry, the
+journal, the device scope and reporting. Trials train on the runner's
+device (``utils.backend.resolve_device()``: the card unless the CPU
+was asked for).
+
+=============================  =============================================
+checkpoint-write-failure       every checkpoint write errors; the trial
+                               still completes (resumability lost, work
+                               kept) and the failure is counted
+straggler-quorum               one of three serving replicas stuck 3s per
+                               forward; quorum gather answers fast without
+                               timeout errors, hedging past the straggler
+drain-under-load               gateway drain under background load with
+                               injected frontend latency: flushes inflight,
+                               sheds new work as ``draining``
+predictor-outage-surfaces      every bus heartbeat skipped: the bounded
+                               stale-lease grace serves through a hiccup,
+                               then a real outage raises RuntimeError
+pack-straggler-evict           one pack member early-stops epochs before
+                               its mates: it is evicted from the stacked
+                               state mid-pack, its slot backfilled with a
+                               freshly proposed trial, and the evictee
+                               bit-matches a serial early-stopped run
+nan-trial-contained            member 2 of a k=4 pack gets one step's
+                               grads NaN-poisoned: the divergence is
+                               detected at the epoch boundary, a replay
+                               capsule banked and bit-verified, the sick
+                               member evicted and ERRORED with a
+                               diagnosis, and the three survivors
+                               complete with params bit-matching
+                               unfaulted serial runs
+=============================  =============================================
+
+The JAX package's other 13 scenarios wait for the planes they drive
+(ROADMAP Queue 1): the kill, collective and process scenarios for the
+process scheduler (item 7), the mesh and sweep scenarios for the mesh
+sweep (item 8), ``early-kill-mid-pack-resume`` for the search plane
+(item 9), ``chip-loss-mid-sharded-trial`` for the sharded lane (item
+12), ``stacked-worker-loss-fallback`` for the multiprocessing bus (item
+13), and the autoscale and tenancy scenarios for item 14.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Callable, Dict, List, Optional
+
+# check(name, ok, detail): the invariant-recording callback the runner
+# passes into every scenario body.
+CheckFn = Callable[..., None]
+
+
+@dataclasses.dataclass
+class Scenario:
+    name: str
+    description: str
+    spec: str                      # RAFIKI_CHAOS value for the run
+    fn: Callable[..., None]        # fn(tmp: Path, check: CheckFn)
+    env: Dict[str, str] = dataclasses.field(default_factory=dict)
+
+
+SCENARIOS: Dict[str, Scenario] = {}
+
+
+def scenario(name: str, description: str, spec: str,
+             env: Optional[Dict[str, str]] = None):
+    def register(fn):
+        SCENARIOS[name] = Scenario(name=name, description=description,
+                                   spec=spec, fn=fn, env=dict(env or {}))
+        return fn
+    return register
+
+
+# ---------------------------------------------------------------------------
+# Shared fixtures
+# ---------------------------------------------------------------------------
+
+# A 3-epoch MLP whose only shape knob is fixed: every proposal shares a
+# packing key (k trials stack into one program), and ``seed`` defaults to
+# 0, so a fresh model with a trial's knobs retrains bit for bit: the
+# reference run the invariants compare against.
+FF_SOURCE = b"""
+from rafiki_tpu_torch.model.base import TorchModel
+from rafiki_tpu_torch.model.knobs import FixedKnob, FloatKnob
+from rafiki_tpu_torch.models.ff import _Mlp
+
+class ChaosFF(TorchModel):
+    @staticmethod
+    def get_knob_config():
+        return {
+            "hidden_units": FixedKnob(16),
+            "learning_rate": FloatKnob(1e-3, 3e-2, is_exp=True),
+            "batch_size": FixedKnob(32),
+            "epochs": FixedKnob(3),
+        }
+
+    def build_module(self, num_classes, input_shape):
+        return _Mlp(hidden_layers=1, hidden_units=int(self.knobs["hidden_units"]),
+                    num_classes=num_classes, input_shape=input_shape)
+"""
+
+TRAIN = "synthetic://images?classes=5&n=128&w=8&h=8&seed=0"
+VAL = "synthetic://images?classes=5&n=64&w=8&h=8&seed=1"
+
+JOB = "chaosjob"
+
+
+def _device():
+    """The runner's device (the thread's default)."""
+    from rafiki_tpu_torch.utils.backend import resolve_device
+
+    return resolve_device(None)
+
+
+def _train_env(tmp):
+    from rafiki_tpu_torch.store import MetaStore, ParamsStore
+
+    store = MetaStore(tmp / "meta.sqlite3")
+    params = ParamsStore(tmp / "params")
+    model = store.create_model("chaosff", "IMAGE_CLASSIFICATION", None,
+                               FF_SOURCE, "ChaosFF")
+    return store, params, model
+
+
+def _make_job(store, model, budget):
+    job = store.create_train_job("chaosapp", "IMAGE_CLASSIFICATION", None,
+                                 TRAIN, VAL, budget)
+    store.create_sub_train_job(job["id"], model["id"])
+    return job
+
+
+def _check_rows(check, store, job_id, expect: int):
+    """The lost/duplicated-rows invariant: exactly ``expect`` trial rows
+    (the atomic budget claim held), all COMPLETED."""
+    trials = store.get_trials_of_train_job(job_id)
+    check("exact_trial_rows", len(trials) == expect,
+          f"{len(trials)} rows for budget {expect}")
+    bad = [t["id"] for t in trials if t["status"] != "COMPLETED"]
+    check("all_trials_completed", not bad, f"not completed: {bad}")
+    check("no_duplicate_rows",
+          len({t["id"] for t in trials}) == len(trials), "duplicate ids")
+    return trials
+
+
+def _params_match_serial(check, params, trials, source=None, cls_name=None,
+                         train_uri=None):
+    """Bit-match invariant: each trial's persisted params equal a fresh
+    unfaulted serial ``train()`` with the same knobs (the seed knob
+    defaults alike), leaf for leaf."""
+    import pickle
+
+    import torch
+
+    from rafiki_tpu_torch.model.base import load_model_class
+    from rafiki_tpu_torch.utils.serial import load_flat
+
+    cls = load_model_class(source or FF_SOURCE, cls_name or "ChaosFF")
+    train_uri = train_uri or TRAIN
+
+    def leaves(blob: bytes):
+        return load_flat(pickle.loads(blob)["packed"])
+
+    for t in trials:
+        ref = cls(**t["knobs"])
+        ref.train(train_uri)
+        got = leaves(params.load(t["params_id"]))
+        want = leaves(ref.dump_parameters())
+        ref.destroy()
+        same = (set(got) == set(want)
+                and all(torch.equal(got[k], want[k]) for k in want))
+        check(f"params_match_serial:{t['id'][:8]}", same,
+              "params differ from an unfaulted serial run")
+
+
+def _journal_has(recs, kind: str, name: str) -> bool:
+    return any(r.get("kind") == kind and r.get("name") == name for r in recs)
+
+
+# ---------------------------------------------------------------------------
+# Train-path scenarios
+# ---------------------------------------------------------------------------
+
+@scenario(
+    "checkpoint-write-failure",
+    "Every mid-trial checkpoint write fails (injected store error). "
+    "A checkpoint is an optimization: the trial must still COMPLETE — "
+    "only its resumability is lost — and the failure must be counted.",
+    spec="seed=7;store.params_write:error:match=_ckpt_",
+    env={"RAFIKI_CHECKPOINT_EVERY": "1"},
+)
+def checkpoint_write_failure(tmp, check: CheckFn) -> None:
+    from rafiki_tpu_torch import telemetry
+    from rafiki_tpu_torch.scheduler import LocalScheduler
+
+    store, params, model = _train_env(tmp)
+    job = _make_job(store, model, {"MODEL_TRIAL_COUNT": 1})
+    sched = LocalScheduler(store, params)
+    result = sched.run_train_job(job["id"], n_workers=1, devices=[_device()],
+                                 advisor_kind="random")
+    check("job_completed", result.status == "COMPLETED", result.errors)
+    trials = _check_rows(check, store, job["id"], expect=1)
+    check("write_failures_counted",
+          telemetry.get_counter("worker.checkpoint_write_failed") >= 1.0,
+          "no worker.checkpoint_write_failed increments")
+    # Final params take the non-checkpoint path: unaffected, loadable.
+    params.load(trials[0]["params_id"])
+
+
+# ---------------------------------------------------------------------------
+# Serving-path scenarios (in-process bus + thread workers)
+# ---------------------------------------------------------------------------
+
+class _ConstModel:
+    """Fixed prob-vector stand-in: the serving scenarios exercise the
+    gather and drain machinery, not the model."""
+
+    def __init__(self, vec):
+        self.vec = list(vec)
+
+    def predict(self, queries):
+        return [self.vec for _ in queries]
+
+
+class _ServingCluster:
+    def __init__(self, n_workers: int, job: str = JOB):
+        from rafiki_tpu_torch.bus import InProcBus
+        from rafiki_tpu_torch.worker.inference import InferenceWorker
+
+        self.bus = InProcBus()
+        self.job = job
+        self.stop = threading.Event()
+        self.threads = []
+        for i in range(n_workers):
+            w = InferenceWorker(self.bus, job, f"w{i}", _ConstModel([0.6, 0.4]),
+                                stop_event=self.stop)
+            th = threading.Thread(target=w.run, daemon=True, name=f"chaos-iw-w{i}")
+            self.threads.append(th)
+            th.start()
+        deadline = time.monotonic() + 10
+        while len(self.bus.get_workers(job)) < n_workers:
+            if time.monotonic() >= deadline:
+                raise RuntimeError("inference workers never registered")
+            time.sleep(0.005)
+
+    def close(self):
+        self.stop.set()
+        for th in self.threads:
+            th.join(timeout=5)
+
+
+@scenario(
+    "straggler-quorum",
+    "One of three serving replicas is stuck 3s per forward. Quorum "
+    "gather (min_replies=2) must answer every request fast, with no "
+    "timeout errors, hedging past the straggler.",
+    spec="seed=7;inference.forward:delay:delay=3:match=w2",
+)
+def straggler_quorum(tmp, check: CheckFn) -> None:
+    from rafiki_tpu_torch import chaos
+    from rafiki_tpu_torch.gateway import Gateway, GatewayConfig
+    from rafiki_tpu_torch.predictor import Predictor
+
+    cluster = _ServingCluster(3)
+    try:
+        predictor = Predictor(cluster.bus, JOB, timeout_s=8.0)
+        gw = Gateway(predictor, GatewayConfig(min_replies=2, hedge_grace_s=0.1))
+        t0 = time.monotonic()
+        outs = gw.predict([[1.0], [2.0]])
+        elapsed = time.monotonic() - t0
+        check("all_queries_answered",
+              len(outs) == 2 and all(not (isinstance(o, dict) and "error" in o) for o in outs),
+              f"outputs: {outs}")
+        check("quorum_faster_than_straggler", elapsed < 2.5,
+              f"gather took {elapsed:.2f}s against a 3s straggler")
+        stats = gw.stats()
+        check("no_gather_timeouts", stats["timeouts"] == 0, stats["timeouts"])
+        check("straggler_hedged", stats["hedged"] >= 1, stats["hedged"])
+        plane = chaos.active()
+        fired = [] if plane is None else plane.schedule()
+        check("straggler_fault_fired",
+              any(site == "inference.forward" and "w2" in key
+                  for site, _mode, _hit, key in fired),
+              f"schedule: {fired}")
+        gw.close()
+    finally:
+        cluster.close()
+
+
+@scenario(
+    "drain-under-load",
+    "Drain the gateway while background requests (with injected "
+    "frontend latency) hold inflight slots: drain must flush them "
+    "within its timeout and every post-drain request must shed.",
+    spec="seed=7;gateway.predict:delay:delay=0.3:times=6",
+)
+def drain_under_load(tmp, check: CheckFn) -> None:
+    from rafiki_tpu_torch.gateway import Gateway, GatewayConfig, ShedError
+    from rafiki_tpu_torch.predictor import Predictor
+
+    cluster = _ServingCluster(1)
+    try:
+        predictor = Predictor(cluster.bus, JOB, timeout_s=8.0)
+        gw = Gateway(predictor, GatewayConfig(max_inflight=2, max_queue=8))
+        outcomes: List[str] = []
+        lock = threading.Lock()
+
+        def fire():
+            try:
+                gw.predict([[1.0]])
+                out = "ok"
+            except ShedError as e:
+                out = f"shed:{e.reason}"
+            with lock:
+                outcomes.append(out)
+
+        threads = [threading.Thread(target=fire) for _ in range(6)]
+        for th in threads:
+            th.start()
+        time.sleep(0.15)  # let the first wave hold inflight slots
+        drained = gw.drain(timeout=10.0)
+        for th in threads:
+            th.join(timeout=15)
+        check("drain_flushed_inflight", drained, "drain() timed out")
+        check("inflight_zero_after_drain", gw.admission.inflight == 0, gw.admission.inflight)
+        check("some_requests_served", outcomes.count("ok") >= 1, outcomes)
+        check("no_request_lost", len(outcomes) == 6, outcomes)
+        try:
+            gw.predict([[1.0]])
+            check("post_drain_request_shed", False, "predict succeeded")
+        except ShedError as e:
+            check("post_drain_request_shed", e.reason == "draining", e.reason)
+        gw.close()
+    finally:
+        cluster.close()
+
+
+@scenario(
+    "predictor-outage-surfaces",
+    "Every bus heartbeat skipped. Inside the bounded stale grace the "
+    "predictor still serves (counted fallback); past it the outage "
+    "surfaces as RuntimeError, not per-query timeouts.",
+    spec="seed=7;bus.heartbeat:skip",
+)
+def predictor_outage_surfaces(tmp, check: CheckFn) -> None:
+    from rafiki_tpu_torch import chaos, telemetry
+    from rafiki_tpu_torch.bus import InProcBus
+    from rafiki_tpu_torch.predictor import Predictor
+
+    bus = InProcBus()
+    for w in ("w0", "w1"):
+        bus.add_worker(JOB, w)
+    stop = threading.Event()
+
+    def beat():
+        while not stop.wait(0.05):
+            for w in ("w0", "w1"):
+                bus.heartbeat(JOB, w)  # chaos skips every one
+
+    th = threading.Thread(target=beat, daemon=True)
+    th.start()
+    try:
+        ttl = 0.4
+        predictor = Predictor(bus, JOB, timeout_s=1.0, worker_ttl_s=ttl)
+        # A hiccup: leases about 1.5x TTL old, inside the 2x TTL grace.
+        # The bounded fallback serves the full set and counts.
+        time.sleep(1.5 * ttl)
+        graced = predictor.live_workers()
+        check("grace_window_serves", set(graced) == {"w0", "w1"}, graced)
+        check("fallback_counted",
+              telemetry.get_counter("predictor.stale_lease_fallback") >= 1.0,
+              "no predictor.stale_lease_fallback increments")
+        # An outage: leases beyond the grace. Empty fan-out set, and
+        # predict() raises instead of passing the outage off as slow answers.
+        time.sleep(1.0 * ttl)
+        check("outage_set_empty", predictor.live_workers() == [], "not empty")
+        try:
+            predictor.predict([[1.0]])
+            check("outage_raises", False, "predict succeeded")
+        except RuntimeError as e:
+            check("outage_raises", "no live inference workers" in str(e), e)
+        check("outage_counted",
+              telemetry.get_counter("predictor.no_live_workers") >= 1.0,
+              "no predictor.no_live_workers increments")
+        plane = chaos.active()
+        fired = [] if plane is None else plane.schedule()
+        check("heartbeats_skipped",
+              sum(1 for site, mode, _h, _k in fired
+                  if site == "bus.heartbeat" and mode == "skip") >= 2,
+              f"schedule: {fired}")
+    finally:
+        stop.set()
+        th.join(timeout=2)
+
+
+# ---------------------------------------------------------------------------
+# Elastic-pack scenarios
+# ---------------------------------------------------------------------------
+
+# ChaosFF plus an early-stop rule keyed off learning_rate, a DYNAMIC knob,
+# so a high-lr (early-stopping) member and a low-lr (full-budget) member
+# share one packing key and train in one pack.
+EVICT_SOURCE = b"""
+from rafiki_tpu_torch.model.base import TorchModel
+from rafiki_tpu_torch.model.knobs import FixedKnob, FloatKnob
+from rafiki_tpu_torch.models.ff import _Mlp
+
+class EvictFF(TorchModel):
+    @staticmethod
+    def get_knob_config():
+        return {
+            "hidden_units": FixedKnob(16),
+            "learning_rate": FloatKnob(1e-3, 3e-2, is_exp=True),
+            "batch_size": FixedKnob(32),
+            "epochs": FixedKnob(3),
+        }
+
+    def build_module(self, num_classes, input_shape):
+        return _Mlp(hidden_layers=1, hidden_units=int(self.knobs["hidden_units"]),
+                    num_classes=num_classes, input_shape=input_shape)
+
+    def should_stop_early(self, epoch, metrics):
+        # A high-lr member "converges" after its first epoch: the
+        # deterministic straggler-eviction trigger.
+        return float(self.knobs["learning_rate"]) >= 0.02
+"""
+
+
+def _pack_worker(tmp, source: bytes, cls_name: str, model_name: str, budget: int,
+                 worker_id: str):
+    """A store, a job of ``budget`` trials of the template, and a worker on
+    the runner's device with a random advisor and synchronous persists."""
+    from rafiki_tpu_torch.advisor import AdvisorService
+    from rafiki_tpu_torch.model.base import load_model_class
+    from rafiki_tpu_torch.store import MetaStore, ParamsStore
+    from rafiki_tpu_torch.worker.train import InProcAdvisorHandle, TrainWorker
+
+    store = MetaStore(tmp / "meta.sqlite3")
+    params = ParamsStore(tmp / "params")
+    model = store.create_model(model_name, "IMAGE_CLASSIFICATION", None, source, cls_name)
+    job = _make_job(store, model, {"MODEL_TRIAL_COUNT": budget})
+    sub = store.get_sub_train_jobs(job["id"])[0]
+    cls = load_model_class(source, cls_name)
+    advisors = AdvisorService()
+    advisor_id = advisors.create_advisor(cls.get_knob_config(), kind="random")
+    worker = TrainWorker(
+        store, params, sub["id"], cls, InProcAdvisorHandle(advisors, advisor_id), TRAIN, VAL,
+        {"MODEL_TRIAL_COUNT": budget}, worker_id=worker_id, devices=[_device()],
+        async_persist=False)
+    return store, params, job, sub, cls, worker
+
+
+def _claim_rows(store, sub, cls, cls_name: str, knobs_list, budget: int):
+    from rafiki_tpu_torch.model.knobs import knob_config_signature
+
+    knob_config = cls.get_knob_config()
+    rows = []
+    for kn in knobs_list:
+        trial = store.create_trial(sub["id"], cls_name, kn,
+                                   shape_sig=knob_config_signature(knob_config, kn),
+                                   budget_max=budget)
+        rows.append((trial["id"], kn))
+    return rows
+
+
+@scenario(
+    "pack-straggler-evict",
+    "One member of a k=2 pack early-stops at epoch 0 while its mate "
+    "trains the full budget: the straggler must be EVICTED from the "
+    "stacked state mid-pack, its slot backfilled with a freshly "
+    "proposed trial, all three trials complete, and the evictee "
+    "bit-matches a serial early-stopped run.",
+    spec="seed=11;worker.epoch:delay:delay=0.05:times=1",
+)
+def pack_straggler_evict(tmp, check: CheckFn) -> None:
+    from rafiki_tpu_torch import telemetry
+    from rafiki_tpu_torch.worker.train import PackedTrialRunner
+
+    store, params, job, sub, cls, worker = _pack_worker(
+        tmp, EVICT_SOURCE, "EvictFF", "evictff", 3, "evict-w0")
+    base = {"hidden_units": 16, "batch_size": 32, "epochs": 3}
+    # lr >= 0.02 trips EvictFF.should_stop_early at epoch 0: a straggler
+    # next to a full-budget mate.
+    rows = _claim_rows(store, sub, cls, "EvictFF",
+                       [dict(base, learning_rate=0.025), dict(base, learning_rate=0.005)], 3)
+    n = PackedTrialRunner(worker, 2).run_assigned(rows, budget_max=3)
+    # 2 assigned + 1 backfilled into the evicted straggler's slot.
+    check("all_rows_carried", n == 3, f"carried {n}, want 3")
+    trials = _check_rows(check, store, job["id"], expect=3)
+    check("straggler_evicted", telemetry.get_counter("trial_pack.evictions") >= 1.0,
+          "no trial_pack.evictions increments")
+    check("slot_backfilled", telemetry.get_counter("trial_pack.backfills") >= 1.0,
+          "no trial_pack.backfills increments")
+    check("all_scores_recorded", all(t.get("score") is not None for t in trials),
+          f"scores: {[t.get('score') for t in trials]}")
+    _params_match_serial(check, params, trials, source=EVICT_SOURCE, cls_name="EvictFF")
+
+
+@scenario(
+    "nan-trial-contained",
+    "Chaos NaN-poisons one gradient step of pack member 2 (k=4). The "
+    "health plane must trip at the epoch boundary, bank a replay "
+    "capsule that re-executes bit-exactly, evict ONLY the sick member "
+    "(ERRORED with a diagnosis, floor score fed back), and carry the "
+    "three survivors to completion with params bit-matching unfaulted "
+    "serial runs.",
+    spec="seed=19;train.nan:nan:times=1:match=@m2",
+)
+def nan_trial_contained(tmp, check: CheckFn) -> None:
+    from rafiki_tpu_torch import telemetry
+    from rafiki_tpu_torch.chaos import plane as plane_mod
+    from rafiki_tpu_torch.obs import journal as journal_mod
+    from rafiki_tpu_torch.worker.train import PackedTrialRunner
+
+    store, params, job, sub, cls, worker = _pack_worker(
+        tmp, FF_SOURCE, "ChaosFF", "nanff", 4, "nan-w0")
+    base = {"hidden_units": 16, "batch_size": 32, "epochs": 3}
+    # budget_max=4 is also the backfill gate: the evicted slot must NOT be
+    # refilled (the budget is fully claimed), which keeps the member
+    # indices stable for the @m2 match.
+    rows = _claim_rows(store, sub, cls, "ChaosFF",
+                       [dict(base, learning_rate=lr) for lr in (0.001, 0.002, 0.004, 0.008)], 4)
+    n = PackedTrialRunner(worker, 4).run_assigned(rows, budget_max=4)
+    check("all_rows_carried", n == 4, f"carried {n}, want 4")
+
+    # Vacuous-pass rejection: the fault must have fired at train.nan for
+    # member 2; a pass where the poison never landed proves nothing.
+    fired = [(site, mode, key) for site, mode, _hit, key in plane_mod.active().schedule()
+             if site == "train.nan"]
+    check("nan_fault_fired", len(fired) == 1 and "@m2" in fired[0][2],
+          f"train.nan firings: {fired}")
+
+    trials = store.get_trials_of_train_job(job["id"])
+    check("exact_trial_rows", len(trials) == 4,
+          f"{len(trials)} rows for budget 4 (backfill must not refill "
+          "a diverged slot under a drained budget)")
+    errored = [t for t in trials if t["status"] == "ERRORED"]
+    completed = [t for t in trials if t["status"] == "COMPLETED"]
+    check("one_member_errored", len(errored) == 1, f"statuses: {[t['status'] for t in trials]}")
+    check("three_survivors_completed", len(completed) == 3,
+          f"statuses: {[t['status'] for t in trials]}")
+    check("diagnosis_surfaced",
+          bool(errored) and "diverged" in (errored[0].get("error") or ""),
+          f"error: {errored[0].get('error') if errored else None}")
+    check("survivors_scored", all(t.get("score") is not None for t in completed),
+          f"scores: {[t.get('score') for t in completed]}")
+    check("divergence_counted", telemetry.get_counter("health.divergences") >= 1.0,
+          "no health.divergences increments")
+    check("containment_counted", telemetry.get_counter("health.contained") >= 1.0,
+          "no health.contained increments")
+    check("eviction_counted", telemetry.get_counter("health.evictions") >= 1.0,
+          "no health.evictions increments")
+
+    recs = journal_mod.read_dir(journal_mod.journal.log_dir)
+    check("journal_records_divergence", _journal_has(recs, "health", "divergence"),
+          "no health/divergence journal record")
+    check("journal_records_capsule", _journal_has(recs, "health", "capsule"),
+          "no health/capsule journal record")
+
+    # The capsule is a faithful repro: re-execute the truncated epoch and
+    # require every compared sentinel value bit-identical.
+    caps = sorted((journal_mod.journal.log_dir or tmp).glob("capsule-*.rcap"))
+    check("capsule_banked", len(caps) >= 1, "no capsule-*.rcap on disk")
+    if caps:
+        from rafiki_tpu_torch.obs.health import capsule as capsule_mod
+
+        verdict = capsule_mod.replay(caps[-1])
+        check("capsule_replay_bit_exact", verdict["reproduced"],
+              f"mismatches: {verdict['mismatches']}")
+        check("capsule_replay_poisoned", verdict["poisoned"],
+              "replayed capsule carried no poison column")
+
+    _params_match_serial(check, params, completed)

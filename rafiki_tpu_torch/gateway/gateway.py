@@ -28,8 +28,11 @@ stitch to it. The journal gets the gateway's config
 transitions, blackout retries and sheds; each request ticks the SLO
 engine.
 
-Left out with the planes the port does not have yet: the chaos hook,
-hop marks, the ``ServingRollup`` time-series and tenancy (the
+An admitted request passes the ``gateway.predict`` chaos site, keyed
+by the job id (a ``delay`` is a frontend latency spike that eats into
+the request's deadline while it holds an inflight slot).
+
+Left out with the planes the port does not have yet: hop marks, the ``ServingRollup`` time-series and tenancy (the
 ``serving/request`` record's ``tenant`` is null). ``stats()`` keeps every key of the JAX package's; the rollup's
 ``serving`` telemetry collector is absent.
 
@@ -46,7 +49,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
-from rafiki_tpu_torch import telemetry
+from rafiki_tpu_torch import chaos, telemetry
 from rafiki_tpu_torch.gateway.admission import AdmissionController, ShedError
 from rafiki_tpu_torch.gateway.breaker import CircuitBreaker
 from rafiki_tpu_torch.gateway.microbatch import BatchMember, MicroBatcher
@@ -214,6 +217,9 @@ class Gateway:
         telemetry.inc("gateway.admitted")
         if waited:
             telemetry.observe("gateway.queue_wait_s", waited)
+        # A delay here is a frontend latency spike: it eats into the
+        # request's own deadline while the request holds an inflight slot.
+        chaos.hook("gateway.predict", self.predictor.job_id)
         if self._batcher is not None:
             return self._predict_batched(queries, deadline)
         t0 = time.monotonic()

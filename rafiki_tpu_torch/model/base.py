@@ -27,7 +27,11 @@ Mid-trial checkpoints: ``set_checkpoint_sink``, ``dump_checkpoint`` and
 RTPK1 tree is described above ``GENERATOR_KEY``), so a checkpoint of either
 package resumes in the other; ``train()`` starts at the restored epoch,
 and ``train_packed``'s ``checkpoint_sink`` writes one serial-format
-checkpoint per member. ``make_optimizer`` is the legacy complete-
+checkpoint per member. The health plane's replay capsules
+(``obs/health/capsule.py``) carry that same checkpoint tree, the
+template's identity (``_health_model_identity``, with the uploaded
+source) and rebuild the trial through ``_dataset_arch`` and
+``restore_checkpoint``. ``make_optimizer`` is the legacy complete-
 optimizer hook; ``parse_model_install_command`` checks a template's
 dependencies.
 
@@ -236,8 +240,19 @@ class TorchModel(BaseModel):
                 tuple(input_shape), baked, custom_opt) + extra
 
     def _health_model_identity(self) -> Dict[str, Any]:
+        """What a replay capsule needs to re-create this template in a
+        fresh process: a template loaded from uploaded source carries the
+        bytes (``load_model_class`` stamps ``__rafiki_source__`` on its
+        scratch module)."""
+        mod = sys.modules.get(type(self).__module__)
         return {"module": type(self).__module__, "qualname": type(self).__qualname__,
+                "source": getattr(mod, "__rafiki_source__", None),
                 "knobs": dict(self.knobs)}
+
+    def _dataset_arch(self, ds: Dataset) -> tuple:
+        """``(num_classes, input_shape)`` of a dataset: what a module is
+        built for."""
+        return ds.classes, tuple(ds.x.shape[1:])
 
     def _loop_fns(self, num_classes: int, input_shape: tuple) -> Dict[str, Any]:
         """Everything a TrainLoop or PackedTrainLoop needs: the module,
@@ -325,7 +340,7 @@ class TorchModel(BaseModel):
     def train(self, dataset_uri: str) -> None:
         ds = self._prepared_dataset(dataset_uri)
         self._dataset_meta = dict(ds.meta)
-        num_classes, input_shape = ds.classes, tuple(ds.x.shape[1:])
+        num_classes, input_shape = self._dataset_arch(ds)
         self._planned_steps = self.epochs * max(1, ds.size // self.batch_size)
         if self._loop is None:
             self._build_loop(num_classes, input_shape)
@@ -377,7 +392,7 @@ class TorchModel(BaseModel):
         package's ``train_packed`` builds the pack's module before the
         members read the meta, so its packed Transformer embeds a
         vocabulary of 2 and trains to NaN.)"""
-        num_classes, input_shape = ds.classes, tuple(ds.x.shape[1:])
+        num_classes, input_shape = self._dataset_arch(ds)
         self._dataset_meta = dict(ds.meta)
         self._planned_steps = self.epochs * max(1, ds.size // self.batch_size)
         fns = self._loop_fns(num_classes, input_shape)
@@ -439,7 +454,7 @@ class TorchModel(BaseModel):
             raise ValueError("train_packed models are on different devices")
         if ds.mask is not None:
             raise ValueError("packed training does not support masked datasets")
-        num_classes, input_shape = ds.classes, tuple(ds.x.shape[1:])
+        num_classes, input_shape = lead._dataset_arch(ds)
         epochs, batch_size = lead.epochs, lead.batch_size
         arch = (num_classes, input_shape)
         planned = epochs * max(1, ds.size // batch_size)
@@ -731,8 +746,9 @@ def _subtree(flat: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tens
     return {k[len(p):]: v for k, v in flat.items() if k.startswith(p)}
 
 
-def _adam_tree(st: ScaleByAdamState, module: nn.Module, prefix: str) -> Dict[str, Any]:
-    params = list(module.parameters())
+def _adam_tree(st: ScaleByAdamState, module: nn.Module, prefix: str,
+               params: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, Any]:
+    params = list(module.parameters()) if params is None else list(params)
     mu = st.mu if st.mu is not None else [torch.zeros_like(p) for p in params]
     nu = st.nu if st.nu is not None else [torch.zeros_like(p) for p in params]
     tree: Dict[str, Any] = {f"{prefix}count": np.int32(st.count)}
@@ -741,16 +757,19 @@ def _adam_tree(st: ScaleByAdamState, module: nn.Module, prefix: str) -> Dict[str
     return tree
 
 
-def _state_tree(state, seed: int) -> Dict[str, Any]:
+def _state_tree(state, seed: int,
+                params: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, Any]:
     """A serial train state as the JAX package's flat checkpoint tree
-    (views of the device tensors)."""
+    (views of the device tensors). ``params`` (one tensor per parameter
+    of the state's module, in its order: a snapshot's copies) stand in
+    for the module's own values; the module then gives names only."""
     module, opt, step, _, hyper = state
-    tree: Dict[str, Any] = {f"0/{k}": v for k, v in state_dict_to_flax(module).items()}
+    tree: Dict[str, Any] = {f"0/{k}": v for k, v in state_dict_to_flax(module, params).items()}
     if isinstance(opt, AdamState):
-        tree.update(_adam_tree(opt.adam, module, "1/0/"))
+        tree.update(_adam_tree(opt.adam, module, "1/0/", params))
         tree["1/1/count"] = np.int32(opt.count)
     else:
-        tree.update(_adam_tree(opt or ScaleByAdamState(0, None, None), module, "1/"))
+        tree.update(_adam_tree(opt or ScaleByAdamState(0, None, None), module, "1/", params))
     tree["2"] = np.int32(step)
     tree["3"] = np.array([0, int(seed) & 0xFFFFFFFF], np.uint32)
     tree.update({f"4/{k}": v for k, v in hyper.items()})

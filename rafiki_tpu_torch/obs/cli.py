@@ -17,9 +17,20 @@ under ``--dir``, default ``$RAFIKI_LOG_DIR`` then the configured
                    program key hash or substring-matches the key repr
     slo            current SLO burn state (latest ``slo/state``) plus
                    the breach/recovery history
+    health         numerics health: every ``health/divergence`` verdict
+                   with its diagnosis and capsule, plus totals
+    curves [id]    per-trial learning curves from the durable
+                   ``trial/epoch_eval`` records; ``id`` prefix-matches
+                   trial ids (omit for every trial)
+    replay <cap>   re-execute a divergence capsule (on the card, or
+                   ``--device cpu``) and bit-verify the reproduction;
+                   exit 0 only when the bad step reproduced bit for bit
 
 The journals of either package read the same: ``trace``, ``tail``,
-``slowest`` and ``slo`` print what the JAX package's CLI prints.
+``slowest``, ``slo``, ``health`` and ``curves`` print what the JAX
+package's CLI prints (``curves`` without the JAX package's
+``--predicted`` overlay: the learning-curve extrapolator is not
+ported).
 ``profile`` multiplies a step's flops by the epoch's ``steps`` where
 the ``perf/step`` record carries them (the port's do; a JAX package
 journal's count as one step, as its own CLI reads them) and takes the
@@ -28,7 +39,8 @@ record's ``peak_flops`` (the card and compute dtype the step ran on).
 
 Output is one human line per record by default, ``--json`` for JSONL.
 Exit code 1 when a requested trace has no records. Importing this
-module imports no torch: it reads journals on any machine.
+module imports no torch: it reads journals on any machine (``replay``
+alone needs torch, and loads it when it runs).
 """
 
 from __future__ import annotations
@@ -237,6 +249,111 @@ def cmd_slo(log_dir: str, as_json: bool) -> int:
     return 0
 
 
+def cmd_health(log_dir: str, as_json: bool) -> int:
+    """Numerics health report: divergence verdicts and the capsule
+    inventory from the ``health/*`` journal records. An empty report is a
+    pass: exit 0 with a clean bill."""
+    divergences: List[Dict[str, Any]] = []
+    capsules: List[Dict[str, Any]] = []
+    errors: List[Dict[str, Any]] = []
+    for r in journal_mod.read_dir(log_dir):
+        if r.get("kind") != "health":
+            continue
+        if r.get("name") == "divergence":
+            divergences.append(r)
+        elif r.get("name") == "capsule":
+            capsules.append(r)
+        elif r.get("name") == "capsule_error":
+            errors.append(r)
+    if as_json:
+        print(json.dumps({"divergences": divergences, "capsules": capsules,
+                          "capsule_errors": errors}, default=str))
+        return 0
+    if not divergences and not errors:
+        print(f"no divergences under {log_dir} — numerically clean")
+        return 0
+    print(f"divergences: {len(divergences)}, capsules: {len(capsules)}, "
+          f"capsule write errors: {len(errors)}")
+    for d in divergences:
+        member = d.get("member")
+        where = f" member={member}" if member is not None else ""
+        print(f"  ts={d.get('ts')} {d.get('divergence', '?'):<10}"
+              f"{where} bad_step={d.get('bad_step')} badput={d.get('badput_s')}s")
+        print(f"    {d.get('diagnosis', '?')}")
+        if d.get("capsule"):
+            print(f"    capsule: {d['capsule']}")
+    for e in errors:
+        print(f"  capsule write FAILED: {e.get('error')}")
+    return 0
+
+
+def cmd_curves(log_dir: str, trial: Optional[str], as_json: bool) -> int:
+    """Per-trial learning curves from the durable ``trial/epoch_eval``
+    records."""
+    curves: Dict[str, List[Dict[str, Any]]] = {}
+    for r in journal_mod.read_dir(log_dir):
+        if r.get("kind") != "trial" or r.get("name") != "epoch_eval":
+            continue
+        tid = str(r.get("trial_id", "?"))
+        if trial and not tid.startswith(trial):
+            continue
+        curves.setdefault(tid, []).append(r)
+    if not curves:
+        print(f"no epoch_eval records{f' for trial {trial!r}' if trial else ''} "
+              f"under {log_dir}", file=sys.stderr)
+        return 1
+    for rows in curves.values():
+        rows.sort(key=lambda r: (r.get("epoch", 0), r.get("ts", 0.0)))
+    if as_json:
+        print(json.dumps({"trials": curves}, default=str))
+        return 0
+    for tid, rows in sorted(curves.items()):
+        last = rows[-1]
+        packed = " [packed]" if last.get("packed") else ""
+        print(f"trial {tid}{packed}: {len(rows)} epochs, final score={last.get('score')}")
+        for r in rows:
+            vals = [f"{k}={r[k]:.6g}" for k in ("loss", "acc") if r.get(k) is not None]
+            if r.get("wall_s") is not None:
+                vals.append(f"wall={r['wall_s']:.3f}s")
+            print(f"  epoch {r.get('epoch'):>3}  " + " ".join(vals))
+    return 0
+
+
+def cmd_replay(path: str, as_json: bool, device: Optional[str]) -> int:
+    """Re-execute a divergence capsule and report the bit comparison.
+    Exit 0 only when every compared sentinel value reproduced exactly;
+    2 when the file is no capsule."""
+    from rafiki_tpu_torch.obs.health import capsule
+
+    try:
+        result = capsule.replay(path, device=device)
+    except (FileNotFoundError, ValueError) as e:
+        print(f"replay failed: {e}", file=sys.stderr)
+        return 2
+    if as_json:
+        print(json.dumps(result, default=str))
+        return 0 if result["reproduced"] else 1
+    member = result.get("member")
+    where = f" member={member}" if member is not None else ""
+    print(f"capsule {result['capsule']}: {result['kind']}{where} "
+          f"bad_step={result['bad_step']} steps_replayed={result['steps_replayed']}"
+          + (" (poisoned)" if result["poisoned"] else ""))
+    for k, c in result["comparisons"].items():
+        mark = "ok " if c["match"] else "DIFF"
+        bits = (f" [{c['expected_bits']} vs {c['got_bits']}]" if "expected_bits" in c else "")
+        print(f"  {mark} {k:<26} expected={c['expected']} got={c['got']}{bits}")
+    if result["reproduced"]:
+        print("reproduced: the divergent step re-executed bit-exactly")
+        return 0
+    print(f"NOT reproduced: {', '.join(result['mismatches'])} diverged from the "
+          f"observed run — the failure is not deterministic under replay")
+    if result.get("captured_env") != result.get("replay_env"):
+        print(f"  note: captured on {result.get('captured_env')}, replayed on "
+              f"{result.get('replay_env')} — another device, build or switch "
+              f"changes kernels and rounding")
+    return 1
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m rafiki_tpu_torch.obs",
@@ -261,8 +378,21 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="MFU denominator (default: the peak of the card "
                          "and dtype the cost record names)")
     sub.add_parser("slo", help="current SLO burn state + breach history")
+    sub.add_parser("health", help="numerics divergences + replay capsule inventory")
+    sp = sub.add_parser("curves", help="per-trial learning curves from the journals")
+    sp.add_argument("trial", nargs="?", default=None,
+                    help="trial id prefix (omit for all trials)")
+    sp = sub.add_parser("replay", help="re-execute a divergence capsule, bit-verify")
+    sp.add_argument("capsule", help="path to a capsule-*.rcap file")
+    sp.add_argument("--device", default=None,
+                    help="where to replay (default: the CUDA card; 'cpu' on request)")
+    sp.add_argument("--json", action="store_true", default=argparse.SUPPRESS,
+                    help="the verdict as one JSON document")
     args = p.parse_args(argv)
 
+    if args.cmd == "replay":
+        # No journal directory needed: the capsule is self-contained.
+        return cmd_replay(args.capsule, args.json, args.device)
     log_dir = args.dir or _default_dir()
     if args.cmd == "trace":
         return cmd_trace(log_dir, args.trace_id, args.json)
@@ -272,4 +402,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return cmd_profile(log_dir, args.key, args.json, args.peak_flops)
     if args.cmd == "slo":
         return cmd_slo(log_dir, args.json)
+    if args.cmd == "health":
+        return cmd_health(log_dir, args.json)
+    if args.cmd == "curves":
+        return cmd_curves(log_dir, args.trial, args.json)
     return cmd_slowest(log_dir, args.n, args.json)

@@ -22,13 +22,21 @@ pack's live width through :meth:`~HealthMonitor.evict_member` and
 
 On a trip the monitor also charges the trial's wall so far to the
 goodput ledger's ``badput_s``, journals ``health/divergence`` (the
-verdict) and dumps a flight record, as the JAX package's does. Left
-out until their plane is ported: replay capsules (``snapshot_state``
-returns None, as the JAX package's does with capsules off).
+verdict) and dumps a flight record, as the JAX package's does.
+
+Replay capsules (``obs/health/capsule.py``): when they are on
+(``RAFIKI_HEALTH_CAPSULE``, default on, and a journal directory to
+write them to), :meth:`HealthMonitor.snapshot_state` copies the
+pre-epoch train state on its device into buffers reused from epoch to
+epoch; at a trip the monitor takes the sick member's state to the host
+and banks a capsule with the epoch's batch indices and poison column
+(``health/capsule``; ``health/capsule_error`` when the write fails,
+which never fails training). Without them no copy is taken.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
 import statistics
@@ -49,6 +57,9 @@ ENV_K = "RAFIKI_HEALTH_K"
 ENV_WARMUP = "RAFIKI_HEALTH_WARMUP"
 #: Consecutive exploding epochs required to trip (nonfinite ignores this).
 ENV_HYSTERESIS = "RAFIKI_HEALTH_HYSTERESIS"
+#: "0"/"off" skips the pre-epoch state snapshot and capsule writes while
+#: keeping detection and containment live.
+ENV_CAPSULE = "RAFIKI_HEALTH_CAPSULE"
 
 DEFAULT_K = 50.0
 DEFAULT_WARMUP = 3
@@ -58,10 +69,15 @@ _HISTORY = 32
 _STATS: Dict[str, float] = {"divergences": 0, "capsules": 0, "evictions": 0,
                             "contained": 0, "badput_charged_s": 0.0}
 
+# Capsule file sequence, process-wide: ``capsule-<pid>-<seq>.rcap`` names
+# stay distinct across the monitors of one process (the JAX package
+# counts per monitor, so a second loop's first capsule overwrites the
+# first loop's).
+_CAPSULE_SEQ = itertools.count()
+
 
 def stats() -> Dict[str, float]:
-    """The health plane's process-wide counts. ``capsules`` stays 0
-    until capsules are ported."""
+    """The health plane's process-wide counts."""
     out = dict(_STATS)
     out["badput_charged_s"] = round(float(out["badput_charged_s"]), 6)
     return out
@@ -106,7 +122,7 @@ def _on(name: str) -> bool:
 
 class DivergenceError(RuntimeError):
     """A serial trial's numerics diverged; carries the verdict dict
-    (kind, bad_step, diagnosis) for the caller to surface."""
+    (kind, bad_step, diagnosis, capsule path) for the caller to surface."""
 
     def __init__(self, verdict: Dict[str, Any]):
         super().__init__(verdict.get("diagnosis", "numerics diverged"))
@@ -133,16 +149,18 @@ class HealthMonitor:
         self.k = int(k)
         self._members: List[_MemberState] = [_MemberState() for _ in range(max(1, self.k))]
         self._ctx: Optional[Dict[str, Any]] = None
+        self._snapshot = None  # the reused device buffers (capsule.DeviceSnapshot)
         self.enabled = _on(ENV_ENABLE)
+        self.capsules_enabled = self.enabled and _on(ENV_CAPSULE)
         self.explosion_k = _env_float(ENV_K, DEFAULT_K)
         self.warmup = max(1, _env_int(ENV_WARMUP, DEFAULT_WARMUP))
         self.hysteresis = max(1, _env_int(ENV_HYSTERESIS, DEFAULT_HYSTERESIS))
 
     def set_context(self, **ctx: Any) -> None:
-        """Trial context from the model layer (``model`` identity dict,
-        ``train_uri``, ``batch_size``, ``seed``, ``planned_steps``); it
-        rides in the verdict. A pack passes ``member_info``, a
-        ``slot -> {model, seed}`` callable resolved at trip time."""
+        """Replay context from the model layer (``model`` identity dict,
+        ``train_uri``, ``batch_size``, ``seed``, ``planned_steps``); a
+        capsule carries it. A pack passes ``member_info``, a ``slot ->
+        {model, seed}`` callable resolved at trip time."""
         self._ctx = dict(self._ctx or {}, **ctx)
 
     def _member_ctx(self, member: Optional[int]) -> Dict[str, Any]:
@@ -164,28 +182,51 @@ class HealthMonitor:
         self._members.append(_MemberState())
         self.k += 1
 
-    def snapshot_state(self, state: Any) -> None:
-        """The pre-epoch state copy a replay capsule would need. The port
-        has no capsules yet, so no copy is taken."""
-        return None
+    def snapshot_state(self, state: Any) -> Any:
+        """The train state as it is BEFORE the epoch runs, which a replay
+        capsule needs (the epoch moves params, moments and generators in
+        place). A copy on the state's device, into buffers reused from
+        epoch to epoch (``capsule.DeviceSnapshot``): a serial loop's
+        ``(module, opt_state, step, generator, hyper)`` or a pack's
+        stacked ``PackedState``. Returns None, with no copy, when
+        capsules are off or there is no journal directory to bank them in."""
+        if not self.capsules_enabled:
+            return None
+        from rafiki_tpu_torch.obs.health import capsule as capsule_mod
+
+        if capsule_mod.capsule_dir() is None:
+            return None
+        if self._snapshot is None:
+            self._snapshot = capsule_mod.DeviceSnapshot()
+        self._snapshot.take(state)
+        return self._snapshot
 
     # -- observation ---------------------------------------------------------
 
     def observe(self, health: Dict[str, float], *, t0: Optional[float] = None,
-                epoch_seed: Optional[int] = None) -> Optional[Dict[str, Any]]:
+                epoch_seed: Optional[int] = None, idx: Any = None,
+                poison: Any = None, snapshot: Any = None) -> Optional[Dict[str, Any]]:
         """Serial epoch boundary: returns a verdict dict on a trip, else
-        None. The caller (``TrainLoop``) raises DivergenceError on it."""
-        return self._observe(0, health, t0=t0, epoch_seed=epoch_seed, member=None)
+        None. The caller (``TrainLoop``) raises DivergenceError on it.
+        ``idx`` is the epoch's ``(n_steps, batch)`` index matrix,
+        ``poison`` its chaos column (None when clean), ``snapshot`` what
+        :meth:`snapshot_state` returned before the epoch."""
+        return self._observe(0, health, t0=t0, epoch_seed=epoch_seed, idx=idx,
+                             poison=poison, snapshot=snapshot, member=None)
 
     def observe_pack(self, health_rows: List[Dict[str, float]], *,
-                     t0: Optional[float] = None, epoch_seeds: Any = None
+                     t0: Optional[float] = None, epoch_seeds: Any = None,
+                     idx: Any = None, poison: Any = None, snapshot: Any = None
                      ) -> List[Optional[Dict[str, Any]]]:
         """Packed epoch boundary: one Optional[verdict] per live member,
-        in slot order."""
-        return [self._observe(j, health, t0=t0,
-                              epoch_seed=None if epoch_seeds is None else epoch_seeds[j],
-                              member=j)
-                for j, health in enumerate(health_rows)]
+        in slot order. ``idx``/``poison`` are the ``(n_steps, k, ...)``
+        epoch arrays; the stacked snapshot is sliced to a member's serial
+        shape only when that member's capsule is written."""
+        return [self._observe(
+            j, health, t0=t0, epoch_seed=None if epoch_seeds is None else epoch_seeds[j],
+            idx=None if idx is None else idx[:, j],
+            poison=None if poison is None else poison[:, j], snapshot=snapshot, member=j)
+            for j, health in enumerate(health_rows)]
 
     def _median_bar(self, st: _MemberState) -> Optional[float]:
         if len(st.history) < self.warmup:
@@ -204,8 +245,8 @@ class HealthMonitor:
         return None
 
     def _observe(self, j: int, health: Dict[str, float], *, t0: Optional[float],
-                 epoch_seed: Optional[int], member: Optional[int]
-                 ) -> Optional[Dict[str, Any]]:
+                 epoch_seed: Optional[int], idx: Any, poison: Any, snapshot: Any,
+                 member: Optional[int]) -> Optional[Dict[str, Any]]:
         if not self.enabled or not health:
             return None
         st = self._members[j]
@@ -223,7 +264,8 @@ class HealthMonitor:
                 st.streak = 0
                 st.history.append(float(health.get("health_grad_norm", 0.0)))
             return None
-        return self._trip(st, kind, health, epoch_seed, member)
+        return self._trip(st, kind, health, epoch_seed=epoch_seed, idx=idx, poison=poison,
+                          snapshot=snapshot, member=member)
 
     def _diagnosis(self, kind: str, st: _MemberState, health: Dict[str, float]) -> str:
         gn = float(health.get("health_grad_norm", float("nan")))
@@ -237,9 +279,25 @@ class HealthMonitor:
                 f"running median {median:.4g} "
                 f"({self.hysteresis} consecutive epochs)")
 
-    def _trip(self, st: _MemberState, kind: str, health: Dict[str, float],
-              epoch_seed: Optional[int], member: Optional[int]) -> Dict[str, Any]:
+    def _trip(self, st: _MemberState, kind: str, health: Dict[str, float], *,
+              epoch_seed: Optional[int], idx: Any, poison: Any, snapshot: Any,
+              member: Optional[int]) -> Dict[str, Any]:
         st.tripped = True
+        capsule_path = None
+        if self.capsules_enabled and snapshot is not None and self._ctx:
+            try:
+                from rafiki_tpu_torch.obs.health import capsule as capsule_mod
+
+                capsule_path = capsule_mod.write(
+                    self, member=member, kind=kind, health=health, epoch_seed=epoch_seed,
+                    idx=idx, poison=poison, state=snapshot.member(member),
+                    seq=next(_CAPSULE_SEQ))
+            except Exception as e:  # a capsule must never kill training
+                journal.record("health", "capsule_error", key=self.key,
+                               error=f"{type(e).__name__}: {e}")
+        if capsule_path is not None:
+            _STATS["capsules"] += 1
+            telemetry.inc("health.capsules")
         wasted = st.bank
         if wasted > 0.0:
             # The trial's whole wall so far is retroactively badput: the
@@ -257,9 +315,8 @@ class HealthMonitor:
             "grad_norm": float(health.get("health_grad_norm", float("nan"))),
             "update_norm": float(health.get("health_update_norm", float("nan"))),
             "nonfinite": int(health.get("health_nonfinite", 0)),
-            "badput_s": round(st.bank, 6),
-            "capsule": None,
-            "context": self._member_ctx(member),
+            "badput_s": round(wasted, 6),
+            "capsule": str(capsule_path) if capsule_path else None,
             "diagnosis": self._diagnosis(kind, st, health),
         }
         journal.record("health", "divergence", **verdict)

@@ -83,6 +83,24 @@ def split(metrics: Dict[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor],
     return rest, health
 
 
+def at_bad_step(series: torch.Tensor, bad_step: torch.Tensor) -> torch.Tensor:
+    """``series`` (``(n_steps,)`` or ``(n_steps, k)``) at ``bad_step``
+    (:func:`reduce_epoch`'s; step 0 where it is -1), as float32.
+
+    For the loss series this is ``health_bad_loss``, which the JAX
+    package does not have. The loss is taken before the step multiplies
+    its gradients by the poison column, so it stays finite under an
+    injected NaN, and it depends on the params, the dropout stream and
+    the batch at that step. A capsule's replay reproduces it only when
+    it re-ran the whole prefix as the original did (the other ``bad_*``
+    values at a poisoned step come from the poison alone)."""
+    at = bad_step.clamp(min=0)
+    v = series.float()
+    if v.dim() == 1:
+        return v[at]
+    return torch.gather(v, 0, at[None, :])[0]
+
+
 def reduce_epoch(series: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Epoch-boundary reduction of the per-step sentinel series.
 

@@ -6,8 +6,9 @@ Counterpart of ``rafiki_tpu/ops/train.py``:
   * ``cross_entropy_loss`` (``:60``), the traced-rate ``dropout``
     (``:82``) and ``effective_lr`` (``:150``);
   * the step closures of ``_make_step_fns`` (``:158``): the loss and its
-    gradients, Adam's lr-free core (``ops/optim.py``), ``-effective_lr``,
-    the update, and the health sentinel bundle, in that order;
+    gradients, the chaos poison multiply, Adam's lr-free core
+    (``ops/optim.py``), ``-effective_lr``, the update, and the health
+    sentinel bundle, in that order;
   * ``Program`` (``:221``) with ``train_epoch`` (``:256``) and
     ``eval_epoch`` (``:278``), ``get_device_dataset`` (``:448``) and
     ``TrainLoop`` (``:467``): an epoch over a dataset resident on the
@@ -69,9 +70,26 @@ for a FLOP count of its program (``obs/perf/profiler.py
 capture_cost``): the count wraps the first eager step of the epoch, so
 it adds no step and never runs under a capture.
 
+Chaos sites (``rafiki_tpu_torch/chaos``), as in the JAX package:
+``train.epoch`` inside each epoch's timed region, keyed by the
+program key, and ``train.nan``, keyed by the program key (a pack's
+member i by ``f"{key}@m{i}"``), which poisons step ``n_steps // 2`` of
+the epoch: the gradients of that step are multiplied by NaN before
+Adam, through a poison column in the epoch's step table. The JAX
+package keeps an all-ones column in every epoch, because XLA fuses a
+runtime multiply into the reductions around it and a trace without it
+would round otherwise. That does not hold for the port's steps, whose
+graph is captured once an epoch and whose host knows the column before
+the capture: the multiply runs only in an epoch whose column holds a
+value other than 1, and a clean epoch keeps its kernels and time
+(multiplying by 1 is exact, so the two are the same bits).
+
+Each epoch hands the health monitor its batch indices, its poison
+column and, when replay capsules are on, a copy of the pre-epoch state
+taken on the device before the timer (``obs/health/capsule.py``).
+
 Not ported with this slice: the dp mesh (``_ShardingPlan``; a ``plan``
-other than None is refused), the chaos plane's ``train.nan`` poison
-column and ``collective.step``/``train.epoch`` sites.
+other than None is refused) and its ``collective.step`` site.
 
 ``torch.inference_mode`` is thread-local, so :func:`predict_proba`
 enters it itself, on whatever thread serves the query.
@@ -95,6 +113,7 @@ from torch._functorch.pyfunctorch import temporarily_pop_interpreter_stack
 from torch.func import functional_call, vmap
 from torch.profiler import record_function
 
+from rafiki_tpu_torch import chaos as _chaos
 from rafiki_tpu_torch import telemetry
 from rafiki_tpu_torch.obs.health import DivergenceError, HealthMonitor
 from rafiki_tpu_torch.obs.health import sentinel as _sentinel
@@ -240,27 +259,35 @@ def _make_step_fns(apply_fn, loss_fn, optimizer, dynamic_lr: bool = True):
 
     ``apply_fn(module, batch) -> logits`` (eval mode);
     ``loss_fn(module, batch, generator, hyper) -> (loss, metrics)``.
-    ``train_body(module, opt_state, generator, hyper, scalars, batch)``
-    runs one step in place and returns ``(opt_state, metrics)``.
-    ``scalars`` is the step's row of :func:`_step_table` on the device:
-    ``-effective_lr`` first when the step scales by it (``dynamic_lr``
-    and an ``lr`` in ``hyper``; else the optimizer is complete, from
-    ``make_optimizer``, and its updates apply as they are), then the
-    optimizer's own per-step scalars.
+    ``train_body(module, opt_state, generator, hyper, scalars, batch,
+    poisoned)`` runs one step in place and returns ``(opt_state,
+    metrics)``. ``scalars`` is the step's row of :func:`_step_table` on
+    the device: ``-effective_lr`` first when the step scales by it
+    (``dynamic_lr`` and an ``lr`` in ``hyper``; else the optimizer is
+    complete, from ``make_optimizer``, and its updates apply as they
+    are), then the optimizer's own per-step scalars, then, when
+    ``poisoned``, the step's chaos poison multiplier, by which the
+    gradients are multiplied before Adam (and before the sentinels
+    read them).
     """
 
     def train_body(module: nn.Module, opt_state, generator, hyper: Hyper,
-                   scalars: torch.Tensor, batch: Batch) -> Tuple[Any, Dict[str, torch.Tensor]]:
+                   scalars: torch.Tensor, batch: Batch,
+                   poisoned: bool = False) -> Tuple[Any, Dict[str, torch.Tensor]]:
         params = list(module.parameters())
         scale = dynamic_lr and "lr" in hyper
+        opt_scalars = scalars[1:] if scale else scalars
+        if poisoned:
+            opt_scalars = opt_scalars[:-1]
         with torch.enable_grad():
             with record_function("train.forward"):
                 loss, metrics = loss_fn(module, batch, generator, hyper)
-            grads = torch.autograd.grad(loss, params)
+            grads = list(torch.autograd.grad(loss, params))
         with torch.no_grad():
+            if poisoned:
+                torch._foreach_mul_(grads, scalars[-1])
             with record_function("train.adam"):
-                updates, opt_state = optimizer.update(grads, opt_state,
-                                                      scalars[1:] if scale else scalars)
+                updates, opt_state = optimizer.update(grads, opt_state, opt_scalars)
                 if scale:
                     torch._foreach_mul_(updates, scalars[0])
                 torch._foreach_add_(params, updates)
@@ -279,21 +306,26 @@ def _make_step_fns(apply_fn, loss_fn, optimizer, dynamic_lr: bool = True):
 
 
 def _step_table(optimizer, opt_state, hyper: Hyper, step_i: int, n: int,
-                scale: bool) -> np.ndarray:
+                scale: bool, poison: Optional[np.ndarray] = None) -> np.ndarray:
     """``(n, m)`` float32: each of the ``n`` steps from ``step_i``, its
-    ``-effective_lr`` (when ``scale``) and the optimizer's scalars."""
+    ``-effective_lr`` (when ``scale``), the optimizer's scalars and, with
+    ``poison`` (the epoch's ``(n,)`` chaos column), its poison multiplier."""
     table = optimizer.step_scalars(opt_state, n)
     if scale:
         table = np.concatenate([_neg_lr(hyper, step_i, n)[:, None], table], axis=1)
+    if poison is not None:
+        table = np.concatenate([table, np.asarray(poison, np.float32).reshape(n, 1)], axis=1)
     return np.ascontiguousarray(table, np.float32)
 
 
 def _reduce_series(series: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """An epoch's result from its per-step series: the last step's
-    metrics and the reduced health series (``sentinel.reduce_epoch``)."""
+    metrics, the reduced health series (``sentinel.reduce_epoch``) and
+    ``health_bad_loss`` (``sentinel.at_bad_step`` of the loss series)."""
     rest, health = _sentinel.split(series)
     out = {k: v[-1] for k, v in rest.items()}
     out.update(_sentinel.reduce_epoch(health))
+    out["health_bad_loss"] = _sentinel.at_bad_step(rest["loss"], out["health_bad_step"])
     return out
 
 
@@ -425,20 +457,25 @@ class Program:
                                         scalars, batch)
         return (module, opt_state, step_i + 1, generator, hyper), metrics
 
-    def train_steps(self, state: State, feed, on_step=None, cost=None
+    def train_steps(self, state: State, feed, on_step=None, cost=None,
+                    poison: Optional[np.ndarray] = None
                     ) -> Tuple[State, Dict[str, torch.Tensor]]:
         """``feed.n_steps`` steps through a :class:`~rafiki_tpu_torch.ops.
         graphs.StepRunner`. Returns the new state and the per-step
         metric series, ``(n_steps,)`` each, on the device.
         ``on_step(t, metrics)`` runs after step ``t`` is dispatched;
-        ``cost`` (a profiler ``CostCapture``) counts the first step."""
+        ``cost`` (a profiler ``CostCapture``) counts the first step;
+        ``poison`` (an ``(n_steps,)`` float32 column) multiplies each
+        step's gradients by its entry; without it the steps multiply by
+        nothing."""
         module, opt_state, step_i, generator, hyper = state
         n = feed.n_steps
         device = _module_device(module)
         if opt_state is None:
             opt_state = self.optimizer.init(list(module.parameters()))
+        poisoned = poison is not None
         table = torch.from_numpy(_step_table(self.optimizer, opt_state, hyper, step_i, n,
-                                             self._scales(hyper))).to(device)
+                                             self._scales(hyper), poison)).to(device)
         scalars = torch.empty_like(table[0])
         hyper_dev = _on(hyper, device)
         cell = [opt_state]
@@ -450,7 +487,7 @@ class Program:
 
         def body() -> Dict[str, torch.Tensor]:
             cell[0], metrics = self._body(module, cell[0], generator, hyper_dev, scalars,
-                                          feed.batch())
+                                          feed.batch(), poisoned)
             return metrics
 
         def collect(t: int, metrics: Dict[str, torch.Tensor]) -> None:
@@ -469,12 +506,14 @@ class Program:
         return (module, opt_state, step_i + n, generator, hyper), sink.series
 
     def train_epoch(self, state: State, X: torch.Tensor, Y: torch.Tensor,
-                    idx: torch.Tensor) -> Tuple[State, Dict[str, torch.Tensor]]:
+                    idx: torch.Tensor, poison: Optional[np.ndarray] = None
+                    ) -> Tuple[State, Dict[str, torch.Tensor]]:
         """One step per row of ``idx`` (an ``(n_steps, batch)`` index
         tensor on the device), each batch gathered from the resident
-        ``X``/``Y``. Returns the last step's metrics plus the epoch's
-        reduced health series, all still on the device."""
-        state, series = self.train_steps(state, ResidentFeed(X, Y, idx))
+        ``X``/``Y``, its gradients multiplied by its entry of ``poison``
+        where one is given. Returns the last step's metrics plus the
+        epoch's reduced health series, all still on the device."""
+        state, series = self.train_steps(state, ResidentFeed(X, Y, idx), poison=poison)
         return state, _reduce_series(series)
 
     def eval_epoch(self, module: nn.Module, X: torch.Tensor, Y: torch.Tensor,
@@ -724,13 +763,23 @@ class TrainLoop:
             raise ValueError(
                 f"Dataset has {dataset.size} examples < batch_size={batch_size}; "
                 f"the epoch would run zero steps")
+        fast = on_metrics is None and self._fits_device_fast_path(dataset)
+        # The replay capsule's pre-epoch state, copied on the device before
+        # the timer (None unless capsules are on). The host-fed path has
+        # no index matrix to replay, so it banks none.
+        snap = self.health.snapshot_state(self.state) if fast else None
         t_epoch = time.monotonic()
+        # Inside the timed region: an injected delay lengthens the epoch
+        # the perf sentinel measures.
+        _chaos.hook("train.epoch", key=str(self._perf_key))
         n_steps = dataset.size // batch_size
-        if on_metrics is None and self._fits_device_fast_path(dataset):
+        poison = self._chaos_poison(n_steps)
+        idx = None
+        if fast:
             X, Y = get_device_dataset(dataset, self.device)
             perm = np.random.default_rng(epoch_seed).permutation(dataset.size)
-            idx = torch.from_numpy(perm[: n_steps * batch_size].reshape(n_steps, batch_size))
-            feed = ResidentFeed(X, Y, idx.to(self.device))
+            idx = perm[: n_steps * batch_size].reshape(n_steps, batch_size)
+            feed = ResidentFeed(X, Y, torch.from_numpy(idx).to(self.device))
             on_step = None
         else:
             feed = HostFeed(dataset.batches(batch_size, shuffle=True, seed=epoch_seed,
@@ -744,22 +793,38 @@ class TrainLoop:
         cost = None if self._warm else profiler.capture_cost(
             self._perf_key, "serial", 1, self.device, _compute_dtype(self.state[0]))
         try:
-            self.state, series = self.program.train_steps(self.state, feed, on_step, cost)
+            self.state, series = self.program.train_steps(self.state, feed, on_step, cost,
+                                                          poison)
         finally:
             if cost is not None:
                 cost.close()
         # The health series reaches the host once, at the epoch boundary.
         out = {k: float(v) for k, v in _reduce_series(series).items()}
         self._record_epoch(t_epoch, feed.feed_s, n_steps)
-        self._health_check(out, t_epoch, epoch_seed)
+        self._health_check(out, t_epoch, epoch_seed, idx, poison, snap)
         return out
 
-    def _health_check(self, out: Dict[str, float], t0: float, epoch_seed: int) -> None:
+    def _chaos_poison(self, n_steps: int) -> Optional[np.ndarray]:
+        """Chaos site ``train.nan``: when an active plane fires it for this
+        loop's key, the ``(n_steps,)`` poison column, ones but a NaN at
+        step ``n_steps // 2``; else None, and the epoch multiplies by
+        nothing (module doc)."""
+        if _chaos.active() is None or _chaos.hook("train.nan", key=str(self._perf_key)) is None:
+            return None
+        poison = np.ones(n_steps, np.float32)
+        poison[n_steps // 2] = np.nan
+        return poison
+
+    def _health_check(self, out: Dict[str, float], t0: float, epoch_seed: int,
+                      idx: Optional[np.ndarray], poison: Optional[np.ndarray],
+                      snapshot) -> None:
         """Epoch-boundary health gate: strip the sentinel keys from the
         caller-visible metric dict and fail the trial fast on a
-        divergence verdict."""
+        divergence verdict. The epoch's indices, poison column and
+        pre-epoch snapshot go to the monitor for its replay capsule."""
         health = {k: out.pop(k) for k in list(out) if k.startswith(_sentinel.PREFIX)}
-        verdict = self.health.observe(health, t0=t0, epoch_seed=epoch_seed)
+        verdict = self.health.observe(health, t0=t0, epoch_seed=epoch_seed, idx=idx,
+                                      poison=poison, snapshot=snapshot)
         if verdict is not None:
             raise DivergenceError(verdict)
 
@@ -835,7 +900,8 @@ class PackedState:
     the stacked Adam moments and a tuple of k counts, ``steps`` the k
     step counts, ``generators`` the k dropout generators and ``hyper``
     the ``(k,)`` float32 hyper vectors on the host (``hyper_dev``: the
-    same on the device, for the forward)."""
+    same on the device, for the forward). ``base`` is the members'
+    architecture (on the meta device): what their leaves' names map to."""
 
     params: Dict[str, torch.Tensor]
     buffers: Dict[str, torch.Tensor]
@@ -844,6 +910,7 @@ class PackedState:
     generators: List[torch.Generator]
     hyper: Dict[str, torch.Tensor]
     hyper_dev: Dict[str, torch.Tensor]
+    base: Optional[nn.Module] = None
 
     @property
     def k(self) -> int:
@@ -900,19 +967,24 @@ class PackedProgram:
             base = self._local.base = copy.deepcopy(self.base)
         return base
 
-    def _step_table(self, state: PackedState, n: int) -> np.ndarray:
+    def _step_table(self, state: PackedState, n: int,
+                    poison: Optional[np.ndarray] = None) -> np.ndarray:
         """``(n, k, 3)`` float32: each member's ``-effective_lr`` from its
-        own step count and its Adam scalars from its own count."""
+        own step count and its Adam scalars from its own count; with
+        ``poison`` (the epoch's ``(n, k)`` chaos columns), ``(n, k, 4)``:
+        each member's poison multiplier last."""
         neg_lr = np.stack([_neg_lr(state.member_hyper(i), s, n)
                            for i, s in enumerate(state.steps)], axis=1)
-        table = np.concatenate([neg_lr[..., None], self.optimizer.step_scalars(state.opt, n)],
-                               axis=2)
-        return np.ascontiguousarray(table, np.float32)
+        parts = [neg_lr[..., None], self.optimizer.step_scalars(state.opt, n)]
+        if poison is not None:
+            parts.append(np.asarray(poison, np.float32).reshape(n, state.k, 1))
+        return np.ascontiguousarray(np.concatenate(parts, axis=2), np.float32)
 
-    def _body(self, state: PackedState, scalars: torch.Tensor,
-              batch: Batch) -> Dict[str, torch.Tensor]:
+    def _body(self, state: PackedState, scalars: torch.Tensor, batch: Batch,
+              poisoned: bool = False) -> Dict[str, torch.Tensor]:
         """One step of every member, in place, reading member i's scalars
-        from ``scalars[i]``. Returns ``(k,)`` metrics."""
+        from ``scalars[i]`` (its poison multiplier last when
+        ``poisoned``). Returns ``(k,)`` metrics."""
         k = state.k
         leaves = list(state.params.values())
         v_loss = vmap(functools.partial(self._member_loss,
@@ -925,10 +997,16 @@ class PackedProgram:
             # gradient of the sum, slice by slice, is each member's own.
             grads = torch.autograd.grad(losses.sum(), leaves)
         with torch.no_grad():
+            if poisoned:
+                # Each member's gradients by its own multiplier: a NaN
+                # stays in the poisoned member's slices.
+                for i in range(k):
+                    torch._foreach_mul_([g[i] for g in grads], scalars[i, -1])
             with record_function("train.adam"):
                 # k lists of updates; each member's -effective_lr, applied
                 # to its slices as a serial step applies its own.
-                updates, state.opt = self.optimizer.update(grads, state.opt, scalars[:, 1:])
+                updates, state.opt = self.optimizer.update(
+                    grads, state.opt, scalars[:, 1:-1] if poisoned else scalars[:, 1:])
                 for i in range(k):
                     torch._foreach_mul_(updates[i], scalars[i, 0])
                     torch._foreach_add_([p[i] for p in leaves], updates[i])
@@ -952,15 +1030,18 @@ class PackedProgram:
         """``(k,)`` (correct, counted) of every member over one shared batch."""
         return self._v_eval(state.params, state.buffers, batch)
 
-    def train_steps(self, state: PackedState, feed, on_step=None,
-                    cost=None) -> Dict[str, torch.Tensor]:
+    def train_steps(self, state: PackedState, feed, on_step=None, cost=None,
+                    poison: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
         """``feed.n_steps`` steps of every member through a StepRunner
         (``state`` is updated in place). Returns the per-step metric
         series, ``(n_steps, k)`` each, on the device. ``cost`` (a
-        profiler ``CostCapture``) counts the first step."""
+        profiler ``CostCapture``) counts the first step; ``poison`` (an
+        ``(n_steps, k)`` float32 matrix) multiplies member i's gradients
+        at step t by its entry ``[t, i]``."""
         n = feed.n_steps
         device = next(iter(state.params.values())).device
-        table = torch.from_numpy(self._step_table(state, n)).to(device)
+        poisoned = poison is not None
+        table = torch.from_numpy(self._step_table(state, n, poison)).to(device)
         scalars = torch.empty_like(table[0])
         steps = list(state.steps)
         sink = _SeriesSink(n)
@@ -976,7 +1057,7 @@ class PackedProgram:
                 on_step(t, metrics)
 
         def body() -> Dict[str, torch.Tensor]:
-            return self._body(state, scalars, feed.batch())
+            return self._body(state, scalars, feed.batch(), poisoned)
 
         if cost is not None:
             body = cost.wrap(body)
@@ -989,12 +1070,15 @@ class PackedProgram:
         return sink.series
 
     def train_epoch(self, state: PackedState, X: torch.Tensor, Y: torch.Tensor,
-                    idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+                    idx: torch.Tensor, poison: Optional[np.ndarray] = None
+                    ) -> Dict[str, torch.Tensor]:
         """One step per row of ``idx`` (``(n_steps, k, batch)`` on the
         device): member i's batch is gathered from the resident ``X``/
-        ``Y`` by ``idx[t, i]``. Returns the last step's ``(k,)`` metrics
-        and the epoch's health series reduced per member, on the device."""
-        return _reduce_series(self.train_steps(state, ResidentFeed(X, Y, idx)))
+        ``Y`` by ``idx[t, i]``, its gradients multiplied by ``poison[t,
+        i]`` where a poison matrix is given. Returns the last step's
+        ``(k,)`` metrics and the epoch's health series reduced per member,
+        on the device."""
+        return _reduce_series(self.train_steps(state, ResidentFeed(X, Y, idx), poison=poison))
 
     def eval_epoch(self, state: PackedState, X: torch.Tensor, Y: torch.Tensor,
                    idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1067,7 +1151,8 @@ class PackedTrainLoop:
             steps=[0] * len(seeds),
             generators=[torch.Generator(device=self.device).manual_seed(int(s)) for s in seeds],
             hyper=hyper,
-            hyper_dev={name: v.to(self.device) for name, v in hyper.items()})
+            hyper_dev={name: v.to(self.device) for name, v in hyper.items()},
+            base=self._fns[0])
         self._set_program()
         self.health = HealthMonitor(f"packed:{id(self)}", k=self.k)
         self.last_verdicts: List[Optional[Dict[str, Any]]] = [None] * self.k
@@ -1216,12 +1301,17 @@ class PackedTrainLoop:
             raise ValueError(
                 f"Dataset has {dataset.size} examples < batch_size={batch_size}; "
                 f"the epoch would run zero steps")
+        # The stacked pre-epoch state for replay capsules, copied on the
+        # device before the timer; sliced per sick member only at a trip.
+        snap = self.health.snapshot_state(self.state)
         t_epoch = time.monotonic()
+        _chaos.hook("train.epoch", key=str(self._perf_key))
         n_steps = dataset.size // batch_size
         # (n_steps, k, batch): each member keeps its own serial permutation.
         idx = np.stack([np.random.default_rng(int(s)).permutation(dataset.size)
                         [: n_steps * batch_size].reshape(n_steps, batch_size)
                         for s in epoch_seeds], axis=1)
+        poison = self._chaos_poison(n_steps)
         if self._fits_device_fast_path(dataset):
             X, Y = get_device_dataset(dataset, self.device)
             feed = ResidentFeed(X, Y, torch.from_numpy(idx).to(self.device))
@@ -1231,7 +1321,7 @@ class PackedTrainLoop:
         cost = None if self._warm else profiler.capture_cost(
             self._perf_key, "packed", self.k, self.device, _compute_dtype(self._fns[0]))
         try:
-            series = self.program.train_steps(self.state, feed, cost=cost)
+            series = self.program.train_steps(self.state, feed, cost=cost, poison=poison)
         finally:
             if cost is not None:
                 cost.close()
@@ -1239,16 +1329,36 @@ class PackedTrainLoop:
         host = {key: v.cpu().numpy() for key, v in metrics.items()}
         rows = [{key: float(v[i]) for key, v in host.items()} for i in range(self.k)]
         self._record_epoch(t_epoch, feed.feed_s, n_steps)
-        return self._health_check(rows, t_epoch, epoch_seeds)
+        return self._health_check(rows, t_epoch, epoch_seeds, idx, poison, snap)
+
+    def _chaos_poison(self, n_steps: int) -> Optional[np.ndarray]:
+        """Chaos site ``train.nan``, one hook key per live member
+        (``f"{perf_key}@m{i}"``; ``@`` because the spec grammar reserves
+        ``:``), so ``match=@m2`` picks which member diverges: the
+        ``(n_steps, k)`` poison matrix, ones but a NaN at step
+        ``n_steps // 2`` of each hit member; None when no member was hit."""
+        if _chaos.active() is None:
+            return None
+        hit = [i for i in range(self.k)
+               if _chaos.hook("train.nan", key=f"{self._perf_key}@m{i}") is not None]
+        if not hit:
+            return None
+        poison = np.ones((n_steps, self.k), np.float32)
+        poison[n_steps // 2, hit] = np.nan
+        return poison
 
     def _health_check(self, rows: List[Dict[str, float]], t0: float,
-                      epoch_seeds: Sequence[int]) -> List[Dict[str, float]]:
+                      epoch_seeds: Sequence[int], idx: np.ndarray,
+                      poison: Optional[np.ndarray], snapshot) -> List[Dict[str, float]]:
         """Strip the sentinel keys from the members' rows and leave one
-        Optional[verdict] per live member on ``last_verdicts``."""
+        Optional[verdict] per live member on ``last_verdicts``. A pack
+        never raises: its survivors train on, and ``TorchModel.train_packed``
+        evicts the sick members."""
         health_rows = [{k: v for k, v in r.items() if k.startswith(_sentinel.PREFIX)}
                        for r in rows]
-        self.last_verdicts = self.health.observe_pack(health_rows, t0=t0,
-                                                      epoch_seeds=list(epoch_seeds))
+        self.last_verdicts = self.health.observe_pack(
+            health_rows, t0=t0, epoch_seeds=list(epoch_seeds), idx=idx, poison=poison,
+            snapshot=snapshot)
         return [{k: v for k, v in r.items() if not k.startswith(_sentinel.PREFIX)}
                 for r in rows]
 

@@ -9,8 +9,9 @@ trials (knobs JSON, score, params ref, status, logs), inference jobs
 and services, and the recovery queries (``mark_trial_as_running``,
 the compare-and-swap ``adopt_trial``, ``mark_trial_as_terminated``,
 ``get_orphaned_trials``) in the same SQL, so either package adopts the
-other's orphans. The dead-supervisor query of the sweep resume and the
-chaos hook on service heartbeats are not ported yet. Writes are short
+other's orphans. A service heartbeat passes the ``store.heartbeat``
+chaos site (``skip`` ages the lease the orphan sweep reads). The
+dead-supervisor query of the sweep resume is not ported yet. Writes are short
 transactions; trial claiming uses an atomic UPDATE so concurrent
 workers never double-run a trial.
 """
@@ -520,6 +521,14 @@ class MetaStore:
 
     def update_service(self, service_id: str, status: Optional[str] = None,
                        heartbeat: bool = False) -> None:
+        if heartbeat:
+            # A skipped service heartbeat ages the lease the orphan sweep
+            # (get_orphaned_trials) reads: a wedged worker, not a dead one.
+            # Status updates are never skipped: they are state, not liveness.
+            from rafiki_tpu_torch.chaos import hook as _chaos
+
+            if _chaos("store.heartbeat", service_id) == "skip":
+                heartbeat = False
         with self._conn() as c:
             if status is not None:
                 c.execute("UPDATE services SET status=? WHERE id=?", (status, service_id))

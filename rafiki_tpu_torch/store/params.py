@@ -4,7 +4,10 @@ The port's own copy of ``rafiki_tpu/store/params.py`` ``ParamsStore``,
 with the same file layout (``<dir>/<params_id>.params``: a sha256 hex
 digest line, then the blob) and the mid-trial checkpoint namespace
 (``<trial>_ckpt_<step>``), so either package reads what the other
-wrote. Dropped: the chaos hook on writes.
+wrote. Every write passes the ``store.params_write`` chaos site, keyed
+by the params id (``delay``: a slow disk; ``error``: a failed write,
+:class:`rafiki_tpu_torch.chaos.ChaosError`, an OSError; ``match=_ckpt_``
+aims at checkpoints only).
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ import os
 import uuid
 from pathlib import Path
 from typing import List, Optional
+
+from rafiki_tpu_torch.chaos import hook as _chaos
 
 
 class ParamsStore:
@@ -33,6 +38,7 @@ class ParamsStore:
 
     def save(self, blob: bytes, params_id: Optional[str] = None) -> str:
         params_id = params_id or uuid.uuid4().hex
+        _chaos("store.params_write", params_id)  # delay=slow disk, error=failed write
         path = self._path(params_id)
         tmp = path.with_suffix(".tmp")
         digest = hashlib.sha256(blob).hexdigest().encode()

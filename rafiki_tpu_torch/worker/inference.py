@@ -19,8 +19,12 @@ traced query journals its pop (``bus/pop_query``) under its own trace,
 and the batch's forward span binds to the first trace of the batch, as
 in the JAX package, so a gateway query stitches across the worker.
 
+Each forward passes the ``inference.forward`` chaos site, keyed by the
+worker id (a ``delay`` is a stuck replica whose lease stays fresh; an
+``error`` a failing forward, answered as one).
+
 Not in the port yet: the process entrypoint, co-hosted job ids, and
-the hop and chaos hooks.
+the hop marks.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import contextlib
 import threading
 from typing import Any, List, Optional
 
-from rafiki_tpu_torch import telemetry
+from rafiki_tpu_torch import chaos, telemetry
 from rafiki_tpu_torch.obs import context as trace_context
 from rafiki_tpu_torch.obs.journal import journal as _journal
 from rafiki_tpu_torch.predictor.predictor import BATCH_KEY
@@ -99,6 +103,7 @@ class InferenceWorker:
                 spans.append((len(flat), 1, False))
                 flat.append(q)
         try:
+            chaos.hook("inference.forward", self.worker_id)
             with bind, telemetry.span("inference.forward", worker_id=self.worker_id):
                 flat_preds = self.model.predict(flat)
             telemetry.inc("inference.queries_served", len(flat))

@@ -60,9 +60,17 @@ trace, minted fresh, and one goodput-ledger entity (``trial:<id>``,
 ``trial/epoch_eval`` (the learning-curve record, with the trial's
 wall seconds so far). All of it is a no-op unless the process journals.
 
-Not ported yet: the pack's ``run_assigned`` and ``PackAborted`` (the
-mesh sweep), the learning-curve coordinator (early kill, speculation),
-and the chaos hooks.
+Chaos: whenever a plane is active (``rafiki_tpu_torch/chaos``), each
+epoch's checkpoint sink is wired, checkpointing on or off, and passes
+the ``worker.epoch`` site, keyed by the worker id, AFTER that epoch's
+checkpoint write: a kill-at-epoch-N fault lands with epoch N durable.
+
+``PackedTrialRunner.run_assigned`` trains rows its caller claimed as
+one pack (the chaos scenarios drive it); a drained budget does not
+refill an evicted slot.
+
+Not ported yet: ``PackAborted`` and ``run_assigned``'s abort (the mesh
+sweep) and the learning-curve coordinator (early kill, speculation).
 """
 
 from __future__ import annotations
@@ -75,7 +83,7 @@ import time
 import traceback
 from typing import Any, Dict, List, Optional, Protocol
 
-from rafiki_tpu_torch import telemetry
+from rafiki_tpu_torch import chaos, telemetry
 from rafiki_tpu_torch.config import get_config
 from rafiki_tpu_torch.constants import BudgetType, TrialStatus
 from rafiki_tpu_torch.model.base import BaseModel, TorchModel, load_model_class
@@ -283,7 +291,8 @@ class TrainWorker:
             self.store.mark_trial_as_errored(tid, f"diverged: {e}")
             events.emit("trial_diverged", trial_id=tid, worker_id=self.worker_id,
                         divergence=v.get("divergence"), bad_step=v.get("bad_step"),
-                        diagnosis=v.get("diagnosis"))
+                        capsule=v.get("capsule"), diagnosis=v.get("diagnosis"))
+            _health.note_contained()
             self._floor_feedback(knobs)
             return self.store.get_trial(tid)
         except Exception:
@@ -326,11 +335,16 @@ class TrainWorker:
                     events.emit("checkpoint_restore_failed", trial_id=tid,
                                 worker_id=self.worker_id,
                                 error=traceback.format_exc(limit=5))
+        # The sink is also the per-epoch chaos site (worker.epoch), so it is
+        # wired whenever a plane is active, checkpointing on or off.
         every = self.checkpoint_every
-        if every > 0 and hasattr(model, "set_checkpoint_sink"):
+        if (every > 0 or chaos.active() is not None) and hasattr(model, "set_checkpoint_sink"):
             def sink(epoch: int, make_blob) -> None:
-                if (epoch + 1) % every == 0:
+                if every > 0 and (epoch + 1) % every == 0:
                     self._save_checkpoint(tid, epoch, make_blob)
+                # After the write: a kill-at-epoch-N fault lands with epoch
+                # N's checkpoint durable.
+                chaos.hook("worker.epoch", key=self.worker_id)
 
             model.set_checkpoint_sink(sink)
 
@@ -569,6 +583,19 @@ class PackedTrialRunner:
             return (1 if out is not None else 0), drained
         return self._train_rows(rows, budget_max, drained)
 
+    def run_assigned(self, rows: "List[tuple[str, Knobs]]",
+                     budget_max: Optional[int] = None) -> int:
+        """Train trial rows the caller already claimed, ``[(trial id,
+        knobs), ...]``, as one pack. A freed slot is backfilled only while
+        ``budget_max`` has room: with the budget drained, an evicted
+        member's slot stays empty and the pack's member indices stay
+        put. Returns the number of rows carried to an end (completed or
+        errored), backfills included."""
+        if not rows:
+            return 0
+        n, _ = self._train_rows(list(rows), budget_max, False)
+        return n
+
     def _train_rows(self, rows: "List[tuple[str, Knobs]]", budget_max: Optional[int],
                     drained: bool) -> "tuple[int, bool]":
         w = self.w
@@ -639,12 +666,16 @@ class PackedTrialRunner:
                 # Per-epoch checkpoints of the whole pack: one serial-
                 # format checkpoint per member, so a killed pack's
                 # members resume serially, each from its newest epoch.
+                # Wired whenever a chaos plane is active too: the sink is
+                # the pack's worker.epoch site, as the serial one.
                 every = w.checkpoint_every
                 ckpt_sink = None
-                if every > 0:
+                if every > 0 or chaos.active() is not None:
                     def ckpt_sink(epoch: int, make_blobs) -> None:
-                        if (epoch + 1) % every == 0:
+                        if every > 0 and (epoch + 1) % every == 0:
                             self._save_pack_checkpoints(rows, epoch, make_blobs)
+                        # After the writes: every member's epoch is durable.
+                        chaos.hook("worker.epoch", key=w.worker_id)
 
                 with telemetry.span("trial_pack.train"):
                     histories = w.model_class.train_packed(
@@ -700,7 +731,7 @@ class PackedTrialRunner:
                 w.store.mark_trial_as_errored(tid, f"diverged: {v.get('diagnosis')}")
                 events.emit("trial_diverged", trial_id=tid, worker_id=w.worker_id,
                             divergence=v.get("divergence"), bad_step=v.get("bad_step"),
-                            diagnosis=v.get("diagnosis"))
+                            capsule=v.get("capsule"), diagnosis=v.get("diagnosis"))
                 _health.note_contained()
                 w._floor_feedback(kn)
                 models[i].destroy()

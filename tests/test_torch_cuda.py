@@ -668,3 +668,58 @@ def test_card_counted_step_equals_its_cpu_count_and_has_an_mfu(cuda, tmp_path):
     assert recs and all(r["steps"] == 512 // 64 for r in recs)
     if profiler.card_model(torch.cuda.get_device_name(0)) is not None:
         assert card.get("mfu") is not None and 0 < card["mfu"] < 1
+
+
+def test_card_capsule_replays_in_a_fresh_process(cuda, tmp_path):
+    """A VGG trial (dropout 0.1) NaN-poisoned on the card banks a capsule;
+    ``python -m rafiki_tpu_torch.obs replay <capsule> --json`` in a fresh
+    process on the card reproduces its bad step bit for bit (8 steps an
+    epoch: the bad step is 4, so 5 steps replay, the last 2 captured),
+    under the capture's switches. A copy of the capsule with the dropout
+    generator reseeded does not reproduce."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from rafiki_tpu_torch.chaos import FaultPlane, install, uninstall
+    from rafiki_tpu_torch.models.vgg import Vgg
+    from rafiki_tpu_torch.obs.health import DivergenceError
+    from rafiki_tpu_torch.obs.journal import journal
+
+    uri = "synthetic://images?classes=10&n=512&w=32&h=32&c=3&seed=0"
+    journal.configure(tmp_path, role="card-test")
+    install(FaultPlane.from_spec("seed=3;train.nan:nan:times=1"))
+    try:
+        with pytest.raises(DivergenceError) as err:
+            Vgg(device=cuda, **dict(SMALL, dropout=0.1)).train(uri)
+    finally:
+        uninstall()
+        journal.close()
+    cap = err.value.verdict["capsule"]
+    assert cap is not None and err.value.verdict["bad_step"] == 4
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "RAFIKI_CHAOS"}
+    env["PYTHONPATH"] = repo
+    out = subprocess.run([sys.executable, "-m", "rafiki_tpu_torch.obs", "replay", cap, "--json"],
+                         cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    verdict = json.loads(out.stdout.strip().splitlines()[-1])
+    assert verdict["reproduced"] and verdict["poisoned"] and verdict["steps_replayed"] == 5
+    assert verdict["captured_env"] == verdict["replay_env"]
+    assert verdict["replay_env"]["device"] == torch.cuda.get_device_name(0)
+    assert verdict["comparisons"]["health_bad_loss"]["match"]
+    # The loss at the bad step rests on the restored dropout stream: a copy
+    # whose generator was reseeded does not reproduce.
+    import pickle
+
+    from rafiki_tpu_torch.model.base import GENERATOR_KEY
+    from rafiki_tpu_torch.obs.health import capsule
+
+    doc = capsule.load(cap)
+    other = torch.Generator(device=cuda).manual_seed(12345).get_state()
+    doc[GENERATOR_KEY] = dict(doc[GENERATOR_KEY], state=bytes(other.numpy()))
+    changed = tmp_path / "changed.rcap"
+    changed.write_bytes(pickle.dumps(doc))
+    result = capsule.replay(changed, device=cuda)
+    assert not result["reproduced"] and result["mismatches"] == ["health_bad_loss"]

@@ -373,3 +373,60 @@ def test_the_obs_cli_reads_journals_without_torch(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "trial_started" in out.stdout and "trial.total" in out.stdout
+
+
+def test_the_chaos_plane_and_a_capsule_replay_run_with_nothing_of_jax_loaded(tmp_path):
+    """The chaos package and the replay capsules import with nothing of JAX
+    or the JAX package loaded; in an interpreter where ``jax`` and
+    ``rafiki_tpu`` cannot be imported at all, a chaos scenario passes on
+    the CPU, and a trial poisoned by ``train.nan`` banks a capsule that
+    ``python -m rafiki_tpu_torch.obs replay <capsule> --device cpu
+    --json`` reproduces."""
+    mods = _port_modules()
+    for name in ("chaos", "chaos.plane", "chaos.runner", "chaos.scenarios",
+                 "obs.health.capsule"):
+        assert f"rafiki_tpu_torch.{name}" in mods
+    blocked = ("jax", "jaxlib", "flax", "optax", "rafiki_tpu")
+    code = (
+        "import contextlib, io, json, runpy, sys\n"
+        f"for name in {blocked!r}: sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import torch\n"
+        "torch.set_num_threads(2)\n"
+        "from rafiki_tpu_torch.chaos import FaultPlane, install, uninstall\n"
+        "from rafiki_tpu_torch.chaos.runner import run_scenario\n"
+        "from rafiki_tpu_torch.models.ff import FeedForward\n"
+        "from rafiki_tpu_torch.obs.health import DivergenceError\n"
+        "from rafiki_tpu_torch.obs.journal import journal\n"
+        "report = run_scenario('checkpoint-write-failure', device='cpu')\n"
+        "assert report.passed, report.to_dict()\n"
+        f"journal.configure({str(tmp_path)!r}, role='test')\n"
+        "install(FaultPlane.from_spec('seed=3;train.nan:nan:times=1'))\n"
+        "m = FeedForward(device='cpu', hidden_layers=1, hidden_units=32, learning_rate=1e-3,\n"
+        "                batch_size=32, epochs=1, seed=0)\n"
+        "try:\n"
+        "    m.train('synthetic://images?classes=4&n=128&w=8&h=8&c=1&seed=0')\n"
+        "    raise SystemExit('no divergence')\n"
+        "except DivergenceError as e:\n"
+        "    cap = e.verdict['capsule']\n"
+        "uninstall()\n"
+        "journal.close()\n"
+        "sys.argv = ['obs', 'replay', cap, '--device', 'cpu', '--json']\n"
+        "out = io.StringIO()\n"
+        "with contextlib.redirect_stdout(out):\n"
+        "    try:\n"
+        "        runpy.run_module('rafiki_tpu_torch.obs', run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, (e.code, out.getvalue())\n"
+        "verdict = json.loads(out.getvalue())\n"
+        "assert verdict['reproduced'] and verdict['steps_replayed'] == 3, verdict\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r}\n"
+        "             and sys.modules[n] is not None)\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "RAFIKI_CHAOS")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

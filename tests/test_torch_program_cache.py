@@ -42,6 +42,16 @@ VGG_VAL = "synthetic://images?classes=4&n=64&w=8&h=8&c=3&seed=1"
 PACKAGES = {"jax": (jax_train, JaxFF, JaxVgg), "port": (port_train, FeedForward, Vgg)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _cold_caches_after():
+    """Leave both packages' process-wide program caches empty: a later
+    test file in this worker (``tests/test_program_cache.py``) counts a
+    build of the programs these tests build as its own miss."""
+    yield
+    jax_train.clear_program_cache()
+    port_train.clear_program_cache()
+
+
 def _ff_knobs(**over):
     knobs = dict(hidden_layers=1, hidden_units=32, learning_rate=1e-3, batch_size=32,
                  epochs=1, seed=0)
