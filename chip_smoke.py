@@ -8,6 +8,7 @@ CUDA card.
     python3 chip_smoke.py --zoo            # phases 17-18 alone: DenseNet job, zoo trials
     python3 chip_smoke.py --obs            # phase 19 alone: journal, profile, trace
     python3 chip_smoke.py --chaos          # phase 20 alone: poisoned pack, replay, scenarios
+    python3 chip_smoke.py --process        # phase 21 alone: subprocess workers, dp mesh
 
 Drives ``rafiki_tpu_torch`` the way a user serves a top-k ensemble,
 the way a tuning job runs and the way a trial trains, at the full width
@@ -220,11 +221,42 @@ Fault injection and divergence capsules:
      of the same kernel nodes (read through libcuda), with no poison
      multiply, and the same step under a firing plane a graph of more;
      the profiler's kernels a step of each are printed beside phase 16's.
-     Then the six chaos
+     Then the six in-process chaos
      scenarios of ``rafiki_tpu_torch/chaos`` run with the card visible,
-     each passing. The line prints the snapshot's device ms an epoch,
+     each passing (the three that kill ProcessScheduler workers need
+     subprocesses, and ``collective-kill-mid-step`` two cards; phase 21
+     runs ``kill-mid-pack-resume`` at the canonical model). The line prints the snapshot's device ms an epoch,
      the capsule's bytes and write seconds, the replay's seconds and the
      phase's.
+
+Process workers and within-trial data parallelism:
+
+ 21. process: (a) phase 6's job (BENCH_SRC, TUNE_TRIALS GP trials on the
+     canonical task) through ``ProcessScheduler.run_train_job(n_workers=1,
+     devices_per_trial=1, advisor_kind="gp")``: one ``python -m
+     rafiki_tpu_torch.worker.main`` subprocess under
+     ``CUDA_VISIBLE_DEVICES=0``, the advisor served over loopback HTTP;
+     its line prints the job wall, completed trials per hour and the
+     worker's spawn-to-first-claim seconds, beside phase 6's in-process
+     job. Fails unless the job COMPLETED with params for every trial,
+     the best score reaches TUNE_TOP1_TARGET, and its top-2 stored blobs
+     serve within SERVED_ACC_ATOL of their stored scores (as 7).
+     (b) ``kill-mid-pack-resume`` at the canonical model: a k=PACK_K pack
+     of PROC_PACK_SRC trials (batch 128, 3 epochs on PROC_URI) under the
+     scheduler with the JAX package's spec and env (PROC_KILL_SPEC,
+     PROC_KILL_ENV): the worker SIGKILLs itself after epoch 1 and the
+     respawned ``-r1`` worker resumes all four members from their slice
+     checkpoints. Fails unless all four COMPLETED under ``-r1``, each
+     resumed from epoch 1 or later, no checkpoint is left, and each
+     member's float32 params are byte-equal to an unfaulted serial run
+     of its knobs in this process. (c) the canonical trial (TRAIN_KNOBS,
+     two epochs on PROC_URI) with ``set_mesh(data_parallel_mesh(...))``
+     over a one-rank NCCL group, against the same trial with no mesh:
+     fails unless the params are byte-equal (an all-reduce over one rank
+     and the division by 1 change no bit) and the dp trial replayed no
+     captured step (its steps run eagerly); prints the warm epoch's ms a
+     step of both paths. Width 2 and more need two cards; the CPU tests
+     show them over gloo.
 
 Every training phase runs its epochs as captured CUDA graphs
 (``ops/graphs.py``). Each phase's line carries its seconds
@@ -243,7 +275,7 @@ other trial seeds and 4 other query sets, and prints the readings.
 card, so two checkouts can be compared in one call. ``--zoo`` runs only
 phases 17 and 18, ``--obs`` only phase 19, ``--chaos`` only phase 20
 (its clean-step check then holds the two runs of phase 20 to each
-other, with no phase 16 count to add). ``--resume-child`` is the
+other, with no phase 16 count to add), ``--process`` only phase 21. ``--resume-child`` is the
 child worker of phases 14 and 15; it journals when its parent sets
 ``RAFIKI_LOG_DIR``.
 """
@@ -1073,8 +1105,8 @@ def _analyze_profile(prof, n, wall_us, event_ms, bs, card, phase):
     and idle share, device kernels and host launch calls (kernel and
     graph launches, async copies), the device and host time of the
     step's forward, Adam and sentinel ranges where the steps ran them
-    eagerly (the backward: what they leave), and the costliest
-    operators, per step."""
+    eagerly, and of a dp step's all-reduce and host feed ranges (the
+    backward: what they leave), and the costliest operators, per step."""
     import torch
 
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
@@ -1099,7 +1131,8 @@ def _analyze_profile(prof, n, wall_us, event_ms, bs, card, phase):
     # so its kernels are what the ranges leave of the total. A replayed
     # graph runs no range.
     parts = {}
-    for name in ("train.forward", "train.adam", "train.sentinel"):
+    for name in ("train.forward", "train.adam", "train.sentinel", "train.all_reduce",
+                 "train.feed"):
         evs = [e for e in events if e.name == name and e.device_type == cpu]
         if not evs:
             continue
@@ -2826,7 +2859,8 @@ def _captured_serial_step(card, label, profile=True):
 def chaos(card, phase16_nodes=None):
     """Phase 20 (and ``--chaos``): the NaN-poisoned pack contained, its
     capsule replayed in a fresh process, the clean step's kernels, and
-    the six chaos scenarios. Returns the phase's line and its failures."""
+    the six in-process chaos scenarios. Returns the phase's line and its
+    failures."""
     import os
     import shutil
     import tempfile
@@ -2837,6 +2871,7 @@ def chaos(card, phase16_nodes=None):
     from rafiki_tpu_torch import chaos as chaos_plane
     from rafiki_tpu_torch import telemetry
     from rafiki_tpu_torch.chaos.runner import format_report, run_scenarios
+    from rafiki_tpu_torch.chaos.scenarios import SCENARIOS, SUBPROCESS_SCENARIOS
     from rafiki_tpu_torch.model.base import load_model_class
     from rafiki_tpu_torch.model.knobs import knob_config_signature
     from rafiki_tpu_torch.obs.health import DivergenceError, capsule
@@ -3080,9 +3115,9 @@ def chaos(card, phase16_nodes=None):
         shutil.rmtree(tmp, ignore_errors=True)
     line.update(_graph_since(graphs))
 
-    # -- 4. the six scenarios, with the card visible ----------------------------------
+    # -- 4. the six in-process scenarios, with the card visible ----------------------
     t0 = time.monotonic()
-    reports = run_scenarios(device="cuda")
+    reports = run_scenarios(sorted(set(SCENARIOS) - SUBPROCESS_SCENARIOS), device="cuda")
     line["scenarios_s"] = time.monotonic() - t0
     line["scenarios"] = {r.name: {"passed": r.passed, "s": r.duration_s,
                                   "fired": len(r.schedule)} for r in reports}
@@ -3100,6 +3135,296 @@ def chaos_phase(card, check, phase16_nodes=None) -> None:
     print(json.dumps(line))
     for msg in bad:
         check(False, msg)
+
+
+# -- phase 21: process workers and within-trial data parallelism ----------------
+# (a) phase 6's job through the ProcessScheduler: one subprocess worker under
+# CUDA_VISIBLE_DEVICES=0, the GP advisor over loopback HTTP.
+# (b) kill-mid-pack-resume at the canonical model: a k=4 pack of PROC_PACK_SRC
+# trials on PROC_URI, 3 epochs, the worker SIGKILLed after epoch 1 (the JAX
+# package's spec and env), its members resumed by the -r1 worker from their
+# slice checkpoints; params stored in float32 and compared byte for byte with
+# unfaulted serial runs of the same knobs.
+# (c) the canonical trial (TRAIN_KNOBS, two epochs on PROC_URI) on a one-rank
+# NCCL dp mesh against the same trial with no mesh: the params byte for byte,
+# and the warm epoch's ms a step of each path (the dp step runs eagerly).
+PROC_IMAGES = 10000
+PROC_URI = TRAIN_URI.replace("n=50000", f"n={PROC_IMAGES}")
+PROC_KILL_SPEC = "seed=7;worker.epoch:kill:after=1:times=1:unless=-r"
+PROC_KILL_ENV = {"RAFIKI_CHECKPOINT_EVERY": "1", "RAFIKI_TRIAL_PACK": "4",
+                 "RAFIKI_WORKER_MAX_RESTARTS": "3", "RAFIKI_WORKER_RESTART_BACKOFF_S": "0.2",
+                 "RAFIKI_TPU_SERVING_PARAMS_DTYPE": "float32"}
+# The canonical model at one packing key (batch 128, three epochs), the
+# learning rate below the canonical job's collapse (ROADMAP Queue 3).
+PROC_PACK_SRC = (BENCH_SRC.replace(b"class BenchVgg(Vgg):", b"class ProcPackVgg(Vgg):")
+                 .replace(b"BenchVgg.", b"ProcPackVgg.")
+                 .replace(b'"epochs": FixedKnob(1)', b'"epochs": FixedKnob(3)')
+                 .replace(b'"batch_size": CategoricalKnob([64, 128, 256], affects_shape=True)',
+                          b'"batch_size": FixedKnob(128)')
+                 .replace(b'"learning_rate": FloatKnob(1e-4, 3e-2, is_exp=True)',
+                          b'"learning_rate": FloatKnob(1e-4, 2e-3, is_exp=True)')
+                 .replace(b'"dropout": FloatKnob(0.0, 0.5)', b'"dropout": FloatKnob(0.0, 0.3)'))
+PROC_DP_KNOBS = dict(TRAIN_KNOBS, epochs=2)
+
+
+def _proc_job(tmp, src, name, trials, uri=TRAIN_URI):
+    from rafiki_tpu_torch.store import MetaStore, ParamsStore
+
+    store, params = MetaStore(f"{tmp}/meta.sqlite3"), ParamsStore(f"{tmp}/params")
+    model = store.create_model(name.lower(), "IMAGE_CLASSIFICATION", None, src, name)
+    job = store.create_train_job("proc", "IMAGE_CLASSIFICATION", None, uri, EVAL_URI,
+                                 {"MODEL_TRIAL_COUNT": trials})
+    store.create_sub_train_job(job["id"], model["id"])
+    return store, params, job
+
+
+def process_tune_job(card):
+    """Phase 21 (a): the canonical GP job in a subprocess worker."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from rafiki_tpu_torch.scheduler import ProcessScheduler
+    from rafiki_tpu_torch.utils.events import events
+
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="rafiki-proc-")
+    try:
+        torch.cuda.empty_cache()
+        # The worker's own record of the device it resolved (worker/main.py).
+        events.configure(f"{tmp}/logs")
+        store, params, job = _proc_job(tmp, BENCH_SRC, "BenchVgg", TUNE_TRIALS)
+        t0 = time.monotonic()
+        result = ProcessScheduler(store, params).run_train_job(
+            job["id"], n_workers=1, devices_per_trial=1, advisor_kind="gp", poll_s=0.2)
+        wall = time.monotonic() - t0
+        services = store.get_services_of_job(job["id"])
+        resolved = [[e["device"], e["device_name"]] for e in events.read("worker_device")]
+        best = [dict(t, blob=params.load(t["params_id"])) for t in result.best_trials]
+    finally:
+        events.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    done = [t for t in result.trials if t["status"] == "COMPLETED"]
+    first_claim = min((t["created_at"] for t in result.trials), default=None)
+    line = {"phase": "process_job", "card": card[1], "power_limit": card[2],
+            "status": result.status, "trials": len(result.trials), "completed": len(done),
+            "with_params": sum(bool(t["params_id"]) for t in done),
+            "job_wall_s": wall, "completed_trials_per_hour": 3600.0 * len(done) / wall,
+            "spawn_to_first_claim_s": (first_claim - services[0]["created_at"]
+                                       if first_claim is not None and services else None),
+            "worker_devices": [json.loads(s["devices"]) for s in services],
+            "worker_resolved_devices": resolved,
+            "worker_ids": sorted({t["worker_id"] for t in result.trials}),
+            "best_score": max((t["score"] for t in done), default=None),
+            "top1_target": TUNE_TOP1_TARGET, "errors": result.errors}
+    served = served_accuracy(best, card) if len(best) == 2 else None
+    line["served_abs_diff"] = None if served is None else served["abs_diff"]
+    line["phase_s"] = time.monotonic() - t_phase
+    return line
+
+
+def process_kill_pack(card):
+    """Phase 21 (b): kill-mid-pack-resume at the canonical model."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch
+
+    from rafiki_tpu_torch.model.base import load_model_class
+    from rafiki_tpu_torch.scheduler import ProcessScheduler
+    from rafiki_tpu_torch.utils.events import events
+    from rafiki_tpu_torch.utils.serial import load_flat
+
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="rafiki-prockill-")
+    env = dict(PROC_KILL_ENV, RAFIKI_CHAOS=PROC_KILL_SPEC)
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        torch.cuda.empty_cache()
+        events.configure(f"{tmp}/logs")
+        store, params, job = _proc_job(tmp, PROC_PACK_SRC, "ProcPackVgg", PACK_K, PROC_URI)
+        t0 = time.monotonic()
+        result = ProcessScheduler(store, params).run_train_job(
+            job["id"], n_workers=1, advisor_kind="random", poll_s=0.2)
+        wall = time.monotonic() - t0
+        trials = store.get_trials_of_train_job(job["id"])
+        blobs = {t["id"]: params.load(t["params_id"]) for t in trials if t["params_id"]}
+        left = [t["id"] for t in trials if params.latest_checkpoint(t["id"]) is not None]
+        resumed = {e["trial_id"]: e["from_epoch"] for e in events.read("trial_resumed")}
+        died = [e for e in events.read("worker_died")]
+        # Unfaulted serial runs of the same knobs, in this process.
+        for k in ("RAFIKI_CHAOS", "RAFIKI_CHECKPOINT_EVERY", "RAFIKI_TRIAL_PACK"):
+            os.environ.pop(k, None)
+        cls = load_model_class(PROC_PACK_SRC, "ProcPackVgg")
+        equal = []
+        t_ref = time.monotonic()
+        for t in trials:
+            m = cls(**t["knobs"])
+            m.train(PROC_URI)
+            want = load_flat(pickle.loads(m.dump_parameters())["packed"])
+            m.destroy()
+            got = (load_flat(pickle.loads(blobs[t["id"]])["packed"]) if t["id"] in blobs
+                   else {})
+            equal.append(set(got) == set(want) and all(
+                got[k].dtype == torch.float32 and torch.equal(got[k], want[k]) for k in want))
+        ref_s = _synced_s(t_ref)
+    finally:
+        events.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"phase": "process_kill_pack", "card": card[1], "power_limit": card[2],
+            "status": result.status, "trials": len(trials),
+            "trial_status": [t["status"] for t in trials],
+            "worker_ids": [t["worker_id"] for t in trials],
+            "resumed_from_epoch": [resumed.get(t["id"]) for t in trials],
+            "worker_deaths": len(died), "checkpoints_left": len(left),
+            "params_byte_equal": equal, "job_wall_s": wall, "serial_reference_s": ref_s,
+            "errors": result.errors, "phase_s": time.monotonic() - t_phase}
+
+
+def process_dp_width1(card):
+    """Phase 21 (c): the canonical trial on a one-rank NCCL dp mesh
+    against the trial with no mesh. Each path's epoch 0 is cold and its
+    epoch 1 is timed (host wall and CUDA events, from the end of epoch 0
+    to the end of epoch 1, through the per-epoch checkpoint hook). Then
+    the dp trial runs steps as its epochs run them (``HostFeed`` over
+    the model's dataset, the loop's plan, ``train_steps``) under a
+    ``_StepWindow``: CUDA events over PROFILE_ITERS steps, then
+    ``torch.profiler`` over half as many (``_analyze_profile``:
+    device busy ms, idle share and the ms under each step range,
+    ``train.all_reduce`` and ``train.feed`` included). Phase 16 profiles
+    the captured step without a mesh."""
+    import datetime
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from rafiki_tpu_torch import telemetry
+    from rafiki_tpu_torch.model.dataset import dataset_utils
+    from rafiki_tpu_torch.models.vgg import Vgg
+    from rafiki_tpu_torch.ops.train import HostFeed
+    from rafiki_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    t_phase = time.monotonic()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=120),
+                            device_id=torch.device("cuda", 0))
+    steps = dataset_utils.load(PROC_URI).size // PROC_DP_KNOBS["batch_size"]
+    out = {}
+    try:
+        mesh = data_parallel_mesh([torch.device("cuda", 0)])
+        for label, m_mesh in (("no_mesh", None), ("nccl_width1", mesh)):
+            telemetry.reset()
+            m = Vgg(**PROC_DP_KNOBS)
+            m.set_mesh(m_mesh)
+            seen = {}
+
+            def at_epoch_end(epoch, _make_blob, seen=seen):
+                if epoch == 0:
+                    torch.cuda.synchronize()
+                    seen["t0"] = time.perf_counter()
+                    seen["ev0"] = torch.cuda.Event(enable_timing=True)
+                    seen["ev0"].record()
+                elif epoch == 1:
+                    ev1 = torch.cuda.Event(enable_timing=True)
+                    ev1.record()
+                    ev1.synchronize()
+                    seen["wall_ms"] = (time.perf_counter() - seen["t0"]) / steps * 1e3
+                    seen["event_ms"] = seen["ev0"].elapsed_time(ev1) / steps
+
+            m.set_checkpoint_sink(at_epoch_end)
+            m.train(PROC_URI)
+            torch.cuda.synchronize()
+            snap = telemetry.snapshot()
+            out[label] = {
+                "params": {k: v.detach().cpu().clone() for k, v in m._module.state_dict().items()},
+                "step_ms": seen["wall_ms"], "event_ms": seen["event_ms"],
+                "graph_replays": snap["counters"].get("train.graph_replays", 0.0),
+                "program_key_mesh": m._loop._perf_key[1]}
+            if m_mesh is not None:
+                loop, bs = m._loop, PROC_DP_KNOBS["batch_size"]
+                win = _StepWindow(1, profile_iters=PROFILE_ITERS // 2)
+                feed = HostFeed(m._prepared_dataset(PROC_URI).batches(
+                    bs, shuffle=True, seed=PROC_DP_KNOBS["epochs"], drop_remainder=True),
+                    win.n_steps, loop.device, loop.plan)
+                loop.state, _ = loop.program.train_steps(loop.state, feed, on_step=win,
+                                                         plan=loop.plan)
+                out[label]["profile"] = win.readings(bs, card, f"process_dp_{label}")
+            m.destroy()
+    finally:
+        dist.destroy_process_group()
+    a, b = out["no_mesh"], out["nccl_width1"]
+    equal = set(a["params"]) == set(b["params"]) and all(
+        torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
+    return {"phase": "process_dp_width1", "card": card[1], "power_limit": card[2],
+            "steps_per_epoch": steps, "params_byte_equal": equal,
+            "no_mesh_step_ms": a["step_ms"], "nccl_width1_step_ms": b["step_ms"],
+            "no_mesh_event_ms": a["event_ms"], "nccl_width1_event_ms": b["event_ms"],
+            "nccl_width1_profile": b["profile"],
+            "no_mesh_graph_replays": a["graph_replays"],
+            "nccl_width1_graph_replays": b["graph_replays"],
+            "nccl_program_key_mesh": b["program_key_mesh"],
+            "phase_s": time.monotonic() - t_phase}
+
+
+def process_phase(card, check) -> None:
+    """Phase 21 and its checks (also ``--process``)."""
+    t0 = time.monotonic()
+    job = process_tune_job(card)
+    print(json.dumps(job))
+    check(job["status"] == "COMPLETED" and job["completed"] == TUNE_TRIALS
+          and job["with_params"] == TUNE_TRIALS and not job["errors"],
+          f"process job: {job['status']}, {job['completed']} completed, "
+          f"{job['with_params']} with params, errors {job['errors']}")
+    import torch
+
+    name = torch.cuda.get_device_name(0)
+    check(job["worker_resolved_devices"] == [["cuda:0", name]],
+          f"process job: the worker resolved {job['worker_resolved_devices']}, "
+          f"not cuda:0 on {name}")
+    check(job["best_score"] is not None and job["best_score"] >= TUNE_TOP1_TARGET,
+          f"process job: best score {job['best_score']} < {TUNE_TOP1_TARGET}")
+    check(job["served_abs_diff"] is not None and max(job["served_abs_diff"]) <= SERVED_ACC_ATOL,
+          f"process job: the best trials' served accuracy against their stored scores: "
+          f"{job['served_abs_diff']}")
+    kill = process_kill_pack(card)
+    print(json.dumps(kill))
+    check(kill["status"] == "COMPLETED" and kill["trial_status"] == ["COMPLETED"] * PACK_K,
+          f"process kill: job {kill['status']}, trials {kill['trial_status']}, "
+          f"errors {kill['errors']}")
+    check(kill["worker_deaths"] >= 1 and all("-r1" in (w or "") for w in kill["worker_ids"]),
+          f"process kill: deaths {kill['worker_deaths']}, worker ids {kill['worker_ids']}")
+    check(all(e is not None and e >= 1 for e in kill["resumed_from_epoch"]),
+          f"process kill: resumed from {kill['resumed_from_epoch']}")
+    check(all(kill["params_byte_equal"]) and kill["checkpoints_left"] == 0,
+          f"process kill: params against serial runs {kill['params_byte_equal']}, "
+          f"checkpoints left {kill['checkpoints_left']}")
+    dp = process_dp_width1(card)
+    print(json.dumps(dp))
+    check(dp["params_byte_equal"], "process dp: the width-1 NCCL trial's params differ from "
+                                   "the trial with no mesh")
+    check(dp["nccl_width1_graph_replays"] == 0 and dp["no_mesh_graph_replays"] > 0,
+          f"process dp: replays {dp['no_mesh_graph_replays']} without a mesh, "
+          f"{dp['nccl_width1_graph_replays']} on it (the dp step runs eagerly)")
+    parts = dp["nccl_width1_profile"]["per_part"]
+    check("all_reduce" in parts and "feed" in parts,
+          f"process dp: the profiled dp epoch ran no all-reduce or host feed range: "
+          f"{sorted(parts)}")
+    print(json.dumps({"phase": "process", "card": card[1], "power_limit": card[2],
+                      "phase_s": time.monotonic() - t0}))
 
 
 def main() -> int:
@@ -3122,7 +3447,7 @@ def main() -> int:
         print(card[0])
         print(json.dumps(graph_step(card)))
         return 0
-    if sys.argv[1:] not in ([], ["--zoo"], ["--obs"], ["--chaos"]):
+    if sys.argv[1:] not in ([], ["--zoo"], ["--obs"], ["--chaos"], ["--process"]):
         fail(f"unknown arguments {sys.argv[1:]}")
     card = card_identity()
     print(card[0])
@@ -3155,6 +3480,13 @@ def main() -> int:
             print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
             return 1
         print(json.dumps({"chaos": "ok", "device": torch.cuda.get_device_name(0)}))
+        return 0
+    if sys.argv[1:] == ["--process"]:
+        process_phase(card, check)
+        if failures:
+            print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
+            return 1
+        print(json.dumps({"process": "ok", "device": torch.cuda.get_device_name(0)}))
         return 0
 
     from rafiki_tpu_torch.ops.train import predict
@@ -3429,6 +3761,10 @@ def main() -> int:
     # -- 20. fault injection and divergence capsules ---------------------------------
     torch.cuda.empty_cache()
     chaos_phase(card, check, phase16_nodes)
+
+    # -- 21. process workers and within-trial data parallelism ------------------------
+    torch.cuda.empty_cache()
+    process_phase(card, check)
 
     # -- kernels and the result line -------------------------------------------
     print(json.dumps({"kernels": []}))

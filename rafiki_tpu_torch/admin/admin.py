@@ -10,9 +10,9 @@ The REST app (app.py) is a thin shim over this class, which is equally
 usable in-process.
 
 ``device``: CUDA unless the caller asks for the CPU; it raises without
-CUDA. ``recover_trials`` re-runs orphaned trials on that device. Not
-ported yet: within-trial data parallelism, so ``devices_per_trial``
-must be 1.
+CUDA. ``recover_trials`` re-runs orphaned trials on that device. A
+train job's ``devices_per_trial`` goes to the scheduler's device
+arithmetic (``scheduler/local.py``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -165,9 +165,6 @@ class Admin:
         if not budget:
             raise ValueError("Budget must not be empty "
                              "(e.g. {'MODEL_TRIAL_COUNT': 5})")
-        if devices_per_trial != 1:
-            raise ValueError("devices_per_trial must be 1: within-trial data "
-                             "parallelism is not ported")
 
         if model_names:
             models = []
@@ -185,7 +182,8 @@ class Admin:
                                           val_dataset_uri, budget)
         for m in models:
             self.store.create_sub_train_job(job["id"], m["id"])
-        self.services.create_train_services(job["id"], advisor_kind=advisor_kind)
+        self.services.create_train_services(job["id"], advisor_kind=advisor_kind,
+                                            devices_per_trial=devices_per_trial)
         return _public_train_job(job)
 
     def get_train_job(self, app: str, app_version: int = -1,

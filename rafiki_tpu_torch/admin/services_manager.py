@@ -85,10 +85,11 @@ class ServicesManager:
 
     # -- train services ------------------------------------------------------
 
-    def create_train_services(self, job_id: str, advisor_kind: str = "gp") -> None:
+    def create_train_services(self, job_id: str, advisor_kind: str = "gp",
+                              devices_per_trial: int = 1) -> None:
         """Start the job's worker fleet in the background and return: one
-        worker on the manager's device, or one per card when that device
-        is plain ``cuda``."""
+        worker on the manager's device, or one per ``devices_per_trial``
+        cards when that device is plain ``cuda``."""
         with self._lock:
             if job_id in self._train_jobs and self._train_jobs[job_id].thread.is_alive():
                 raise ValueError(f"Train job {job_id} already has running services")
@@ -100,6 +101,7 @@ class ServicesManager:
             try:
                 with default_device(self.device):
                     scheduler.run_train_job(job_id, devices=devices,
+                                            devices_per_trial=devices_per_trial,
                                             advisor_kind=advisor_kind, stop_event=stop_event)
             except BaseException as e:
                 self.store.update_train_job_status(job_id, TrainJobStatus.ERRORED.value)

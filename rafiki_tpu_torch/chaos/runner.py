@@ -36,7 +36,7 @@ from typing import Dict, List, Optional
 
 from rafiki_tpu_torch import telemetry
 from rafiki_tpu_torch.chaos.plane import ENV_VAR, FaultPlane, install, uninstall
-from rafiki_tpu_torch.chaos.scenarios import SCENARIOS
+from rafiki_tpu_torch.chaos.scenarios import SCENARIOS, SUBPROCESS_SCENARIOS
 from rafiki_tpu_torch.obs import journal as journal_mod
 from rafiki_tpu_torch.obs.journal import journal
 from rafiki_tpu_torch.utils.backend import DeviceLike, default_device
@@ -47,12 +47,8 @@ _RECOVERY_SCENARIOS = frozenset({"checkpoint-write-failure", "drain-under-load"}
 
 # Subprocess-killing scenarios must be reconstructible from the journals
 # alone: after the run, _journal_checks reads the death and recovery
-# story back out of the merged files. None of the three is in this
-# package's registry yet: they come with the process scheduler (ROADMAP
-# Queue 1, item 7), so no scenario run reaches _journal_checks until
-# then; its own test drives it on a hand-made journal.
-_JOURNALED_SCENARIOS = frozenset({"kill-mid-trial-resume", "kill-mid-pack-resume",
-                                  "collective-kill-mid-step"})
+# story back out of the merged files.
+_JOURNALED_SCENARIOS = SUBPROCESS_SCENARIOS
 
 
 @dataclasses.dataclass

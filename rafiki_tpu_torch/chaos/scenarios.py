@@ -2,11 +2,11 @@
 
 The port's own copy of ``rafiki_tpu/chaos/scenarios.py``: the registry,
 its helpers, TorchModel counterparts of ``ChaosFF`` and ``EvictFF``,
-and the six scenarios whose planes the port has, each with the JAX
+and the nine scenarios whose planes the port has, each with the JAX
 package's spec, checks (by name) and vacuous-pass rejection. Each is a
 declarative bundle: a ``RAFIKI_CHAOS`` fault spec, extra environment,
-and a body that stands up a real in-process cluster (sqlite meta
-store, params store, bus, thread workers), lets the injected faults
+and a body that stands up a real cluster (sqlite meta store, params
+store, bus, thread or subprocess workers), lets the injected faults
 land and checks the recovery invariants through ``check()``. The
 runner (``runner.py``) owns env install and teardown, telemetry, the
 journal, the device scope and reporting. Trials train on the runner's
@@ -41,9 +41,25 @@ nan-trial-contained            member 2 of a k=4 pack gets one step's
                                unfaulted serial runs
 =============================  =============================================
 
-The JAX package's other 13 scenarios wait for the planes they drive
-(ROADMAP Queue 1): the kill, collective and process scenarios for the
-process scheduler (item 7), the mesh and sweep scenarios for the mesh
+and three that SIGKILL subprocess workers of the ``ProcessScheduler``
+(``SUBPROCESS_SCENARIOS``; ``collective-kill-mid-step`` trains at width
+2, one device per rank, so on the card it needs two):
+
+=============================  =============================================
+kill-mid-trial-resume          worker SIGKILLs itself after epoch 1 of a
+                               3-epoch trial; the respawned ``-r1`` worker
+                               adopts and resumes it from its checkpoint
+kill-mid-pack-resume           a k=4 pack SIGKILLed after epoch 1: all four
+                               members resume serially from their slice
+                               checkpoints, params bit-matching serial runs
+collective-kill-mid-step       a rank of a width-2 dp group SIGKILLed at its
+                               epoch's collective.step site; the group is
+                               respawned and every rank resumes the orphan
+                               from its checkpoint
+=============================  =============================================
+
+The JAX package's other 10 scenarios wait for the planes they drive
+(ROADMAP Queue 1): the mesh and sweep scenarios for the mesh
 sweep (item 8), ``early-kill-mid-pack-resume`` for the search plane
 (item 9), ``chip-loss-mid-sharded-trial`` for the sharded lane (item
 12), ``stacked-worker-loss-fallback`` for the multiprocessing bus (item
@@ -72,6 +88,10 @@ class Scenario:
 
 
 SCENARIOS: Dict[str, Scenario] = {}
+
+#: The scenarios whose workers are ProcessScheduler subprocesses.
+SUBPROCESS_SCENARIOS = frozenset({"kill-mid-trial-resume", "kill-mid-pack-resume",
+                                  "collective-kill-mid-step"})
 
 
 def scenario(name: str, description: str, spec: str,
@@ -184,6 +204,24 @@ def _params_match_serial(check, params, trials, source=None, cls_name=None,
               "params differ from an unfaulted serial run")
 
 
+def _no_corrupt_checkpoints(check, params, trials):
+    """Completed trials have their mid-trial checkpoints swept (their
+    final params supersede them), and every persisted params blob loads
+    (a torn write would raise here)."""
+    leftovers = []
+    for t in trials:
+        if params.latest_checkpoint(t["id"]) is not None:
+            leftovers.append(t["id"])
+        params.load(t["params_id"])  # digest-verified read; raises if torn
+    check("no_stale_checkpoints", not leftovers,
+          f"checkpoints outlived completion: {leftovers}")
+
+
+def _platform() -> str:
+    """The ProcessScheduler platform of the runner's device."""
+    return "cpu" if _device().type == "cpu" else "cuda"
+
+
 def _journal_has(recs, kind: str, name: str) -> bool:
     return any(r.get("kind") == kind and r.get("name") == name for r in recs)
 
@@ -191,6 +229,60 @@ def _journal_has(recs, kind: str, name: str) -> bool:
 # ---------------------------------------------------------------------------
 # Train-path scenarios
 # ---------------------------------------------------------------------------
+
+@scenario(
+    "kill-mid-trial-resume",
+    "SIGKILL the worker after epoch 1 of a 3-epoch trial; the respawned "
+    "worker must adopt and resume from the epoch-1 checkpoint, then "
+    "finish the remaining budget — no lost or duplicated trial rows.",
+    spec="seed=7;worker.epoch:kill:after=1:times=1:unless=-r",
+    env={"RAFIKI_CHECKPOINT_EVERY": "1", "RAFIKI_WORKER_MAX_RESTARTS": "3",
+         "RAFIKI_WORKER_RESTART_BACKOFF_S": "0.2"},
+)
+def kill_mid_trial_resume(tmp, check: CheckFn) -> None:
+    from rafiki_tpu_torch.scheduler import ProcessScheduler
+
+    store, params, model = _train_env(tmp)
+    job = _make_job(store, model, {"MODEL_TRIAL_COUNT": 2})
+    sched = ProcessScheduler(store, params)
+    result = sched.run_train_job(job["id"], n_workers=1, advisor_kind="random",
+                                 platform=_platform())
+    check("job_completed", result.status == "COMPLETED", result.errors)
+    trials = _check_rows(check, store, job["id"], expect=2)
+    # The kill happened and recovery ran: a trial finished under the
+    # respawned worker (its id carries the restart suffix).
+    resumed = [t for t in trials if "-r" in (t["worker_id"] or "")]
+    check("trial_finished_by_respawned_worker", len(resumed) >= 1,
+          f"worker ids: {[t['worker_id'] for t in trials]}")
+    _no_corrupt_checkpoints(check, params, trials)
+
+
+@scenario(
+    "kill-mid-pack-resume",
+    "The acceptance scenario: a k=4 packed run SIGKILLed mid-pack must "
+    "resume ALL four trials from their per-epoch slice checkpoints; "
+    "resumed final params bit-match an unfaulted serial run.",
+    spec="seed=7;worker.epoch:kill:after=1:times=1:unless=-r",
+    env={"RAFIKI_CHECKPOINT_EVERY": "1", "RAFIKI_TRIAL_PACK": "4",
+         "RAFIKI_WORKER_MAX_RESTARTS": "3",
+         "RAFIKI_WORKER_RESTART_BACKOFF_S": "0.2"},
+)
+def kill_mid_pack_resume(tmp, check: CheckFn) -> None:
+    from rafiki_tpu_torch.scheduler import ProcessScheduler
+
+    store, params, model = _train_env(tmp)
+    job = _make_job(store, model, {"MODEL_TRIAL_COUNT": 4})
+    sched = ProcessScheduler(store, params)
+    result = sched.run_train_job(job["id"], n_workers=1, advisor_kind="random",
+                                 platform=_platform())
+    check("job_completed", result.status == "COMPLETED", result.errors)
+    trials = _check_rows(check, store, job["id"], expect=4)
+    resumed = [t for t in trials if "-r" in (t["worker_id"] or "")]
+    check("all_trials_resumed_by_respawned_worker", len(resumed) == 4,
+          f"worker ids: {[t['worker_id'] for t in trials]}")
+    _no_corrupt_checkpoints(check, params, trials)
+    _params_match_serial(check, params, trials)
+
 
 @scenario(
     "checkpoint-write-failure",
@@ -582,3 +674,30 @@ def nan_trial_contained(tmp, check: CheckFn) -> None:
               "replayed capsule carried no poison column")
 
     _params_match_serial(check, params, completed)
+
+
+@scenario(
+    "collective-kill-mid-step",
+    "SIGKILL a dp-mesh worker inside the collective step path (the "
+    "collective.step site fires each epoch a mesh plan is live). The "
+    "respawned worker must adopt, resume from the epoch checkpoint and "
+    "finish the budget. No bit-match here: dp gradient reduction order "
+    "differs from serial by design.",
+    spec="seed=13;collective.step:kill:after=1:times=1:unless=-r",
+    env={"RAFIKI_CHECKPOINT_EVERY": "1", "RAFIKI_WORKER_MAX_RESTARTS": "3",
+         "RAFIKI_WORKER_RESTART_BACKOFF_S": "0.2"},
+)
+def collective_kill_mid_step(tmp, check: CheckFn) -> None:
+    from rafiki_tpu_torch.scheduler import ProcessScheduler
+
+    store, params, model = _train_env(tmp)
+    job = _make_job(store, model, {"MODEL_TRIAL_COUNT": 2})
+    sched = ProcessScheduler(store, params)
+    result = sched.run_train_job(job["id"], n_workers=1, devices_per_trial=2,
+                                 advisor_kind="random", platform=_platform())
+    check("job_completed", result.status == "COMPLETED", result.errors)
+    trials = _check_rows(check, store, job["id"], expect=2)
+    resumed = [t for t in trials if "-r" in (t["worker_id"] or "")]
+    check("trial_finished_by_respawned_worker", len(resumed) >= 1,
+          f"worker ids: {[t['worker_id'] for t in trials]}")
+    _no_corrupt_checkpoints(check, params, trials)

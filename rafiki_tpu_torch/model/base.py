@@ -32,11 +32,17 @@ checkpoint per member. The health plane's replay capsules
 template's identity (``_health_model_identity``, with the uploaded
 source) and rebuild the trial through ``_dataset_arch`` and
 ``restore_checkpoint``. ``make_optimizer`` is the legacy complete-
-optimizer hook; ``parse_model_install_command`` checks a template's
+optimizer hook (such a template packs too, its members differing only by
+seed); ``parse_model_install_command`` checks a template's
 dependencies.
 
+Within-trial data parallelism: ``set_mesh`` (the scheduler's hook, as
+in the JAX package) makes the trial one rank of a dp mesh
+(``parallel/mesh.py``); ``train`` then runs ``TrainLoop(mesh=...)``.
+A pack takes no mesh.
+
 Not ported yet: the learning-curve kill (so ``train_packed`` takes no
-``kill_predicate``) and the dp mesh.
+``kill_predicate``).
 """
 
 from __future__ import annotations
@@ -141,6 +147,7 @@ class TorchModel(BaseModel):
         self._dataset_meta: Dict[str, Any] = {}
         self._ckpt_sink = None  # set by the worker for mid-trial checkpoints
         self._start_epoch = 0  # > 0 after restore_checkpoint
+        self._mesh = None  # a dp mesh, injected by the worker (set_mesh)
 
     @property
     def _module(self) -> Optional[nn.Module]:
@@ -184,8 +191,9 @@ class TorchModel(BaseModel):
         """Legacy override hook: return a complete optimizer (the lr baked
         in; ``ops/optim.py adam``). A template that overrides it opts out
         of the per-trial lr path: its step applies the optimizer's
-        updates as they are, every knob but the seed keys its program,
-        and its trials do not pack. Prefer ``make_base_optimizer`` and
+        updates as they are, every knob but the seed (and the planned
+        steps) keys its program, so its trials pack only with trials that
+        differ from them by seed. Prefer ``make_base_optimizer`` and
         the lr knob. The default is optax's ``adam(linear_schedule(0,
         lr, warmup))``."""
         return adam(linear_schedule(0.0, self.learning_rate, self._warmup_steps()))
@@ -209,6 +217,12 @@ class TorchModel(BaseModel):
         return np.float32
 
     # -- internal wiring -----------------------------------------------------
+
+    def set_mesh(self, mesh) -> None:
+        """Train this trial as one rank of a dp mesh
+        (``parallel/mesh.py data_parallel_mesh``) on the mesh's device;
+        None trains on one device. Set before ``train``."""
+        self._mesh = mesh
 
     def _dynamic_hyper(self, takes_dropout: bool) -> Dict[str, float]:
         """The per-trial float32 scalars the train step reads."""
@@ -311,7 +325,7 @@ class TorchModel(BaseModel):
         self._loop = _ops.TrainLoop(
             init_fn, fns["apply_eval"], fns["loss_fn"], fns["optimizer"],
             seed=self._seed, hyper=fns["hyper"], program_key=fns["program_key"],
-            device=self.device)
+            device=self.device, mesh=self._mesh)
         self._loop.params.eval()
         self._arch = (num_classes, tuple(input_shape))
 
@@ -376,11 +390,11 @@ class TorchModel(BaseModel):
     def packable(cls) -> bool:
         """Whether instances may join a trial pack. A pack shares one
         device-resident dataset, so a template with its own
-        ``preprocess`` (which may depend on per-trial knobs) may not; and
-        a pack scales each member's updates by its own ``lr``, so neither
-        may a template with its own ``make_optimizer``."""
-        return (cls.preprocess is TorchModel.preprocess
-                and cls.make_optimizer is TorchModel.make_optimizer)
+        ``preprocess`` (which may depend on per-trial knobs) may not. A
+        template with its own ``make_optimizer`` may: its program key
+        bakes every knob but the seed, so its pack's members differ only
+        by seed, and each applies its complete optimizer's updates."""
+        return cls.preprocess is TorchModel.preprocess
 
     def packing_key(self, ds: Dataset):
         """Two models train in one pack iff their keys are equal: the same
@@ -442,6 +456,8 @@ class TorchModel(BaseModel):
 
         if not models:
             return []
+        if any(m._mesh is not None for m in models):
+            raise ValueError("packed trials are single-device; mesh is set")
         if any(m._start_epoch > 0 for m in models):
             raise ValueError("packed trials cannot resume from checkpoint")
         lead = models[0]

@@ -211,14 +211,9 @@ class DeviceSnapshot:
         if not s["packed"]:
             return {k: s[k] for k in ("structure", "params", "opt", "step", "generator",
                                       "hyper")}
-        from rafiki_tpu_torch.ops.optim import ScaleByAdamState
+        from rafiki_tpu_torch.ops.optim import member_opt_state
 
-        opt = s["opt"]
-        if opt.mu is not None:
-            opt = ScaleByAdamState(count=opt.count[j], mu=[m[j] for m in opt.mu],
-                                   nu=[v[j] for v in opt.nu])
-        else:
-            opt = ScaleByAdamState(count=opt.count[j], mu=None, nu=None)
+        opt = member_opt_state(s["opt"], j)
         return {"structure": s["structure"], "params": [p[j] for p in s["params"]],
                 "opt": opt, "step": s["steps"][j], "generator": s["generators"][j],
                 "hyper": {k: v[j].clone() for k, v in s["hyper"].items()}}

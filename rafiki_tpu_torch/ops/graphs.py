@@ -15,7 +15,10 @@ records those launches once and replays them with one host call.
     moments, cuBLAS's and cuDNN's workspaces for the stream, the
     autograd engine's thread), then one capture of the body, then one
     replay for each remaining step. An epoch of at most
-    ``GRAPH_WARMUP_STEPS`` steps runs them all eagerly.
+    ``GRAPH_WARMUP_STEPS`` steps runs them all eagerly;
+  * with ``eager=True`` (a dp epoch, whose step holds an NCCL
+    all-reduce: ``ops/train.py``), every step eagerly on that same
+    side stream, with no capture.
 
 The body reads only device tensors that stay where they are for the
 whole epoch: the params and moments (updated in place), the dataset,
@@ -84,12 +87,14 @@ class StepRunner:
     out. ``generators`` are the CUDA generators the body draws from.
     After :meth:`run`, ``calls`` is how many times the Python body ran
     (eager steps plus the capture), so the caller can move host-side
-    step counts on by the steps it did not run in Python."""
+    step counts on by the steps it did not run in Python. ``eager``
+    runs every step eagerly on the card too (module doc)."""
 
     def __init__(self, device: torch.device, n_steps: int, body: Callable[[], Outputs],
                  prepare: Callable[[int], None], collect: Callable[[int, Outputs], None],
-                 generators: Sequence[torch.Generator] = ()):
+                 generators: Sequence[torch.Generator] = (), eager: bool = False):
         self.device = device
+        self.eager = eager
         self.n_steps = n_steps
         self.body, self.prepare, self.collect = body, prepare, collect
         self.generators = [g for g in generators if g is not None]
@@ -113,7 +118,7 @@ class StepRunner:
             with torch.cuda.stream(stream):
                 for t in range(self.n_steps):
                     self.prepare(t)
-                    if t < GRAPH_WARMUP_STEPS:
+                    if self.eager or t < GRAPH_WARMUP_STEPS:
                         self.collect(t, self.body())
                         self.calls += 1
                         continue

@@ -43,7 +43,13 @@ own scalars, so a member's update is its serial update bit for bit.
 
 ``adam`` and ``linear_schedule`` are optax's complete optimizer and
 schedule, for templates that override ``make_optimizer``: the update is
-the core's, scaled by ``-schedule(count)``.
+the core's, scaled by ``-schedule(count)``. A pack of such a template
+keeps both counts per member, and scales member i's updates by its own
+``-schedule(count_i)``, as its serial trial does.
+
+:func:`member_opt_state` and :func:`map_members` read one member's
+serial-shaped state out of a pack's, and change a pack's members,
+whichever of the two optimizers it holds.
 """
 
 from __future__ import annotations
@@ -75,6 +81,10 @@ class ScaleByAdam:
 
     def init(self, params: Sequence[torch.Tensor]) -> ScaleByAdamState:
         return ScaleByAdamState(count=0, mu=None, nu=None)
+
+    def init_packed(self, k: int) -> ScaleByAdamState:
+        """A fresh pack's state: k counts at 0, no moments yet."""
+        return ScaleByAdamState(count=(0,) * k, mu=None, nu=None)
 
     @staticmethod
     def _bias_correction(beta: float, count: int) -> float:
@@ -184,9 +194,9 @@ class Adam:
     """``optax.adam(learning_rate)``, a complete optimizer: the lr-free
     core, then ``-learning_rate(count)`` with ``count`` the number of
     earlier updates (optax's ``scale_by_schedule``). A train step whose
-    hyper dict has no ``lr`` applies its updates as they are. One trial
-    only: a pack scales by each member's ``hyper["lr"]``. The schedule's
-    value is the third per-step scalar, after the core's two."""
+    hyper dict has no ``lr`` applies its updates as they are. In a pack
+    ``count`` is a tuple of k ints, as the core's. The schedule's value
+    is the third per-step scalar, after the core's two."""
 
     scalar_names = ScaleByAdam.scalar_names + ("neg_schedule",)
 
@@ -199,28 +209,76 @@ class Adam:
     def init(self, params: Sequence[torch.Tensor]) -> AdamState:
         return AdamState(adam=self.core.init(params), count=0)
 
+    def init_packed(self, k: int) -> AdamState:
+        return AdamState(adam=self.core.init_packed(k), count=(0,) * k)
+
+    def _neg_schedule(self, count: int, n: int) -> np.ndarray:
+        return np.asarray([-self.schedule(min(count + t, _COUNT_MAX)) for t in range(n)],
+                          np.float32)
+
     def step_scalars(self, state: AdamState, n: int) -> np.ndarray:
         """``(n, 3)`` float32: the core's bias corrections and
-        ``-schedule(count)`` of each of the next ``n`` updates."""
-        neg = np.asarray([-self.schedule(min(state.count + t, _COUNT_MAX)) for t in range(n)],
-                         np.float32)
-        return np.concatenate([self.core.step_scalars(state.adam, n), neg[:, None]], axis=1)
+        ``-schedule(count)`` of each of the next ``n`` updates; ``(n, k,
+        3)`` for a pack, each member from its own counts."""
+        if isinstance(state.count, int):
+            neg = self._neg_schedule(state.count, n)[:, None]
+        else:
+            neg = np.stack([self._neg_schedule(c, n) for c in state.count], axis=1)[..., None]
+        return np.concatenate([self.core.step_scalars(state.adam, n), neg], axis=-1)
 
     def advance(self, state: AdamState, n: int) -> AdamState:
-        return AdamState(adam=self.core.advance(state.adam, n),
-                         count=min(state.count + n, _COUNT_MAX))
+        if isinstance(state.count, int):
+            count = min(state.count + n, _COUNT_MAX)
+        else:
+            count = tuple(min(c + n, _COUNT_MAX) for c in state.count)
+        return AdamState(adam=self.core.advance(state.adam, n), count=count)
 
     def update(self, grads: Sequence[torch.Tensor], state: AdamState,
-               scalars: Optional[torch.Tensor] = None) -> Tuple[List[torch.Tensor], AdamState]:
+               scalars: Optional[torch.Tensor] = None) -> Tuple[list, AdamState]:
+        """The core's updates scaled by ``-schedule(count)``: one list for
+        one trial, k lists for a pack (``scalars`` ``(k, 3)``), member i's
+        by its own row."""
         grads = list(grads)
         if scalars is None:
             scalars = torch.from_numpy(self.step_scalars(state, 1)[0]).to(grads[0].device)
-        updates, core = self.core.update(grads, state.adam, scalars[:2])
-        torch._foreach_mul_(updates, scalars[2])
-        return updates, AdamState(adam=core, count=min(state.count + 1, _COUNT_MAX))
+        updates, core = self.core.update(grads, state.adam, scalars[..., :2])
+        if isinstance(state.count, int):
+            torch._foreach_mul_(updates, scalars[2])
+        else:
+            for i, member in enumerate(updates):
+                torch._foreach_mul_(member, scalars[i, 2])
+        count = (min(state.count + 1, _COUNT_MAX) if isinstance(state.count, int)
+                 else tuple(min(c + 1, _COUNT_MAX) for c in state.count))
+        return updates, AdamState(adam=core, count=count)
 
 
 def adam(learning_rate: Union[float, Callable[[int], float]], b1: float = 0.9,
          b2: float = 0.999, eps: float = 1e-8) -> Adam:
     """optax's name for the complete optimizer."""
     return Adam(learning_rate, b1, b2, eps)
+
+
+OptState = Union[ScaleByAdamState, AdamState]
+
+
+def member_opt_state(state: OptState, i: int,
+                     take: Callable[[torch.Tensor], torch.Tensor] = lambda t: t) -> OptState:
+    """Member ``i``'s serial-shaped state out of a pack's: its counts and
+    ``take`` of its slices of the moments (``take`` may copy them)."""
+    if isinstance(state, AdamState):
+        return AdamState(adam=member_opt_state(state.adam, i, take), count=state.count[i])
+    if state.mu is None:
+        return ScaleByAdamState(count=state.count[i], mu=None, nu=None)
+    return ScaleByAdamState(count=state.count[i], mu=[take(m[i]) for m in state.mu],
+                            nu=[take(v[i]) for v in state.nu])
+
+
+def map_members(state: OptState, leaf: Callable[[torch.Tensor], torch.Tensor],
+                counts: Callable[[tuple], tuple]) -> OptState:
+    """A pack's state with each stacked moment through ``leaf`` and each
+    tuple of member counts through ``counts`` (to drop or add members)."""
+    if isinstance(state, AdamState):
+        return AdamState(adam=map_members(state.adam, leaf, counts), count=counts(state.count))
+    return ScaleByAdamState(count=counts(state.count),
+                            mu=None if state.mu is None else [leaf(m) for m in state.mu],
+                            nu=None if state.nu is None else [leaf(v) for v in state.nu])

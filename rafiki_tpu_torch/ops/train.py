@@ -88,8 +88,25 @@ Each epoch hands the health monitor its batch indices, its poison
 column and, when replay capsules are on, a copy of the pre-epoch state
 taken on the device before the timer (``obs/health/capsule.py``).
 
-Not ported with this slice: the dp mesh (``_ShardingPlan``; a ``plan``
-other than None is refused) and its ``collective.step`` site.
+Within-trial data parallelism (``_ShardingPlan`` ``:99``, ``TrainLoop(
+mesh=...)``): a width-W trial is W processes of one ``torch.distributed``
+group (``parallel/mesh.py``), each holding the whole replicated state on
+its own device. As in the JAX package, an epoch under a mesh leaves the
+device-resident path: each global batch is formed on the host from the
+epoch's permutation, and each rank takes its rows ``[r*B/W, (r+1)*B/W)``
+(``parallel/multihost.py global_put``). Each rank runs the step on its
+slice; its gradients, loss and float metrics are summed over the group
+with one ``all_reduce`` of a flat buffer and divided by W, before the
+poison multiply, Adam and the sentinels, so every rank applies the same
+update and the sentinels read the global gradient. Dropout draws the
+whole global batch's mask from the trial's generator and keeps the
+rank's rows (:class:`DpGenerator`), so a width-W trial uses the masks of
+the width-1 trial. Eval is replicated: every rank scores the whole set.
+A dp epoch runs its steps EAGERLY, on the card too: no NCCL collective
+is captured in a CUDA graph (``StepRunner(eager=True)``). A failed
+collective raises :class:`CollectiveError`, which no trial containment
+swallows: the group fails and its scheduler respawns it. Each dp epoch
+passes the ``collective.step`` chaos site, keyed ``p<rank>:<worker id>``.
 
 ``torch.inference_mode`` is thread-local, so :func:`predict_proba`
 enters it itself, on whatever thread serves the query.
@@ -120,7 +137,8 @@ from rafiki_tpu_torch.obs.health import sentinel as _sentinel
 from rafiki_tpu_torch.obs.ledger import ledger
 from rafiki_tpu_torch.obs.perf import profiler, slo
 from rafiki_tpu_torch.ops.graphs import StepRunner
-from rafiki_tpu_torch.ops.optim import ScaleByAdamState, adam, scale_by_adam
+from rafiki_tpu_torch.ops.optim import (ScaleByAdamState, adam, map_members, member_opt_state,
+                                        scale_by_adam)
 from rafiki_tpu_torch.utils.backend import DeviceLike, resolve_device
 
 Batch = Dict[str, torch.Tensor]
@@ -162,6 +180,20 @@ class PackedGenerators(tuple):
     a pack's step passes where a serial step passes its one generator."""
 
 
+@dataclass(frozen=True)
+class DpGenerator:
+    """A dp rank's dropout stream: the trial's ``generator``, from which
+    the rank draws the noise of the whole global batch (``world_size``
+    times its own rows along dim 0) and keeps rows ``[rank*b, (rank+1)*b)``.
+    Every rank draws the same global noise and advances its generator as
+    the width-1 trial does, so each rank's mask is its rows of the
+    width-1 mask."""
+
+    generator: torch.Generator
+    rank: int
+    world_size: int
+
+
 def _per_member_rand(x: torch.Tensor, generators: PackedGenerators) -> torch.Tensor:
     """Uniform noise for a pack's dropout: member i's draw comes from
     member i's generator, at member i's shape, as a serial step draws
@@ -185,14 +217,20 @@ def dropout(x: torch.Tensor, rate, generator: Optional[torch.Generator],
     kept elements are scaled by ``1 / max(1 - rate, 1e-6)``. The random
     stream is ``generator``'s (on ``x``'s device); the JAX package's
     threefry stream cannot be matched, so parity is checked at rate 0.
-    In a pack, ``generator`` is the members' :class:`PackedGenerators`.
-    The train step passes the rate as a tensor on ``x``'s device, so a
-    captured step reads it, not a value baked in at capture."""
+    In a pack, ``generator`` is the members' :class:`PackedGenerators`;
+    on a dp rank, a :class:`DpGenerator`. The train step passes the rate
+    as a tensor on ``x``'s device, so a captured step reads it, not a
+    value baked in at capture."""
     if deterministic or generator is None:
         return x
     rate = torch.as_tensor(rate, dtype=torch.float32)
     if isinstance(generator, PackedGenerators):
         noise = _per_member_rand(x, generator)
+    elif isinstance(generator, DpGenerator):
+        b = x.shape[0]
+        noise = torch.rand((b * generator.world_size,) + tuple(x.shape[1:]),
+                           generator=generator.generator, device=x.device)
+        noise = noise[generator.rank * b:(generator.rank + 1) * b]
     else:
         noise = torch.rand(x.shape, generator=generator, device=x.device)
     keep = noise < (1.0 - rate)
@@ -254,15 +292,75 @@ def _module_device(module: nn.Module) -> torch.device:
     return next(module.parameters()).device
 
 
+class CollectiveError(RuntimeError):
+    """A collective of a dp step failed (a peer died, the group timed
+    out). It fails the group, not a trial: the worker lets it through
+    its trial containment and exits, and the scheduler respawns the
+    whole group."""
+
+
+@dataclass
+class _ShardingPlan:
+    """How a trial's steps see its dp mesh (module doc): ``mesh`` None is
+    the single-device trial, whose plan does nothing."""
+
+    mesh: Optional[Any] = None
+
+    def put_batch(self, batch: Dict[str, np.ndarray], device: torch.device) -> Batch:
+        """A host batch on ``device``: the whole of it, or under a mesh
+        this rank's rows of it."""
+        if self.mesh is None:
+            return _put_batch(batch, device)
+        from rafiki_tpu_torch.parallel.multihost import global_put
+
+        return global_put(batch, self.mesh)
+
+    def generator(self, generator: Optional[torch.Generator]):
+        """The dropout stream a step's loss draws from."""
+        if self.mesh is None or generator is None:
+            return generator
+        return DpGenerator(generator, self.mesh.rank, self.mesh.world_size)
+
+    def reduce(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each tensor replaced, in place, by its mean over the mesh's
+        ranks: one ``all_reduce`` (sum) of their float32 concatenation,
+        divided by the world size and copied back. Over one rank the sum
+        and the division by 1 change no bit, and the tensors keep their
+        own storage, so what reads them next runs as without a mesh."""
+        if self.mesh is None:
+            return tensors
+        import torch.distributed as dist
+
+        flat = torch.cat([t.reshape(-1).float() for t in tensors])
+        try:
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.mesh.group)
+        except Exception as e:
+            raise CollectiveError(f"dp all_reduce over {self.mesh.world_size} ranks failed "
+                                  f"on rank {self.mesh.rank}: {e}") from e
+        flat.div_(self.mesh.world_size)
+        at = 0
+        for t in tensors:
+            n = t.numel()
+            t.copy_(flat[at:at + n].reshape(t.shape))
+            at += n
+        return tensors
+
+
+#: The plan of a trial with no mesh.
+_NO_MESH = _ShardingPlan()
+
+
 def _make_step_fns(apply_fn, loss_fn, optimizer, dynamic_lr: bool = True):
     """The single-trial step closures: (train_body, eval_step).
 
     ``apply_fn(module, batch) -> logits`` (eval mode);
     ``loss_fn(module, batch, generator, hyper) -> (loss, metrics)``.
     ``train_body(module, opt_state, generator, hyper, scalars, batch,
-    poisoned)`` runs one step in place and returns ``(opt_state,
-    metrics)``. ``scalars`` is the step's row of :func:`_step_table` on
-    the device: ``-effective_lr`` first when the step scales by it
+    poisoned, plan)`` runs one step in place and returns ``(opt_state,
+    metrics)``; under a dp ``plan`` the loss, float metrics and gradients
+    are averaged over the mesh (:meth:`_ShardingPlan.reduce`) right after
+    the backward pass. ``scalars`` is the step's row of
+    :func:`_step_table` on the device: ``-effective_lr`` first when the step scales by it
     (``dynamic_lr`` and an ``lr`` in ``hyper``; else the optimizer is
     complete, from ``make_optimizer``, and its updates apply as they
     are), then the optimizer's own per-step scalars, then, when
@@ -272,18 +370,23 @@ def _make_step_fns(apply_fn, loss_fn, optimizer, dynamic_lr: bool = True):
     """
 
     def train_body(module: nn.Module, opt_state, generator, hyper: Hyper,
-                   scalars: torch.Tensor, batch: Batch,
-                   poisoned: bool = False) -> Tuple[Any, Dict[str, torch.Tensor]]:
+                   scalars: torch.Tensor, batch: Batch, poisoned: bool = False,
+                   plan: _ShardingPlan = _NO_MESH) -> Tuple[Any, Dict[str, torch.Tensor]]:
         params = list(module.parameters())
         scale = dynamic_lr and "lr" in hyper
         opt_scalars = scalars[1:] if scale else scalars
         if poisoned:
             opt_scalars = opt_scalars[:-1]
+        dp = plan.mesh is not None
         with torch.enable_grad():
             with record_function("train.forward"):
-                loss, metrics = loss_fn(module, batch, generator, hyper)
+                loss, metrics = loss_fn(module, batch, plan.generator(generator), hyper)
             grads = list(torch.autograd.grad(loss, params))
         with torch.no_grad():
+            if dp:
+                with record_function("train.all_reduce"):
+                    plan.reduce([loss] + [v for v in metrics.values() if v.is_floating_point()]
+                                + grads)
             if poisoned:
                 torch._foreach_mul_(grads, scalars[-1])
             with record_function("train.adam"):
@@ -381,23 +484,27 @@ class HostFeed:
     """Each step's batch from the host: ``n_steps`` numpy batches, each
     copied to the device (from pinned memory, non-blocking) right after
     the previous step is dispatched, then into static slots before its
-    own step. ``feed_s`` sums the host seconds of the copies."""
+    own step. ``feed_s`` sums the host seconds of the copies. ``plan``
+    puts each batch (under a dp mesh, this rank's rows of it). Drawing
+    and putting a batch runs under the ``train.feed`` range."""
 
     def __init__(self, batches: Iterator[Dict[str, np.ndarray]], n_steps: int,
-                 device: torch.device):
+                 device: torch.device, plan: _ShardingPlan = _NO_MESH):
         self._batches, self.n_steps, self.device = batches, n_steps, device
+        self._plan = plan
         self.feed_s = 0.0
         self._next = self._put_next()
         self.slots = {k: torch.empty_like(v) for k, v in self._next.items()}
 
     def _put_next(self) -> Optional[Batch]:
-        batch = next(self._batches, None)
-        if batch is None:
-            return None
-        batch.pop("valid", None)
-        t0 = time.monotonic()
-        dev = _put_batch(batch, self.device)
-        self.feed_s += time.monotonic() - t0
+        with record_function("train.feed"):
+            batch = next(self._batches, None)
+            if batch is None:
+                return None
+            batch.pop("valid", None)
+            t0 = time.monotonic()
+            dev = self._plan.put_batch(batch, self.device)
+            self.feed_s += time.monotonic() - t0
         return dev
 
     def prepare(self, t: int) -> None:
@@ -428,7 +535,9 @@ class Program:
     ``train_step`` is one eager step (the plain version, for callers
     that step by hand); ``train_steps``/``train_epoch`` and
     ``eval_epoch`` run an epoch, captured on the card
-    (``ops/graphs.py``).
+    (``ops/graphs.py``). The dp plan is the caller's, passed per call
+    (``plan``), so a cached Program holds no process group; under a
+    mesh the epoch's steps run eagerly.
     """
 
     def __init__(self, apply_fn, loss_fn, optimizer, dynamic_lr: bool = True):
@@ -444,9 +553,11 @@ class Program:
         """Class probabilities: the float32 softmax of the logits."""
         return torch.softmax(self.apply_fn(module, batch).float(), dim=-1)
 
-    def train_step(self, state: State, batch: Batch) -> Tuple[State, Dict[str, torch.Tensor]]:
+    def train_step(self, state: State, batch: Batch, plan: _ShardingPlan = _NO_MESH
+                   ) -> Tuple[State, Dict[str, torch.Tensor]]:
         """One step, eagerly: the same body a captured epoch replays, its
-        row of per-step scalars computed and uploaded here."""
+        row of per-step scalars computed and uploaded here. Under a dp
+        ``plan``, ``batch`` is this rank's slice."""
         module, opt_state, step_i, generator, hyper = state
         device = _module_device(module)
         if opt_state is None:
@@ -454,11 +565,12 @@ class Program:
         scalars = torch.from_numpy(_step_table(self.optimizer, opt_state, hyper, step_i, 1,
                                                self._scales(hyper))[0]).to(device)
         opt_state, metrics = self._body(module, opt_state, generator, _on(hyper, device),
-                                        scalars, batch)
+                                        scalars, batch, plan=plan)
         return (module, opt_state, step_i + 1, generator, hyper), metrics
 
     def train_steps(self, state: State, feed, on_step=None, cost=None,
-                    poison: Optional[np.ndarray] = None
+                    poison: Optional[np.ndarray] = None,
+                    plan: _ShardingPlan = _NO_MESH
                     ) -> Tuple[State, Dict[str, torch.Tensor]]:
         """``feed.n_steps`` steps through a :class:`~rafiki_tpu_torch.ops.
         graphs.StepRunner`. Returns the new state and the per-step
@@ -467,7 +579,7 @@ class Program:
         ``cost`` (a profiler ``CostCapture``) counts the first step;
         ``poison`` (an ``(n_steps,)`` float32 column) multiplies each
         step's gradients by its entry; without it the steps multiply by
-        nothing."""
+        nothing. Under a dp ``plan`` every step runs eagerly."""
         module, opt_state, step_i, generator, hyper = state
         n = feed.n_steps
         device = _module_device(module)
@@ -487,7 +599,7 @@ class Program:
 
         def body() -> Dict[str, torch.Tensor]:
             cell[0], metrics = self._body(module, cell[0], generator, hyper_dev, scalars,
-                                          feed.batch(), poisoned)
+                                          feed.batch(), poisoned, plan)
             return metrics
 
         def collect(t: int, metrics: Dict[str, torch.Tensor]) -> None:
@@ -498,7 +610,8 @@ class Program:
 
         if cost is not None:
             body = cost.wrap(body)
-        runner = StepRunner(device, n, body, prepare, collect, generators=[generator])
+        runner = StepRunner(device, n, body, prepare, collect, generators=[generator],
+                            eager=plan.mesh is not None)
         runner.run()
         # The body ran (and counted) once per eager step and once for the
         # capture; the replays moved the device state, not the counts.
@@ -563,11 +676,11 @@ _guard = threading.Lock()
 
 
 def mesh_cache_key(mesh) -> Hashable:
-    """The mesh part of a program key: None without a mesh (the dp mesh
-    is not ported; any other mesh is refused)."""
+    """The mesh part of a program key: None without a mesh, else the
+    mesh's axis names, width and this rank's device."""
     if mesh is None:
         return None
-    raise NotImplementedError("the dp mesh is not ported to rafiki_tpu_torch")
+    return (tuple(mesh.axis_names), int(mesh.world_size), str(mesh.device))
 
 
 def get_program(key: Hashable, builder: Callable[[], Any]) -> Any:
@@ -702,21 +815,33 @@ class TrainLoop:
         ``dropout`` where the module takes a rate. The state keeps them
         on the host; the step reads device copies.
     program_key: optional hashable. When given, the Program comes from
-        the process-wide cache under ``(program_key, mesh_cache_key(None),
+        the process-wide cache under ``(program_key, mesh_cache_key(mesh),
         dynamic_lr)``; the init draw is always this loop's own.
     initial_state: optional ``(module, opt_state, step, generator,
         hyper)`` tuple to adopt instead of running ``init_fn``;
         ``opt_state`` None means no moments yet (a fresh optimizer).
     device: where the trial runs (default the CUDA card; the CPU only
         when asked for).
+    mesh: optional dp mesh (``parallel/mesh.py data_parallel_mesh``) on
+        ``device``: the loop is one rank of a width-W trial (module doc).
     """
 
     def __init__(self, init_fn: Optional[Callable[[torch.Generator], nn.Module]],
                  apply_fn, loss_fn, optimizer=None, seed: int = 0,
                  hyper: Optional[Dict[str, float]] = None,
                  program_key: Optional[Hashable] = None, initial_state=None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         self.device = resolve_device(device)
+        if mesh is not None:
+            # The mesh holds its card by index (data_parallel_mesh); plain
+            # "cuda" is the current card.
+            own = self.device
+            if own.type == "cuda" and own.index is None:
+                own = torch.device("cuda", torch.cuda.current_device())
+            if mesh.device != own:
+                raise ValueError(f"the dp mesh's device {mesh.device} is not the trial's "
+                                 f"{self.device}")
+        self.plan = _ShardingPlan(mesh)
         _deterministic_convs(self.device)
         if optimizer is None:
             optimizer = scale_by_adam() if "lr" in (hyper or {}) else adam(1e-3)
@@ -732,7 +857,7 @@ class TrainLoop:
             return Program(apply_fn, loss_fn, optimizer, dynamic_lr=dynamic_lr)
 
         if program_key is not None:
-            self._perf_key = (program_key, mesh_cache_key(None), dynamic_lr)
+            self._perf_key = (program_key, mesh_cache_key(mesh), dynamic_lr)
             self.program = get_program(self._perf_key, build)
         else:
             self._perf_key = ("serial", "anon", id(self))
@@ -763,7 +888,16 @@ class TrainLoop:
             raise ValueError(
                 f"Dataset has {dataset.size} examples < batch_size={batch_size}; "
                 f"the epoch would run zero steps")
-        fast = on_metrics is None and self._fits_device_fast_path(dataset)
+        mesh = self.plan.mesh
+        if mesh is not None:
+            # A kill keyed to one rank lands while its peers are in (or
+            # headed into) the epoch's all-reduces. The worker id carries
+            # the -rN restart suffix, so `unless=-r` scopes a kill to the
+            # first incarnation.
+            _chaos.hook("collective.step",
+                        key=f"p{mesh.rank}:{os.environ.get('RAFIKI_WORKER_ID', '')}")
+        # Under a mesh each global batch is formed on the host (module doc).
+        fast = on_metrics is None and mesh is None and self._fits_device_fast_path(dataset)
         # The replay capsule's pre-epoch state, copied on the device before
         # the timer (None unless capsules are on). The host-fed path has
         # no index matrix to replay, so it banks none.
@@ -783,7 +917,8 @@ class TrainLoop:
             on_step = None
         else:
             feed = HostFeed(dataset.batches(batch_size, shuffle=True, seed=epoch_seed,
-                                            drop_remainder=True), n_steps, self.device)
+                                            drop_remainder=True), n_steps, self.device,
+                            self.plan)
 
             def on_step(t: int, metrics: Dict[str, torch.Tensor]) -> None:
                 if on_metrics is not None and t % 50 == 0:
@@ -794,7 +929,7 @@ class TrainLoop:
             self._perf_key, "serial", 1, self.device, _compute_dtype(self.state[0]))
         try:
             self.state, series = self.program.train_steps(self.state, feed, on_step, cost,
-                                                          poison)
+                                                          poison, self.plan)
         finally:
             if cost is not None:
                 cost.close()
@@ -905,7 +1040,7 @@ class PackedState:
 
     params: Dict[str, torch.Tensor]
     buffers: Dict[str, torch.Tensor]
-    opt: ScaleByAdamState
+    opt: Any  # ScaleByAdamState, or a make_optimizer template's AdamState
     steps: List[int]
     generators: List[torch.Generator]
     hyper: Dict[str, torch.Tensor]
@@ -945,9 +1080,11 @@ class PackedProgram:
     threads share the cached program.
     """
 
-    def __init__(self, module: nn.Module, apply_fn, loss_fn, optimizer):
+    def __init__(self, module: nn.Module, apply_fn, loss_fn, optimizer,
+                 dynamic_lr: bool = True):
         self.base = copy.deepcopy(module).to("meta")
         self.optimizer = optimizer
+        self.dynamic_lr = dynamic_lr
         self._local = threading.local()
         _, eval_step = _make_step_fns(apply_fn, loss_fn, optimizer)
 
@@ -970,12 +1107,15 @@ class PackedProgram:
     def _step_table(self, state: PackedState, n: int,
                     poison: Optional[np.ndarray] = None) -> np.ndarray:
         """``(n, k, 3)`` float32: each member's ``-effective_lr`` from its
-        own step count and its Adam scalars from its own count; with
-        ``poison`` (the epoch's ``(n, k)`` chaos columns), ``(n, k, 4)``:
-        each member's poison multiplier last."""
-        neg_lr = np.stack([_neg_lr(state.member_hyper(i), s, n)
-                           for i, s in enumerate(state.steps)], axis=1)
-        parts = [neg_lr[..., None], self.optimizer.step_scalars(state.opt, n)]
+        own step count and its Adam scalars from its own count (without
+        ``dynamic_lr``, a complete optimizer's scalars alone); with
+        ``poison`` (the epoch's ``(n, k)`` chaos columns), each member's
+        poison multiplier last."""
+        parts = [self.optimizer.step_scalars(state.opt, n)]
+        if self.dynamic_lr:
+            neg_lr = np.stack([_neg_lr(state.member_hyper(i), s, n)
+                               for i, s in enumerate(state.steps)], axis=1)
+            parts.insert(0, neg_lr[..., None])
         if poison is not None:
             parts.append(np.asarray(poison, np.float32).reshape(n, state.k, 1))
         return np.ascontiguousarray(np.concatenate(parts, axis=2), np.float32)
@@ -1003,12 +1143,15 @@ class PackedProgram:
                 for i in range(k):
                     torch._foreach_mul_([g[i] for g in grads], scalars[i, -1])
             with record_function("train.adam"):
-                # k lists of updates; each member's -effective_lr, applied
-                # to its slices as a serial step applies its own.
+                # k lists of updates; each member's -effective_lr (or its
+                # complete optimizer's schedule), applied to its slices as
+                # a serial step applies its own.
+                first = 1 if self.dynamic_lr else 0
                 updates, state.opt = self.optimizer.update(
-                    grads, state.opt, scalars[:, 1:-1] if poisoned else scalars[:, 1:])
+                    grads, state.opt, scalars[:, first:-1] if poisoned else scalars[:, first:])
                 for i in range(k):
-                    torch._foreach_mul_(updates[i], scalars[i, 0])
+                    if self.dynamic_lr:
+                        torch._foreach_mul_(updates[i], scalars[i, 0])
                     torch._foreach_add_([p[i] for p in leaves], updates[i])
             with record_function("train.sentinel"):
                 losses = losses.detach()
@@ -1126,9 +1269,13 @@ class PackedTrainLoop:
         keysets = {tuple(sorted(h)) for h in hypers}
         if len(keysets) != 1:
             raise ValueError(f"pack members carry different hyper keys {sorted(keysets)}")
-        if "lr" not in hypers[0]:
-            raise ValueError("a pack scales its updates by each member's hyper['lr']; "
-                             "none was given")
+        # As a serial loop: with an lr in the hyper dicts each member's
+        # updates are scaled by its own; without, the optimizer is
+        # complete (a template's make_optimizer) and the members differ
+        # only in their seeds.
+        self._dynamic_lr = "lr" in hypers[0]
+        if optimizer is None:
+            optimizer = scale_by_adam() if self._dynamic_lr else adam(1e-3)
         self.device = resolve_device(device)
         _deterministic_convs(self.device)
         self.packing_key = packing_key
@@ -1136,8 +1283,7 @@ class PackedTrainLoop:
         draws = [self._draw(s) for s in seeds]
         # The build inputs outlive __init__: evict and admit change the
         # width, and a width change fetches that width's program.
-        self._fns = (copy.deepcopy(draws[0][2]).to("meta"), apply_fn, loss_fn,
-                     optimizer if optimizer is not None else scale_by_adam())
+        self._fns = (copy.deepcopy(draws[0][2]).to("meta"), apply_fn, loss_fn, optimizer)
         self._program_key = program_key
         names, buffer_names = list(draws[0][0]), list(draws[0][1])
         hyper = {name: torch.tensor([float(h[name]) for h in hypers], dtype=torch.float32)
@@ -1147,7 +1293,7 @@ class PackedTrainLoop:
                     for n in names},
             buffers={n: torch.stack([d[1][n] for d in draws]).to(self.device)
                      for n in buffer_names},
-            opt=ScaleByAdamState(count=(0,) * len(seeds), mu=None, nu=None),
+            opt=optimizer.init_packed(len(seeds)),
             steps=[0] * len(seeds),
             generators=[torch.Generator(device=self.device).manual_seed(int(s)) for s in seeds],
             hyper=hyper,
@@ -1170,10 +1316,10 @@ class PackedTrainLoop:
         module, apply_fn, loss_fn, optimizer = self._fns
 
         def build() -> PackedProgram:
-            return PackedProgram(module, apply_fn, loss_fn, optimizer)
+            return PackedProgram(module, apply_fn, loss_fn, optimizer, self._dynamic_lr)
 
         if self._program_key is not None:
-            self._perf_key = packed_program_key(self._program_key, self.k, True)
+            self._perf_key = packed_program_key(self._program_key, self.k, self._dynamic_lr)
             self.program = get_program(self._perf_key, build)
         else:
             self._perf_key = ("packed", "anon", id(self), self.k)
@@ -1206,10 +1352,9 @@ class PackedTrainLoop:
         if not (0 <= i < self.k):
             raise IndexError(f"member {i} out of pack of {self.k}")
         st = self.state
-        opt = None
-        if st.opt.mu is not None:
-            opt = ScaleByAdamState(count=st.opt.count[i], mu=[m[i].clone() for m in st.opt.mu],
-                                   nu=[v[i].clone() for v in st.opt.nu])
+        opt = member_opt_state(st.opt, i, torch.clone)
+        if isinstance(opt, ScaleByAdamState) and opt.mu is None:
+            opt = None  # no update yet: a fresh optimizer
         hyper = {name: v[i].clone() for name, v in st.hyper.items()}
         return (self._member_module(i), opt, st.steps[i], st.generators[i], hyper)
 
@@ -1236,10 +1381,7 @@ class PackedTrainLoop:
 
         st.params = {n: drop(p).requires_grad_() for n, p in st.params.items()}
         st.buffers = {n: drop(b) for n, b in st.buffers.items()}
-        counts = st.opt.count[:i] + st.opt.count[i + 1:]
-        st.opt = ScaleByAdamState(
-            count=counts, mu=None if st.opt.mu is None else [drop(m) for m in st.opt.mu],
-            nu=None if st.opt.nu is None else [drop(v) for v in st.opt.nu])
+        st.opt = map_members(st.opt, drop, lambda c: c[:i] + c[i + 1:])
         st.steps = st.steps[:i] + st.steps[i + 1:]
         st.generators = st.generators[:i] + st.generators[i + 1:]
         st.hyper = {n: drop(v) for n, v in st.hyper.items()}
@@ -1266,12 +1408,10 @@ class PackedTrainLoop:
 
         st.params = {n: add(p, params[n]).requires_grad_() for n, p in st.params.items()}
         st.buffers = {n: add(b, buffers[n]) for n, b in st.buffers.items()}
-        if st.opt.mu is not None:
-            # Zero moments: the first update from them is the serial
-            # first update (whose moments start as zeros).
-            st.opt.mu = [add(m, torch.zeros_like(m[0])) for m in st.opt.mu]
-            st.opt.nu = [add(v, torch.zeros_like(v[0])) for v in st.opt.nu]
-        st.opt = ScaleByAdamState(count=st.opt.count + (0,), mu=st.opt.mu, nu=st.opt.nu)
+        # Zero moments: the first update from them is the serial first
+        # update (whose moments start as zeros).
+        st.opt = map_members(st.opt, lambda m: add(m, torch.zeros_like(m[0])),
+                             lambda c: c + (0,))
         st.steps = st.steps + [0]
         st.generators = st.generators + [torch.Generator(device=self.device).manual_seed(int(seed))]
         value = {n: torch.tensor([float(hyper[n])], dtype=torch.float32) for n in hyper}
@@ -1483,34 +1623,30 @@ def predict_proba(module: nn.Module, x: np.ndarray, batch_size: int,
 # ---------------------------------------------------------------------------
 
 
-def _no_plan(plan) -> None:
-    if plan is not None:
-        raise NotImplementedError("the dp mesh is not ported to rafiki_tpu_torch; plan must be None")
-
-
 def _no_loss(module, batch, generator, hyper):
     return torch.zeros(()), {}
 
 
-def make_train_step(loss_fn, optimizer, plan=None, dynamic_lr: bool = False):
+def make_train_step(loss_fn, optimizer, plan: _ShardingPlan = _NO_MESH,
+                    dynamic_lr: bool = False):
     """A train step ``(state, batch) -> (state, metrics)`` over the
     5-tuple state ``(module, opt_state, step, generator, hyper)``; with
     ``dynamic_lr`` the updates are scaled by ``-effective_lr(hyper,
-    step)``. It runs eagerly, one call per step: a captured step needs
-    the static slots of an epoch (``Program.train_steps``)."""
-    _no_plan(plan)
-    return Program(lambda module, batch: None, loss_fn, optimizer,
-                   dynamic_lr=dynamic_lr).train_step
+    step)``; under a dp ``plan`` the batch is the rank's slice and the
+    gradients are averaged over its mesh. It runs eagerly, one call per
+    step: a captured step needs the static slots of an epoch
+    (``Program.train_steps``)."""
+    return functools.partial(Program(lambda module, batch: None, loss_fn, optimizer,
+                                     dynamic_lr=dynamic_lr).train_step, plan=plan)
 
 
-def make_eval_step(apply_fn, plan=None):
+def make_eval_step(apply_fn, plan: _ShardingPlan = _NO_MESH):
     """An eval step ``(module, batch) -> (#correct, #valid)`` on the
-    device."""
-    _no_plan(plan)
+    device. Eval is replicated under a mesh, so ``plan`` changes nothing."""
     return Program(apply_fn, _no_loss, None, dynamic_lr=False).eval_step
 
 
-def make_predict_fn(apply_fn, plan=None):
-    """A forward ``(module, batch) -> probabilities`` (float32 softmax)."""
-    _no_plan(plan)
+def make_predict_fn(apply_fn, plan: _ShardingPlan = _NO_MESH):
+    """A forward ``(module, batch) -> probabilities`` (float32 softmax),
+    replicated under a mesh as eval is."""
     return Program(apply_fn, _no_loss, None, dynamic_lr=False).predict

@@ -1,10 +1,9 @@
-"""Parallelism: device lists and the stacked-ensemble forward.
+"""Parallelism: device lists, the data-parallel mesh and the
+stacked-ensemble forward.
 
-Counterpart of ``rafiki_tpu/parallel``. Not exported yet:
-``data_parallel_mesh``, with within-trial data parallelism (ROADMAP
-Queue 1 item 7).
+Counterpart of ``rafiki_tpu/parallel``.
 """
 
-from rafiki_tpu_torch.parallel.mesh import local_devices, partition_devices
+from rafiki_tpu_torch.parallel.mesh import data_parallel_mesh, local_devices, partition_devices
 
-__all__ = ["local_devices", "partition_devices"]
+__all__ = ["data_parallel_mesh", "local_devices", "partition_devices"]

@@ -4,9 +4,12 @@ The port's own copy of ``rafiki_tpu/scheduler/local.py``
 (``LocalScheduler``, ``TrainJobResult``) with the same device math and
 per-sub-job status rules. ``devices=None`` means every CUDA card
 (``local_devices()``), and raises without one; pass
-``devices=[torch.device("cpu")]`` to run a job on the CPU. Each worker
-owns one device: within-trial data parallelism over several (the JAX
-package's ``devices_per_trial``) is not ported.
+``devices=[torch.device("cpu")]`` to run a job on the CPU.
+``devices_per_trial`` follows the JAX package's device arithmetic, but a
+thread worker owns one device: a set of several in one process is
+refused (``TrainWorker``; ROADMAP Queue 1, item 7, the in-process
+multi-device worker). A dp trial over several devices runs under the
+``ProcessScheduler``, one process per device.
 """
 
 from __future__ import annotations
@@ -48,15 +51,18 @@ class LocalScheduler:
         job_id: str,
         n_workers: Optional[int] = None,
         devices: Optional[List[Any]] = None,
+        devices_per_trial: int = 1,
         advisor_kind: str = "gp",
         stop_event: Optional[threading.Event] = None,
         trial_pack: Optional[int] = None,
     ) -> TrainJobResult:
         """Run a train job to budget exhaustion. Blocking; thread-safe.
 
-        Device math: with D devices there are D workers, one device each,
-        unless the job's CHIP_COUNT (or GPU_COUNT) budget or ``n_workers``
-        caps it lower. The per-model sub-jobs share the worker pool one
+        Device math, the JAX package's: with D devices and
+        ``devices_per_trial`` k there are D // k workers (at least one),
+        each owning k devices, unless the job's CHIP_COUNT (or GPU_COUNT)
+        budget or ``n_workers`` caps it lower. With one card and k = 2
+        that is one worker of one card, at width 1. The per-model sub-jobs share the worker pool one
         after another; the budget is per sub-job, as in the reference.
         The devices are resolved before the job is marked RUNNING, so a
         missing card leaves the job as it was.
@@ -74,10 +80,10 @@ class LocalScheduler:
         budget = dict(job["budget"])
         chip_budget = budget.get("CHIP_COUNT") or budget.get("GPU_COUNT")
         if chip_budget:
-            devices = devices[: int(chip_budget)]
-        max_workers = max(1, len(devices))
+            devices = devices[: int(chip_budget) * devices_per_trial]
+        max_workers = max(1, len(devices) // devices_per_trial)
         n_workers = min(n_workers or max_workers, max_workers)
-        device_sets = partition_devices(devices[:n_workers], n_workers)
+        device_sets = partition_devices(devices[: n_workers * devices_per_trial], n_workers)
 
         self.store.update_train_job_status(job_id, TrainJobStatus.RUNNING.value)
         events.emit("train_job_started", job_id=job_id, app=job["app"],

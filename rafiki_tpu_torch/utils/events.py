@@ -94,3 +94,9 @@ class EventLog:
 #: unconditionally, hosts opt in via ``events.configure(logs_dir)``.
 events = EventLog()
 
+
+def configure_from_env() -> None:
+    """Subprocess workers inherit the sink through RAFIKI_EVENTS_DIR."""
+    d = os.environ.get("RAFIKI_EVENTS_DIR")
+    if d:
+        events.configure(d)

@@ -11,12 +11,26 @@ model's log entries land in TrialLog rows, and they double as a
 throttled service heartbeat. Parameters persist on a background saver
 thread while the next trial trains.
 
-Device handling: a worker owns a device set (one card). Its trials run
-inside ``utils.backend.default_device``, so a template built as
+Device handling: a worker owns a device set of one device (a card, or
+the CPU when it was given the CPU); a set of several, which the JAX
+package trains as one in-process dp mesh, is refused (ROADMAP Queue 1,
+item 7: the in-process multi-device worker). Its trials run inside
+``utils.backend.default_device``, so a template built as
 ``model_class(**knobs)``, with no device argument, lands on the
-worker's card (or on the CPU when the worker was given the CPU). With
-``RAFIKI_PROFILE_DIR`` set, each trial records a ``torch.profiler``
-Chrome trace under ``<dir>/<trial_id>/``.
+worker's device. With ``RAFIKI_PROFILE_DIR`` set, each trial records a
+``torch.profiler`` Chrome trace under ``<dir>/<trial_id>/``.
+
+Within-trial data parallelism: a worker that is rank 0 of a
+``torch.distributed`` group of W > 1 ranks (``worker/main.py`` joins it)
+leads a dp group: each trial's model gets ``set_mesh(data_parallel_mesh
+(devices))`` and trains as one rank of the width-W trial, while the
+other ranks mirror it (``worker/follower.py``). Such a group does not
+pack. An adopted trial resumes from its newest checkpoint on every rank:
+the leader restores it here, and each follower reads the same one from
+the shared params store, so all ranks issue the same collectives from
+the same state. A failed collective
+(``ops/train.py CollectiveError``) is not contained as a trial error:
+it ends the worker, and the scheduler respawns the whole group.
 
 Spans ``trial.total``/``build``/``train``/``evaluate``/``persist`` and
 ``trial.advisor_propose``; counters ``worker.trials_succeeded``,
@@ -95,9 +109,27 @@ from rafiki_tpu_torch.obs.health import DivergenceError
 from rafiki_tpu_torch.obs.health import detector as _health
 from rafiki_tpu_torch.obs.journal import journal
 from rafiki_tpu_torch.obs.ledger import ledger
+from rafiki_tpu_torch.ops.train import CollectiveError
 from rafiki_tpu_torch.store import MetaStore, ParamsStore
 from rafiki_tpu_torch.utils.backend import default_device
 from rafiki_tpu_torch.utils.events import events
+
+
+def _in_group() -> bool:
+    """Whether this process is a rank of a dp group of several processes
+    (``worker/main.py`` sets ``RAFIKI_NUM_PROCESSES`` for each)."""
+    return int(os.environ.get("RAFIKI_NUM_PROCESSES", "1")) > 1
+
+
+def _group_mesh(devices):
+    """The dp mesh of a trial run by a rank of a group of W > 1 ranks,
+    over the worker's one device; None outside such a group."""
+    if not _in_group():
+        return None
+    from rafiki_tpu_torch.parallel.mesh import data_parallel_mesh
+    from rafiki_tpu_torch.utils.backend import resolve_device
+
+    return data_parallel_mesh(devices or [resolve_device(None)])
 
 
 class AdvisorHandle(Protocol):
@@ -170,9 +202,10 @@ class TrainWorker:
         if not (isinstance(model_class, type) and issubclass(model_class, BaseModel)):
             raise TypeError("model_class must subclass BaseModel")
         if devices is not None and len(devices) > 1:
-            raise ValueError(
-                f"a worker runs its trials on one device; got {len(devices)} "
-                "(within-trial data parallelism is not ported)")
+            raise NotImplementedError(
+                f"a worker runs its trials on one device; got {len(devices)} (several "
+                "devices in one process: ROADMAP Queue 1, item 7, the in-process "
+                "multi-device worker; a dp trial is one process per device)")
         self.store = store
         self.params_store = params_store
         self.sub_id = sub_train_job_id
@@ -266,6 +299,9 @@ class TrainWorker:
                     logger.capture(sink), self._device_scope(), self._profile_scope(tid):
                 with telemetry.span("trial.build", trial_id=tid):
                     model = self.model_class(**knobs)
+                    mesh = _group_mesh(self.devices)
+                    if mesh is not None and hasattr(model, "set_mesh"):
+                        model.set_mesh(mesh)
                     self._wire_checkpoints(model, tid, resume)
                 with telemetry.span("trial.train", trial_id=tid):
                     model.train(self.train_uri)
@@ -295,6 +331,8 @@ class TrainWorker:
             _health.note_contained()
             self._floor_feedback(knobs)
             return self.store.get_trial(tid)
+        except CollectiveError:
+            raise  # the group fails, not the trial: it stays RUNNING, to be adopted
         except Exception:
             err = traceback.format_exc()
             telemetry.inc("worker.trials_errored")
@@ -317,8 +355,9 @@ class TrainWorker:
             telemetry.inc("worker.feedback_errors")
 
     def _wire_checkpoints(self, model: BaseModel, tid: str, resume: bool) -> None:
-        """On resume, restore the trial's newest checkpoint; with a
-        cadence, install the per-epoch checkpoint sink."""
+        """On resume, restore the trial's newest checkpoint (in a dp
+        group the followers restore the same one, ``worker/follower.py``);
+        with a cadence, install the per-epoch checkpoint sink."""
         if resume and hasattr(model, "restore_checkpoint"):
             t0 = time.monotonic()
             latest = self.params_store.latest_checkpoint(tid)
@@ -513,7 +552,7 @@ class PackedTrialRunner:
             return False
         if w.devices is not None and len(w.devices) > 1:
             return False
-        if int(os.environ.get("RAFIKI_NUM_PROCESSES", "1")) > 1:
+        if _in_group():
             return False
         try:
             if dataset_utils.load(w.train_uri).mask is not None:

@@ -31,9 +31,7 @@ torch.set_num_threads(2)
 PACKAGES = ("model", "models", "ops", "parallel", "bus", "predictor", "worker")
 RENAMED = {"JaxModel": "TorchModel"}
 UNPORTED = {
-    # ROADMAP Queue 1 item 7: within-trial data parallelism.
-    "data_parallel_mesh": 7,
-    # Item 13: the multiprocessing bus.
+    # ROADMAP Queue 1 item 13: the multiprocessing bus.
     "make_mp_bus": 13,
 }
 
@@ -93,8 +91,8 @@ class PortCustom(FF32):
 def test_a_make_optimizer_template_trains_as_in_the_jax_package(steps):
     """optax's adam over linear_schedule(0, lr, warmup), the lr baked in:
     the template leaves the per-trial lr path (no lr or warmup in the
-    hyper dict, every knob but the seed in its program key, no packing)
-    and trains to the JAX package's params within F32_TOL. Its first
+    hyper dict, every knob but the seed in its program key; it packs, as
+    in the JAX package, with members that differ only by seed) and trains to the JAX package's params within F32_TOL. Its first
     update is zero (the schedule starts at 0), so one step moves nothing."""
     knobs = dict(FF_KNOBS, learning_rate=3e-3)
     blob = ff_blob()
@@ -107,5 +105,5 @@ def test_a_make_optimizer_template_trains_as_in_the_jax_package(steps):
     assert m._loop.state[1].count == steps
     fns = m._loop_fns(10, (8, 8, 1))
     assert fns["program_key"][5] is True and ("learning_rate", repr(3e-3)) in fns["program_key"][4]
-    assert not PortCustom.packable() and FF32.packable()
+    assert PortCustom.packable() and FF32.packable()
     assert TorchModel.make_optimizer is not PortCustom.make_optimizer

@@ -19,7 +19,7 @@ from rafiki_tpu.chaos.scenarios import SCENARIOS as JAX_SCENARIOS
 from rafiki_tpu_torch import chaos, telemetry
 from rafiki_tpu_torch.chaos import ChaosError, ChaosSpecError, FaultPlane, install, uninstall
 from rafiki_tpu_torch.chaos import runner as runner_mod
-from rafiki_tpu_torch.chaos.scenarios import SCENARIOS, Scenario
+from rafiki_tpu_torch.chaos.scenarios import SCENARIOS, SUBPROCESS_SCENARIOS, Scenario
 
 torch.set_num_threads(2)
 
@@ -62,10 +62,15 @@ def _clean_plane():
 
 
 def test_the_catalogs_have_nineteen_and_six_scenarios():
+    """Nineteen in the JAX package; in the port the six in-process ones
+    and, since the ProcessScheduler, the three that SIGKILL its workers,
+    each with the JAX package's spec, description and env."""
     assert len(JAX_SCENARIOS) == 19
     assert set(SCENARIOS) == {"checkpoint-write-failure", "straggler-quorum", "drain-under-load",
                               "predictor-outage-surfaces", "pack-straggler-evict",
-                              "nan-trial-contained"}
+                              "nan-trial-contained"} | SUBPROCESS_SCENARIOS
+    assert SUBPROCESS_SCENARIOS == {"kill-mid-trial-resume", "kill-mid-pack-resume",
+                                    "collective-kill-mid-step"}
     for name, sc in SCENARIOS.items():
         jsc = JAX_SCENARIOS[name]
         assert (sc.spec, sc.description, sc.env) == (jsc.spec, jsc.description, jsc.env), name

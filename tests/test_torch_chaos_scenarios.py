@@ -1,9 +1,11 @@
-"""The port's six chaos scenarios, on the CPU, and ``nan-trial-contained``
-against the JAX package's run of its own.
+"""The port's six in-process chaos scenarios, on the CPU, and
+``nan-trial-contained`` against the JAX package's run of its own.
 
 Each scenario runs through the port's runner (``rafiki_tpu_torch/chaos/
 runner.py``) with ``device="cpu"`` and passes every check, the fault
-having fired. Then the two packages' ``nan-trial-contained`` bodies run
+having fired. (The three whose faults fire in ProcessScheduler
+subprocesses run beside the JAX package's in
+``tests/test_torch_chaos_kill_*.py``.) Then the two packages' ``nan-trial-contained`` bodies run
 side by side, each with its own plane and journal: the same member
 errors, at the same bad step, the rows end in the same statuses, and
 the journals hold the same record kinds and names, apart from the
@@ -16,14 +18,14 @@ import torch
 from rafiki_tpu import chaos as jax_chaos
 from rafiki_tpu.chaos.scenarios import SCENARIOS as JAX_SCENARIOS
 from rafiki_tpu.obs.journal import journal as jax_journal, read_dir as jax_read_dir
-from rafiki_tpu.obs.perf import profiler as jax_profiler
+from rafiki_tpu.obs.perf import profiler as jax_profiler, slo as jax_slo
 from rafiki_tpu.ops.train import clear_program_cache as jax_clear_program_cache
 from rafiki_tpu.store import MetaStore as JaxMetaStore
 from rafiki_tpu_torch import chaos
 from rafiki_tpu_torch.chaos.runner import format_report, run_scenario
-from rafiki_tpu_torch.chaos.scenarios import SCENARIOS
+from rafiki_tpu_torch.chaos.scenarios import SCENARIOS, SUBPROCESS_SCENARIOS
 from rafiki_tpu_torch.obs.journal import journal, read_dir
-from rafiki_tpu_torch.obs.perf import profiler
+from rafiki_tpu_torch.obs.perf import profiler, slo
 from rafiki_tpu_torch.ops.train import clear_program_cache
 from rafiki_tpu_torch.store import MetaStore
 from rafiki_tpu_torch.utils.backend import default_device
@@ -35,7 +37,7 @@ torch.set_num_threads(2)
 JAX_ONLY_KINDS = {"advisor", "search"}
 
 
-@pytest.mark.parametrize("name", sorted(SCENARIOS))
+@pytest.mark.parametrize("name", sorted(set(SCENARIOS) - SUBPROCESS_SCENARIOS))
 def test_scenario_passes_on_the_cpu(name):
     report = run_scenario(name, device="cpu")
     assert report.passed, format_report(report)
@@ -45,10 +47,10 @@ def test_scenario_passes_on_the_cpu(name):
 
 def _run_body(pkg, tmp):
     """One package's nan-trial-contained body, with its plane installed,
-    its journal in ``tmp/obs`` and its program cache and profiler cold
-    (so each builds and counts its programs, whatever ran before in the
-    process); returns its checks, its rows (by learning rate) and its
-    journal records."""
+    its journal in ``tmp/obs`` and its program cache, profiler and SLO
+    engine cold (so each builds and counts its programs, and ticks its
+    SLOs on the same clock, whatever ran before in the process); returns
+    its checks, its rows (by learning rate) and its journal records."""
     checks = []
     check = lambda name, ok, detail="": checks.append((name, bool(ok), str(detail)))  # noqa: E731
     if pkg == "jax":
@@ -57,8 +59,8 @@ def _run_body(pkg, tmp):
     else:
         sc, plane_mod, j, store_cls, read = (SCENARIOS["nan-trial-contained"], chaos, journal,
                                              MetaStore, read_dir)
-    for clear in ((jax_clear_program_cache, jax_profiler.reset) if pkg == "jax"
-                  else (clear_program_cache, profiler.reset)):
+    for clear in ((jax_clear_program_cache, jax_profiler.reset, jax_slo.configure)
+                  if pkg == "jax" else (clear_program_cache, profiler.reset, slo.configure)):
         clear()
     plane_mod.install(plane_mod.FaultPlane.from_spec(sc.spec))
     j.configure(tmp / "obs", role="chaos-runner")

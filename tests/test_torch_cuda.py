@@ -723,3 +723,73 @@ def test_card_capsule_replays_in_a_fresh_process(cuda, tmp_path):
     changed.write_bytes(pickle.dumps(doc))
     result = capsule.replay(changed, device=cuda)
     assert not result["reproduced"] and result["mismatches"] == ["health_bad_loss"]
+
+
+def test_card_width1_nccl_trial_is_the_no_mesh_trial(cuda):
+    """A one-rank NCCL group: the dp trial (eager steps, host-formed
+    batches, an all-reduce over one rank) ends with the params of the
+    captured no-mesh trial, bit for bit."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from rafiki_tpu_torch.models.vgg import Vgg
+    from rafiki_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=60),
+                            device_id=torch.device("cuda", 0))
+    try:
+        knobs = dict(SMALL, dropout=0.2)
+        uri = "synthetic://images?classes=10&n=512&w=32&h=32&c=3&seed=0"
+        out = []
+        for mesh in (None, data_parallel_mesh([torch.device("cuda", 0)])):
+            m = Vgg(device=cuda, **knobs)
+            m.set_mesh(mesh)
+            m.train(uri)
+            out.append({k: v.detach().cpu() for k, v in m._module.state_dict().items()})
+        for k in out[0]:
+            assert torch.equal(out[0][k], out[1][k]), k
+    finally:
+        dist.destroy_process_group()
+
+
+def test_card_process_job_runs_its_worker_on_the_card(cuda, tmp_path):
+    """A ProcessScheduler job of two trials: its worker subprocess runs
+    under CUDA_VISIBLE_DEVICES=0 with the GP advisor over HTTP, and the
+    stored params serve on the card."""
+    from rafiki_tpu_torch.chaos.scenarios import FF_SOURCE, TRAIN, VAL
+    from rafiki_tpu_torch.model.base import load_model_class
+    from rafiki_tpu_torch.scheduler import ProcessScheduler
+    from rafiki_tpu_torch.store import MetaStore, ParamsStore
+
+    from rafiki_tpu_torch.utils.events import events
+
+    store, params = MetaStore(tmp_path / "m.sqlite3"), ParamsStore(tmp_path / "p")
+    model = store.create_model("ff", "IMAGE_CLASSIFICATION", None, FF_SOURCE, "ChaosFF")
+    job = store.create_train_job("app", "IMAGE_CLASSIFICATION", None, TRAIN, VAL,
+                                 {"MODEL_TRIAL_COUNT": 2})
+    store.create_sub_train_job(job["id"], model["id"])
+    prev = events.path
+    events.configure(tmp_path / "logs")
+    try:
+        res = ProcessScheduler(store, params).run_train_job(job["id"], advisor_kind="gp",
+                                                            poll_s=0.2)
+        resolved = [(e["device"], e["device_name"]) for e in events.read("worker_device")]
+    finally:
+        events.close()
+        if prev is not None:
+            events.configure(prev.parent)
+    assert res.status == "COMPLETED", res.errors
+    assert [t["status"] for t in res.trials] == ["COMPLETED"] * 2
+    # The worker's own record of what it resolved, not the scheduler's row.
+    assert resolved == [("cuda:0", torch.cuda.get_device_name(0))]
+    best = res.best_trials[0]
+    m = load_model_class(FF_SOURCE, "ChaosFF")(device=cuda, **best["knobs"])
+    m.load_parameters(params.load(best["params_id"]))
+    assert abs(m.evaluate(VAL) - best["score"]) <= 0.02

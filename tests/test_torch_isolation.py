@@ -430,3 +430,42 @@ def test_the_chaos_plane_and_a_capsule_replay_run_with_nothing_of_jax_loaded(tmp
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_the_process_scheduler_and_a_dp_job_run_with_nothing_of_jax_loaded(tmp_path):
+    """The process plane (the advisor over HTTP, the ProcessScheduler,
+    the worker entry point and its follower, the dp mesh and its batch
+    slices) imports, and a job of two FeedForward trials at width 2 (two
+    gloo ranks, one subprocess each) completes on the CPU, with nothing
+    of JAX, the JAX package, werkzeug or requests loaded here."""
+    new = ("advisor.app", "scheduler.process", "worker.main", "worker.follower",
+           "parallel.mesh", "parallel.multihost")
+    mods = _port_modules()
+    for name in new:
+        assert f"rafiki_tpu_torch.{name}" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "from rafiki_tpu_torch.scheduler import ProcessScheduler\n"
+        "from rafiki_tpu_torch.store import MetaStore, ParamsStore\n"
+        "src = open('rafiki_tpu_torch/models/ff.py', 'rb').read()\n"
+        f"store = MetaStore({str(tmp_path / 'm.sqlite3')!r})\n"
+        f"params = ParamsStore({str(tmp_path / 'p')!r})\n"
+        "model = store.create_model('ff', 'IMAGE_CLASSIFICATION', None, src, 'FeedForward')\n"
+        "uri = 'synthetic://images?classes=4&n=128&w=8&h=8&seed={}'\n"
+        "job = store.create_train_job('app', 'IMAGE_CLASSIFICATION', None, uri.format(0),\n"
+        "                             uri.format(1), {'MODEL_TRIAL_COUNT': 2})\n"
+        "store.create_sub_train_job(job['id'], model['id'])\n"
+        "res = ProcessScheduler(store, params).run_train_job(\n"
+        "    job['id'], devices_per_trial=2, advisor_kind='random', platform='cpu', poll_s=0.2)\n"
+        "assert res.status == 'COMPLETED', res\n"
+        "assert [t['status'] for t in res.trials] == ['COMPLETED'] * 2, res.trials\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

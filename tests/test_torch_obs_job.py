@@ -23,6 +23,7 @@ from rafiki_tpu.obs.journal import journal as jax_journal
 from rafiki_tpu.obs.journal import read_dir as jax_read_dir
 from rafiki_tpu.obs.perf import profiler as jax_profiler
 from rafiki_tpu.obs.perf import slo as jax_slo
+from rafiki_tpu.ops.train import clear_program_cache as jax_clear_program_cache
 from rafiki_tpu.predictor import Predictor as JaxPredictor
 from rafiki_tpu.scheduler import LocalScheduler as JaxLocalScheduler
 from rafiki_tpu.store import MetaStore as JaxMetaStore, ParamsStore as JaxParamsStore
@@ -32,6 +33,7 @@ from rafiki_tpu_torch.gateway import Gateway
 from rafiki_tpu_torch.model.base import load_model_class
 from rafiki_tpu_torch.obs.journal import journal, read_dir
 from rafiki_tpu_torch.obs.perf import profiler, slo
+from rafiki_tpu_torch.ops.train import clear_program_cache
 from rafiki_tpu_torch.predictor import Predictor
 from rafiki_tpu_torch.scheduler import LocalScheduler
 from rafiki_tpu_torch.store import MetaStore, ParamsStore
@@ -58,13 +60,17 @@ def _run(pkg, sources, tmp_path):
         store_cls, params_cls, sched, bus_cls, worker_cls, pred_cls, gw_cls, load, j, devices = (
             JaxMetaStore, JaxParamsStore, JaxLocalScheduler, JaxBus, JaxInferenceWorker,
             JaxPredictor, JaxGateway, jax_load_model_class, jax_journal, jax.devices("cpu")[:1])
-        profiler_mod, slo_mod = jax_profiler, jax_slo
+        profiler_mod, slo_mod, clear_cache = jax_profiler, jax_slo, jax_clear_program_cache
     else:
         store_cls, params_cls, sched, bus_cls, worker_cls, pred_cls, gw_cls, load, j, devices = (
             MetaStore, ParamsStore, LocalScheduler, InProcBus, InferenceWorker, Predictor,
             Gateway, load_model_class, journal, CPU)
-        profiler_mod, slo_mod = profiler, slo
-    # Every hot-path tick evaluates, so both journals get slo/state.
+        profiler_mod, slo_mod, clear_cache = profiler, slo, clear_program_cache
+    # A cold program cache, whatever ran before on this process (another
+    # test's job of the same template would skip the build and its
+    # program.build span), and every hot-path tick evaluates, so both
+    # journals get slo/state.
+    clear_cache()
     profiler_mod.reset()
     slo_mod.configure(tick_s=0.0)
     d = tmp_path / pkg

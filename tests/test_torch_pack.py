@@ -698,9 +698,10 @@ def test_worker_pack_env_default(tmp_path, monkeypatch):
 @pytest.mark.parametrize("case", ["eligible", "preprocess", "masked", "processes", "devices"])
 def test_packer_eligibility(case, tmp_path, monkeypatch):
     if case == "devices":
-        # A worker takes one device (within-trial data parallelism is not
-        # ported), so the packer's several-devices arm cannot be reached.
-        with pytest.raises(ValueError, match="one device"):
+        # A worker takes one device (a dp trial is one process per device;
+        # several in one process is ROADMAP Queue 1 item 7's open row), so
+        # the packer's several-devices arm cannot be reached.
+        with pytest.raises(NotImplementedError, match="one device"):
             _mk_worker(tmp_path, trial_pack=4, n_trials=1, devices=CPU * 2)
         return
     _, _, worker, _, _ = _mk_worker(tmp_path, trial_pack=4, n_trials=1)

@@ -290,7 +290,7 @@ def test_a_trial_built_in_the_workers_cpu_scope_lands_on_the_cpu(tmp_path, monke
             assert resolve_device() == torch.device("cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
-    with pytest.raises(ValueError, match="one device"):
+    with pytest.raises(NotImplementedError, match="one device"):
         TrainWorker(store, params, sub["id"], cls, InProcAdvisorHandle(svc, aid), TRAIN, VAL,
                     {}, devices=CPU * 2)
 
