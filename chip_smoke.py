@@ -9,6 +9,7 @@ CUDA card.
     python3 chip_smoke.py --obs            # phase 19 alone: journal, profile, trace
     python3 chip_smoke.py --chaos          # phase 20 alone: poisoned pack, replay, scenarios
     python3 chip_smoke.py --process        # phase 21 alone: subprocess workers, dp mesh
+    python3 chip_smoke.py --mesh           # phase 22 alone: mesh sweep, resume, sharded lane
 
 Drives ``rafiki_tpu_torch`` the way a user serves a top-k ensemble,
 the way a tuning job runs and the way a trial trains, at the full width
@@ -147,7 +148,8 @@ The rest of the model zoo:
  17. densenet_job: a ``BenchDenseNet`` template (DenseNet-BC depth 58,
      growth 24, the widest of its knob space; one epoch, tuning the
      learning rate and batch 64/128) uploaded as source, as a GP job of
-     DENSENET_TRIALS trials through ``LocalScheduler.run_train_job`` on
+     DENSENET_TRIALS trials (its GP warmed up on DENSENET_ADVISOR's 4
+     proposals) through ``LocalScheduler.run_train_job`` on
      the canonical task; its top-2 served through the stacked route
      against their stored scores (as 7); a k=2 pack of two DenseNet
      trials (``train_packed`` -> ``evaluate_packed``, one epoch) against
@@ -258,6 +260,40 @@ Process workers and within-trial data parallelism:
      step of both paths. Width 2 and more need two cards; the CPU tests
      show them over gloo.
 
+The mesh sweep, its write-ahead log and resume, and the sharded lane:
+
+ 22. mesh: (a) a ``MeshVgg`` sweep (MESH_SRC: the canonical model at
+     batch 128, 2 epochs of PROC_URI; a member at dropout 0.2 or more
+     stops after one epoch) of MESH_TRIALS GP trials through
+     ``MeshSweepScheduler.run_sweep(chips=1, trials_per_chip=MESH_K)``
+     on the card: one batched draft of 4, every claim bracketed in the
+     sweep's WAL, the stopped members' slots backfilled until the budget
+     drains. Fails unless the job COMPLETED with MESH_TRIALS scored
+     trials with params, the WAL reconciles (no double claim, claimed
+     == rows), the best score reaches TUNE_TOP1_TARGET, a backfill
+     ran, and the first and the last trial's float32 params are
+     byte-equal to their serial trials'. (b) ``mesh-chip-loss-repack``
+     at the canonical model (PROC_PACK_SRC, 3 epochs, budget 4, k=2):
+     two chips share the card, the scenario's spec preempts chip 1.
+     Fails unless every trial COMPLETED under chip 0, chip 1's rows were
+     re-packed onto chip 0 and resumed from epoch 1 or later, each
+     trial's params are byte-equal to an unfaulted serial run, and both
+     chips' threads replayed captured steps. (c) the sharded lane at
+     the Transformer's widest knobs (MESH_TF_SRC, 3 epochs of 10,000
+     sequences of 128 tokens, ``RAFIKI_SHARD_WIDTH=2``, both members on
+     the card): an unfaulted width-2 trial through the sweep's
+     ``GroupHandle``, then ``chip-loss-mid-sharded-trial`` (member 1
+     preempted, the group re-formed at width 1, reshard-on-restore).
+     Fails unless both trials' params are byte-equal to the serial
+     trial's and the journal shows the widths [2] and [2, 1] and one
+     2 -> 1 reshard; prints the warm epoch ms at width 2, width 1 and
+     serial, and the manifests' bytes. (d) ``supervisor-kill-mid-sweep``
+     through ``sweep_proc`` subprocesses on the card; fails unless the
+     scenario passes (the resumed sweep reconciles with no double
+     claim, adopts the orphans, and ends with the unfaulted run's best
+     score and knob set). ``mesh-degrades-single-chip`` and
+     ``host-loss-mid-sweep`` run in the CPU tests only.
+
 Every training phase runs its epochs as captured CUDA graphs
 (``ops/graphs.py``). Each phase's line carries its seconds
 (``phase_s``) and the captured steps it replayed (``graph_replays``,
@@ -275,7 +311,8 @@ other trial seeds and 4 other query sets, and prints the readings.
 card, so two checkouts can be compared in one call. ``--zoo`` runs only
 phases 17 and 18, ``--obs`` only phase 19, ``--chaos`` only phase 20
 (its clean-step check then holds the two runs of phase 20 to each
-other, with no phase 16 count to add), ``--process`` only phase 21. ``--resume-child`` is the
+other, with no phase 16 count to add), ``--process`` only phase 21,
+``--mesh`` only phase 22. ``--resume-child`` is the
 child worker of phases 14 and 15; it journals when its parent sets
 ``RAFIKI_LOG_DIR``.
 """
@@ -431,9 +468,12 @@ MB_GATEWAY = {"max_batch": 8, "max_batch_wait_ms": 5}
 
 # -- the rest of the zoo -------------------------------------------------------
 # Phase 17: DenseNet at the widest of its knob space (depth 58, growth
-# 24), tuning the learning rate and the batch size. The GP proposes
-# from expected improvement after 8 warm-up proposals, so 9 trials.
-DENSENET_TRIALS = 9
+# 24), tuning the learning rate and the batch size. Five trials (nine
+# until phase 22 needed the time): the job's GP proposes from expected
+# improvement after DENSENET_ADVISOR's 4 warm-up proposals (8 by
+# default), so the fifth trial is an expected-improvement proposal.
+DENSENET_TRIALS = 5
+DENSENET_ADVISOR = {"n_initial": 4}
 DENSENET_SRC = b'''
 import torch
 
@@ -844,13 +884,15 @@ def _memory_without_cublas_workspaces() -> int:
 
 
 def tune_job(card, trial_pack=None, src=BENCH_SRC, name="BenchVgg", trials=TUNE_TRIALS,
-             phase=None):
+             phase=None, advisor_kwargs=None):
     """Phase 6 (and 13, with ``trial_pack``; 17 with DenseNet's ``src``):
     a GP train job of ``trials`` trials of the template ``name`` uploaded
     as ``src`` (the bench's canonical job by default) on the canonical
-    task, through the port's entry points, in a temporary directory.
-    Returns the per-trial lines in completion order, the job line, and
-    the top-2 trials with their stored blobs."""
+    task, through the port's entry points, in a temporary directory. With
+    ``advisor_kwargs`` the job's GP is made with them (the sub job's
+    advisor, created before the job runs). Returns the per-trial lines in
+    completion order, the job line, and the top-2 trials with their
+    stored blobs."""
     import gc
     import shutil
     import tempfile
@@ -858,6 +900,8 @@ def tune_job(card, trial_pack=None, src=BENCH_SRC, name="BenchVgg", trials=TUNE_
     import torch
 
     from rafiki_tpu_torch import telemetry
+    from rafiki_tpu_torch.advisor import AdvisorService
+    from rafiki_tpu_torch.model.base import load_model_class
     from rafiki_tpu_torch.model.dataset import dataset_utils
     from rafiki_tpu_torch.scheduler import LocalScheduler
     from rafiki_tpu_torch.store import MetaStore, ParamsStore
@@ -870,7 +914,12 @@ def tune_job(card, trial_pack=None, src=BENCH_SRC, name="BenchVgg", trials=TUNE_
         model = store.create_model(name.lower(), "IMAGE_CLASSIFICATION", None, src, name)
         job = store.create_train_job("bench", "IMAGE_CLASSIFICATION", None, TRAIN_URI, EVAL_URI,
                                      {"MODEL_TRIAL_COUNT": trials})
-        store.create_sub_train_job(job["id"], model["id"])
+        sub = store.create_sub_train_job(job["id"], model["id"])
+        advisors = AdvisorService()
+        if advisor_kwargs:
+            aid = advisors.create_advisor(load_model_class(src, name).get_knob_config(),
+                                          kind="gp", engine_kwargs=advisor_kwargs)
+            store.update_sub_train_job(sub["id"], advisor_id=aid)
         telemetry.reset()
         # Earlier phases' reference cycles (worker threads, the bus) hold
         # card memory until the collector runs: free it before reading.
@@ -879,7 +928,7 @@ def tune_job(card, trial_pack=None, src=BENCH_SRC, name="BenchVgg", trials=TUNE_
         torch.cuda.reset_peak_memory_stats()
         mem_before = _memory_without_cublas_workspaces()
         t0 = time.monotonic()
-        result = LocalScheduler(store, params).run_train_job(
+        result = LocalScheduler(store, params, advisors).run_train_job(
             job["id"], n_workers=1, advisor_kind="gp", trial_pack=trial_pack)
         wall = _synced_s(t0)
         peak = torch.cuda.max_memory_allocated()
@@ -2245,7 +2294,8 @@ def densenet_job(card):
 
     t_phase = time.monotonic()
     rows, job, best = tune_job(card, src=DENSENET_SRC, name="BenchDenseNet",
-                               trials=DENSENET_TRIALS, phase="densenet_job")
+                               trials=DENSENET_TRIALS, phase="densenet_job",
+                               advisor_kwargs=DENSENET_ADVISOR)
     # tune_job resets the telemetry: its line's counters are the job's.
     job_graphs = {k: job[k] for k in ("graph_replays", "graph_captures")}
     graphs = _graph_counters()
@@ -3117,7 +3167,8 @@ def chaos(card, phase16_nodes=None):
 
     # -- 4. the six in-process scenarios, with the card visible ----------------------
     t0 = time.monotonic()
-    reports = run_scenarios(sorted(set(SCENARIOS) - SUBPROCESS_SCENARIOS), device="cuda")
+    reports = run_scenarios(sorted(set(SCENARIOS) - SUBPROCESS_SCENARIOS - MESH_SCENARIOS),
+                            device="cuda")
     line["scenarios_s"] = time.monotonic() - t0
     line["scenarios"] = {r.name: {"passed": r.passed, "s": r.duration_s,
                                   "fired": len(r.schedule)} for r in reports}
@@ -3427,6 +3478,453 @@ def process_phase(card, check) -> None:
                       "phase_s": time.monotonic() - t0}))
 
 
+
+# -- phase 22: the mesh sweep, its write-ahead log and resume, the sharded lane ----
+# The in-process mesh scenarios: phase 22 drives two of them at the
+# canonical sizes itself, and mesh-degrades-single-chip (like
+# host-loss-mid-sweep) runs in the CPU tests only, so phase 20 leaves
+# them out.
+MESH_SCENARIOS = frozenset({"mesh-chip-loss-repack", "chip-loss-mid-sharded-trial",
+                            "mesh-degrades-single-chip"})
+MESH_TRIALS = 8
+MESH_K = 4
+# (a) PROC_PACK_SRC's canonical trial at two epochs; a member at dropout
+# 0.2 or more stops after its first epoch (the JAX package's EvictFF
+# straggler rule), so the pack evicts it and backfills its slot with a
+# fresh proposal: the GP's seed-0 draws make that four backfills, which
+# drain the 8-trial budget (two k=4 packs' worth of trials).
+MESH_SRC = (PROC_PACK_SRC.replace(b"class ProcPackVgg(Vgg):", b"class MeshVgg(Vgg):")
+            .replace(b"ProcPackVgg.", b"MeshVgg.")
+            .replace(b'"epochs": FixedKnob(3)', b'"epochs": FixedKnob(2)')
+            + b'''
+    def should_stop_early(self, epoch, metrics):
+        return epoch == 0 and float(self.knobs["dropout"]) >= 0.2
+''')
+# (c) the zoo Transformer at the widest point of its knob space (phase
+# 18's), 3 epochs of 10,000 sequences of 128 tokens (156 steps an epoch).
+MESH_TF_SRC = b'''
+from rafiki_tpu_torch.model.knobs import FixedKnob
+from rafiki_tpu_torch.models.transformer import Transformer
+
+
+class MeshTf(Transformer):
+    @staticmethod
+    def get_knob_config():
+        return {
+            "embed_dim": FixedKnob(128),
+            "num_heads": FixedKnob(4),
+            "num_layers": FixedKnob(2),
+            "learning_rate": FixedKnob(1e-3),
+            "batch_size": FixedKnob(64),
+            "epochs": FixedKnob(3),
+            "seed": FixedKnob(0),
+        }
+'''
+MESH_TEXT_URI = TEXT_TRAIN_URI.replace("n=50000", "n=10000")
+MESH_TEXT_EVAL_URI = TEXT_EVAL_URI.replace("n=10000", "n=2000")
+
+
+def _mesh_device():
+    """Phase 22's card: every chip and group member shares it."""
+    import torch
+
+    return torch.device("cuda", 0)
+
+
+class _Env:
+    """Environment variables set for a block, then restored."""
+
+    def __init__(self, values):
+        self.values = values
+
+    def __enter__(self):
+        import os
+
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+
+    def __exit__(self, *exc):
+        import os
+
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _mesh_job(tmp, src, name, budget, train_uri=None, eval_uri=None,
+              task="IMAGE_CLASSIFICATION"):
+    from rafiki_tpu_torch.store import MetaStore, ParamsStore
+
+    import os
+
+    os.makedirs(tmp, exist_ok=True)
+    train_uri, eval_uri = train_uri or PROC_URI, eval_uri or EVAL_URI
+    store, params = MetaStore(f"{tmp}/meta.sqlite3"), ParamsStore(f"{tmp}/params")
+    model = store.create_model(name.lower(), task, None, src, name)
+    job = store.create_train_job("mesh", task, None, train_uri, eval_uri,
+                                 {"MODEL_TRIAL_COUNT": budget})
+    store.create_sub_train_job(job["id"], model["id"])
+    return store, params, job
+
+
+def _f32_leaves(blob):
+    import pickle
+
+    from rafiki_tpu_torch.utils.serial import load_flat
+
+    return load_flat(pickle.loads(blob)["packed"])
+
+
+def _byte_equal(a, b) -> bool:
+    import torch
+
+    return set(a) == set(b) and all(
+        a[k].dtype == torch.float32 and torch.equal(a[k], b[k]) for k in b)
+
+
+def _serial_leaves(cls, knobs, uri):
+    """An unfaulted serial trial of ``knobs`` on the card: its float32
+    params blob's leaves."""
+    m = cls(**knobs)
+    m.train(uri)
+    out = _f32_leaves(m.dump_parameters())
+    m.destroy()
+    return out
+
+
+def _wal_verdict(store, job_id):
+    from rafiki_tpu_torch.scheduler.wal import read_wal, reconcile, wal_path
+
+    recs = read_wal(wal_path(store.path, job_id))
+    out = {}
+    for sub in store.get_sub_train_jobs(job_id):
+        r = reconcile(recs, store.get_trials_of_sub_train_job(sub["id"]), sub=sub,
+                      sub_id=sub["id"])
+        out = {"ok": r.ok, "errors": r.errors, "claims": len(r.claims),
+               "double_claims": sum(1 for n in r.claims.values() if n != 1),
+               "claimed": sub.get("claimed"),
+               "rows": len(store.get_trials_of_sub_train_job(sub["id"]))}
+    return recs, out
+
+
+def mesh_sweep(card):
+    """Phase 22 (a): the canonical sweep, chips=1 x k=4, 8 GP trials."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from rafiki_tpu_torch import telemetry
+    from rafiki_tpu_torch.model.base import load_model_class
+    from rafiki_tpu_torch.scheduler import MeshSweepScheduler
+
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="rafiki-mesh-")
+    try:
+        with _Env({"RAFIKI_TPU_SERVING_PARAMS_DTYPE": "float32"}):
+            torch.cuda.empty_cache()
+            telemetry.reset()
+            store, params, job = _mesh_job(tmp, MESH_SRC, "MeshVgg", MESH_TRIALS)
+            t0 = time.monotonic()
+            result = MeshSweepScheduler(store, params).run_sweep(
+                job["id"], chips=1, trials_per_chip=MESH_K, advisor_kind="gp",
+                devices=[_mesh_device()])
+            wall = _synced_s(t0)
+            graphs = _graph_counters()
+            snap = telemetry.snapshot()["counters"]
+            trials = store.get_trials_of_train_job(job["id"])
+            _, wal = _wal_verdict(store, job["id"])
+            cls = load_model_class(MESH_SRC, "MeshVgg")
+            # The first claimed member and the last backfilled one.
+            picks = [t for t in (trials[0], trials[-1]) if t["params_id"]]
+            equal = [_byte_equal(_f32_leaves(params.load(t["params_id"])),
+                                 _serial_leaves(cls, t["knobs"], PROC_URI)) for t in picks]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    done = [t for t in trials if t["status"] == "COMPLETED"]
+    return dict({"phase": "mesh_sweep", "card": card[1], "power_limit": card[2],
+                 "status": result.status, "trials": len(trials), "completed": len(done),
+                 "with_params": sum(bool(t["params_id"]) for t in done),
+                 "dropouts": [round(t["knobs"]["dropout"], 3) for t in trials],
+                 "scores": [t["score"] for t in trials],
+                 "best_score": max((t["score"] for t in done), default=None),
+                 "top1_target": TUNE_TOP1_TARGET, "job_wall_s": wall,
+                 "completed_trials_per_hour": 3600.0 * len(done) / wall,
+                 "packed_rounds": snap.get("worker.packed_rounds", 0.0),
+                 "backfills": snap.get("trial_pack.backfills", 0.0),
+                 "evictions": snap.get("trial_pack.evictions", 0.0),
+                 "wal": wal, "serial_byte_equal": equal, "errors": result.errors,
+                 "phase_s": time.monotonic() - t_phase}, **graphs)
+
+
+def mesh_repack(card):
+    """Phase 22 (b): ``mesh-chip-loss-repack`` at the canonical model, two
+    chips sharing the card."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from rafiki_tpu_torch import chaos as chaos_plane
+    from rafiki_tpu_torch import telemetry
+    from rafiki_tpu_torch.chaos.scenarios import SCENARIOS
+    from rafiki_tpu_torch.model.base import load_model_class
+    from rafiki_tpu_torch.ops import graphs as graphs_mod
+    from rafiki_tpu_torch.scheduler import MeshSweepScheduler
+    from rafiki_tpu_torch.utils.events import events
+
+    t_phase = time.monotonic()
+    sc = SCENARIOS["mesh-chip-loss-repack"]
+    tmp = tempfile.mkdtemp(prefix="rafiki-repack-")
+    by_thread = {}
+    lock = threading.Lock()
+    run = graphs_mod.StepRunner.run
+
+    def counted(self):
+        try:
+            run(self)
+        finally:
+            with lock:
+                name = threading.current_thread().name
+                by_thread[name] = by_thread.get(name, 0) + self.replays
+
+    graphs_mod.StepRunner.run = counted
+    try:
+        with _Env(dict(sc.env, RAFIKI_TPU_SERVING_PARAMS_DTYPE="float32")):
+            torch.cuda.empty_cache()
+            telemetry.reset()
+            events.configure(f"{tmp}/logs")
+            store, params, job = _mesh_job(tmp, PROC_PACK_SRC, "ProcPackVgg", 4)
+            plane = chaos_plane.FaultPlane.from_spec(sc.spec)
+            chaos_plane.install(plane)
+            try:
+                t0 = time.monotonic()
+                result = MeshSweepScheduler(store, params).run_sweep(
+                    job["id"], chips=2, trials_per_chip=2, advisor_kind="random",
+                    devices=[_mesh_device()] * 2)
+                wall = _synced_s(t0)
+            finally:
+                chaos_plane.uninstall()
+            graphs_mod.StepRunner.run = run
+            graphs = _graph_counters()
+            trials = store.get_trials_of_train_job(job["id"])
+            recs, wal = _wal_verdict(store, job["id"])
+            resumed = {e["trial_id"]: e["from_epoch"] for e in events.read("trial_resumed")}
+            cls = load_model_class(PROC_PACK_SRC, "ProcPackVgg")
+            t_ref = time.monotonic()
+            equal = [bool(t["params_id"]) and _byte_equal(
+                _f32_leaves(params.load(t["params_id"])),
+                _serial_leaves(cls, t["knobs"], PROC_URI)) for t in trials]
+            ref_s = _synced_s(t_ref)
+    finally:
+        graphs_mod.StepRunner.run = run
+        events.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    chip1 = [tid for r in recs if r["op"] == "pack_assign" and r["rec"] == "intent"
+             and r.get("chip") == 1 and not r.get("repack") for tid in r["trial_ids"]]
+    repacked = [tid for r in recs if r["op"] == "pack_assign" and r["rec"] == "intent"
+                and r.get("repack") and r.get("chip") == 0 for tid in r["trial_ids"]]
+    return dict({"phase": "mesh_repack", "card": card[1], "power_limit": card[2],
+                 "spec": sc.spec, "status": result.status,
+                 "trial_status": [t["status"] for t in trials],
+                 "worker_ids": [t["worker_id"] for t in trials],
+                 "fired": [list(f) for f in plane.schedule()],
+                 "chip1_trials": chip1, "repacked_onto_chip0": repacked,
+                 "resumed_from_epoch": {tid[:8]: resumed.get(tid) for tid in chip1},
+                 "replays_by_chip": {k: v for k, v in sorted(by_thread.items())
+                                     if k.startswith("mesh-chip-")},
+                 "chips_lost": telemetry.get_counter("mesh.chips_lost"),
+                 "wal": wal, "serial_byte_equal": equal, "job_wall_s": wall,
+                 "serial_reference_s": ref_s, "errors": result.errors,
+                 "phase_s": time.monotonic() - t_phase}, **graphs)
+
+
+def mesh_sharded(card):
+    """Phase 22 (c): the sharded lane at the Transformer's widest knobs,
+    both members on the card: an unfaulted width-2 trial, then
+    ``chip-loss-mid-sharded-trial``, each against the serial trial."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from rafiki_tpu_torch import chaos as chaos_plane
+    from rafiki_tpu_torch import shard, telemetry
+    from rafiki_tpu_torch.chaos.scenarios import SCENARIOS
+    from rafiki_tpu_torch.model.base import load_model_class
+    from rafiki_tpu_torch.obs.journal import journal, read_dir
+    from rafiki_tpu_torch.scheduler import MeshSweepScheduler
+
+    t_phase = time.monotonic()
+    sc = SCENARIOS["chip-loss-mid-sharded-trial"]
+    tmp = tempfile.mkdtemp(prefix="rafiki-shard-")
+    manifests = []
+    save = shard.save_sharded
+
+    def saving(store, trial_id, epoch, state, width=None, extra=None):
+        head = save(store, trial_id, epoch, state, width, extra)
+        ids = json.loads(store.load(head).decode())["shards"]
+        manifests.append({"epoch": epoch, "width": state.width,
+                          "bytes": store.size(head) + sum(store.size(i) for i in ids)})
+        return head
+
+    shard.save_sharded = saving
+    runs = {}
+    try:
+        with _Env(dict(sc.env, RAFIKI_TPU_SERVING_PARAMS_DTYPE="float32")):
+            torch.cuda.empty_cache()
+            telemetry.reset()
+            journal.configure(f"{tmp}/obs", role="chip-smoke")
+            for label, spec in (("unfaulted", None), ("member_lost", sc.spec)):
+                store, params, job = _mesh_job(f"{tmp}/{label}", MESH_TF_SRC, "MeshTf", 1,
+                                               MESH_TEXT_URI, MESH_TEXT_EVAL_URI,
+                                               "TEXT_CLASSIFICATION")
+                plane = chaos_plane.FaultPlane.from_spec(spec) if spec else None
+                if plane is not None:
+                    chaos_plane.install(plane)
+                try:
+                    t0 = time.monotonic()
+                    result = MeshSweepScheduler(store, params).run_sweep(
+                        job["id"], chips=2, trials_per_chip=1, advisor_kind="random",
+                        devices=[_mesh_device()] * 2)
+                    wall = _synced_s(t0)
+                finally:
+                    chaos_plane.uninstall()
+                [t] = result.trials or [{"status": None, "params_id": None, "knobs": None,
+                                         "worker_id": None, "id": ""}]
+                runs[label] = {"job": job["id"], "trial": t["id"], "status": result.status,
+                               "trial_status": t["status"], "worker_id": t["worker_id"],
+                               "knobs": t["knobs"], "job_wall_s": wall,
+                               "fired": [] if plane is None else [list(f) for f in
+                                                                  plane.schedule()],
+                               "leaves": (_f32_leaves(params.load(t["params_id"]))
+                                          if t["params_id"] else {}),
+                               "errors": result.errors}
+            cls = load_model_class(MESH_TF_SRC, "MeshTf")
+            t_ref = time.monotonic()
+            want = _serial_leaves(cls, runs["unfaulted"]["knobs"], MESH_TEXT_URI)
+            ref_s = _synced_s(t_ref)
+            journal.close()
+            recs = read_dir(f"{tmp}/obs")
+            graphs = _graph_counters()
+    finally:
+        shard.save_sharded = save
+        journal.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def epoch_ms(width):
+        dts = [r["dt"] * 1e3 for r in recs if r.get("kind") == "perf"
+               and r.get("name") == "step" and not r.get("cold")
+               and r.get("group_width") == width]
+        return float(np.mean(dts)) if dts else None
+
+    serial_ms = [r["dt"] * 1e3 for r in recs if r.get("kind") == "perf"
+                 and r.get("name") == "step" and not r.get("cold")
+                 and r.get("program_kind") == "serial"]
+    line = {"phase": "mesh_sharded", "card": card[1], "power_limit": card[2],
+            "knobs": runs["unfaulted"]["knobs"], "train_uri": MESH_TEXT_URI,
+            "steps_per_epoch": 10000 // 64, "spec": sc.spec,
+            "warm_epoch_ms_width2": epoch_ms(2), "warm_epoch_ms_width1": epoch_ms(1),
+            "warm_epoch_ms_serial": float(np.mean(serial_ms)) if serial_ms else None,
+            "manifest_bytes": sorted({m["bytes"] for m in manifests}),
+            "manifests": len(manifests), "serial_reference_s": ref_s}
+    for label, run in runs.items():
+        shard_recs = [r for r in recs if r.get("kind") == "shard"
+                      and r.get("trial_id") == run["trial"]]
+        line[label] = {k: run[k] for k in ("status", "trial_status", "worker_id", "job_wall_s",
+                                           "fired", "errors")}
+        line[label]["width_history"] = [r["width"] for r in shard_recs
+                                        if r["name"] == "group_formed"]
+        line[label]["reshards"] = [(r["from_width"], r["to_width"], r["epoch"])
+                                   for r in shard_recs if r["name"] == "reshard"]
+        line[label]["member_lost"] = [r["lost"] for r in shard_recs
+                                      if r["name"] == "member_lost"]
+        line[label]["serial_byte_equal"] = _byte_equal(run["leaves"], want)
+    line.update(graphs)
+    line["phase_s"] = time.monotonic() - t_phase
+    return line
+
+
+def mesh_supervisor_kill(card):
+    """Phase 22 (d): ``supervisor-kill-mid-sweep`` through ``sweep_proc``
+    subprocesses on the card."""
+    from rafiki_tpu_torch.chaos.runner import format_report, run_scenario
+
+    t_phase = time.monotonic()
+    report = run_scenario("supervisor-kill-mid-sweep", device="cuda")
+    graphs = _graph_counters()
+    return dict({"phase": "mesh_supervisor_kill", "card": card[1], "power_limit": card[2],
+                 "passed": report.passed, "scenario_s": report.duration_s,
+                 "checks": {c.name: c.ok for c in report.checks},
+                 "report": None if report.passed else format_report(report),
+                 "phase_s": time.monotonic() - t_phase}, **graphs)
+
+
+def mesh_phase(card, check) -> None:
+    """Phase 22 and its checks (also ``--mesh``)."""
+    t0 = time.monotonic()
+    a = mesh_sweep(card)
+    print(json.dumps(a))
+    check(a["status"] == "COMPLETED" and a["trials"] == MESH_TRIALS
+          and a["completed"] == MESH_TRIALS and a["with_params"] == MESH_TRIALS
+          and not a["errors"],
+          f"mesh sweep: {a['status']}, {a['trials']} trials, {a['completed']} completed, "
+          f"{a['with_params']} with params, errors {a['errors']}")
+    w = a["wal"]
+    check(w.get("ok") and w["double_claims"] == 0 and w["claims"] == w["rows"] == w["claimed"],
+          f"mesh sweep: the WAL does not reconcile: {w}")
+    check(a["best_score"] is not None and a["best_score"] >= TUNE_TOP1_TARGET,
+          f"mesh sweep: best score {a['best_score']} < {TUNE_TOP1_TARGET}")
+    check(len(a["serial_byte_equal"]) == 2 and all(a["serial_byte_equal"]),
+          f"mesh sweep: members against their serial trials {a['serial_byte_equal']}")
+    check(a["backfills"] >= 1 and a["graph_replays"] > 0,
+          f"mesh sweep: {a['backfills']} backfills, {a['graph_replays']} replays")
+    b = mesh_repack(card)
+    print(json.dumps(b))
+    check(b["status"] == "COMPLETED" and b["trial_status"] == ["COMPLETED"] * 4,
+          f"mesh repack: job {b['status']}, trials {b['trial_status']}, errors {b['errors']}")
+    check(any(f[0] == "scheduler.preempt" and f[3] == "chip1" for f in b["fired"]),
+          f"mesh repack: the preempt did not fire on chip1: {b['fired']}")
+    check(b["chip1_trials"] and sorted(b["chip1_trials"]) == sorted(b["repacked_onto_chip0"])
+          and all((wid or "").endswith("-mesh-c0") for wid in b["worker_ids"]),
+          f"mesh repack: chip 1's rows {b['chip1_trials']} re-packed as "
+          f"{b['repacked_onto_chip0']}, finished by {b['worker_ids']}")
+    check(all(e is not None and e >= 1 for e in b["resumed_from_epoch"].values()),
+          f"mesh repack: resumed from {b['resumed_from_epoch']}")
+    check(all(b["serial_byte_equal"]),
+          f"mesh repack: params against serial runs {b['serial_byte_equal']}")
+    rep = b["replays_by_chip"]
+    check(rep.get("mesh-chip-0", 0) > 0 and rep.get("mesh-chip-1", 0) > 0,
+          f"mesh repack: captured steps replayed by chip {rep}")
+    c = mesh_sharded(card)
+    print(json.dumps(c))
+    for label, history in (("unfaulted", [2]), ("member_lost", [2, 1])):
+        r = c[label]
+        check(r["status"] == "COMPLETED" and r["trial_status"] == "COMPLETED"
+              and (r["worker_id"] or "").endswith("-shard-g0"),
+              f"mesh sharded ({label}): job {r['status']}, trial {r['trial_status']}, "
+              f"worker {r['worker_id']}, errors {r['errors']}")
+        check(r["width_history"] == history,
+              f"mesh sharded ({label}): width history {r['width_history']}, not {history}")
+        check(r["serial_byte_equal"],
+              f"mesh sharded ({label}): the trial's params differ from the serial trial's")
+    lost = c["member_lost"]
+    check(any(f[0] == "scheduler.preempt" and f[3] == "chip1" for f in lost["fired"])
+          and lost["member_lost"] == [[1]] and len(lost["reshards"]) == 1
+          and lost["reshards"][0][:2] == (2, 1),
+          f"mesh sharded: member loss {lost['member_lost']}, reshards {lost['reshards']}, "
+          f"fired {lost['fired']}")
+    check(c["manifests"] >= 1 and c["graph_replays"] > 0,
+          f"mesh sharded: {c['manifests']} manifests, {c['graph_replays']} replays")
+    d = mesh_supervisor_kill(card)
+    print(json.dumps(d))
+    check(d["passed"], f"mesh supervisor kill:\n{d['report']}")
+    print(json.dumps({"phase": "mesh", "card": card[1], "power_limit": card[2],
+                      "phase_s": time.monotonic() - t0}))
+
+
 def main() -> int:
     import torch
 
@@ -3447,7 +3945,7 @@ def main() -> int:
         print(card[0])
         print(json.dumps(graph_step(card)))
         return 0
-    if sys.argv[1:] not in ([], ["--zoo"], ["--obs"], ["--chaos"], ["--process"]):
+    if sys.argv[1:] not in ([], ["--zoo"], ["--obs"], ["--chaos"], ["--process"], ["--mesh"]):
         fail(f"unknown arguments {sys.argv[1:]}")
     card = card_identity()
     print(card[0])
@@ -3487,6 +3985,13 @@ def main() -> int:
             print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
             return 1
         print(json.dumps({"process": "ok", "device": torch.cuda.get_device_name(0)}))
+        return 0
+    if sys.argv[1:] == ["--mesh"]:
+        mesh_phase(card, check)
+        if failures:
+            print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
+            return 1
+        print(json.dumps({"mesh": "ok", "device": torch.cuda.get_device_name(0)}))
         return 0
 
     from rafiki_tpu_torch.ops.train import predict
@@ -3765,6 +4270,10 @@ def main() -> int:
     # -- 21. process workers and within-trial data parallelism ------------------------
     torch.cuda.empty_cache()
     process_phase(card, check)
+
+    # -- 22. the mesh sweep, its write-ahead log and resume, the sharded lane -----------
+    torch.cuda.empty_cache()
+    mesh_phase(card, check)
 
     # -- kernels and the result line -------------------------------------------
     print(json.dumps({"kernels": []}))

@@ -18,8 +18,13 @@ The route decision of each inference job is journaled
 (``serving/route``, as in the JAX package) and evented
 (``inference_route``, the port's own event).
 
-Not in the port yet: compile prewarm, the resume reaper, the job
-admission gate, co-hosted serving and autoscale.
+The resume reaper (``start_resume_reaper``, ``RAFIKI_RESUME_POLL_S``)
+watches for RUNNING jobs whose sweep supervisor stopped heartbeating and
+adopts each through ``scheduler/recovery.py resume_sweep`` on the
+manager's device.
+
+Not in the port yet: compile prewarm, the job admission gate, co-hosted
+serving and autoscale.
 """
 
 from __future__ import annotations
@@ -82,6 +87,9 @@ class ServicesManager:
         self._train_jobs: Dict[str, _TrainJobHandle] = {}
         self._inference_jobs: Dict[str, _InferenceJobHandle] = {}
         self._lock = threading.Lock()
+        self._reaper_thread: Optional[threading.Thread] = None
+        self._reaper_stop: Optional[threading.Event] = None
+        self._resuming: set = set()
 
     # -- train services ------------------------------------------------------
 
@@ -130,6 +138,77 @@ class ServicesManager:
         handle.stop_event.set()
         if wait:
             handle.thread.join(timeout=timeout)
+
+    # -- crash recovery (docs/recovery.md) -----------------------------------
+
+    def start_resume_reaper(self, poll_s: Optional[float] = None,
+                            stale_after_s: Optional[float] = None) -> None:
+        """Watch for RUNNING jobs whose sweep supervisor stopped
+        heartbeating (a crashed or SIGKILLed supervisor process leaves its
+        SUPERVISOR service row going stale) and adopt them through
+        ``resume_sweep``, on the manager's device. Poll cadence from
+        ``RAFIKI_RESUME_POLL_S``, liveness cutoff from
+        ``RAFIKI_RESUME_STALE_S`` unless given. Idempotent: a second start
+        while the reaper runs is a no-op, and a job being resumed (here or
+        by a racing resumer: the CAS adoption settles that) is never
+        picked up twice."""
+        from rafiki_tpu_torch.scheduler.recovery import (ENV_RESUME_POLL_S, ENV_RESUME_STALE_S,
+                                                         resume_sweep)
+
+        if self._reaper_thread is not None and self._reaper_thread.is_alive():
+            return
+        poll = float(poll_s if poll_s is not None else os.environ.get(ENV_RESUME_POLL_S, "10"))
+        stale = float(stale_after_s if stale_after_s is not None
+                      else os.environ.get(ENV_RESUME_STALE_S, "30"))
+        devices = None if self.device == torch.device("cuda") else [self.device]
+        stop = threading.Event()
+
+        def loop():
+            while not stop.wait(poll):
+                try:
+                    dead = self.store.get_jobs_with_dead_supervisor(stale)
+                except Exception:
+                    continue  # a transient store error: the next tick retries
+                for job in dead:
+                    jid = job["id"]
+                    with self._lock:
+                        handle = self._train_jobs.get(jid)
+                        if handle is not None and handle.thread.is_alive():
+                            # Our own live services: the job is not
+                            # abandoned, only its heartbeat is.
+                            continue
+                        if jid in self._resuming:
+                            continue
+                        self._resuming.add(jid)
+                    _journal.record("recovery", "reaper_detected", job_id=jid,
+                                    stale_after_s=stale)
+                    events.emit("supervisor_dead_detected", job_id=jid)
+                    try:
+                        with default_device(self.device):
+                            resume_sweep(self.store, self.params_store, jid,
+                                         stale_after_s=stale, devices=devices,
+                                         advisor_service=self.advisors)
+                    except Exception as e:
+                        # A failed resume must not kill the reaper: the job
+                        # stays adoptable and the next pass (or a manual
+                        # `sweep_proc resume`) retries.
+                        _journal.record("recovery", "reaper_resume_failed", job_id=jid,
+                                        error=repr(e))
+                    finally:
+                        with self._lock:
+                            self._resuming.discard(jid)
+
+        self._reaper_stop = stop
+        self._reaper_thread = threading.Thread(target=loop, name="resume-reaper", daemon=True)
+        self._reaper_thread.start()
+
+    def stop_resume_reaper(self, timeout: float = 10.0) -> None:
+        if self._reaper_stop is not None:
+            self._reaper_stop.set()
+        if self._reaper_thread is not None:
+            self._reaper_thread.join(timeout=timeout)
+        self._reaper_thread = None
+        self._reaper_stop = None
 
     # -- inference services --------------------------------------------------
 
@@ -298,6 +377,7 @@ class ServicesManager:
     # -- teardown ------------------------------------------------------------
 
     def stop_all(self) -> None:
+        self.stop_resume_reaper()
         with self._lock:
             train_ids = list(self._train_jobs)
             inf_ids = list(self._inference_jobs)

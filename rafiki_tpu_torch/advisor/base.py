@@ -5,7 +5,8 @@ The port's own copy of ``rafiki_tpu/advisor/base.py`` (``KnobSpace``,
 pending (constant-liar) bookkeeping and the same speculate/correct
 hooks, so from one seed and one scored history every engine proposes
 what the JAX package's does. Dropped: the search-audit journal records
-(``obs.search.audit``); ``knobs_hash`` is kept here.
+(``obs.search.audit``, ROADMAP Queue 1, item 9); ``knobs_hash`` comes
+from the port's ``obs/search/audit.py``.
 
 The vectorisation (knobs dict <-> R^d point) lives here so every engine
 shares one encoding:
@@ -17,11 +18,9 @@ shares one encoding:
 
 from __future__ import annotations
 
-import hashlib
-import json
 import math
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -34,12 +33,7 @@ from rafiki_tpu_torch.model.knobs import (
     KnobConfig,
     Knobs,
 )
-
-
-def knobs_hash(knobs: Dict[str, Any]) -> str:
-    """Canonical 16-hex digest of a full knob assignment (sort_keys JSON)."""
-    blob = json.dumps(knobs, sort_keys=True, default=str).encode()
-    return hashlib.sha256(blob).hexdigest()[:16]
+from rafiki_tpu_torch.obs.search.audit import knobs_hash  # noqa: F401  (re-exported)
 
 
 class KnobSpace:

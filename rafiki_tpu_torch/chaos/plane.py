@@ -57,9 +57,9 @@ error      ``hook()`` raises :class:`ChaosError` (an ``OSError`` — a
            failing store write)
 kill/term  ``hook()`` signals the CURRENT process (SIGKILL/SIGTERM) —
            in-worker crash-at-epoch faults
-preempt    never self-enacted; a process scheduler consumes it via
-           :func:`decide` (the port has none yet: ROADMAP Queue 1,
-           item 7)
+preempt    never self-enacted; the mesh sweep's supervisor consumes
+           it via :func:`decide` (``scheduler.preempt``, keyed
+           ``chip<i>``)
 nan        never self-enacted; the train loops' ``train.nan`` site turns
            it into a one-step gradient poison column
 =========  ==============================================================

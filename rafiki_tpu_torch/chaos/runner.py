@@ -36,7 +36,7 @@ from typing import Dict, List, Optional
 
 from rafiki_tpu_torch import telemetry
 from rafiki_tpu_torch.chaos.plane import ENV_VAR, FaultPlane, install, uninstall
-from rafiki_tpu_torch.chaos.scenarios import SCENARIOS, SUBPROCESS_SCENARIOS
+from rafiki_tpu_torch.chaos.scenarios import SCENARIOS
 from rafiki_tpu_torch.obs import journal as journal_mod
 from rafiki_tpu_torch.obs.journal import journal
 from rafiki_tpu_torch.utils.backend import DeviceLike, default_device
@@ -45,10 +45,12 @@ from rafiki_tpu_torch.utils.backend import DeviceLike, default_device
 # surfaced correctly"): their duration feeds the recovery histogram.
 _RECOVERY_SCENARIOS = frozenset({"checkpoint-write-failure", "drain-under-load"})
 
-# Subprocess-killing scenarios must be reconstructible from the journals
-# alone: after the run, _journal_checks reads the death and recovery
-# story back out of the merged files.
-_JOURNALED_SCENARIOS = SUBPROCESS_SCENARIOS
+# The scenarios that SIGKILL ProcessScheduler workers must be
+# reconstructible from the journals alone: after the run, _journal_checks
+# reads the death and recovery story back out of the merged files. (The
+# sweep-supervisor kills check their own journal story.)
+_JOURNALED_SCENARIOS = frozenset({"kill-mid-trial-resume", "kill-mid-pack-resume",
+                                  "collective-kill-mid-step"})
 
 
 @dataclasses.dataclass

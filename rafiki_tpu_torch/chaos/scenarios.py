@@ -42,8 +42,8 @@ nan-trial-contained            member 2 of a k=4 pack gets one step's
 =============================  =============================================
 
 and three that SIGKILL subprocess workers of the ``ProcessScheduler``
-(``SUBPROCESS_SCENARIOS``; ``collective-kill-mid-step`` trains at width
-2, one device per rank, so on the card it needs two):
+(``collective-kill-mid-step`` trains at width 2, one device per rank, so
+on the card it needs two):
 
 =============================  =============================================
 kill-mid-trial-resume          worker SIGKILLs itself after epoch 1 of a
@@ -58,12 +58,37 @@ collective-kill-mid-step       a rank of a width-2 dp group SIGKILLed at its
                                from its checkpoint
 =============================  =============================================
 
-The JAX package's other 10 scenarios wait for the planes they drive
-(ROADMAP Queue 1): the mesh and sweep scenarios for the mesh
-sweep (item 8), ``early-kill-mid-pack-resume`` for the search plane
-(item 9), ``chip-loss-mid-sharded-trial`` for the sharded lane (item
-12), ``stacked-worker-loss-fallback`` for the multiprocessing bus (item
-13), and the autoscale and tenancy scenarios for item 14.
+and five that drive the mesh sweep (``scheduler/mesh.py``), its chips
+(or group members) sharing the runner's device; the last two SIGKILL
+the sweep's supervisor process (``scheduler/sweep_proc.py``) and resume
+the sweep in a fresh one (``SUBPROCESS_SCENARIOS`` holds all five that
+kill a process):
+
+=============================  =============================================
+mesh-chip-loss-repack          chip 1 of a 2-chip sweep preempted mid-pack:
+                               its RUNNING rows re-packed onto chip 0 and
+                               resumed, params bit-matching serial runs
+chip-loss-mid-sharded-trial    member 1 of a width-2 sharded group
+                               preempted: manifest durable, group re-formed
+                               at width 1, reshard-on-restore, params
+                               bit-matching the serial trial
+mesh-degrades-single-chip      every collective.init attempt fails: the
+                               sweep degrades to one chip and completes
+supervisor-kill-mid-sweep      the supervisor SIGKILLed mid-sweep;
+                               resume_sweep reconciles the WAL, adopts the
+                               orphans and ends with the unfaulted run's
+                               best score and knob set
+host-loss-mid-sweep            host 1 (chips 2, 3) lost and re-packed, then
+                               host 0 with the supervisor; resume finishes
+                               the budget with a clean WAL
+=============================  =============================================
+
+The JAX package's other 5 scenarios wait for the planes they drive
+(ROADMAP Queue 1): ``early-kill-mid-pack-resume`` for the search plane
+(item 9), ``stacked-worker-loss-fallback`` for the multiprocessing bus
+(item 13), and the three autoscale and tenancy scenarios for item 14.
+The two supervisor kills leave out the JAX package's checks that read
+the advisor's audit journal and its ``obs resume`` verb (item 9).
 """
 
 from __future__ import annotations
@@ -89,9 +114,11 @@ class Scenario:
 
 SCENARIOS: Dict[str, Scenario] = {}
 
-#: The scenarios whose workers are ProcessScheduler subprocesses.
+#: The scenarios that SIGKILL a subprocess: the ProcessScheduler's
+#: workers, or the sweep supervisor's process (``sweep_proc``).
 SUBPROCESS_SCENARIOS = frozenset({"kill-mid-trial-resume", "kill-mid-pack-resume",
-                                  "collective-kill-mid-step"})
+                                  "collective-kill-mid-step", "supervisor-kill-mid-sweep",
+                                  "host-loss-mid-sweep"})
 
 
 def scenario(name: str, description: str, spec: str,
@@ -701,3 +728,398 @@ def collective_kill_mid_step(tmp, check: CheckFn) -> None:
     check("trial_finished_by_respawned_worker", len(resumed) >= 1,
           f"worker ids: {[t['worker_id'] for t in trials]}")
     _no_corrupt_checkpoints(check, params, trials)
+
+
+# ---------------------------------------------------------------------------
+# Mesh sweep scenarios (scheduler/mesh.py): the runner's device is every
+# chip's, so two chips, or two group members, share one device.
+# ---------------------------------------------------------------------------
+
+def _chips(n: int):
+    return [_device()] * n
+
+
+@scenario(
+    "mesh-chip-loss-repack",
+    "Preempt chip 1 of a 2-chip mesh sweep mid-pack: the supervisor "
+    "must re-pack its RUNNING trials onto the survivor, every trial "
+    "completes with a score, resumed params bit-match unfaulted serial "
+    "runs, and the loss/re-pack story reads back out of the journals.",
+    spec="seed=11;scheduler.preempt:kill:after=2:times=1:match=chip1",
+    env={"RAFIKI_CHECKPOINT_EVERY": "1"},
+)
+def mesh_chip_loss_repack(tmp, check: CheckFn) -> None:
+    from rafiki_tpu_torch import chaos, telemetry
+    from rafiki_tpu_torch.obs import journal as journal_mod
+    from rafiki_tpu_torch.obs.ledger import ledger
+    from rafiki_tpu_torch.scheduler import MeshSweepScheduler
+
+    store, params, model = _train_env(tmp)
+    job = _make_job(store, model, {"MODEL_TRIAL_COUNT": 4})
+    result = MeshSweepScheduler(store, params).run_sweep(
+        job["id"], chips=2, trials_per_chip=2, advisor_kind="random", devices=_chips(2))
+    check("job_completed", result.status == "COMPLETED", result.errors)
+    trials = _check_rows(check, store, job["id"], expect=4)
+    check("all_scores_recorded", all(t.get("score") is not None for t in trials),
+          f"scores: {[t.get('score') for t in trials]}")
+    check("chip_loss_counted", telemetry.get_counter("mesh.chips_lost") >= 1.0,
+          "no mesh.chips_lost increments")
+    # The kill really fired, against chip1 specifically.
+    plane = chaos.active()
+    fired = [] if plane is None else plane.schedule()
+    check("preempt_fired",
+          any(site == "scheduler.preempt" and key == "chip1"
+              for site, _mode, _hit, key in fired), f"schedule: {fired}")
+    # Re-packed work lands on the survivor.
+    workers = {t.get("worker_id") for t in trials}
+    check("survivor_finished_trials", any(w and w.endswith("-mesh-c0") for w in workers),
+          f"worker ids: {sorted(w or '' for w in workers)}")
+    recs = journal_mod.read_dir(journal_mod.journal.log_dir)
+    check("journal_records_chip_loss", _journal_has(recs, "mesh", "chip_lost"),
+          "no mesh/chip_lost journal record")
+    check("journal_records_repack", _journal_has(recs, "mesh", "repack"),
+          "no mesh/repack journal record")
+    # Recovery cost charged to the sweep's downtime bucket.
+    ent = ledger.snapshot()["entities"].get(f"mesh:{job['id']}", {})
+    check("downtime_charged", ent.get("downtime_s", 0.0) > 0.0, ent)
+    _params_match_serial(check, params, trials)
+
+
+# A Transformer family with every shape knob fixed: one knob config, so a
+# fresh model with a trial's knobs retrains bit-identically, and the
+# width-invariance of the sharded loop (shard/loop.py) makes that same
+# serial run the reference for a GROUP trial at any width.
+SHARD_SOURCE = b"""
+from rafiki_tpu_torch.model.knobs import FixedKnob, FloatKnob
+from rafiki_tpu_torch.models.transformer import Transformer
+
+class ShardTf(Transformer):
+    @staticmethod
+    def get_knob_config():
+        return {
+            "embed_dim": FixedKnob(32),
+            "num_heads": FixedKnob(2),
+            "num_layers": FixedKnob(1),
+            "learning_rate": FloatKnob(1e-3, 1e-2, is_exp=True),
+            "batch_size": FixedKnob(32),
+            "epochs": FixedKnob(3),
+            "seed": FixedKnob(0),
+        }
+"""
+
+SHARD_TRAIN = "synthetic://text?vocab=81&classes=5&n=256&len=16&seed=0"
+SHARD_VAL = "synthetic://text?vocab=81&classes=5&n=64&len=16&seed=1"
+
+
+@scenario(
+    "chip-loss-mid-sharded-trial",
+    "Preempt member 1 of a width-2 sharded group mid-trial: the group "
+    "must abort at the epoch boundary (that epoch's shard-chunk "
+    "manifest durable FIRST), re-form at width 1 on the survivor, "
+    "resume via reshard-on-restore, complete with a score, and the "
+    "final params must bit-match an unfaulted serial run.",
+    spec="seed=11;scheduler.preempt:kill:after=2:times=1:match=chip1",
+    env={"RAFIKI_CHECKPOINT_EVERY": "1", "RAFIKI_SHARD_WIDTH": "2"},
+)
+def chip_loss_mid_sharded_trial(tmp, check: CheckFn) -> None:
+    from rafiki_tpu_torch import chaos, telemetry
+    from rafiki_tpu_torch.obs import journal as journal_mod
+    from rafiki_tpu_torch.scheduler import MeshSweepScheduler
+    from rafiki_tpu_torch.store import MetaStore, ParamsStore
+
+    store = MetaStore(tmp / "meta.sqlite3")
+    params = ParamsStore(tmp / "params")
+    model = store.create_model("shardtf", "TEXT_CLASSIFICATION", None, SHARD_SOURCE, "ShardTf")
+    job = store.create_train_job("shardapp", "TEXT_CLASSIFICATION", None, SHARD_TRAIN,
+                                 SHARD_VAL, {"MODEL_TRIAL_COUNT": 1})
+    store.create_sub_train_job(job["id"], model["id"])
+    result = MeshSweepScheduler(store, params).run_sweep(
+        job["id"], chips=2, trials_per_chip=1, advisor_kind="random", devices=_chips(2))
+    check("job_completed", result.status == "COMPLETED", result.errors)
+    trials = _check_rows(check, store, job["id"], expect=1)
+    check("score_recorded", trials[0].get("score") is not None, trials[0])
+    check("group_worker_finished", (trials[0].get("worker_id") or "").endswith("-shard-g0"),
+          f"worker id: {trials[0].get('worker_id')}")
+    # The kill really fired, against a group member specifically.
+    plane = chaos.active()
+    fired = [] if plane is None else plane.schedule()
+    check("preempt_fired",
+          any(site == "scheduler.preempt" and key == "chip1"
+              for site, _mode, _hit, key in fired), f"schedule: {fired}")
+    check("chip_loss_counted", telemetry.get_counter("mesh.chips_lost") >= 1.0,
+          "no mesh.chips_lost increments")
+    check("reshard_restore_counted", telemetry.get_counter("shard.reshard_restores") >= 1.0,
+          "no shard.reshard_restores increments")
+    # The width history reconstructs from the journal stream alone:
+    # formed at 2, member lost, re-formed at 1, resharded 2 -> 1.
+    recs = journal_mod.read_dir(journal_mod.journal.log_dir)
+    shard = [r for r in recs if r.get("kind") == "shard"]
+    widths = [r.get("width") for r in shard if r.get("name") == "group_formed"]
+    check("group_formed_then_reformed", widths == [2, 1], f"group_formed widths: {widths}")
+    check("journal_records_member_loss", _journal_has(recs, "shard", "member_lost"),
+          "no shard/member_lost journal record")
+    reshards = [(r.get("from_width"), r.get("to_width"))
+                for r in shard if r.get("name") == "reshard"]
+    check("journal_records_reshard", (2, 1) in reshards, f"reshard records: {reshards}")
+    _params_match_serial(check, params, trials, source=SHARD_SOURCE, cls_name="ShardTf",
+                         train_uri=SHARD_TRAIN)
+
+
+@scenario(
+    "mesh-degrades-single-chip",
+    "Every mesh-formation attempt fails (injected collective.init "
+    "errors past the retry budget): the sweep must DEGRADE to "
+    "single-chip mode inside its grace window — same trials, one chip "
+    "— and still complete, with the downgrade journaled.",
+    spec="seed=17;collective.init:error:times=8",
+    env={"RAFIKI_MESH_INIT_RETRIES": "2", "RAFIKI_MESH_INIT_BACKOFF_S": "0.01",
+         "RAFIKI_MESH_FORM_GRACE_S": "5"},
+)
+def mesh_degrades_single_chip(tmp, check: CheckFn) -> None:
+    from rafiki_tpu_torch import telemetry
+    from rafiki_tpu_torch.obs import journal as journal_mod
+    from rafiki_tpu_torch.scheduler import MeshSweepScheduler
+
+    store, params, model = _train_env(tmp)
+    job = _make_job(store, model, {"MODEL_TRIAL_COUNT": 2})
+    result = MeshSweepScheduler(store, params).run_sweep(
+        job["id"], chips=2, trials_per_chip=2, advisor_kind="random", devices=_chips(2))
+    check("job_completed", result.status == "COMPLETED", result.errors)
+    trials = _check_rows(check, store, job["id"], expect=2)
+    check("degradation_counted", telemetry.get_counter("mesh.degraded_single_chip") >= 1.0,
+          "no mesh.degraded_single_chip increments")
+    check("init_retries_counted", telemetry.get_counter("mesh.init_retries") >= 2.0,
+          "no mesh.init_retries increments")
+    workers = {t.get("worker_id") for t in trials}
+    check("single_chip_ran_everything", all(w and w.endswith("-mesh-c0") for w in workers),
+          f"worker ids: {sorted(w or '' for w in workers)}")
+    recs = journal_mod.read_dir(journal_mod.journal.log_dir)
+    check("journal_records_degradation", _journal_has(recs, "mesh", "degraded"),
+          "no mesh/degraded journal record")
+    _params_match_serial(check, params, trials)
+
+
+# ---------------------------------------------------------------------------
+# Control-plane crash scenarios (docs/recovery.md): the sweep runs in a
+# process of its own (scheduler/sweep_proc.py), so a supervisor kill takes
+# out the WHOLE control plane (advisor state, pack assignments,
+# heartbeats), and resume_sweep must prove a genuinely fresh process
+# adopts the job from the MetaStore + sweep WAL + journals alone. The JAX
+# package's checks that read the advisor's audit journal (the post-resume
+# propose_batch's strategy) and its `obs resume` verb wait for ROADMAP
+# Queue 1, item 9.
+# ---------------------------------------------------------------------------
+
+def _sweep_proc_env(extra: Optional[Dict[str, str]] = None,
+                    chaos: bool = True) -> Dict[str, str]:
+    """Child env for a sweep_proc subprocess: inherits the runner's
+    installed chaos/journal env, pins this checkout importable whatever
+    the cwd, and (chaos=False) strips the fault spec for resume and
+    reference children, which run unfaulted."""
+    import os
+    from pathlib import Path
+
+    import rafiki_tpu_torch
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(Path(rafiki_tpu_torch.__file__).resolve().parents[1]),
+                    env.get("PYTHONPATH", "")) if p)
+    env.update(extra or {})
+    if not chaos:
+        env.pop("RAFIKI_CHAOS", None)
+    return env
+
+
+def _sweep_proc_argv(mode: str, store, params, job_id: str, chips: int, trials_per_chip: int):
+    import sys
+
+    return [sys.executable, "-m", "rafiki_tpu_torch.scheduler.sweep_proc", mode,
+            "--db", str(store.path), "--params", str(params.directory), "--job", job_id,
+            "--chips", str(chips), "--trials-per-chip", str(trials_per_chip),
+            "--device", _platform()]
+
+
+def _sweep_proc(mode: str, store, params, job_id: str, *, chips: int, trials_per_chip: int,
+                env: Dict[str, str], advisor: Optional[str] = None,
+                advisor_kwargs: Optional[str] = None, stale_after_s: Optional[float] = None,
+                timeout: float = 240.0):
+    import json as _json
+    import subprocess
+
+    argv = _sweep_proc_argv(mode, store, params, job_id, chips, trials_per_chip)
+    if advisor:
+        argv += ["--advisor", advisor]
+    if advisor_kwargs:
+        argv += ["--advisor-kwargs", advisor_kwargs]
+    if stale_after_s is not None:
+        argv += ["--stale-after-s", str(stale_after_s)]
+    proc = subprocess.run(argv, env=env, capture_output=True, text=True, timeout=timeout)
+    summary = {}
+    if proc.stdout.strip():
+        try:
+            summary = _json.loads(proc.stdout.strip().splitlines()[-1])
+        except ValueError:
+            summary = {}
+    return proc, summary
+
+
+def _wal_checks(check, store, job_id: str) -> None:
+    """WAL-vs-store reconcile proves zero slots claimed twice: every
+    trial row covered by exactly one claim record."""
+    from rafiki_tpu_torch.scheduler.wal import read_wal, reconcile, wal_path
+
+    recs = read_wal(wal_path(store.path, job_id))
+    for sub in store.get_sub_train_jobs(job_id):
+        r = reconcile(recs, store.get_trials_of_sub_train_job(sub["id"]), sub=sub,
+                      sub_id=sub["id"])
+        check("wal_reconciles_clean", r.ok, r.summary())
+        check("no_double_claims", all(n == 1 for n in r.claims.values()), r.summary())
+
+
+@scenario(
+    "supervisor-kill-mid-sweep",
+    "SIGKILL the whole sweep-supervisor process mid-sweep (after its "
+    "warmup claims, before any trial completes): resume_sweep in a "
+    "fresh process must reconcile the WAL with zero double-claimed "
+    "slots, rehydrate the GP advisor, adopt every orphan, and finish "
+    "the job with the SAME best score and knob set as an unfaulted "
+    "run under the same seeds — with a non-warmup post-resume "
+    "propose_batch proving the advisor continued, not restarted.",
+    spec="seed=23;supervisor.tick:kill:after=30:times=1:match=g0",
+    env={"RAFIKI_CHECKPOINT_EVERY": "1",
+         "RAFIKI_SUPERVISOR_HEARTBEAT_S": "0.2"},
+)
+def supervisor_kill_mid_sweep(tmp, check: CheckFn) -> None:
+    import json as _json
+    import time as _time
+
+    from rafiki_tpu_torch.obs import journal as journal_mod
+
+    # Budget == chips * trials_per_chip == GP n_initial: every claim is a
+    # seed-deterministic warmup proposal made up front, so ONE plain
+    # unfaulted run is a complete best-score reference and the faulted
+    # run's kill (supervisor.tick only exists after the claims) cannot
+    # change which knobs were claimed.
+    BUDGET, CHIPS, K = 4, 2, 2
+    fd = tmp / "faulted"
+    fd.mkdir(parents=True, exist_ok=True)
+    store, params, model = _train_env(fd)
+    job = _make_job(store, model, {"MODEL_TRIAL_COUNT": BUDGET})
+
+    p1, _ = _sweep_proc("run", store, params, job["id"], chips=CHIPS, trials_per_chip=K,
+                        env=_sweep_proc_env(), advisor="gp", advisor_kwargs='{"n_initial": 4}')
+    check("supervisor_killed", p1.returncode == -9,
+          f"run rc={p1.returncode}: {p1.stderr[-500:]}")
+
+    _time.sleep(0.5)
+    p2, summary = _sweep_proc("resume", store, params, job["id"], chips=CHIPS,
+                              trials_per_chip=K, env=_sweep_proc_env(chaos=False),
+                              stale_after_s=0.4)
+    check("resume_completed", p2.returncode == 0,
+          f"resume rc={p2.returncode}: {p2.stderr[-800:]}")
+    check("resume_adopted_orphans", summary.get("adopted", 0) >= 1, summary)
+    check("resume_mode_wal", summary.get("mode") == "wal", summary)
+    trials = _check_rows(check, store, job["id"], expect=BUDGET)
+    _wal_checks(check, store, job["id"])
+
+    # The unfaulted reference run, same seeds, its own journal dir so the
+    # faulted job's timeline stays uncontaminated.
+    rd = tmp / "reference"
+    rd.mkdir(parents=True, exist_ok=True)
+    rstore, rparams, rmodel = _train_env(rd)
+    rjob = _make_job(rstore, rmodel, {"MODEL_TRIAL_COUNT": BUDGET})
+    p3, _ = _sweep_proc("run", rstore, rparams, rjob["id"], chips=CHIPS, trials_per_chip=K,
+                        env=_sweep_proc_env({"RAFIKI_LOG_DIR": str(rd / "obs")}, chaos=False),
+                        advisor="gp", advisor_kwargs='{"n_initial": 4}')
+    check("reference_completed", p3.returncode == 0,
+          f"reference rc={p3.returncode}: {p3.stderr[-500:]}")
+    rtrials = rstore.get_trials_of_train_job(rjob["id"])
+    best_f = max((t["score"] for t in trials if t["score"] is not None), default=None)
+    best_r = max((t["score"] for t in rtrials if t["score"] is not None), default=None)
+    check("best_score_matches_unfaulted", best_f is not None and best_f == best_r,
+          f"faulted {best_f} vs unfaulted {best_r}")
+    knobs_f = sorted(_json.dumps(t["knobs"], sort_keys=True) for t in trials)
+    knobs_r = sorted(_json.dumps(t["knobs"], sort_keys=True) for t in rtrials)
+    check("knob_set_matches_unfaulted", knobs_f == knobs_r,
+          "resumed sweep explored different knobs than unfaulted run")
+
+    jrecs = journal_mod.read_dir(journal_mod.journal.log_dir)
+    check("advisor_rehydrated", _journal_has(jrecs, "recovery", "rehydrated"),
+          "no recovery/rehydrated journal record")
+    check("kill_injected_journaled",
+          any(r.get("kind") == "chaos" and r.get("mode") == "kill"
+              and r.get("site") == "supervisor.tick" for r in jrecs),
+          "no chaos/injected supervisor.tick kill in journals")
+
+
+@scenario(
+    "host-loss-mid-sweep",
+    "Two whole-host losses in one 4-chip / 2-hosts sweep: host 1 "
+    "(chips 2,3) is lost first via the host.loss chaos site and the "
+    "survivors must re-pack its rows; then host 0 dies taking the "
+    "supervisor with it (SIGKILL fired the moment the re-pack hits "
+    "the journal — state-triggered, so the ordering is robust to "
+    "machine speed), and resume_sweep must adopt the rest and finish "
+    "the full budget with clean WAL accounting.",
+    spec="seed=29;host.loss:kill:after=2:times=1:match=g0h1",
+    env={"RAFIKI_CHECKPOINT_EVERY": "1",
+         "RAFIKI_SUPERVISOR_HEARTBEAT_S": "0.2",
+         "RAFIKI_MESH_CHIPS_PER_HOST": "2"},
+)
+def host_loss_mid_sweep(tmp, check: CheckFn) -> None:
+    import signal
+    import subprocess
+    import time as _time
+
+    from rafiki_tpu_torch.obs import journal as journal_mod
+
+    BUDGET, CHIPS, K = 8, 4, 2
+    store, params, model = _train_env(tmp)
+    job = _make_job(store, model, {"MODEL_TRIAL_COUNT": BUDGET})
+
+    # Host 0's loss cannot be tick-scheduled: the epoch boundary that
+    # unwinds host 1's aborted packs arrives at machine-dependent times,
+    # and killing before the re-pack would test the supervisor-kill path,
+    # not host ordering. So the body watches the shared journal dir for
+    # the mesh/repack record and THEN kills the supervisor process: the
+    # same SIGKILL a real host loss delivers, triggered by cluster state.
+    argv = _sweep_proc_argv("run", store, params, job["id"], CHIPS, K) + ["--advisor", "random"]
+    child = subprocess.Popen(argv, env=_sweep_proc_env(), stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+    log_dir = journal_mod.journal.log_dir
+    deadline = _time.monotonic() + 120.0
+    repacked = False
+    try:
+        while _time.monotonic() < deadline and child.poll() is None:
+            if any(r.get("kind") == "mesh" and r.get("name") == "repack"
+                   for r in journal_mod.read_dir(log_dir)):
+                repacked = True
+                break
+            _time.sleep(0.1)
+    finally:
+        if child.poll() is None:
+            child.send_signal(signal.SIGKILL)
+        child.communicate(timeout=60)
+    check("repack_seen_before_host0_loss", repacked,
+          "mesh/repack never hit the journals before timeout/exit")
+    check("supervisor_host_killed", child.returncode == -9, f"run rc={child.returncode}")
+
+    # Survivors re-packed host 1's rows BEFORE host 0 died: the host-loss
+    # and re-pack story is already in the journals.
+    jrecs = journal_mod.read_dir(journal_mod.journal.log_dir)
+    host_lost = [r for r in jrecs if r.get("kind") == "mesh" and r.get("name") == "host_lost"]
+    check("host1_loss_journaled", any(r.get("host") == 1 for r in host_lost),
+          f"host_lost records: {host_lost}")
+    check("survivors_repacked", _journal_has(jrecs, "mesh", "repack"),
+          "no mesh/repack journal record after host loss")
+
+    _time.sleep(0.5)
+    p2, summary = _sweep_proc("resume", store, params, job["id"], chips=CHIPS,
+                              trials_per_chip=K, env=_sweep_proc_env(chaos=False),
+                              stale_after_s=0.4)
+    check("resume_completed", p2.returncode == 0,
+          f"resume rc={p2.returncode}: {p2.stderr[-800:]}")
+    check("resume_adopted_orphans", summary.get("adopted", 0) >= 1, summary)
+    _check_rows(check, store, job["id"], expect=BUDGET)
+    _wal_checks(check, store, job["id"])

@@ -67,6 +67,7 @@ from rafiki_tpu_torch.model.dataset import Dataset, dataset_utils
 from rafiki_tpu_torch.model.knobs import KnobConfig, Knobs, validate_knobs
 from rafiki_tpu_torch.model.log import logger
 from rafiki_tpu_torch.ops import train as _ops
+from rafiki_tpu_torch.ops.graphs import device_lock
 from rafiki_tpu_torch.ops.layers import GroupNorm
 from rafiki_tpu_torch.ops.optim import Adam, AdamState, ScaleByAdamState, adam, linear_schedule, scale_by_adam
 from rafiki_tpu_torch.utils.backend import DeviceLike, resolve_device
@@ -832,7 +833,8 @@ def _to_host(trees: Sequence[Dict[str, Any]]) -> List[Dict[str, Any]]:
             host[k] = v
         out.append(host)
     for device in cards:
-        torch.cuda.synchronize(device)
+        with device_lock(device):  # no capture of another thread in flight
+            torch.cuda.synchronize(device)
     return out
 
 

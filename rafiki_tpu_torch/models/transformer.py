@@ -13,8 +13,9 @@ token ids ``(B, L)``:
   * a final ``LayerNorm`` (float32), the mean over tokens, cast to bf16,
     and a bf16 Dense to the classes.
 The vocabulary size comes from the training dataset's ``vocab`` meta.
-``shard_plan`` (the sharded-trial lane) is not ported: the template
-inherits ``TorchModel``'s serial and packed lanes only.
+``shard_plan`` is the template's sharded-lane declaration (the mesh
+sweep's lane fork reads it): the group width solved from the parameter
+shapes, built on the ``meta`` device.
 """
 
 from __future__ import annotations
@@ -102,3 +103,20 @@ class Transformer(TorchModel):
             num_classes=num_classes,
             length=int(input_shape[0]),
         )
+
+    def shard_plan(self, ds, per_chip_bytes=None):
+        """Solve this configuration's group width from the parameters'
+        shapes alone: the module is built on the ``meta`` device, so
+        nothing is materialised. Against the card's own memory (or
+        ``per_chip_bytes``); on the CPU, which has no per-chip figure,
+        the width is the pin (``RAFIKI_SHARD_WIDTH``) or 1. Width 1 (the
+        answer for this small grid) keeps the trial in the serial and
+        packed lanes; tests and smokes pin wider groups."""
+        from rafiki_tpu_torch.shard import ShardPlan
+
+        self._dataset_meta = dict(ds.meta)
+        num_classes, input_shape = self._dataset_arch(ds)
+        with torch.device("meta"):
+            module = self.build_module(num_classes, input_shape)
+        return ShardPlan.for_params(module, family=type(self).__name__,
+                                    per_chip_bytes=per_chip_bytes, device=self.device)

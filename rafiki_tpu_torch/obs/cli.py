@@ -25,9 +25,13 @@ under ``--dir``, default ``$RAFIKI_LOG_DIR`` then the configured
     replay <cap>   re-execute a divergence capsule (on the card, or
                    ``--device cpu``) and bit-verify the reproduction;
                    exit 0 only when the bad step reproduced bit for bit
+    shard          the sharded lane's story: each ``shard/plan``, and per
+                   trial its width history (group formations, member
+                   losses, reshard-on-restore events); exit 1 when the
+                   journals hold no ``shard/*`` record
 
 The journals of either package read the same: ``trace``, ``tail``,
-``slowest``, ``slo``, ``health`` and ``curves`` print what the JAX
+``slowest``, ``slo``, ``health``, ``curves`` and ``shard`` print what the JAX
 package's CLI prints (``curves`` without the JAX package's
 ``--predicted`` overlay: the learning-curve extrapolator is not
 ported).
@@ -354,6 +358,60 @@ def cmd_replay(path: str, as_json: bool, device: Optional[str]) -> int:
     return 1
 
 
+def cmd_shard(log_dir: str, as_json: bool) -> int:
+    """The sharded-lane story (docs/sharding.md), reconstructed from the
+    journals alone: per trial, the plan, every group (re-)formation with
+    its width and members, member losses, and reshard-on-restore events,
+    the width history a post-mortem needs."""
+    plans = []
+    by_trial: Dict[str, List[dict]] = {}
+    group_walls = 0
+    for r in journal_mod.read_dir(log_dir):
+        kind, name = r.get("kind"), r.get("name")
+        if kind == "shard" and name == "plan":
+            plans.append(r)
+        elif kind == "shard" and name in ("group_formed", "member_lost", "reshard"):
+            by_trial.setdefault(str(r.get("trial_id")), []).append(r)
+        elif kind == "perf" and name == "step" and int(r.get("group_width") or 0) > 1:
+            group_walls += 1
+    if not plans and not by_trial:
+        print(f"no shard/* records under {log_dir} (did a sharded "
+              f"group run? see docs/sharding.md)", file=sys.stderr)
+        return 1
+    if as_json:
+        for r in plans:
+            print(json.dumps(r, default=str))
+        for rows in by_trial.values():
+            for r in sorted(rows, key=lambda x: x.get("ts", 0.0)):
+                print(json.dumps(r, default=str))
+        return 0
+    for r in plans:
+        frac = r.get("hbm_frac")
+        print(f"plan    family={r.get('family')} width={r.get('width')} "
+              f"hbm_bytes={r.get('hbm_bytes')} "
+              f"hbm_frac={round(frac, 4) if isinstance(frac, float) else frac}")
+    reshards = 0
+    for tid in sorted(by_trial):
+        rows = sorted(by_trial[tid], key=lambda x: x.get("ts", 0.0))
+        widths = [r.get("width") for r in rows if r.get("name") == "group_formed"]
+        print(f"trial {tid[:13]}  width history: "
+              + (" -> ".join(str(w) for w in widths) or "(none)"))
+        for r in rows:
+            name = r.get("name")
+            if name == "group_formed":
+                line = (f"width={r.get('width')} members={r.get('members')} "
+                        f"attempt={r.get('attempt')}")
+            elif name == "member_lost":
+                line = f"lost={r.get('lost')} survivors={r.get('survivors')}"
+            else:
+                reshards += 1
+                line = f"{r.get('from_width')} -> {r.get('to_width')} @epoch {r.get('epoch')}"
+            print(f"  {name:<13} {line}")
+    print(f"{len(by_trial)} sharded trial(s), {reshards} reshard "
+          f"restore(s), {group_walls} group epoch wall(s) journaled")
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m rafiki_tpu_torch.obs",
@@ -388,6 +446,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="where to replay (default: the CUDA card; 'cpu' on request)")
     sp.add_argument("--json", action="store_true", default=argparse.SUPPRESS,
                     help="the verdict as one JSON document")
+    sub.add_parser("shard", help="sharded-group width history: plans, "
+                                 "formations, member losses, reshard restores")
     args = p.parse_args(argv)
 
     if args.cmd == "replay":
@@ -406,4 +466,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         return cmd_health(log_dir, args.json)
     if args.cmd == "curves":
         return cmd_curves(log_dir, args.trial, args.json)
+    if args.cmd == "shard":
+        return cmd_shard(log_dir, args.json)
     return cmd_slowest(log_dir, args.n, args.json)

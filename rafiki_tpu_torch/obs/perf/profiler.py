@@ -291,13 +291,14 @@ def capture_cost(key: Any, kind: str = "serial", k: int = 1, device: Any = None,
 def note_epoch(key: Any, dt: float, feed_s: float = 0.0, cold: bool = False,
                kind: str = "serial", k: int = 1,
                packing_key: Optional[str] = None,
-               steps: Optional[int] = None) -> Optional[Dict[str, float]]:
+               steps: Optional[int] = None,
+               group_width: Optional[int] = None) -> Optional[Dict[str, float]]:
     """Record one epoch's wall split and step count for ``key``; runs
     the anomaly detector on the compute portion and returns its report
     (already journaled / countered / ledgered) when it fires.
     ``packing_key`` (the repr of the model's packing key, from a packed
-    loop) and ``steps`` ride the ``perf/step`` record, whose
-    ``group_width`` (the JAX package's sharded loops) is always null."""
+    or sharded loop), ``steps`` and ``group_width`` (a sharded loop's
+    width; null elsewhere) ride the ``perf/step`` record."""
     compute_s = max(dt - feed_s, 0.0)
     with _lock:
         stats = _get(key, kind, k)
@@ -315,7 +316,8 @@ def note_epoch(key: Any, dt: float, feed_s: float = 0.0, cold: bool = False,
     _sample_device_mem()
     journal.record("perf", "step", key_hash=h, dt=dt, feed_s=feed_s,
                    cold=bool(cold), program_kind=kind, k=int(k),
-                   packing_key=packing_key, group_width=None,
+                   packing_key=packing_key,
+                   group_width=int(group_width) if group_width else None,
                    steps=int(steps) if steps else None)
     if report is not None:
         telemetry.inc("perf.anomalies")

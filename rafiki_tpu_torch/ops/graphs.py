@@ -42,6 +42,15 @@ graph that reads other tensors. Capture runs in thread-local error mode
 legacy default stream. A failed capture or replay raises; nothing falls
 back to eager steps on the card.
 
+Several threads may train on one card (the mesh sweep's chips share a
+device: ``scheduler/mesh.py``). Thread-local capture mode does not stop
+another thread's device-wide synchronize or allocator release from
+reaching a capture in progress, so an epoch on the card holds the
+card's process-wide :func:`device_lock` from its first step to its
+last, and so does every other device-wide synchronize of the training
+path (``model/base.py _to_host``): the epochs of two threads on one
+card run one after the other, each with its own capture and replays.
+
 Telemetry: ``train.graph_captures`` and ``train.graph_replays``
 (counters), ``train.graph_capture_s`` (histogram: the host seconds of a
 capture, instantiation included) and ``train.graph_pool_bytes``
@@ -62,6 +71,16 @@ from rafiki_tpu_torch import telemetry
 GRAPH_WARMUP_STEPS = 2
 
 _local = threading.local()
+
+_device_locks: Dict[int, "threading.RLock"] = {}
+_device_locks_guard = threading.Lock()
+
+
+def device_lock(device: torch.device) -> "threading.RLock":
+    """The process-wide (re-entrant) lock of one card (module doc)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    with _device_locks_guard:
+        return _device_locks.setdefault(index, threading.RLock())
 
 
 def _side_stream(device: torch.device) -> "torch.cuda.Stream":
@@ -87,7 +106,8 @@ class StepRunner:
     out. ``generators`` are the CUDA generators the body draws from.
     After :meth:`run`, ``calls`` is how many times the Python body ran
     (eager steps plus the capture), so the caller can move host-side
-    step counts on by the steps it did not run in Python. ``eager``
+    step counts on by the steps it did not run in Python, and
+    ``replays`` how many steps replayed the captured graph. ``eager``
     runs every step eagerly on the card too (module doc)."""
 
     def __init__(self, device: torch.device, n_steps: int, body: Callable[[], Outputs],
@@ -99,6 +119,7 @@ class StepRunner:
         self.body, self.prepare, self.collect = body, prepare, collect
         self.generators = [g for g in generators if g is not None]
         self.calls = 0
+        self.replays = 0
         self._graph = None
         self._outputs: Optional[Outputs] = None
 
@@ -110,6 +131,10 @@ class StepRunner:
                 self.collect(t, self.body())
                 self.calls += 1
             return
+        with device_lock(self.device):
+            self._run_on_card()
+
+    def _run_on_card(self) -> None:
         stream = _side_stream(self.device)
         current = torch.cuda.current_stream(self.device)
         stream.wait_stream(current)
@@ -130,6 +155,7 @@ class StepRunner:
         finally:
             current.wait_stream(stream)
             self._graph = self._outputs = None
+            self.replays = replays
             if replays:
                 telemetry.inc("train.graph_replays", replays)
 

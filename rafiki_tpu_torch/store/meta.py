@@ -10,8 +10,9 @@ and services, and the recovery queries (``mark_trial_as_running``,
 the compare-and-swap ``adopt_trial``, ``mark_trial_as_terminated``,
 ``get_orphaned_trials``) in the same SQL, so either package adopts the
 other's orphans. A service heartbeat passes the ``store.heartbeat``
-chaos site (``skip`` ages the lease the orphan sweep reads). The
-dead-supervisor query of the sweep resume is not ported yet. Writes are short
+chaos site (``skip`` ages the lease the orphan sweep reads).
+``get_jobs_with_dead_supervisor`` is the sweep resume reaper's
+detection query (``admin/services_manager.py``). Writes are short
 transactions; trial claiming uses an atomic UPDATE so concurrent
 workers never double-run a trial.
 """
@@ -29,6 +30,7 @@ from typing import Any, Dict, List, Optional
 from rafiki_tpu_torch.constants import (
     InferenceJobStatus,
     ServiceStatus,
+    ServiceType,
     TrainJobStatus,
     TrialStatus,
 )
@@ -537,6 +539,25 @@ class MetaStore:
 
     def get_service(self, service_id: str) -> Optional[dict]:
         return self._one("SELECT * FROM services WHERE id=?", (service_id,))
+
+    def get_jobs_with_dead_supervisor(self, stale_after_s: float) -> List[dict]:
+        """RUNNING train jobs whose sweep supervisor is provably gone:
+        at least one SUPERVISOR service row exists (the job IS a
+        supervised sweep: jobs without one are not flagged), and none of
+        them is live (non-terminal status AND a heartbeat newer than the
+        staleness cutoff). The resume reaper's detection query
+        (docs/recovery.md)."""
+        cutoff = _now() - float(stale_after_s)
+        return self._all(
+            "SELECT j.* FROM train_jobs j WHERE j.status=?"
+            " AND EXISTS (SELECT 1 FROM services s WHERE s.job_id=j.id"
+            "   AND s.service_type=?)"
+            " AND NOT EXISTS (SELECT 1 FROM services s WHERE s.job_id=j.id"
+            "   AND s.service_type=? AND s.status IN (?,?)"
+            "   AND s.heartbeat_at >= ?)",
+            (TrainJobStatus.RUNNING.value, ServiceType.SUPERVISOR.value,
+             ServiceType.SUPERVISOR.value, ServiceStatus.STARTED.value,
+             ServiceStatus.RUNNING.value, cutoff))
 
     def get_services_of_job(self, job_id: str) -> List[dict]:
         return self._all("SELECT * FROM services WHERE job_id=?", (job_id,))

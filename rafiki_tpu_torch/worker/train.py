@@ -80,11 +80,16 @@ the ``worker.epoch`` site, keyed by the worker id, AFTER that epoch's
 checkpoint write: a kill-at-epoch-N fault lands with epoch N durable.
 
 ``PackedTrialRunner.run_assigned`` trains rows its caller claimed as
-one pack (the chaos scenarios drive it); a drained budget does not
-refill an evicted slot.
+one pack (the mesh sweep's chip runners and the chaos scenarios drive
+it); a drained budget does not refill an evicted slot. Its ``abort``
+event is the mesh sweep's chip-loss signal: the pack raises
+:class:`PackAborted` at the next epoch boundary, after that epoch's
+checkpoints are durable, and leaves every row RUNNING for the sweep to
+re-pack. A worker given the sweep's write-ahead log (``worker.wal``,
+``scheduler/wal.py``) brackets each mid-pack backfill claim in it.
 
-Not ported yet: ``PackAborted`` and ``run_assigned``'s abort (the mesh
-sweep) and the learning-curve coordinator (early kill, speculation).
+Not ported yet: the learning-curve coordinator (early kill,
+speculation; ROADMAP Queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -109,6 +114,7 @@ from rafiki_tpu_torch.obs.health import DivergenceError
 from rafiki_tpu_torch.obs.health import detector as _health
 from rafiki_tpu_torch.obs.journal import journal
 from rafiki_tpu_torch.obs.ledger import ledger
+from rafiki_tpu_torch.obs.search.audit import knobs_hash
 from rafiki_tpu_torch.ops.train import CollectiveError
 from rafiki_tpu_torch.store import MetaStore, ParamsStore
 from rafiki_tpu_torch.utils.backend import default_device
@@ -130,6 +136,14 @@ def _group_mesh(devices):
     from rafiki_tpu_torch.utils.backend import resolve_device
 
     return data_parallel_mesh(devices or [resolve_device(None)])
+
+
+class PackAborted(RuntimeError):
+    """A pack was torn down mid-train by its supervisor (chip lost,
+    mesh preempt) rather than by a trial failure. The rows stay
+    RUNNING, deliberately NOT marked errored, so the mesh scheduler
+    can re-pack them onto surviving chips, where each resumes from its
+    newest per-epoch packed checkpoint (docs/mesh_sweep.md)."""
 
 
 class AdvisorHandle(Protocol):
@@ -231,6 +245,9 @@ class TrainWorker:
         self.trial_pack = max(1, int(trial_pack))
         self.heartbeat_min_interval_s = get_config().trial_heartbeat_s
         self._last_heartbeat = 0.0
+        # The sweep's write-ahead log (scheduler/wal.py), set by the mesh
+        # scheduler: mid-pack backfill claims are bracketed in it.
+        self.wal = None
 
     # -- budget --------------------------------------------------------------
 
@@ -623,20 +640,23 @@ class PackedTrialRunner:
         return self._train_rows(rows, budget_max, drained)
 
     def run_assigned(self, rows: "List[tuple[str, Knobs]]",
-                     budget_max: Optional[int] = None) -> int:
+                     budget_max: Optional[int] = None, abort=None) -> int:
         """Train trial rows the caller already claimed, ``[(trial id,
         knobs), ...]``, as one pack. A freed slot is backfilled only while
         ``budget_max`` has room: with the budget drained, an evicted
         member's slot stays empty and the pack's member indices stay
-        put. Returns the number of rows carried to an end (completed or
-        errored), backfills included."""
+        put. ``abort`` is a ``threading.Event``: when set, the pack
+        raises :class:`PackAborted` at the next epoch boundary, AFTER
+        that epoch's checkpoints are durable, leaving every row RUNNING
+        for re-packing. Returns the number of rows carried to an end
+        (completed or errored), backfills included."""
         if not rows:
             return 0
-        n, _ = self._train_rows(list(rows), budget_max, False)
+        n, _ = self._train_rows(list(rows), budget_max, False, abort=abort)
         return n
 
     def _train_rows(self, rows: "List[tuple[str, Knobs]]", budget_max: Optional[int],
-                    drained: bool) -> "tuple[int, bool]":
+                    drained: bool, abort=None) -> "tuple[int, bool]":
         w = self.w
         k = len(rows)
         telemetry.observe("trial_pack.size", float(k))
@@ -662,6 +682,11 @@ class PackedTrialRunner:
                     # The pack-relative wall at each round's end, for the
                     # members' epoch_eval records below.
                     round_walls.append(time.monotonic() - t_pack0)
+                    # The abort lands at the epoch boundary AFTER the
+                    # checkpoint sink ran, so every member's newest epoch
+                    # is durable before the pack unwinds.
+                    if abort is not None and abort.is_set():
+                        raise PackAborted(f"pack on {w.worker_id} aborted at epoch boundary")
                     if w.service_id is not None:
                         now = time.monotonic()
                         if now - w._last_heartbeat >= w.heartbeat_min_interval_s:
@@ -691,10 +716,16 @@ class PackedTrialRunner:
                                 continue
                         except Exception:
                             continue
+                        txn = None if w.wal is None else w.wal.intent(
+                            "backfill", sub_id=w.sub_id, knobs_hash=knobs_hash(kn))
                         trial = self._create_row(kn, budget_max)
                         if trial is None:
+                            if txn is not None:
+                                w.wal.commit(txn, "backfill", denied=True)
                             drained = True
                             break
+                        if txn is not None:
+                            w.wal.commit(txn, "backfill", trial_id=trial["id"])
                         rows.append((trial["id"], kn))
                         events.emit("trial_started", trial_id=trial["id"], sub_job_id=w.sub_id,
                                     model=w.model_class.__name__, worker_id=w.worker_id,
@@ -730,6 +761,16 @@ class PackedTrialRunner:
                 scores: List[Optional[float]] = [None] * len(models)
                 for j, i in enumerate(healthy):
                     scores[i] = healthy_scores[j]
+        except PackAborted:
+            # The supervisor's teardown: the rows STAY RUNNING (the mesh
+            # re-packs them onto surviving chips), device state is
+            # released, and the abort propagates to the caller.
+            for m in models:
+                try:
+                    m.destroy()
+                except Exception:
+                    pass
+            raise
         except Exception:
             # The pack failed as a whole: every member is ERRORED with the
             # floor feedback, as a failing serial trial is. Nothing reruns.

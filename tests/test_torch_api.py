@@ -1,7 +1,8 @@
 """The port exports the JAX package's public API, on the CPU.
 
 Every name in the ``__all__`` of the reference's ``model``, ``models``,
-``ops``, ``parallel``, ``bus``, ``predictor`` and ``worker`` packages
+``ops``, ``parallel``, ``bus``, ``predictor``, ``worker``, ``scheduler``
+and ``shard`` packages
 imports from the port's package of the same name (``JaxModel`` read as
 ``TorchModel``), but for the names of modules not ported yet, listed in
 ``UNPORTED`` with their ROADMAP item. Then the class-level gaps:
@@ -28,7 +29,8 @@ from tests.test_torch_train import blob_params, check_readings, readings, train_
 # See test_torch_train.py: two intra-op threads per xdist worker.
 torch.set_num_threads(2)
 
-PACKAGES = ("model", "models", "ops", "parallel", "bus", "predictor", "worker")
+PACKAGES = ("model", "models", "ops", "parallel", "bus", "predictor", "worker", "scheduler",
+            "shard")
 RENAMED = {"JaxModel": "TorchModel"}
 UNPORTED = {
     # ROADMAP Queue 1 item 13: the multiprocessing bus.

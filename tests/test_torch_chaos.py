@@ -62,15 +62,21 @@ def _clean_plane():
 
 
 def test_the_catalogs_have_nineteen_and_six_scenarios():
-    """Nineteen in the JAX package; in the port the six in-process ones
-    and, since the ProcessScheduler, the three that SIGKILL its workers,
-    each with the JAX package's spec, description and env."""
+    """Nineteen in the JAX package; in the port the six in-process ones,
+    the three that SIGKILL ProcessScheduler workers, and, since the mesh
+    sweep, its three in-process scenarios and the two that SIGKILL the
+    sweep's supervisor process: fourteen, each with the JAX package's
+    spec, description and env."""
     assert len(JAX_SCENARIOS) == 19
     assert set(SCENARIOS) == {"checkpoint-write-failure", "straggler-quorum", "drain-under-load",
                               "predictor-outage-surfaces", "pack-straggler-evict",
-                              "nan-trial-contained"} | SUBPROCESS_SCENARIOS
+                              "nan-trial-contained", "mesh-chip-loss-repack",
+                              "chip-loss-mid-sharded-trial",
+                              "mesh-degrades-single-chip"} | SUBPROCESS_SCENARIOS
     assert SUBPROCESS_SCENARIOS == {"kill-mid-trial-resume", "kill-mid-pack-resume",
-                                    "collective-kill-mid-step"}
+                                    "collective-kill-mid-step", "supervisor-kill-mid-sweep",
+                                    "host-loss-mid-sweep"}
+    assert len(SCENARIOS) == 14
     for name, sc in SCENARIOS.items():
         jsc = JAX_SCENARIOS[name]
         assert (sc.spec, sc.description, sc.env) == (jsc.spec, jsc.description, jsc.env), name

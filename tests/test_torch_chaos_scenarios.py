@@ -1,11 +1,13 @@
-"""The port's six in-process chaos scenarios, on the CPU, and
+"""The port's in-process chaos scenarios (the six of the serving,
+checkpoint and pack planes and the three of the mesh sweep), on the CPU, and
 ``nan-trial-contained`` against the JAX package's run of its own.
 
 Each scenario runs through the port's runner (``rafiki_tpu_torch/chaos/
 runner.py``) with ``device="cpu"`` and passes every check, the fault
 having fired. (The three whose faults fire in ProcessScheduler
 subprocesses run beside the JAX package's in
-``tests/test_torch_chaos_kill_*.py``.) Then the two packages' ``nan-trial-contained`` bodies run
+``tests/test_torch_chaos_kill_*.py``; the two that kill the sweep's
+supervisor process in ``tests/test_torch_sweep_resume.py``.) Then the two packages' ``nan-trial-contained`` bodies run
 side by side, each with its own plane and journal: the same member
 errors, at the same bad step, the rows end in the same statuses, and
 the journals hold the same record kinds and names, apart from the
