@@ -10,6 +10,8 @@ CUDA card.
     python3 chip_smoke.py --chaos          # phase 20 alone: poisoned pack, replay, scenarios
     python3 chip_smoke.py --process        # phase 21 alone: subprocess workers, dp mesh
     python3 chip_smoke.py --mesh           # phase 22 alone: mesh sweep, resume, sharded lane
+    python3 chip_smoke.py --search         # phase 23 alone: early kill, speculation, audit
+    python3 chip_smoke.py --mesh-repack N  # phase 22 (b) alone, N times
 
 Drives ``rafiki_tpu_torch`` the way a user serves a top-k ensemble,
 the way a tuning job runs and the way a trial trains, at the full width
@@ -42,7 +44,8 @@ the 50k-image synthetic task, bf16 compute):
   6. tune_job: the bench's canonical train job (``bench.py``
      ``run_real_loop``) through the port's entry points: a ``BenchVgg``
      template uploaded with ``MetaStore.create_model``, a job of
-     TUNE_TRIALS trials, ``LocalScheduler.run_train_job(n_workers=1,
+     TUNE_TRIALS trials (its GP warmed up on TUNE_ADVISOR's 3 proposals),
+     ``LocalScheduler.run_train_job(n_workers=1,
      advisor_kind="gp")`` on the card, params in a ``ParamsStore``. One
      line per trial (knobs, status, score, seconds) in completion order,
      then one for the job (wall seconds, completed trials per hour, the
@@ -148,7 +151,7 @@ The rest of the model zoo:
  17. densenet_job: a ``BenchDenseNet`` template (DenseNet-BC depth 58,
      growth 24, the widest of its knob space; one epoch, tuning the
      learning rate and batch 64/128) uploaded as source, as a GP job of
-     DENSENET_TRIALS trials (its GP warmed up on DENSENET_ADVISOR's 4
+     DENSENET_TRIALS trials (its GP warmed up on DENSENET_ADVISOR's 2
      proposals) through ``LocalScheduler.run_train_job`` on
      the canonical task; its top-2 served through the stacked route
      against their stored scores (as 7); a k=2 pack of two DenseNet
@@ -233,7 +236,7 @@ Fault injection and divergence capsules:
 
 Process workers and within-trial data parallelism:
 
- 21. process: (a) phase 6's job (BENCH_SRC, TUNE_TRIALS GP trials on the
+ 21. process: (a) phase 6's job (BENCH_SRC, PROC_TUNE_TRIALS GP trials on the
      canonical task) through ``ProcessScheduler.run_train_job(n_workers=1,
      devices_per_trial=1, advisor_kind="gp")``: one ``python -m
      rafiki_tpu_torch.worker.main`` subprocess under
@@ -294,6 +297,33 @@ The mesh sweep, its write-ahead log and resume, and the sharded lane:
      score and knob set). ``mesh-degrades-single-chip`` and
      ``host-loss-mid-sweep`` run in the CPU tests only.
 
+The search plane, both ``RAFIKI_CURVE_*`` switches on, the canonical
+model (SEARCH_SRC: VGG16 w1.0, bf16, batch 128, SEARCH_EPOCHS epochs of
+PROC_URI), the kill rule's defaults but a margin of SEARCH_MARGIN:
+
+ 23. search: (a) one ``TrainWorker`` with its own curve coordinator and a
+     journal; two ``run_trial`` calls of SEARCH_SERIAL's knobs, proposed
+     by a scripted advisor that journals its proposals: lr 1e-3 trains
+     to the end and sets best-so-far, lr 3e-2 (chance at batch 128) is
+     killed at an epoch boundary. Fails unless the second row is ERRORED
+     ``early_killed`` after fewer epochs than its budget, the journal
+     holds its ``advisor/predict`` and ``advisor/kill`` records, the
+     advisor heard the kill's predicted score, and the memory allocated
+     on the card after it is within TUNE_LEAK_BYTES of the reading
+     before it. (b) the same worker and coordinator, its packed arm
+     (``PackedTrialRunner.run_round``): a k=2 pack of SEARCH_PACK's
+     knobs, whose chance member is evicted ``killed`` while its pack-mate
+     trains on (the backfill that follows speculates the pack-mate, then
+     finds the budget drained). Fails unless the killed member is ERRORED
+     ``early_killed`` and was not evaluated, the survivor's float32
+     params are byte-equal to a serial run of its knobs, ``obs lineage``
+     shows the eviction, ``obs sweep`` reconciles with both kills, and
+     the search ledger counts two doomed trials with their wall. (c)
+     ``early-kill-mid-pack-resume`` through ``sweep_proc`` subprocesses
+     on the card; fails unless every check passes. One line per part,
+     with its seconds, each kill's epoch, the fit's predicted, hi and
+     best, and the survivor's byte-equality.
+
 Every training phase runs its epochs as captured CUDA graphs
 (``ops/graphs.py``). Each phase's line carries its seconds
 (``phase_s``) and the captured steps it replayed (``graph_replays``,
@@ -312,7 +342,10 @@ card, so two checkouts can be compared in one call. ``--zoo`` runs only
 phases 17 and 18, ``--obs`` only phase 19, ``--chaos`` only phase 20
 (its clean-step check then holds the two runs of phase 20 to each
 other, with no phase 16 count to add), ``--process`` only phase 21,
-``--mesh`` only phase 22. ``--resume-child`` is the
+``--mesh`` only phase 22, ``--search`` only phase 23, ``--mesh-repack N``
+phase 22 (b) N times over (two chips' threads sharing the card, to
+catch a capture that another thread's synchronize invalidates now and
+then). ``--resume-child`` is the
 child worker of phases 14 and 15; it journals when its parent sets
 ``RAFIKI_LOG_DIR``.
 """
@@ -378,8 +411,11 @@ ACC_FLOOR = 0.78
 SERVED_ACC_ATOL = 0.002
 # The bench's canonical job (bench.py BENCH_MODEL_SRC and run_real_loop):
 # VGG16 w1.0 for one epoch, tuning dropout, the learning rate and the
-# batch size. Ten trials take the GP past its 8 warm-up proposals.
-TUNE_TRIALS = 10
+# batch size. Five trials (ten until phase 23 needed the time), the GP
+# warmed up on TUNE_ADVISOR's 3 proposals (8 by default), so trials 4
+# and 5 come from expected improvement.
+TUNE_TRIALS = 5
+TUNE_ADVISOR = {"n_initial": 3}
 TUNE_TOP1_TARGET = 0.70  # bench.py _scale: the top-1 gate off the CPU
 # The memory allocated once a trial has evaluated (its own model
 # resident, the previous trial's destroyed), last trial against first.
@@ -453,7 +489,7 @@ PACK_SCORE_ATOL = 0.02
 # The warm-up task of both paths: the canonical shapes, 8 steps.
 PACK_WARMUP_URI = "synthetic://images?classes=10&n=1024&w=32&h=32&c=3&seed=2&noise=0.35&flip=0.2"
 # -- the service journey -------------------------------------------------------
-JOURNEY_TRIALS = 3
+JOURNEY_TRIALS = 2  # 3 until phase 23 needed the time
 JOURNEY_1Q = 50
 JOURNEY_64Q = 20
 JOURNEY_IMAGES = 512
@@ -468,12 +504,13 @@ MB_GATEWAY = {"max_batch": 8, "max_batch_wait_ms": 5}
 
 # -- the rest of the zoo -------------------------------------------------------
 # Phase 17: DenseNet at the widest of its knob space (depth 58, growth
-# 24), tuning the learning rate and the batch size. Five trials (nine
-# until phase 22 needed the time): the job's GP proposes from expected
-# improvement after DENSENET_ADVISOR's 4 warm-up proposals (8 by
-# default), so the fifth trial is an expected-improvement proposal.
-DENSENET_TRIALS = 5
-DENSENET_ADVISOR = {"n_initial": 4}
+# 24), tuning the learning rate and the batch size. Three trials (nine
+# until phase 22, five until phase 23 needed the time): the job's GP
+# proposes from expected improvement after DENSENET_ADVISOR's 2 warm-up
+# proposals (8 by default), so the third trial is an
+# expected-improvement proposal.
+DENSENET_TRIALS = 3
+DENSENET_ADVISOR = {"n_initial": 2}
 DENSENET_SRC = b'''
 import torch
 
@@ -3190,7 +3227,9 @@ def chaos_phase(card, check, phase16_nodes=None) -> None:
 
 # -- phase 21: process workers and within-trial data parallelism ----------------
 # (a) phase 6's job through the ProcessScheduler: one subprocess worker under
-# CUDA_VISIBLE_DEVICES=0, the GP advisor over loopback HTTP.
+# CUDA_VISIBLE_DEVICES=0, the GP advisor over loopback HTTP; PROC_TUNE_TRIALS
+# trials (TUNE_TRIALS until phase 23 needed the time), the GP warmed up on
+# PROC_ADVISOR's 2 proposals, so its last comes from expected improvement.
 # (b) kill-mid-pack-resume at the canonical model: a k=4 pack of PROC_PACK_SRC
 # trials on PROC_URI, 3 epochs, the worker SIGKILLed after epoch 1 (the JAX
 # package's spec and env), its members resumed by the -r1 worker from their
@@ -3199,6 +3238,8 @@ def chaos_phase(card, check, phase16_nodes=None) -> None:
 # (c) the canonical trial (TRAIN_KNOBS, two epochs on PROC_URI) on a one-rank
 # NCCL dp mesh against the same trial with no mesh: the params byte for byte,
 # and the warm epoch's ms a step of each path (the dp step runs eagerly).
+PROC_TUNE_TRIALS = 3
+PROC_ADVISOR = {"n_initial": 2}
 PROC_IMAGES = 10000
 PROC_URI = TRAIN_URI.replace("n=50000", f"n={PROC_IMAGES}")
 PROC_KILL_SPEC = "seed=7;worker.epoch:kill:after=1:times=1:unless=-r"
@@ -3236,6 +3277,8 @@ def process_tune_job(card):
 
     import torch
 
+    from rafiki_tpu_torch.advisor import AdvisorService
+    from rafiki_tpu_torch.model.base import load_model_class
     from rafiki_tpu_torch.scheduler import ProcessScheduler
     from rafiki_tpu_torch.utils.events import events
 
@@ -3245,9 +3288,16 @@ def process_tune_job(card):
         torch.cuda.empty_cache()
         # The worker's own record of the device it resolved (worker/main.py).
         events.configure(f"{tmp}/logs")
-        store, params, job = _proc_job(tmp, BENCH_SRC, "BenchVgg", TUNE_TRIALS)
+        store, params, job = _proc_job(tmp, BENCH_SRC, "BenchVgg", PROC_TUNE_TRIALS)
+        # The sub job's GP, made with PROC_ADVISOR before the job runs (the
+        # scheduler adopts the sub job's advisor id).
+        advisors = AdvisorService()
+        sub = store.get_sub_train_jobs(job["id"])[0]
+        aid = advisors.create_advisor(load_model_class(BENCH_SRC, "BenchVgg").get_knob_config(),
+                                      kind="gp", engine_kwargs=PROC_ADVISOR)
+        store.update_sub_train_job(sub["id"], advisor_id=aid)
         t0 = time.monotonic()
-        result = ProcessScheduler(store, params).run_train_job(
+        result = ProcessScheduler(store, params, advisor_service=advisors).run_train_job(
             job["id"], n_workers=1, devices_per_trial=1, advisor_kind="gp", poll_s=0.2)
         wall = time.monotonic() - t0
         services = store.get_services_of_job(job["id"])
@@ -3436,8 +3486,8 @@ def process_phase(card, check) -> None:
     t0 = time.monotonic()
     job = process_tune_job(card)
     print(json.dumps(job))
-    check(job["status"] == "COMPLETED" and job["completed"] == TUNE_TRIALS
-          and job["with_params"] == TUNE_TRIALS and not job["errors"],
+    check(job["status"] == "COMPLETED" and job["completed"] == PROC_TUNE_TRIALS
+          and job["with_params"] == PROC_TUNE_TRIALS and not job["errors"],
           f"process job: {job['status']}, {job['completed']} completed, "
           f"{job['with_params']} with params, errors {job['errors']}")
     import torch
@@ -3729,6 +3779,7 @@ def mesh_repack(card):
     return dict({"phase": "mesh_repack", "card": card[1], "power_limit": card[2],
                  "spec": sc.spec, "status": result.status,
                  "trial_status": [t["status"] for t in trials],
+                 "trial_errors": [(t["error"] or "")[-1200:] or None for t in trials],
                  "worker_ids": [t["worker_id"] for t in trials],
                  "fired": [list(f) for f in plane.schedule()],
                  "chip1_trials": chip1, "repacked_onto_chip0": repacked,
@@ -3862,6 +3913,26 @@ def mesh_supervisor_kill(card):
                  "phase_s": time.monotonic() - t_phase}, **graphs)
 
 
+def check_repack(b, check) -> None:
+    """Phase 22 (b)'s checks of one ``mesh_repack`` result."""
+    check(b["status"] == "COMPLETED" and b["trial_status"] == ["COMPLETED"] * 4,
+          f"mesh repack: job {b['status']}, trials {b['trial_status']}, errors {b['errors']}, "
+          f"trial errors {b['trial_errors']}")
+    check(any(f[0] == "scheduler.preempt" and f[3] == "chip1" for f in b["fired"]),
+          f"mesh repack: the preempt did not fire on chip1: {b['fired']}")
+    check(b["chip1_trials"] and sorted(b["chip1_trials"]) == sorted(b["repacked_onto_chip0"])
+          and all((wid or "").endswith("-mesh-c0") for wid in b["worker_ids"]),
+          f"mesh repack: chip 1's rows {b['chip1_trials']} re-packed as "
+          f"{b['repacked_onto_chip0']}, finished by {b['worker_ids']}")
+    check(all(e is not None and e >= 1 for e in b["resumed_from_epoch"].values()),
+          f"mesh repack: resumed from {b['resumed_from_epoch']}")
+    check(all(b["serial_byte_equal"]),
+          f"mesh repack: params against serial runs {b['serial_byte_equal']}")
+    rep = b["replays_by_chip"]
+    check(rep.get("mesh-chip-0", 0) > 0 and rep.get("mesh-chip-1", 0) > 0,
+          f"mesh repack: captured steps replayed by chip {rep}")
+
+
 def mesh_phase(card, check) -> None:
     """Phase 22 and its checks (also ``--mesh``)."""
     t0 = time.monotonic()
@@ -3883,21 +3954,7 @@ def mesh_phase(card, check) -> None:
           f"mesh sweep: {a['backfills']} backfills, {a['graph_replays']} replays")
     b = mesh_repack(card)
     print(json.dumps(b))
-    check(b["status"] == "COMPLETED" and b["trial_status"] == ["COMPLETED"] * 4,
-          f"mesh repack: job {b['status']}, trials {b['trial_status']}, errors {b['errors']}")
-    check(any(f[0] == "scheduler.preempt" and f[3] == "chip1" for f in b["fired"]),
-          f"mesh repack: the preempt did not fire on chip1: {b['fired']}")
-    check(b["chip1_trials"] and sorted(b["chip1_trials"]) == sorted(b["repacked_onto_chip0"])
-          and all((wid or "").endswith("-mesh-c0") for wid in b["worker_ids"]),
-          f"mesh repack: chip 1's rows {b['chip1_trials']} re-packed as "
-          f"{b['repacked_onto_chip0']}, finished by {b['worker_ids']}")
-    check(all(e is not None and e >= 1 for e in b["resumed_from_epoch"].values()),
-          f"mesh repack: resumed from {b['resumed_from_epoch']}")
-    check(all(b["serial_byte_equal"]),
-          f"mesh repack: params against serial runs {b['serial_byte_equal']}")
-    rep = b["replays_by_chip"]
-    check(rep.get("mesh-chip-0", 0) > 0 and rep.get("mesh-chip-1", 0) > 0,
-          f"mesh repack: captured steps replayed by chip {rep}")
+    check_repack(b, check)
     c = mesh_sharded(card)
     print(json.dumps(c))
     for label, history in (("unfaulted", [2]), ("member_lost", [2, 1])):
@@ -3925,6 +3982,267 @@ def mesh_phase(card, check) -> None:
                       "phase_s": time.monotonic() - t0}))
 
 
+
+# -- phase 23: the search plane: early kill, speculation, the audit ----------------
+# The canonical model at batch 128 on PROC_URI (the 10,000-image cut) for
+# SEARCH_EPOCHS epochs, both RAFIKI_CURVE_* switches on (a verdict from the
+# third epoch boundary on, the kill rule's default, margin SEARCH_MARGIN). The
+# rows' knobs come from a scripted advisor that journals its proposals like
+# any engine, so the sweep reconstructs from the journal alone.
+SEARCH_EPOCHS = 4
+SEARCH_SRC = (BENCH_SRC.replace(b"class BenchVgg(Vgg):", b"class SearchVgg(Vgg):")
+              .replace(b"BenchVgg.", b"SearchVgg.")
+              .replace(b'"epochs": FixedKnob(1)', b'"epochs": FixedKnob(%d)' % SEARCH_EPOCHS)
+              .replace(b'"batch_size": CategoricalKnob([64, 128, 256], affects_shape=True)',
+                       b'"batch_size": FixedKnob(128)'))
+SEARCH_BASE = dict(depth=16, width_mult=1.0, batch_size=128, epochs=SEARCH_EPOCHS, seed=0)
+# (a) serial: a learner that sets best-so-far, then lr 3e-2, which trains
+# the canonical model to chance at batch 128 (ROADMAP Queue 3).
+SEARCH_SERIAL = (dict(SEARCH_BASE, learning_rate=1e-3, dropout=0.1),
+                 dict(SEARCH_BASE, learning_rate=3e-2, dropout=0.1))
+# (b) a k=2 pack: a learner and a chance member, other knobs than (a)'s.
+SEARCH_PACK = (dict(SEARCH_BASE, learning_rate=1e-3, dropout=0.2),
+               dict(SEARCH_BASE, learning_rate=3e-2, dropout=0.0))
+# The kill rule's warm-up (2 epochs) and minimum of 3 points are its
+# defaults; the margin is widened from 0.02 to SEARCH_MARGIN, as the JAX
+# package's early-kill scenario widens it (to 0.35) for noisy curves: a
+# chance-level curve (about 0.10 against a best near 0.82) is condemned
+# all the same, and a learner still rising at its third epoch is not.
+SEARCH_MARGIN = 0.2
+SEARCH_ENV = {"RAFIKI_CURVE_KILL": "1", "RAFIKI_CURVE_SPECULATE": "1",
+              "RAFIKI_CURVE_KILL_MARGIN": str(SEARCH_MARGIN),
+              "RAFIKI_TPU_SERVING_PARAMS_DTYPE": "float32"}
+
+
+def _scripted_advisor(knob_config, proposals):
+    """An advisor that proposes ``proposals`` in turn (then samples the
+    space), journaling each proposal as an engine does."""
+    from rafiki_tpu_torch.advisor.base import BaseAdvisor
+    from rafiki_tpu_torch.obs.search import audit
+
+    class ScriptedAdvisor(BaseAdvisor):
+        engine = "scripted"
+
+        def __init__(self):
+            super().__init__(knob_config, seed=0)
+            self.queue = [dict(k) for k in proposals]
+
+        def _propose(self):
+            knobs = self.queue.pop(0) if self.queue else self.space.sample(self._rng)
+            audit.record_propose(self, knobs, {"phase": "scripted"})
+            return knobs
+
+    return ScriptedAdvisor()
+
+
+def _cli(argv):
+    """The port's obs CLI in this process: (exit code, stdout)."""
+    import contextlib
+    import io
+
+    from rafiki_tpu_torch.obs import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(argv)
+    return rc, out.getvalue()
+
+
+def _epochs_trained(store, tid):
+    return len([e for e in store.get_trial_logs(tid) if e.get("type") == "values"])
+
+
+def search_kill(card):
+    """Phase 23 (a) and (b): one ``TrainWorker`` with its own curve
+    coordinator: two serial trials, then a k=2 pack through its packed
+    arm; the journal read back through ``obs lineage`` and ``obs sweep``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from rafiki_tpu_torch.model.base import load_model_class
+    from rafiki_tpu_torch.obs.journal import journal, read_dir
+    from rafiki_tpu_torch.obs.search import reconstruct
+    from rafiki_tpu_torch.obs.search.ledger import search_ledger
+    from rafiki_tpu_torch.utils.events import events
+    from rafiki_tpu_torch.worker.train import PackedTrialRunner, TrainWorker
+
+    tmp = tempfile.mkdtemp(prefix="rafiki-search-")
+    cls = load_model_class(SEARCH_SRC, "SearchVgg")
+    evaluated = []
+    orig_eval = cls.evaluate_packed.__func__
+    cls.evaluate_packed = classmethod(lambda c, ms, uri: (
+        evaluated.extend((m.knobs["learning_rate"], m.knobs["dropout"]) for m in ms),
+        orig_eval(c, ms, uri))[1])
+    try:
+        with _Env(SEARCH_ENV):
+            torch.cuda.empty_cache()
+            journal.configure(f"{tmp}/obs", role="chip-smoke")
+            events.configure(f"{tmp}/logs")
+            search_ledger.reset()
+            store, params, job = _mesh_job(tmp, SEARCH_SRC, "SearchVgg", 4)
+            sub = store.get_sub_train_jobs(job["id"])[0]
+            adv = _scripted_advisor(cls.get_knob_config(), SEARCH_SERIAL + SEARCH_PACK)
+            adv.advisor_id, adv.job_id = "chip-smoke-search", job["id"]
+            worker = TrainWorker(store, params, sub["id"], cls, adv, PROC_URI, EVAL_URI,
+                                 {"MODEL_TRIAL_COUNT": 4}, worker_id="search-w0",
+                                 devices=[_mesh_device()], async_persist=False, trial_pack=2)
+            coordinator = worker.curve is not None
+            # (a) two serial trials in a fixed order.
+            t_a = time.monotonic()
+            serial, mem = [], []
+            for i in range(2):
+                torch.cuda.synchronize()
+                mem.append(torch.cuda.memory_allocated())
+                t0 = time.monotonic()
+                row = worker.run_trial(adv.propose(), budget_max=4)
+                serial.append(dict(row, trial_s=_synced_s(t0)))
+            torch.cuda.synchronize()
+            mem.append(torch.cuda.memory_allocated())
+            a_s = time.monotonic() - t_a
+            history_a = list(adv.history)
+            # (b) the pack, through the packed arm, the same coordinator.
+            t_b = time.monotonic()
+            before = _graph_counters()
+            ran, drained = PackedTrialRunner(worker, 2).run_round(budget_max=4)
+            b_graphs = _graph_since(before)
+            b_s = _synced_s(t_b)
+            snap = search_ledger.snapshot()
+            trials = {json.dumps(t["knobs"], sort_keys=True): t
+                      for t in store.get_trials_of_sub_train_job(sub["id"])}
+            packed = [trials.get(json.dumps(k, sort_keys=True)) for k in SEARCH_PACK]
+            survivor = packed[0]
+            t_ref = time.monotonic()
+            equal = bool(survivor and survivor["params_id"]) and _byte_equal(
+                _f32_leaves(params.load(survivor["params_id"])),
+                _serial_leaves(cls, survivor["knobs"], PROC_URI))
+            ref_s = _synced_s(t_ref)
+            kills = list(events.read("trial_killed"))
+            evictions = list(events.read("pack_member_evicted"))
+            journal.close()
+            recs = read_dir(f"{tmp}/obs")
+            doomed_pack = packed[1] or {}
+            lineage_rc, lineage_out = _cli(["--dir", f"{tmp}/obs", "lineage",
+                                            doomed_pack.get("id") or "none"])
+            sweep_rc, sweep_out = _cli(["--dir", f"{tmp}/obs", "sweep"])
+            doc = reconstruct.reconstruct(recs)
+    finally:
+        cls.evaluate_packed = classmethod(orig_eval)
+        journal.close()
+        events.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def kill_rec(tid):
+        rs = [r for r in recs if r.get("kind") == "advisor" and r.get("name") == "kill"
+              and r.get("trial_id") == tid]
+        return rs[-1] if rs else None
+
+    def fit_of(rec):
+        return None if rec is None else {k: rec.get(k) for k in (
+            "epoch", "predicted", "hi", "band", "best_so_far", "family", "n_obs")}
+
+    ka = kill_rec(serial[1]["id"])
+    kb = kill_rec(doomed_pack.get("id"))
+    a = {"phase": "search_serial", "card": card[1], "power_limit": card[2],
+         "coordinator": coordinator, "knobs": [dict(k) for k in SEARCH_SERIAL],
+         "status": [t["status"] for t in serial], "scores": [t["score"] for t in serial],
+         "error": serial[1]["error"], "trial_s": [t["trial_s"] for t in serial],
+         "epochs_trained": [_epochs_trained(store, t["id"]) for t in serial],
+         "epoch_budget": SEARCH_EPOCHS, "kill": fit_of(ka),
+         "predicts": sum(1 for r in recs if r.get("kind") == "advisor"
+                         and r.get("name") == "predict" and r.get("trial_id") == serial[1]["id"]),
+         "advisor_heard": [s for _, s in history_a],
+         "memory_allocated_before_killed": mem[1], "memory_allocated_after_killed": mem[2],
+         "leak_bytes": TUNE_LEAK_BYTES, "part_s": a_s}
+    b = dict({"phase": "search_packed", "card": card[1], "power_limit": card[2],
+              "knobs": [dict(k) for k in SEARCH_PACK], "ran": ran, "drained": drained,
+              "status": [t and t["status"] for t in packed],
+              "scores": [t and t["score"] for t in packed],
+              "error": doomed_pack.get("error"),
+              "epochs_trained": [t and _epochs_trained(store, t["id"]) for t in packed],
+              "kill": fit_of(kb), "kills_evented": [(e["trial_id"][:8], e["epoch"]) for e in kills],
+              "evictions": [(e["trial_id"][:8], e["epoch"], e["reason"]) for e in evictions],
+              "evaluated": evaluated, "survivor_byte_equal": equal,
+              "serial_reference_s": ref_s,
+              "lineage_rc": lineage_rc, "lineage_shows_killed_eviction": (
+                  "pack_member_evicted" in lineage_out and "reason=killed" in lineage_out),
+              "sweep_rc": sweep_rc, "sweep_reconciled": doc["reconciliation"]["ok"],
+              "sweep_errors": doc["reconciliation"]["errors"],
+              "sweep_kills": doc.get("n_kills"), "sweep_speculations": doc.get("n_speculations"),
+              "sweep_corrections": doc.get("n_corrections"),
+              "ledger": {k: snap[k] for k in ("n_proposed", "n_scored", "n_doomed", "n_killed",
+                                               "n_speculations", "n_corrections",
+                                               "scored_wall_s", "doomed_wall_s")},
+              "part_s": b_s}, **b_graphs)
+    return a, b
+
+
+def search_scenario(card):
+    """Phase 23 (c): ``early-kill-mid-pack-resume`` through ``sweep_proc``
+    subprocesses on the card."""
+    from rafiki_tpu_torch.chaos.runner import format_report, run_scenario
+
+    t_phase = time.monotonic()
+    report = run_scenario("early-kill-mid-pack-resume", device="cuda")
+    return {"phase": "search_scenario", "card": card[1], "power_limit": card[2],
+            "passed": report.passed, "scenario_s": report.duration_s,
+            "checks": {c.name: c.ok for c in report.checks},
+            "report": None if report.passed else format_report(report),
+            "part_s": time.monotonic() - t_phase}
+
+
+def search_phase(card, check) -> None:
+    """Phase 23 and its checks (also ``--search``)."""
+    t0 = time.monotonic()
+    a, b = search_kill(card)
+    print(json.dumps(a))
+    print(json.dumps(b))
+    check(a["coordinator"], "search: the worker built no curve coordinator with both switches on")
+    check(a["status"] == ["COMPLETED", "ERRORED"]
+          and (a["error"] or "").startswith("early_killed: "),
+          f"search serial: trials {a['status']}, error {a['error']!r}")
+    check(a["epochs_trained"][0] == SEARCH_EPOCHS and a["epochs_trained"][1] < SEARCH_EPOCHS,
+          f"search serial: epochs trained {a['epochs_trained']} of {SEARCH_EPOCHS}")
+    check(a["kill"] is not None and a["predicts"] >= 1,
+          f"search serial: kill record {a['kill']}, {a['predicts']} predict records")
+    check(len(a["advisor_heard"]) == 2 and a["kill"] is not None
+          and abs(a["advisor_heard"][1] - a["kill"]["predicted"]) <= 1e-8,
+          f"search serial: the advisor heard {a['advisor_heard']}, the kill predicted "
+          f"{a['kill'] and a['kill']['predicted']}")
+    check(a["memory_allocated_after_killed"] <= a["memory_allocated_before_killed"]
+          + TUNE_LEAK_BYTES,
+          f"search serial: {a['memory_allocated_after_killed']} bytes allocated after the killed "
+          f"trial, {a['memory_allocated_before_killed']} before (+{TUNE_LEAK_BYTES} allowed)")
+    check(b["status"] == ["COMPLETED", "ERRORED"]
+          and (b["error"] or "").startswith("early_killed: ") and b["kill"] is not None,
+          f"search packed: members {b['status']}, error {b['error']!r}, kill {b['kill']}")
+    check([e[2] for e in b["evictions"]] == ["killed"]
+          and b["epochs_trained"][1] < SEARCH_EPOCHS
+          and b["epochs_trained"][0] == SEARCH_EPOCHS,
+          f"search packed: evictions {b['evictions']}, epochs {b['epochs_trained']}")
+    check(b["survivor_byte_equal"],
+          "search packed: the survivor's params differ from its serial run's")
+    killed_knobs = (SEARCH_PACK[1]["learning_rate"], SEARCH_PACK[1]["dropout"])
+    check(killed_knobs not in [tuple(e) for e in b["evaluated"]] and b["evaluated"],
+          f"search packed: evaluated {b['evaluated']}")
+    check(b["lineage_rc"] == 0 and b["lineage_shows_killed_eviction"],
+          f"search packed: obs lineage rc {b['lineage_rc']}, eviction shown "
+          f"{b['lineage_shows_killed_eviction']}")
+    check(b["sweep_rc"] == 0 and b["sweep_reconciled"] and b["sweep_kills"] == 2,
+          f"search packed: obs sweep rc {b['sweep_rc']}, reconciled {b['sweep_reconciled']} "
+          f"{b['sweep_errors']}, kills {b['sweep_kills']}")
+    led = b["ledger"]
+    check(led["n_killed"] == 2 and led["n_doomed"] == 2 and led["doomed_wall_s"] > 0,
+          f"search packed: the search ledger {led}")
+    check(b["graph_replays"] > 0, f"search packed: no captured step replayed {b}")
+    c = search_scenario(card)
+    print(json.dumps(c))
+    check(c["passed"], f"search scenario:\n{c['report']}")
+    print(json.dumps({"phase": "search", "card": card[1], "power_limit": card[2],
+                      "phase_s": time.monotonic() - t0}))
+
+
 def main() -> int:
     import torch
 
@@ -3945,7 +4263,10 @@ def main() -> int:
         print(card[0])
         print(json.dumps(graph_step(card)))
         return 0
-    if sys.argv[1:] not in ([], ["--zoo"], ["--obs"], ["--chaos"], ["--process"], ["--mesh"]):
+    repeats = (int(sys.argv[2]) if sys.argv[1:2] == ["--mesh-repack"] and len(sys.argv) == 3
+               and sys.argv[2].isdigit() else None)
+    if sys.argv[1:] not in ([], ["--zoo"], ["--obs"], ["--chaos"], ["--process"], ["--mesh"],
+                            ["--search"]) and repeats is None:
         fail(f"unknown arguments {sys.argv[1:]}")
     card = card_identity()
     print(card[0])
@@ -3992,6 +4313,31 @@ def main() -> int:
             print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
             return 1
         print(json.dumps({"mesh": "ok", "device": torch.cuda.get_device_name(0)}))
+        return 0
+    if repeats is not None:
+        for i in range(repeats):
+            n_failed = len(failures)
+            b = mesh_repack(card)
+            check_repack(b, check)
+            print(json.dumps({"phase": "mesh_repack", "repeat": i,
+                              "passed": len(failures) == n_failed,
+                              "trial_status": b["trial_status"],
+                              "serial_byte_equal": b["serial_byte_equal"],
+                              "replays_by_chip": b["replays_by_chip"],
+                              "job_wall_s": b["job_wall_s"], "phase_s": b["phase_s"]}),
+                  flush=True)
+        if failures:
+            print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
+            return 1
+        print(json.dumps({"mesh_repack": "ok", "repeats": repeats,
+                          "device": torch.cuda.get_device_name(0)}))
+        return 0
+    if sys.argv[1:] == ["--search"]:
+        search_phase(card, check)
+        if failures:
+            print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
+            return 1
+        print(json.dumps({"search": "ok", "device": torch.cuda.get_device_name(0)}))
         return 0
 
     from rafiki_tpu_torch.ops.train import predict
@@ -4080,7 +4426,7 @@ def main() -> int:
     # -- 6.-7. the canonical tune job, and its top-2 served --------------------
     from rafiki_tpu_torch.obs.health import DivergenceError
 
-    tune_rows, job, best = tune_job(card)
+    tune_rows, job, best = tune_job(card, advisor_kwargs=TUNE_ADVISOR)
     for row in tune_rows:
         print(json.dumps(row))
     print(json.dumps(job))
@@ -4166,7 +4512,7 @@ def main() -> int:
           f"pack_scaling: a one-member pack's float32 step is not the serial step: loss "
           f"{one['loss']}, gradients differing {one['grads_differing']}")
     torch.cuda.empty_cache()
-    tune_rows, pjob, best = tune_job(card, trial_pack=PACK_K)
+    tune_rows, pjob, best = tune_job(card, trial_pack=PACK_K, advisor_kwargs=TUNE_ADVISOR)
     pjob["serial_job_completed_trials_per_hour"] = job["completed_trials_per_hour"]
     for row in tune_rows:
         print(json.dumps(dict(row, phase="tune_trial_packed")))
@@ -4274,6 +4620,10 @@ def main() -> int:
     # -- 22. the mesh sweep, its write-ahead log and resume, the sharded lane -----------
     torch.cuda.empty_cache()
     mesh_phase(card, check)
+
+    # -- 23. the search plane: early kill, speculation, the advisor audit ---------------
+    torch.cuda.empty_cache()
+    search_phase(card, check)
 
     # -- kernels and the result line -------------------------------------------
     print(json.dumps({"kernels": []}))

@@ -11,7 +11,10 @@ Routes, bodies and status codes are the JAX package's: 401 for a
 missing or wrong secret (every route but ``/healthz``), 404 for an
 unknown advisor or route, 405 for a known route with another method,
 400 for a ``propose_batch`` without an integer ``n >= 1`` or a body that
-is not JSON, 500 otherwise.
+is not JSON, 500 otherwise. One route more than the JAX package's:
+``POST /advisors/<id>/speculate`` (``score``, ``knobs`` and the curve
+fit's record ``fit``), so a process worker's backfill speculates as an
+in-process worker's does (``advisor/speculative.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ _ROUTES = [
     ("GET", re.compile(r"/advisors/(?P<advisor_id>[^/]+)/propose\Z"), "propose"),
     ("POST", re.compile(r"/advisors/(?P<advisor_id>[^/]+)/propose_batch\Z"), "propose_batch"),
     ("POST", re.compile(r"/advisors/(?P<advisor_id>[^/]+)/feedback\Z"), "feedback"),
+    ("POST", re.compile(r"/advisors/(?P<advisor_id>[^/]+)/speculate\Z"), "speculate"),
 ]
 
 
@@ -115,6 +119,14 @@ class AdvisorApp:
         self.service.feedback(advisor_id, float(body["score"]), body["knobs"])
         return json_response({"ok": True})
 
+    def ep_speculate(self, request: Request, advisor_id: str) -> Response:
+        body = request.get_json()
+        if body is None:
+            raise _HttpError(400, _BAD_JSON)
+        self.service.speculate(advisor_id, float(body["score"]), body["knobs"],
+                               fit=body.get("fit"))
+        return json_response({"ok": True})
+
 
 #: No proxy: the advisor server is on loopback, whatever proxy the
 #: environment names.
@@ -168,3 +180,7 @@ class HttpAdvisorHandle:
     def feedback(self, score: float, knobs) -> None:
         self._call("POST", f"/advisors/{self._id}/feedback",
                    {"score": float(score), "knobs": knobs})
+
+    def speculate(self, score: float, knobs, fit=None) -> None:
+        self._call("POST", f"/advisors/{self._id}/speculate",
+                   {"score": float(score), "knobs": knobs, "fit": fit})

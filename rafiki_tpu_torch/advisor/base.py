@@ -2,11 +2,10 @@
 
 The port's own copy of ``rafiki_tpu/advisor/base.py`` (``KnobSpace``,
 ``BaseAdvisor``, ``make_advisor``): the same encoding, the same
-pending (constant-liar) bookkeeping and the same speculate/correct
-hooks, so from one seed and one scored history every engine proposes
-what the JAX package's does. Dropped: the search-audit journal records
-(``obs.search.audit``, ROADMAP Queue 1, item 9); ``knobs_hash`` comes
-from the port's ``obs/search/audit.py``.
+pending (constant-liar) bookkeeping, the same speculate/correct hooks
+and the same search-audit journal records (``obs/search/audit.py``),
+so from one seed and one scored history every engine proposes what the
+JAX package's does and journals the same ``advisor/*`` records.
 
 The vectorisation (knobs dict <-> R^d point) lives here so every engine
 shares one encoding:
@@ -33,6 +32,7 @@ from rafiki_tpu_torch.model.knobs import (
     KnobConfig,
     Knobs,
 )
+from rafiki_tpu_torch.obs.search import audit
 from rafiki_tpu_torch.obs.search.audit import knobs_hash  # noqa: F401  (re-exported)
 
 
@@ -111,12 +111,18 @@ class BaseAdvisor:
     #: must not suppress a region forever (oldest liars expire first).
     PENDING_CAP = 16
 
+    #: short engine tag stamped onto every advisor/* journal record;
+    #: subclasses override.
+    engine = "base"
+
     def __init__(self, knob_config: KnobConfig, seed: int = 0):
         self.space = KnobSpace(knob_config)
         self.knob_config = dict(knob_config)
         self.seed = int(seed)
-        # Stamped by AdvisorService; None for bare advisors.
+        # Stamped by AdvisorService / the mesh scheduler so journal
+        # records are filterable per sweep; None for bare advisors.
         self.advisor_id: Optional[str] = None
+        self.job_id: Optional[str] = None
         self._rng = np.random.default_rng(seed)
         self._lock = threading.Lock()
         self.history: List[Tuple[Knobs, float]] = []
@@ -153,12 +159,13 @@ class BaseAdvisor:
             else:
                 self._feedback(float(score), dict(knobs))
 
-    def speculate(self, score: float, knobs: Knobs) -> None:
-        """Tell with a *predicted* score for a still-running trial. The
-        prediction enters the engine's training set (``_speculate``) but
-        NOT ``history``; when the true score lands, ``feedback`` routes it
-        into ``_correct``. Idempotent per knob assignment while the
-        speculation is outstanding."""
+    def speculate(self, score: float, knobs: Knobs, fit: Optional[Dict] = None) -> None:
+        """Tell with a *predicted* score for a still-running trial
+        (``advisor/speculative.py``; ``fit`` is its curve fit's record).
+        The prediction enters the engine's training set (``_speculate``)
+        but NOT ``history``; when the true score lands, ``feedback``
+        routes it into ``_correct``. Idempotent per knob assignment while
+        the speculation is outstanding."""
         with self._lock:
             h = knobs_hash(knobs)
             if h in self._speculative:
@@ -170,6 +177,7 @@ class BaseAdvisor:
                 self._pending = [p for p in self._pending
                                  if not np.allclose(p, x, atol=1e-9)]
             self._speculate(float(score), dict(knobs))
+            audit.record_speculate(self, float(score), knobs, fit=fit)
 
     # -- constant-liar helpers (called under the lock) ----------------------
 
@@ -191,15 +199,20 @@ class BaseAdvisor:
                 return None
             return max(self.history, key=lambda t: t[1])
 
-    # engine hooks (called under the lock)
+    # engine hooks (called under the lock). Every implementation journals
+    # its decision through rafiki_tpu_torch.obs.search.audit.
     def _propose(self) -> Knobs:
         raise NotImplementedError
 
     def _propose_batch(self, n: int) -> List[Knobs]:
-        return [self._propose() for _ in range(n)]
+        out = [self._propose() for _ in range(n)]
+        audit.record_propose_batch(self, n, out, strategy="sequential")
+        return out
 
     def _feedback(self, score: float, knobs: Knobs) -> None:
-        """Engine hook: absorb a real score. Default: nothing to fit."""
+        """Engine hook: absorb a real score. Default: nothing to fit,
+        the record alone."""
+        audit.record_feedback(self, score, knobs)
 
     def _speculate(self, score: float, knobs: Knobs) -> None:
         """Engine hook: absorb a predicted score into the training set.
@@ -207,7 +220,9 @@ class BaseAdvisor:
 
     def _correct(self, score: float, knobs: Knobs, predicted: float) -> None:
         """Engine hook: the true score for a previously speculated
-        assignment. Default: treat it as a fresh observation."""
+        assignment. Default: journal the correction, then treat it as a
+        fresh observation."""
+        audit.record_correct(self, knobs, predicted, score)
         self._feedback(score, knobs)
 
 

@@ -24,10 +24,12 @@ and one scored history both advisors propose the same knobs:
 
 The advisor consumes its ``np.random.default_rng`` as the JAX package's
 does: one ``integers(1 << 31)`` per fit, then the candidate ``uniform``
-draws and the local ``normal`` draws per EI proposal. Dropped: the
-search-audit journal records; the phase of each proposal counts in
-telemetry instead (``advisor.gp_warmup_proposals``,
-``advisor.gp_ei_proposals``, ``advisor.gp_fixed_proposals``).
+draws and the local ``normal`` draws per EI proposal. Each proposal,
+batch, feedback and correction is journaled as the JAX package's
+(``obs/search/audit.py``: phase, EI, posterior mean and standard
+deviation, pool, fit seconds), and its phase is also counted in
+telemetry (``advisor.gp_warmup_proposals``, ``advisor.gp_ei_proposals``,
+``advisor.gp_fixed_proposals``).
 
 Startup behaviour: the first ``n_initial`` proposals are random
 exploration; after that, EI argmax over a random candidate set plus
@@ -37,6 +39,7 @@ local perturbations of the incumbent.
 from __future__ import annotations
 
 import math
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -48,6 +51,7 @@ from scipy.stats import norm
 from rafiki_tpu_torch import telemetry
 from rafiki_tpu_torch.advisor.base import BaseAdvisor, knobs_hash
 from rafiki_tpu_torch.model.knobs import KnobConfig, Knobs
+from rafiki_tpu_torch.obs.search import audit
 
 _BOUNDS = (1e-5, 1e5)
 _ALPHA = 1e-10
@@ -190,6 +194,8 @@ class GaussianProcess:
 
 
 class GpAdvisor(BaseAdvisor):
+    engine = "gp"
+
     def __init__(self, knob_config: KnobConfig, seed: int = 0,
                  n_initial: int = 8, n_candidates: int = 512, xi: float = 0.01):
         super().__init__(knob_config, seed=seed)
@@ -199,17 +205,21 @@ class GpAdvisor(BaseAdvisor):
         self._X: List[np.ndarray] = []
         self._y: List[float] = []
         self._gp: Optional[GaussianProcess] = None
+        self._last_fit_s: Optional[float] = None
         # Speculative training rows: knobs_hash -> index into _X/_y.
         self._spec_idx: Dict[str, int] = {}
 
     def _propose(self) -> Knobs:
         if self.space.d == 0:
             telemetry.inc("advisor.gp_fixed_proposals")
-            return dict(self.space.fixed)
+            knobs = dict(self.space.fixed)
+            audit.record_propose(self, knobs, {"phase": "fixed"})
+            return knobs
         if len(self._X) < self.n_initial or self._gp is None:
             knobs = self.space.sample(self._rng)
             self._pending_add(self.space.encode(knobs))
             telemetry.inc("advisor.gp_warmup_proposals")
+            audit.record_propose(self, knobs, {"phase": "warmup", "n_initial": self.n_initial})
             return knobs
         b = self.space.bounds()
         cand = self._rng.uniform(b[:, 0], b[:, 1], size=(self.n_candidates, self.space.d))
@@ -218,18 +228,28 @@ class GpAdvisor(BaseAdvisor):
         local = best_x[None, :] + self._rng.normal(
             0.0, 0.1 * (b[:, 1] - b[:, 0]), size=(self.n_candidates // 4, self.space.d))
         cand = np.clip(np.vstack([cand, local]), b[:, 0], b[:, 1])
-        ei = self._expected_improvement(cand)
+        ei, mu, sigma = self._expected_improvement(cand)
         # Penalise candidates near pending (liar) points so concurrent
         # workers don't all get the same proposal.
         span = np.maximum(b[:, 1] - b[:, 0], 1e-12)
         ei_damped = ei
         for dist in self._pending_dists(cand, span):
             ei_damped = ei_damped * (1.0 - np.exp(-(dist / 0.05) ** 2))
-        knobs = self.space.decode(cand[int(np.argmax(ei_damped))])
+        i = int(np.argmax(ei_damped))
+        knobs = self.space.decode(cand[i])
         # Store the *re-encoded* point: decode rounds integer/categorical
         # dims, and the feedback drain removes by encode(knobs).
         self._pending_add(self.space.encode(knobs))
         telemetry.inc("advisor.gp_ei_proposals")
+        audit.record_propose(self, knobs, {
+            "phase": "ei",
+            "ei": round(float(ei[i]), 9),
+            "ei_damped": round(float(ei_damped[i]), 9),
+            "mu": round(float(mu[i]), 6),
+            "sigma": round(float(sigma[i]), 6),
+            "pool": int(len(cand)),
+            "fit_s": self._last_fit_s,
+        })
         return knobs
 
     def _propose_batch(self, n: int) -> List[Knobs]:
@@ -255,6 +275,8 @@ class GpAdvisor(BaseAdvisor):
                 del self._X[-lies:]
                 del self._y[-lies:]
                 self._fit()
+        audit.record_propose_batch(self, n, out, strategy="constant_liar_min",
+                                   liar={"lie": round(lie, 6), "lies_planted": len(out)})
         return out
 
     def _feedback(self, score: float, knobs: Knobs) -> None:
@@ -262,6 +284,7 @@ class GpAdvisor(BaseAdvisor):
         self._y.append(score)
         if len(self._X) >= max(2, min(self.n_initial, 4)):
             self._fit()
+        audit.record_feedback(self, score, knobs)
 
     def _speculate(self, score: float, knobs: Knobs) -> None:
         """A predicted score enters the training set as a provisional
@@ -276,13 +299,18 @@ class GpAdvisor(BaseAdvisor):
         """True score replaces the speculative row and the GP refits."""
         idx = self._spec_idx.pop(knobs_hash(knobs), None)
         if idx is None:
+            # Known to the base but never absorbed here: a plain append.
+            audit.record_correct(self, knobs, predicted, score)
             self._feedback(score, knobs)
             return
         self._y[idx] = score
         if len(self._X) >= max(2, min(self.n_initial, 4)):
             self._fit()
+        audit.record_correct(self, knobs, predicted, score)
+        audit.record_feedback(self, score, knobs)
 
     def _fit(self) -> None:
+        t0 = time.monotonic()
         X = np.vstack(self._X)
         y = np.asarray(self._y)
         # Canonical row order before fitting: the Cholesky is not
@@ -296,11 +324,14 @@ class GpAdvisor(BaseAdvisor):
         span = np.maximum(b[:, 1] - b[:, 0], 1e-12)
         gp = GaussianProcess(0.25 * span, random_state=int(self._rng.integers(1 << 31)))
         self._gp = gp.fit(X, y)
+        # The fit's wall seconds ride the next propose record.
+        self._last_fit_s = round(time.monotonic() - t0, 6)
 
-    def _expected_improvement(self, cand: np.ndarray) -> np.ndarray:
-        """EI per candidate."""
+    def _expected_improvement(self, cand: np.ndarray):
+        """EI per candidate, with the posterior mean and standard
+        deviation it was computed from."""
         mu, sigma = self._gp.predict(cand)
         sigma = np.maximum(sigma, 1e-9)
         best = max(self._y)
         z = (mu - best - self.xi) / sigma
-        return (mu - best - self.xi) * norm.cdf(z) + sigma * norm.pdf(z)
+        return (mu - best - self.xi) * norm.cdf(z) + sigma * norm.pdf(z), mu, sigma

@@ -13,9 +13,9 @@ result is deterministic whatever the dead process was doing:
 2. **``kind="advisor"`` audit journals**: scores the store never saw as
    completed rows, each ``advisor/feedback`` record joined to its
    ``advisor/propose`` record by ``knobs_hash`` to recover the knob
-   dict, replayed (sorted by hash) after the store rows. The port's
-   advisors do not write these records yet (ROADMAP Queue 1, item 9),
-   so in the port this source is a JAX package journal or empty.
+   dict, replayed (sorted by hash) after the store rows. Both
+   packages' advisors write these records, so either package's journal
+   rehydrates either package's advisor.
 
 Replay goes through the engine's ``feedback()``, so the rehydrated
 advisor's internal rng advances exactly as a fresh advisor fed the same
@@ -23,7 +23,8 @@ observations would: with the GP's canonical-order fit, the first
 post-resume ``propose_batch`` is byte-identical between a crashed and
 resumed sweep and an unfaulted one. Speculations still uncorrected at
 the crash are replayed AFTER all real observations, sorted by hash,
-through ``speculate()`` (the port's takes no curve fit).
+through ``speculate()``, each with the curve fit its record carries
+(journaled again with the replayed speculation).
 """
 
 from __future__ import annotations
@@ -144,8 +145,8 @@ def rehydrate_advisor(advisors: AdvisorService,
     scored = seen | {knobs_hash(kn) for kn, _ in obs}
     specs = journal_speculations(journal_records, advisor_id=advisor_id,
                                  exclude_hashes=scored)
-    for kn, pred, _fit in specs:
-        advisors.speculate(aid, pred, kn)
+    for kn, pred, fit in specs:
+        advisors.speculate(aid, pred, kn, fit=fit)
     _journal.record("recovery", "rehydrated", advisor_id=aid,
                     job_id=job_id, engine=kind, n_observations=len(obs),
                     n_from_store=len(seen), n_from_journal=len(obs) - len(seen),

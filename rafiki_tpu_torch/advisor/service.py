@@ -1,9 +1,10 @@
 """Advisor service: a registry of per-(sub)job advisors shared by workers.
 
 The port's own copy of ``rafiki_tpu/advisor/service.py``
-``AdvisorService``: create/propose/feedback/delete so train workers
-share one optimisation state. In-proc workers call this object
-directly.
+``AdvisorService``: create/propose/feedback/speculate/delete so train
+workers share one optimisation state. In-proc workers call this object
+directly. Each advisor carries its registry id, so every ``advisor/*``
+journal record it writes is filterable per sweep.
 """
 
 from __future__ import annotations
@@ -51,10 +52,13 @@ class AdvisorService:
     def feedback(self, advisor_id: str, score: float, knobs: Knobs) -> None:
         self.get(advisor_id).feedback(score, knobs)
 
-    def speculate(self, advisor_id: str, score: float, knobs: Knobs) -> None:
-        """Tell with a predicted score for a still-running trial; the
-        true score lands later through ``feedback`` as a correction."""
-        self.get(advisor_id).speculate(score, knobs)
+    def speculate(self, advisor_id: str, score: float, knobs: Knobs,
+                  fit: Optional[dict] = None) -> None:
+        """Tell with a predicted score for a still-running trial
+        (``advisor/speculative.py``; ``fit`` is the curve fit's record,
+        journaled with it); the true score lands later through
+        ``feedback`` as a correction."""
+        self.get(advisor_id).speculate(score, knobs, fit=fit)
 
     def best(self, advisor_id: str) -> Optional[Tuple[Knobs, float]]:
         return self.get(advisor_id).best()

@@ -1,9 +1,9 @@
 """Tree-structured Parzen Estimator (TPE) advisor.
 
 The port's own copy of ``rafiki_tpu/advisor/tpe.py`` ``TpeAdvisor``
-(numpy only), unchanged but for the dropped search-audit records, so
-``make_advisor`` offers the same kinds and proposes the same knobs from
-one seed and one scored history.
+(numpy only), with its search-audit records, so ``make_advisor`` offers
+the same kinds, proposes the same knobs from one seed and one scored
+history, and journals the same ``advisor/*`` records.
 
 TPE models p(x | good) and p(x | bad) with kernel density estimates
 over the encoded knob space and proposes the candidate maximising the
@@ -21,9 +21,12 @@ import numpy as np
 
 from rafiki_tpu_torch.advisor.base import BaseAdvisor
 from rafiki_tpu_torch.model.knobs import CategoricalKnob, IntegerKnob, KnobConfig, Knobs
+from rafiki_tpu_torch.obs.search import audit
 
 
 class TpeAdvisor(BaseAdvisor):
+    engine = "tpe"
+
     def __init__(self, knob_config: KnobConfig, seed: int = 0,
                  n_initial: int = 8, n_candidates: int = 64,
                  gamma: float = 0.25, epsilon: float = 0.1):
@@ -59,7 +62,9 @@ class TpeAdvisor(BaseAdvisor):
 
     def _propose(self) -> Knobs:
         if self.space.d == 0:
-            return dict(self.space.fixed)
+            knobs = dict(self.space.fixed)
+            audit.record_propose(self, knobs, {"phase": "fixed"})
+            return knobs
         # Short-circuit order matters for RNG-stream parity: the
         # epsilon draw only happens past warmup.
         if (len(self._X) < max(2, self.n_initial)
@@ -69,8 +74,11 @@ class TpeAdvisor(BaseAdvisor):
             # model can only believe what it has sampled, so a value
             # never proposed (e.g. a categorical choice absent from the
             # good set) would stay unproposed forever without this.
+            phase = "warmup" if len(self._X) < max(2, self.n_initial) else "epsilon"
             knobs = self.space.sample(self._rng)
             self._pending_add(self.space.encode(knobs))
+            audit.record_propose(self, knobs, {
+                "phase": phase, "n_initial": self.n_initial, "epsilon": self.epsilon})
             return knobs
 
         b = self.space.bounds()
@@ -123,13 +131,18 @@ class TpeAdvisor(BaseAdvisor):
         # (bookkeeping in BaseAdvisor; only the damping shape here).
         for dist in self._pending_dists(cand, span):
             score = score - 4.0 * np.exp(-(dist / 0.05) ** 2)
-        knobs = self.space.decode(cand[int(np.argmax(score))])
+        i = int(np.argmax(score))
+        knobs = self.space.decode(cand[i])
         self._pending_add(self.space.encode(knobs))
+        audit.record_propose(self, knobs, {
+            "phase": "tpe", "log_ratio": round(float(score[i]), 6), "pool": int(n_cand),
+            "n_good": int(n_good), "gamma": self.gamma})
         return knobs
 
     def _feedback(self, score: float, knobs: Knobs) -> None:
         self._X.append(self.space.encode(knobs))
         self._y.append(score)
+        audit.record_feedback(self, score, knobs)
 
     @staticmethod
     def _log_kde(cand: np.ndarray, pts: np.ndarray, bw: np.ndarray) -> np.ndarray:

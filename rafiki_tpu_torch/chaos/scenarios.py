@@ -58,10 +58,10 @@ collective-kill-mid-step       a rank of a width-2 dp group SIGKILLed at its
                                from its checkpoint
 =============================  =============================================
 
-and five that drive the mesh sweep (``scheduler/mesh.py``), its chips
-(or group members) sharing the runner's device; the last two SIGKILL
+and six that drive the mesh sweep (``scheduler/mesh.py``), its chips
+(or group members) sharing the runner's device; the last three SIGKILL
 the sweep's supervisor process (``scheduler/sweep_proc.py``) and resume
-the sweep in a fresh one (``SUBPROCESS_SCENARIOS`` holds all five that
+the sweep in a fresh one (``SUBPROCESS_SCENARIOS`` holds all six that
 kill a process):
 
 =============================  =============================================
@@ -81,14 +81,20 @@ supervisor-kill-mid-sweep      the supervisor SIGKILLed mid-sweep;
 host-loss-mid-sweep            host 1 (chips 2, 3) lost and re-packed, then
                                host 0 with the supervisor; resume finishes
                                the budget with a clean WAL
+early-kill-mid-pack-resume     the supervisor SIGKILLed just after the
+                               learning-curve predictor killed a pack
+                               member, with its pack-mate's speculative
+                               score still uncorrected in the GP; the
+                               advisor rehydrates twice to the same
+                               proposals, and resume ends with the
+                               unfaulted kill-on run's best score and
+                               knob set
 =============================  =============================================
 
-The JAX package's other 5 scenarios wait for the planes they drive
-(ROADMAP Queue 1): ``early-kill-mid-pack-resume`` for the search plane
-(item 9), ``stacked-worker-loss-fallback`` for the multiprocessing bus
-(item 13), and the three autoscale and tenancy scenarios for item 14.
-The two supervisor kills leave out the JAX package's checks that read
-the advisor's audit journal and its ``obs resume`` verb (item 9).
+The JAX package's other 4 scenarios wait for the planes they drive
+(ROADMAP Queue 1): ``stacked-worker-loss-fallback`` for the
+multiprocessing bus (item 13), and the three autoscale and tenancy
+scenarios for item 14.
 """
 
 from __future__ import annotations
@@ -118,7 +124,7 @@ SCENARIOS: Dict[str, Scenario] = {}
 #: workers, or the sweep supervisor's process (``sweep_proc``).
 SUBPROCESS_SCENARIOS = frozenset({"kill-mid-trial-resume", "kill-mid-pack-resume",
                                   "collective-kill-mid-step", "supervisor-kill-mid-sweep",
-                                  "host-loss-mid-sweep"})
+                                  "host-loss-mid-sweep", "early-kill-mid-pack-resume"})
 
 
 def scenario(name: str, description: str, spec: str,
@@ -904,10 +910,8 @@ def mesh_degrades_single_chip(tmp, check: CheckFn) -> None:
 # process of its own (scheduler/sweep_proc.py), so a supervisor kill takes
 # out the WHOLE control plane (advisor state, pack assignments,
 # heartbeats), and resume_sweep must prove a genuinely fresh process
-# adopts the job from the MetaStore + sweep WAL + journals alone. The JAX
-# package's checks that read the advisor's audit journal (the post-resume
-# propose_batch's strategy) and its `obs resume` verb wait for ROADMAP
-# Queue 1, item 9.
+# adopts the job from the MetaStore + sweep WAL + journals alone, and the
+# crash's story must read back through `obs resume`.
 # ---------------------------------------------------------------------------
 
 def _sweep_proc_env(extra: Optional[Dict[str, str]] = None,
@@ -992,6 +996,8 @@ def _wal_checks(check, store, job_id: str) -> None:
 )
 def supervisor_kill_mid_sweep(tmp, check: CheckFn) -> None:
     import json as _json
+    import subprocess
+    import sys
     import time as _time
 
     from rafiki_tpu_torch.obs import journal as journal_mod
@@ -1044,13 +1050,28 @@ def supervisor_kill_mid_sweep(tmp, check: CheckFn) -> None:
     check("knob_set_matches_unfaulted", knobs_f == knobs_r,
           "resumed sweep explored different knobs than unfaulted run")
 
+    # The post-resume propose_batch shows non-warmup internals: the
+    # rehydrated GP drafted with the constant liar, it did not restart.
     jrecs = journal_mod.read_dir(journal_mod.journal.log_dir)
     check("advisor_rehydrated", _journal_has(jrecs, "recovery", "rehydrated"),
           "no recovery/rehydrated journal record")
+    batches = [r for r in jrecs if r.get("kind") == "advisor" and r.get("name") == "propose_batch"]
+    check("post_resume_batch_non_warmup",
+          any(b.get("strategy") == "constant_liar_min" for b in batches),
+          f"batch strategies: {[b.get('strategy') for b in batches]}")
     check("kill_injected_journaled",
           any(r.get("kind") == "chaos" and r.get("mode") == "kill"
               and r.get("site") == "supervisor.tick" for r in jrecs),
           "no chaos/injected supervisor.tick kill in journals")
+
+    # The crash->adopt->complete story reconstructs from the journals alone
+    # through the obs CLI verb.
+    p4 = subprocess.run(
+        [sys.executable, "-m", "rafiki_tpu_torch.obs", "--dir", str(journal_mod.journal.log_dir),
+         "resume", job["id"]],
+        env=_sweep_proc_env(chaos=False), capture_output=True, text=True, timeout=60)
+    check("obs_resume_reconstructs", p4.returncode == 0 and "resumed:" in p4.stdout,
+          f"rc={p4.returncode}: {p4.stderr[-400:]}")
 
 
 @scenario(
@@ -1123,3 +1144,191 @@ def host_loss_mid_sweep(tmp, check: CheckFn) -> None:
     check("resume_adopted_orphans", summary.get("adopted", 0) >= 1, summary)
     _check_rows(check, store, job["id"], expect=BUDGET)
     _wal_checks(check, store, job["id"])
+
+
+# A wider-lr sibling of ChaosFF for the early-kill scenario. The GP's
+# seed-0 warm-up draws over this LINEAR lr range put {0.0127, 8.3e-4} on
+# chip 0 (global round-robin) and {0.0054, 3.4e-4} on chip 1: chip 0's
+# strong learner sets best-so-far, and on the delayed chip 1 the 3.4e-4
+# member's flat curve is condemned by the predictor while its 0.0054
+# pack-mate's rising curve survives and is speculated. 8 epochs keep a
+# window of several epochs open between the kill and the pack's end for
+# the state-triggered SIGKILL.
+EK_SOURCE = b"""
+from rafiki_tpu_torch.model.base import TorchModel
+from rafiki_tpu_torch.model.knobs import FixedKnob, FloatKnob
+from rafiki_tpu_torch.models.ff import _Mlp
+
+class ChaosEkFF(TorchModel):
+    @staticmethod
+    def get_knob_config():
+        return {
+            "hidden_units": FixedKnob(24),
+            "learning_rate": FloatKnob(1e-5, 0.02, is_exp=False),
+            "batch_size": FixedKnob(32),
+            "epochs": FixedKnob(8),
+        }
+
+    def build_module(self, num_classes, input_shape):
+        return _Mlp(hidden_layers=1, hidden_units=int(self.knobs["hidden_units"]),
+                    num_classes=num_classes, input_shape=input_shape)
+"""
+
+
+def _ek_env(tmp):
+    from rafiki_tpu_torch.store import MetaStore, ParamsStore
+
+    store = MetaStore(tmp / "meta.sqlite3")
+    params = ParamsStore(tmp / "params")
+    model = store.create_model("chaosekff", "IMAGE_CLASSIFICATION", None, EK_SOURCE, "ChaosEkFF")
+    return store, params, model
+
+
+def _uncorrected_spec_hashes(recs) -> set:
+    """Hashes with an ``advisor/speculate`` record and no
+    ``advisor/feedback`` record anywhere in the stream: the speculations
+    a crash would leave in flight."""
+    specs = {r.get("knobs_hash") for r in recs
+             if r.get("kind") == "advisor" and r.get("name") == "speculate"}
+    fed = {r.get("knobs_hash") for r in recs
+           if r.get("kind") == "advisor" and r.get("name") == "feedback"}
+    return specs - fed
+
+
+@scenario(
+    "early-kill-mid-pack-resume",
+    "SIGKILL the sweep supervisor at the worst curve-advisor moment: "
+    "a pack member was just early-killed by the learning-curve "
+    "predictor and its surviving packmates' speculative scores sit in "
+    "the GP uncorrected (the true scores never landed). Resume must "
+    "reconcile the WAL with zero double-claimed slots, rehydrate the "
+    "advisor from journals alone — real observations plus the "
+    "in-flight speculations, byte-identical proposals proven by "
+    "rehydrating twice from the same records — and finish the job "
+    "with the SAME best score and knob set as an unfaulted kill-on "
+    "run under the same seeds.",
+    spec="seed=37;worker.epoch:delay:delay=0.25:match=mesh-c1",
+    env={"RAFIKI_CHECKPOINT_EVERY": "1",
+         "RAFIKI_SUPERVISOR_HEARTBEAT_S": "0.2",
+         "RAFIKI_CURVE_KILL": "1",
+         "RAFIKI_CURVE_SPECULATE": "1",
+         # 5 observations before a verdict (the curves are noisy at 1/64
+         # val granularity) and a wide margin, so only the flat
+         # chance-level member is condemned, never its rising pack-mate.
+         "RAFIKI_CURVE_KILL_MIN_OBS": "5",
+         "RAFIKI_CURVE_KILL_MARGIN": "0.35"},
+)
+def early_kill_mid_pack_resume(tmp, check: CheckFn) -> None:
+    import json as _json
+    import signal
+    import subprocess
+    import time as _time
+
+    from rafiki_tpu_torch.advisor.rehydrate import rehydrate_advisor
+    from rafiki_tpu_torch.advisor.service import AdvisorService
+    from rafiki_tpu_torch.model.base import load_model_class
+    from rafiki_tpu_torch.obs import journal as journal_mod
+
+    # Budget == GP n_initial: every claim is a seed-deterministic warm-up
+    # proposal, so ONE unfaulted run is a complete reference. Chip 0 runs
+    # undelayed and sets best-so-far; the worker.epoch delay pinned to
+    # chip 1 (match=mesh-c1) holds its pack mid-flight until a best
+    # exists, so the doomed member's verdict fires with a live pack-mate
+    # still training.
+    BUDGET, CHIPS, K = 4, 2, 2
+    fd = tmp / "faulted"
+    fd.mkdir(parents=True, exist_ok=True)
+    store, params, model = _ek_env(fd)
+    job = _make_job(store, model, {"MODEL_TRIAL_COUNT": BUDGET})
+
+    # The SIGKILL cannot be tick-scheduled: the kill epoch arrives at
+    # machine-dependent times. Watch the shared journal dir for the
+    # advisor/kill record AND an uncorrected advisor/speculate record (the
+    # backfill that follows the eviction speculates the pack-mate), then
+    # kill the supervisor: a just-killed member, a speculation in flight.
+    argv = _sweep_proc_argv("run", store, params, job["id"], CHIPS, K) + [
+        "--advisor", "gp", "--advisor-kwargs", '{"n_initial": 4}']
+    child = subprocess.Popen(argv, env=_sweep_proc_env(), stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+    log_dir = journal_mod.journal.log_dir
+    deadline = _time.monotonic() + 150.0
+    killed_seen = spec_in_flight = False
+    try:
+        while _time.monotonic() < deadline and child.poll() is None:
+            recs = journal_mod.read_dir(log_dir)
+            killed_seen = _journal_has(recs, "advisor", "kill")
+            spec_in_flight = bool(_uncorrected_spec_hashes(recs))
+            if killed_seen and spec_in_flight:
+                break
+            _time.sleep(0.02)
+    finally:
+        if child.poll() is None:
+            child.send_signal(signal.SIGKILL)
+        _, err = child.communicate(timeout=60)
+    check("kill_seen_before_crash", killed_seen, "no advisor/kill record before timeout/exit")
+    check("speculation_in_flight_at_crash", spec_in_flight,
+          "no uncorrected advisor/speculate record at the crash")
+    check("supervisor_killed", child.returncode == -9,
+          f"run rc={child.returncode}: {(err or '')[-500:]}")
+
+    # Byte-identity at the crash point: rehydrate the advisor TWICE from
+    # the same frozen journal snapshot and store rows (real scores first,
+    # then in-flight speculations) and the post-resume proposals must
+    # match byte for byte.
+    crash_recs = journal_mod.read_dir(log_dir)
+    sub = store.get_sub_train_jobs(job["id"])[0]
+    aid = sub.get("advisor_id")
+    check("advisor_id_persisted", bool(aid), f"sub row: {sub}")
+    model_row = store.get_model(sub["model_id"])
+    model_cls = load_model_class(model_row["model_file"], model_row["model_class"])
+    completed = [t for t in store.get_trials_of_train_job(job["id"])
+                 if t["status"] == "COMPLETED" and t.get("score") is not None]
+    batches = []
+    for _ in range(2):
+        svc = AdvisorService()
+        rehydrate_advisor(svc, model_cls.get_knob_config(), kind="gp", advisor_id=aid,
+                          completed=completed, journal_records=crash_recs, seed=0,
+                          engine_kwargs={"n_initial": 4}, job_id=job["id"])
+        batches.append(_json.dumps(svc.get(aid).propose_batch(K), sort_keys=True))
+    check("rehydrated_proposals_byte_match", batches[0] == batches[1],
+          f"{batches[0][:200]} vs {batches[1][:200]}")
+
+    _time.sleep(0.5)
+    p2, summary = _sweep_proc("resume", store, params, job["id"], chips=CHIPS,
+                              trials_per_chip=K, env=_sweep_proc_env(chaos=False),
+                              stale_after_s=0.4)
+    check("resume_completed", p2.returncode == 0,
+          f"resume rc={p2.returncode}: {p2.stderr[-800:]}")
+    check("resume_adopted_orphans", summary.get("adopted", 0) >= 1, summary)
+
+    trials = store.get_trials_of_train_job(job["id"])
+    check("exact_trial_rows", len(trials) == BUDGET, f"{len(trials)} rows for budget {BUDGET}")
+    check("no_duplicate_rows", len({t["id"] for t in trials}) == len(trials), "duplicate ids")
+    bad = [t["id"] for t in trials if t["status"] not in ("COMPLETED", "ERRORED")]
+    check("all_trials_terminal", not bad, f"non-terminal: {bad}")
+    check("killed_trial_errored", any(t["status"] == "ERRORED" for t in trials),
+          "no ERRORED row: the pre-crash kill vanished on resume")
+    # WAL reconcile: zero double-claimed slots despite the kill, the crash
+    # and the adoption churn.
+    _wal_checks(check, store, job["id"])
+
+    # The unfaulted kill-on reference under the same seeds, its own
+    # journal dir: the same best score, the same knob set, the same kill.
+    rd = tmp / "reference"
+    rd.mkdir(parents=True, exist_ok=True)
+    rstore, rparams, rmodel = _ek_env(rd)
+    rjob = _make_job(rstore, rmodel, {"MODEL_TRIAL_COUNT": BUDGET})
+    p3, _ = _sweep_proc("run", rstore, rparams, rjob["id"], chips=CHIPS, trials_per_chip=K,
+                        env=_sweep_proc_env({"RAFIKI_LOG_DIR": str(rd / "obs")}, chaos=False),
+                        advisor="gp", advisor_kwargs='{"n_initial": 4}')
+    check("reference_completed", p3.returncode == 0,
+          f"reference rc={p3.returncode}: {p3.stderr[-500:]}")
+    rtrials = rstore.get_trials_of_train_job(rjob["id"])
+    best_f = max((t["score"] for t in trials if t["score"] is not None), default=None)
+    best_r = max((t["score"] for t in rtrials if t["score"] is not None), default=None)
+    check("best_score_matches_unfaulted", best_f is not None and best_f == best_r,
+          f"faulted {best_f} vs unfaulted {best_r}")
+    knobs_f = sorted(_json.dumps(t["knobs"], sort_keys=True) for t in trials)
+    knobs_r = sorted(_json.dumps(t["knobs"], sort_keys=True) for t in rtrials)
+    check("knob_set_matches_unfaulted", knobs_f == knobs_r,
+          "resumed sweep explored different knobs than unfaulted run")

@@ -41,8 +41,11 @@ in the JAX package) makes the trial one rank of a dp mesh
 (``parallel/mesh.py``); ``train`` then runs ``TrainLoop(mesh=...)``.
 A pack takes no mesh.
 
-Not ported yet: the learning-curve kill (so ``train_packed`` takes no
-``kill_predicate``).
+The learning-curve early kill: a serial trial ends from its log sink
+(``worker/train.py EarlyKilled``, raised out of ``logger.log`` between
+epochs, when no capture is open and no card lock is held), and
+``train_packed``'s ``kill_predicate`` evicts a pack member with reason
+``"killed"``.
 """
 
 from __future__ import annotations
@@ -448,11 +451,18 @@ class TorchModel(BaseModel):
         through :meth:`restore_checkpoint`. A member restored from a
         checkpoint (``_start_epoch > 0``) is refused: it resumes serially.
 
-        ``kill_predicate`` (the learning-curve kill) is not ported yet;
-        anything but None is refused.
+        ``kill_predicate(model_index, epoch, metrics)``, when given, is
+        consulted at each member's epoch boundary after the divergence,
+        budget and early-stop checks decline (``metrics`` are the epoch's
+        host floats, already synced); True evicts the member with reason
+        ``"killed"``, into a detached serial loop like an early stop, and
+        ``on_evict`` fires: the learning-curve early kill
+        (docs/early_kill.md). The pack's program shrinks to the members
+        left, each keeping its own state, so a survivor ends bit-equal to
+        its serial trial. The caller owns the bookkeeping (the worker's
+        ``on_evict`` marks the trial errored and sends the advisor its
+        consolation feedback); None consults nothing.
         """
-        if kill_predicate is not None:
-            raise NotImplementedError("the learning-curve kill is not ported to rafiki_tpu_torch")
         from rafiki_tpu_torch.obs.health import detector as _detector
 
         if not models:
@@ -535,6 +545,8 @@ class TorchModel(BaseModel):
                     leavers.append((j, mi, e, "finished"))
                 elif models[mi].should_stop_early(e, mts[j]):
                     leavers.append((j, mi, e, "early_stop"))
+                elif kill_predicate is not None and kill_predicate(mi, e, mts[j]):
+                    leavers.append((j, mi, e, "killed"))
             for mi in slots:
                 epochs_done[mi] += 1
 

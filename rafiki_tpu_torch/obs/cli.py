@@ -21,7 +21,9 @@ under ``--dir``, default ``$RAFIKI_LOG_DIR`` then the configured
                    with its diagnosis and capsule, plus totals
     curves [id]    per-trial learning curves from the durable
                    ``trial/epoch_eval`` records; ``id`` prefix-matches
-                   trial ids (omit for every trial)
+                   trial ids (omit for every trial); ``--predicted``
+                   overlays the curve extrapolator's fit and credible
+                   band (the fit the early kill decides by)
     replay <cap>   re-execute a divergence capsule (on the card, or
                    ``--device cpu``) and bit-verify the reproduction;
                    exit 0 only when the bad step reproduced bit for bit
@@ -29,12 +31,28 @@ under ``--dir``, default ``$RAFIKI_LOG_DIR`` then the configured
                    trial its width history (group formations, member
                    losses, reshard-on-restore events); exit 1 when the
                    journals hold no ``shard/*`` record
+    decisions      control-plane decisions in one time-ordered stream:
+                   serving route switches, gateway sheds, breaker flips,
+                   placement advisories, and the curve advisor's kills,
+                   speculations and corrections; exit 1 when there are
+                   none
+    sweep [job]    a whole sweep rebuilt from the ``advisor/*`` audit
+                   records (``obs/search/cli.py``); exit 1 when a
+                   feedback, batch member, speculation or kill has no
+                   propose record
+    lineage [id]   one trial across incarnations, chips and packs (evict,
+                   kill, backfill, resume, repack); ``--check`` exits 1 on
+                   orphaned incarnations fleet-wide
+    resume [job]   a sweep's crash->adopt->resume timeline from the
+                   ``recovery/*`` and supervisor records; exit 1 when no
+                   recovery story exists
 
 The journals of either package read the same: ``trace``, ``tail``,
-``slowest``, ``slo``, ``health``, ``curves`` and ``shard`` print what the JAX
-package's CLI prints (``curves`` without the JAX package's
-``--predicted`` overlay: the learning-curve extrapolator is not
-ported).
+``slowest``, ``slo``, ``health``, ``curves`` (with ``--predicted``),
+``shard``, ``sweep``, ``lineage`` and ``resume`` print what the JAX
+package's CLI prints. ``decisions`` prints the JAX package's four kinds
+of decision and, beyond them, the curve advisor's (``advisor/kill``,
+``advisor/speculate``, ``advisor/correct``).
 ``profile`` multiplies a step's flops by the epoch's ``steps`` where
 the ``perf/step`` record carries them (the port's do; a JAX package
 journal's count as one step, as its own CLI reads them) and takes the
@@ -44,7 +62,8 @@ record's ``peak_flops`` (the card and compute dtype the step ran on).
 Output is one human line per record by default, ``--json`` for JSONL.
 Exit code 1 when a requested trace has no records. Importing this
 module imports no torch: it reads journals on any machine (``replay``
-alone needs torch, and loads it when it runs).
+and ``curves --predicted``, which fits through the advisor package, load
+it when they run).
 """
 
 from __future__ import annotations
@@ -291,9 +310,31 @@ def cmd_health(log_dir: str, as_json: bool) -> int:
     return 0
 
 
-def cmd_curves(log_dir: str, trial: Optional[str], as_json: bool) -> int:
+def _curve_overlay(rows: List[Dict[str, Any]]) -> Optional[Dict[str, Any]]:
+    """Fit the extrapolator the early kill uses (higher-is-better
+    ``acc`` points only): ``{fit, points}``, or None below two accuracy
+    observations."""
+    from rafiki_tpu_torch.advisor import curve as curve_mod
+    from rafiki_tpu_torch.advisor.speculative import DEFAULT_HORIZON
+
+    pts = [(int(r["epoch"]), float(r["acc"])) for r in rows
+           if r.get("epoch") is not None and r.get("acc") is not None]
+    if len(pts) < 2:
+        return None
+    fit = curve_mod.fit_curve(pts, max(DEFAULT_HORIZON, max(e for e, _ in pts) + 1))
+    if fit is None:
+        return None
+    return {"fit": fit.to_record(),
+            "points": [{"epoch": e, "predicted": v}
+                       for e, v in curve_mod.predict_points(fit, pts)]}
+
+
+def cmd_curves(log_dir: str, trial: Optional[str], as_json: bool,
+               predicted: bool = False) -> int:
     """Per-trial learning curves from the durable ``trial/epoch_eval``
-    records."""
+    records; with ``predicted``, each overlaid with the curve
+    extrapolator's fit, the prediction a kill decision is audited
+    against."""
     curves: Dict[str, List[Dict[str, Any]]] = {}
     for r in journal_mod.read_dir(log_dir):
         if r.get("kind") != "trial" or r.get("name") != "epoch_eval":
@@ -308,18 +349,36 @@ def cmd_curves(log_dir: str, trial: Optional[str], as_json: bool) -> int:
         return 1
     for rows in curves.values():
         rows.sort(key=lambda r: (r.get("epoch", 0), r.get("ts", 0.0)))
+    overlays: Dict[str, Optional[Dict[str, Any]]] = {}
+    if predicted:
+        overlays = {tid: _curve_overlay(rows) for tid, rows in curves.items()}
     if as_json:
-        print(json.dumps({"trials": curves}, default=str))
+        doc: Dict[str, Any] = {"trials": curves}
+        if predicted:
+            doc["predicted"] = overlays
+        print(json.dumps(doc, default=str))
         return 0
     for tid, rows in sorted(curves.items()):
         last = rows[-1]
         packed = " [packed]" if last.get("packed") else ""
         print(f"trial {tid}{packed}: {len(rows)} epochs, final score={last.get('score')}")
+        ov = overlays.get(tid)
+        fitted = {p["epoch"]: p["predicted"] for p in ov["points"]} if ov else {}
         for r in rows:
             vals = [f"{k}={r[k]:.6g}" for k in ("loss", "acc") if r.get(k) is not None]
             if r.get("wall_s") is not None:
                 vals.append(f"wall={r['wall_s']:.3f}s")
+            if r.get("epoch") in fitted:
+                vals.append(f"fit={fitted[r['epoch']]:.6g}")
             print(f"  epoch {r.get('epoch'):>3}  " + " ".join(vals))
+        if predicted:
+            if ov is None:
+                print("  predicted: (needs >=2 acc observations)")
+            else:
+                f = ov["fit"]
+                print(f"  predicted final={f['predicted']:.6g} band=±{f['band']:.6g} "
+                      f"[{f['lo']:.6g}, {f['hi']:.6g}] family={f['family']} "
+                      f"n_obs={f['n_obs']} rmse={f['rmse']:.6g} horizon={f['horizon']}")
     return 0
 
 
@@ -412,6 +471,75 @@ def cmd_shard(log_dir: str, as_json: bool) -> int:
     return 0
 
 
+#: The decision records ``decisions`` reads: (kind, name) -> tag. The
+#: first four are the JAX package's; the last three the curve advisor's.
+_DECISIONS = {("serving", "route"): "route", ("gateway", "shed"): "shed",
+              ("gateway", "breaker_transition"): "breaker", ("twin", "placement"): "placement",
+              ("advisor", "kill"): "kill", ("advisor", "speculate"): "speculate",
+              ("advisor", "correct"): "correct"}
+
+
+def _decision_line(tag: str, r: Dict[str, Any]) -> str:
+    if tag == "route":
+        return (f"route={r.get('route')} job={r.get('job_id')} k={r.get('k')} "
+                f"reason={r.get('reason')} workers={r.get('workers')}")
+    if tag == "shed":
+        return f"reason={r.get('reason')}"
+    if tag == "breaker":
+        return f"worker={r.get('worker_id')} {r.get('from_state')}→{r.get('to_state')}"
+    if tag == "placement":
+        return (f"job={r.get('job_id')} k={r.get('k')} chips={r.get('chips')} "
+                f"rec={r.get('recommendation')} advisory={r.get('advisory')}")
+    if tag == "kill":
+        return (f"knobs_hash={r.get('knobs_hash')} trial={r.get('trial_id')} "
+                f"epoch={r.get('epoch')} predicted={r.get('predicted')} hi={r.get('hi')} "
+                f"best={r.get('best_so_far')} margin={(r.get('config') or {}).get('margin')}")
+    if tag == "speculate":
+        return (f"knobs_hash={r.get('knobs_hash')} predicted={r.get('predicted')} "
+                f"advisor={r.get('advisor_id')}")
+    return (f"knobs_hash={r.get('knobs_hash')} predicted={r.get('predicted')} "
+            f"actual={r.get('actual')} error={r.get('error')}")
+
+
+def cmd_decisions(log_dir: str, n: int, as_json: bool) -> int:
+    """Decision forensics: route switches, admission sheds, breaker
+    flips, placement advisories and the curve advisor's kills,
+    speculations and corrections, merged into one time-ordered stream
+    (the "why did serving degrade, why did this trial die" view)."""
+    rows = [(_DECISIONS[(r.get("kind"), r.get("name"))], r)
+            for r in journal_mod.read_dir(log_dir)
+            if (r.get("kind"), r.get("name")) in _DECISIONS]
+    if not rows:
+        print(f"no decision records under {log_dir} (routes, sheds, breaker "
+              f"transitions, placement advisories, curve kills and speculations)",
+              file=sys.stderr)
+        return 1
+    rows.sort(key=lambda kr: kr[1].get("ts", 0.0))
+    shown = rows[-n:] if n else rows
+    if as_json:
+        for _, r in shown:
+            print(json.dumps(r, default=str))
+        return 0
+    for tag, r in shown:
+        ts = r.get("ts")
+        line = _decision_line(tag, r)
+        print(f"{ts:>14.3f}  {tag:<9} {line}" if isinstance(ts, float)
+              else f"{str(ts):>14}  {tag:<9} {line}")
+    counts: Dict[str, int] = {}
+    sheds: Dict[str, int] = {}
+    flips: Dict[str, int] = {}
+    for tag, r in rows:
+        counts[tag] = counts.get(tag, 0) + 1
+        if tag == "shed":
+            sheds[str(r.get("reason"))] = sheds.get(str(r.get("reason")), 0) + 1
+        elif tag == "breaker":
+            flips[str(r.get("worker_id"))] = flips.get(str(r.get("worker_id")), 0) + 1
+    print(f"{len(rows)} decisions ({', '.join(f'{k} {v}' for k, v in sorted(counts.items()))})"
+          + (f"; sheds by reason: {sheds}" if sheds else "")
+          + (f"; breaker transitions by worker: {flips}" if flips else ""))
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m rafiki_tpu_torch.obs",
@@ -440,6 +568,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     sp = sub.add_parser("curves", help="per-trial learning curves from the journals")
     sp.add_argument("trial", nargs="?", default=None,
                     help="trial id prefix (omit for all trials)")
+    sp.add_argument("--predicted", action="store_true",
+                    help="overlay the learning-curve extrapolator's fit "
+                         "(predicted final + credible band) on each curve")
     sp = sub.add_parser("replay", help="re-execute a divergence capsule, bit-verify")
     sp.add_argument("capsule", help="path to a capsule-*.rcap file")
     sp.add_argument("--device", default=None,
@@ -448,6 +579,15 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="the verdict as one JSON document")
     sub.add_parser("shard", help="sharded-group width history: plans, "
                                  "formations, member losses, reshard restores")
+    sp = sub.add_parser("decisions",
+                        help="decision stream: routes, sheds, breaker flips, placement "
+                             "advisories, curve kills, speculations and corrections")
+    sp.add_argument("-n", type=int, default=32,
+                    help="show the last N decisions (0 = all)")
+    from rafiki_tpu_torch.obs.search import cli as search_cli
+
+    # Argparse only at attach; the readers load inside the verbs.
+    search_cli.attach(sub)
     args = p.parse_args(argv)
 
     if args.cmd == "replay":
@@ -465,7 +605,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.cmd == "health":
         return cmd_health(log_dir, args.json)
     if args.cmd == "curves":
-        return cmd_curves(log_dir, args.trial, args.json)
+        return cmd_curves(log_dir, args.trial, args.json, args.predicted)
     if args.cmd == "shard":
         return cmd_shard(log_dir, args.json)
+    if args.cmd == "decisions":
+        return cmd_decisions(log_dir, args.n, args.json)
+    if args.cmd in ("sweep", "lineage", "resume"):
+        return search_cli.dispatch(args, log_dir, args.json)
     return cmd_slowest(log_dir, args.n, args.json)

@@ -50,6 +50,9 @@ card's process-wide :func:`device_lock` from its first step to its
 last, and so does every other device-wide synchronize of the training
 path (``model/base.py _to_host``): the epochs of two threads on one
 card run one after the other, each with its own capture and replays.
+A template's own hooks may synchronize the card too, so the worker and
+the mesh's sharded lane call ``evaluate``, ``dump_parameters`` and
+``destroy`` under :func:`card_lock`.
 
 Telemetry: ``train.graph_captures`` and ``train.graph_replays``
 (counters), ``train.graph_capture_s`` (histogram: the host seconds of a
@@ -59,9 +62,10 @@ capture, instantiation included) and ``train.graph_pool_bytes``
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
-from typing import Callable, Dict, Optional, Sequence
+from typing import Any, Callable, ContextManager, Dict, Optional, Sequence
 
 import torch
 
@@ -81,6 +85,15 @@ def device_lock(device: torch.device) -> "threading.RLock":
     index = device.index if device.index is not None else torch.cuda.current_device()
     with _device_locks_guard:
         return _device_locks.setdefault(index, threading.RLock())
+
+
+def card_lock(model: Any) -> ContextManager[Any]:
+    """:func:`device_lock` of the card ``model`` lives on (its
+    ``device``), or no lock for a model off the card (module doc)."""
+    device = getattr(model, "device", None)
+    if isinstance(device, torch.device) and device.type == "cuda":
+        return device_lock(device)
+    return contextlib.nullcontext()
 
 
 def _side_stream(device: torch.device) -> "torch.cuda.Stream":

@@ -40,16 +40,25 @@ lists one device per chip, and several chips may share one device (two
 chips, or two group members, on ``cuda:0``; on the CPU every chip is
 ``cpu``). ``devices=None`` means every card (``local_devices()``), which
 raises without one. Chips on one card train their epochs one after the
-other (``ops/graphs.py device_lock``).
+other (``ops/graphs.py device_lock``), and call a template's
+``evaluate``, ``dump_parameters`` and ``destroy`` under the same lock
+(``card_lock``), so a template that synchronizes the card cannot reach
+another chip's capture.
 
 The per-chip worker is the ordinary :class:`TrainWorker`: every
 per-trial contract (store rows, scores, feedback, logs, params, events)
 is exactly the serial one; only placement and recovery are mesh-level
 concerns.
 
+One learning-curve coordinator (``advisor/speculative.py``; None
+unless a ``RAFIKI_CURVE_*`` switch is on) is shared by every chip worker
+of a sub-job's sweep: the chips share best-so-far, so a score on one
+chip raises the bar for another's stragglers, and a backfill on any
+chip can speculate every trial in flight across the mesh
+(docs/early_kill.md).
+
 Not ported yet: the twin placement consult (``RAFIKI_TWIN_PLACEMENT``,
-ROADMAP Queue 1, item 15) and the fleet-wide learning-curve coordinator
-(item 9): the port's workers take no ``curve``.
+ROADMAP Queue 1, item 15).
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ from typing import Any, Dict, List, Optional
 
 from rafiki_tpu_torch import chaos, telemetry
 from rafiki_tpu_torch.advisor import AdvisorService
+from rafiki_tpu_torch.advisor.speculative import CurveCoordinator
 from rafiki_tpu_torch.constants import (BudgetType, ServiceStatus, ServiceType, TrainJobStatus,
                                         TrialStatus)
 from rafiki_tpu_torch.model.base import load_model_class
@@ -69,6 +79,7 @@ from rafiki_tpu_torch.model.knobs import knob_config_signature
 from rafiki_tpu_torch.obs.journal import journal as _journal
 from rafiki_tpu_torch.obs.ledger import ledger
 from rafiki_tpu_torch.obs.search.audit import knobs_hash as _knobs_hash
+from rafiki_tpu_torch.ops.graphs import card_lock
 from rafiki_tpu_torch.parallel.mesh import local_devices
 from rafiki_tpu_torch.scheduler.local import TrainJobResult
 from rafiki_tpu_torch.scheduler.wal import SweepWal
@@ -103,6 +114,13 @@ class _WalAdvisorHandle:
                                knobs_hash=_knobs_hash(knobs))
         self._inner.feedback(score, knobs)
         self._wal.commit(txn, "advisor_feedback")
+
+    def speculate(self, score: float, knobs, fit=None) -> None:
+        # Like proposals, speculations need no WAL record: an uncorrected
+        # one replays from its advisor/speculate journal record
+        # (advisor/rehydrate.py), and the correction rides the bracketed
+        # feedback above.
+        self._inner.speculate(score, knobs, fit=fit)
 
 
 class ElasticHandle:
@@ -377,8 +395,9 @@ class GroupHandle:
             # loop train_sharded installed makes evaluate/dump_parameters
             # behave exactly as after a serial train()).
             try:
-                score = float(model.evaluate(self.job["val_dataset_uri"]))
-                blob = model.dump_parameters()
+                with card_lock(model):
+                    score = float(model.evaluate(self.job["val_dataset_uri"]))
+                    blob = model.dump_parameters()
                 params_id = self.params_store.save(blob)
                 self.store.mark_trial_as_completed(tid, score, params_id)
                 self.params_store.delete_checkpoints(tid)  # superseded
@@ -391,7 +410,8 @@ class GroupHandle:
                             error="params persist failed")
                 return
             finally:
-                model.destroy()
+                with card_lock(model):
+                    model.destroy()
             try:
                 self.handle.feedback(score, kn)
             except Exception:
@@ -614,10 +634,12 @@ class MeshSweepScheduler:
 
     def _new_runner(self, i: int, dev, job: dict, sub: dict, model_cls: type, handle,
                     budget: Dict[str, Any], k: int, errors: List[str],
-                    stop_event: threading.Event, budget_max: Optional[int]) -> _ChipRunner:
+                    stop_event: threading.Event, budget_max: Optional[int],
+                    curve: Optional[CurveCoordinator]) -> _ChipRunner:
         """A chip: its service row (RUNNING), its worker (synchronous
         persistence: the supervisor reads row statuses for completion, so
-        scores must be durable when a pack returns) and its runner."""
+        scores must be durable when a pack returns; the sweep's shared
+        curve coordinator) and its runner."""
         service = self.store.create_service(ServiceType.TRAIN_WORKER.value, job_id=job["id"],
                                             worker_index=i, devices=[str(dev)])
         self.store.update_service(service["id"], status=ServiceStatus.RUNNING.value)
@@ -631,6 +653,7 @@ class MeshSweepScheduler:
         # The mid-pack backfill claims budget slots from inside the
         # worker: hand it the WAL so those claims are bracketed too.
         worker.wal = self._wal
+        worker.curve = curve
         return _ChipRunner(i, dev, worker, k, errors, budget_max=budget_max)
 
     def _run_sub(self, job: dict, sub: dict, model_cls: type, handle, devices: List[Any],
@@ -717,11 +740,14 @@ class MeshSweepScheduler:
             groups.append(g)
         n_regular = len(avail)
 
+        # One curve coordinator for the whole mesh (None with the
+        # RAFIKI_CURVE_* switches off): the chips share best-so-far.
+        curve = CurveCoordinator.from_env()
         runners: List[_ChipRunner] = []
         if any(buckets.values()):
             for i, dev in enumerate(avail):
                 runners.append(self._new_runner(i, dev, job, sub, model_cls, handle, budget, k,
-                                                errors, stop_event, budget_max))
+                                                errors, stop_event, budget_max, curve))
         assign: List[List[List[tuple]]] = [[[] for _ in order] for _ in runners]
         # Global round-robin cursor: restarting at chip 0 per bucket would
         # pile every singleton bucket onto chip 0.
@@ -775,7 +801,7 @@ class MeshSweepScheduler:
             chip_seq[0] += 1
             pool = self._devices or devices
             r = self._new_runner(i, pool[i % len(pool)], job, sub, model_cls, handle, budget, k,
-                                 errors, stop_event, budget_max)
+                                 errors, stop_event, budget_max, curve)
             r.thread.start()
             return r
 

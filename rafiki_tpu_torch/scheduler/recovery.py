@@ -76,6 +76,13 @@ class _RecoveryAdvisor:
         _journal.record("recovery", "feedback", score=float(score),
                         knobs_hash=knobs_hash(knobs), routed=routed)
 
+    def speculate(self, score: float, knobs, fit=None) -> None:
+        # An adopted trial is speculated like any in-flight one: routed
+        # when a rehydrated advisor is attached, dropped otherwise (a
+        # speculation is advisory; nothing durable owes it).
+        if self._inner is not None:
+            self._inner.speculate(score, knobs, fit=fit)
+
 
 def recover_orphaned_trials(
     store: MetaStore,

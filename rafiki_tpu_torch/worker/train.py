@@ -88,8 +88,23 @@ checkpoints are durable, and leaves every row RUNNING for the sweep to
 re-pack. A worker given the sweep's write-ahead log (``worker.wal``,
 ``scheduler/wal.py``) brackets each mid-pack backfill claim in it.
 
-Not ported yet: the learning-curve coordinator (early kill,
-speculation; ROADMAP Queue 1, item 9).
+The learning-curve plane (docs/early_kill.md): with
+``RAFIKI_CURVE_KILL`` or ``RAFIKI_CURVE_SPECULATE`` set when the worker
+is built, ``self.curve`` is a ``CurveCoordinator`` (the mesh scheduler
+replaces it with one shared by its chips); unset, it is None and no
+site consults it. A serial trial's log sink feeds each epoch's ``acc``
+(higher is better; a model that logs only a loss is never killed) to
+the coordinator and raises :class:`EarlyKilled` when the fit condemns
+it: the trial is ERRORED with ``early_killed: ...``, its wall charged
+to the search ledger's doomed bucket, and the advisor hears the
+predicted score as its consolation feedback (``worker.trials_killed``,
+events ``trial_killed`` then ``trial_errored``: the JAX package emits
+the first alone, which its lineage reader counts as an orphan). In a
+pack the same verdict evicts the member
+(reason ``"killed"``), its bookkeeping done before the freed slot is
+backfilled, the backfill first speculates the pack-mates still in
+flight, and a killed member is not evaluated. Every failure arm tells
+the search ledger the trial was doomed before its floor feedback.
 """
 
 from __future__ import annotations
@@ -103,6 +118,7 @@ import traceback
 from typing import Any, Dict, List, Optional, Protocol
 
 from rafiki_tpu_torch import chaos, telemetry
+from rafiki_tpu_torch.advisor.speculative import CurveCoordinator
 from rafiki_tpu_torch.config import get_config
 from rafiki_tpu_torch.constants import BudgetType, TrialStatus
 from rafiki_tpu_torch.model.base import BaseModel, TorchModel, load_model_class
@@ -114,7 +130,9 @@ from rafiki_tpu_torch.obs.health import DivergenceError
 from rafiki_tpu_torch.obs.health import detector as _health
 from rafiki_tpu_torch.obs.journal import journal
 from rafiki_tpu_torch.obs.ledger import ledger
+from rafiki_tpu_torch.obs.search import audit as search_audit
 from rafiki_tpu_torch.obs.search.audit import knobs_hash
+from rafiki_tpu_torch.ops.graphs import card_lock
 from rafiki_tpu_torch.ops.train import CollectiveError
 from rafiki_tpu_torch.store import MetaStore, ParamsStore
 from rafiki_tpu_torch.utils.backend import default_device
@@ -144,6 +162,31 @@ class PackAborted(RuntimeError):
     RUNNING, deliberately NOT marked errored, so the mesh scheduler
     can re-pack them onto surviving chips, where each resumes from its
     newest per-epoch packed checkpoint (docs/mesh_sweep.md)."""
+
+
+class EarlyKilled(RuntimeError):
+    """A serial trial condemned mid-flight by the learning-curve
+    predictor: raised from the trial's log sink at an epoch boundary,
+    caught by ``run_trial``'s own arm, which marks the trial errored,
+    charges the doomed bucket and routes the predicted score to the
+    advisor as its consolation feedback."""
+
+    def __init__(self, fit, epoch: int, best: float):
+        super().__init__(
+            f"early-killed at epoch {epoch}: predicted final "
+            f"{fit.predicted_final:.4f} (hi {fit.hi:.4f}) vs best {best:.4f}")
+        self.fit = fit
+        self.epoch = int(epoch)
+        self.best = float(best)
+
+
+def _destroy(model: BaseModel) -> None:
+    """``model.destroy()`` under its card's lock: a template's hook may
+    synchronize the card, which must not reach a capture that another
+    thread on the same card (a mesh chip) has in flight
+    (``ops/graphs.py``)."""
+    with card_lock(model):
+        model.destroy()
 
 
 class AdvisorHandle(Protocol):
@@ -191,6 +234,9 @@ class InProcAdvisorHandle:
 
     def feedback(self, score: float, knobs: Knobs) -> None:
         self._svc.feedback(self._id, score, knobs)
+
+    def speculate(self, score: float, knobs: Knobs, fit=None) -> None:
+        self._svc.speculate(self._id, score, knobs, fit=fit)
 
 
 class TrainWorker:
@@ -243,6 +289,10 @@ class TrainWorker:
         if trial_pack is None:
             trial_pack = int(os.environ.get("RAFIKI_TRIAL_PACK", "1"))
         self.trial_pack = max(1, int(trial_pack))
+        # The learning-curve coordinator: None unless RAFIKI_CURVE_KILL or
+        # RAFIKI_CURVE_SPECULATE is set, and every site guards on None.
+        # The mesh scheduler replaces it with one its chips share.
+        self.curve = CurveCoordinator.from_env()
         self.heartbeat_min_interval_s = get_config().trial_heartbeat_s
         self._last_heartbeat = 0.0
         # The sweep's write-ahead log (scheduler/wal.py), set by the mesh
@@ -292,6 +342,16 @@ class TrainWorker:
         def sink(entry):
             self.store.add_trial_log(tid, entry)
             _journal_epoch_eval(tid, entry, wall_s=time.monotonic() - t_trial0)
+            if self.curve is not None and entry.get("type") == "values":
+                values = entry.get("values") or {}
+                # Higher-is-better curves only (acc): a model that logs
+                # only a loss is never killed.
+                if "epoch" in values and values.get("acc") is not None:
+                    ep = int(values["epoch"])
+                    self.curve.observe(knobs, ep, float(values["acc"]), trial_id=tid)
+                    fit = self.curve.kill_verdict(knobs, ep, trial_id=tid)
+                    if fit is not None:
+                        raise EarlyKilled(fit, ep, self.curve.best_so_far)
             if self.service_id is not None:
                 # Epoch logs double as liveness, throttled so chatty
                 # loggers don't turn every line into a sqlite write.
@@ -323,11 +383,14 @@ class TrainWorker:
                 with telemetry.span("trial.train", trial_id=tid):
                     model.train(self.train_uri)
                 with telemetry.span("trial.evaluate", trial_id=tid):
-                    score = float(model.evaluate(self.val_uri))
+                    with card_lock(model):
+                        score = float(model.evaluate(self.val_uri))
             # The advisor hears the score at once (it steers the next
             # proposal); persisting the params runs on the saver thread
             # while this worker trains the next trial.
             self.advisor.feedback(score, knobs)
+            if self.curve is not None:
+                self.curve.note_scored(knobs, score)
             telemetry.inc("worker.trials_succeeded")
             if self._saver is not None:
                 self._saver.submit(tid, model, score, sink)
@@ -335,6 +398,9 @@ class TrainWorker:
             else:
                 with logger.capture(sink):
                     self._persist(tid, model, score)
+            return self.store.get_trial(tid)
+        except EarlyKilled as e:
+            self._book_kill(tid, knobs, e.fit, e.epoch, e.best)
             return self.store.get_trial(tid)
         except DivergenceError as e:
             # Numerics containment: fail the trial fast with the
@@ -361,13 +427,37 @@ class TrainWorker:
         finally:
             trace_scope.close()
             if model is not None and not persisted_async:
-                model.destroy()
+                _destroy(model)
 
-    def _floor_feedback(self, knobs: Knobs) -> None:
-        """Feed the advisor a floor score so it learns to avoid the
+    def _book_kill(self, tid: str, knobs: Knobs, fit, epoch: int, best: float) -> None:
+        """The learning-curve kill's bookkeeping, serial or packed, shaped
+        as the divergence arm: the row ERRORED with the fit's verdict, its
+        wall doomed, and the advisor fed the conservative PREDICTED score
+        (below best-so-far by the kill rule), which steers it more
+        honestly than a 0.0 floor and replays from the journal. One
+        departure from the JAX package: ``trial_errored`` follows
+        ``trial_killed`` as the row's terminal event, so a lineage reader
+        closes the trial."""
+        telemetry.inc("worker.trials_killed")
+        err = (f"early_killed: predicted {fit.predicted_final:.4f} "
+               f"(hi {fit.hi:.4f}) vs best {best:.4f} at epoch {epoch}")
+        self.store.mark_trial_as_errored(tid, err)
+        events.emit("trial_killed", trial_id=tid, worker_id=self.worker_id,
+                    epoch=epoch, predicted=fit.predicted_final)
+        events.emit("trial_errored", trial_id=tid, worker_id=self.worker_id, error=err)
+        self._floor_feedback(knobs, fit.predicted_final)
+
+    def _floor_feedback(self, knobs: Knobs, score: float = 0.0) -> None:
+        """A trial that ends without a real score: retire its curve, mark
+        it doomed in the search ledger (BEFORE the feedback, so its wall is
+        charged to the doomed bucket), and feed the advisor a floor score
+        (a killed trial's: its predicted score) so it learns to avoid the
         region instead of re-proposing it (the reference just skips)."""
+        if self.curve is not None:
+            self.curve.note_done(knobs)
+        search_audit.note_doomed(knobs)
         try:
-            self.advisor.feedback(0.0, knobs)
+            self.advisor.feedback(score, knobs)
         except Exception:
             telemetry.inc("worker.feedback_errors")
 
@@ -441,7 +531,8 @@ class TrainWorker:
         t0 = time.monotonic()
         try:
             with telemetry.span("trial.persist", trial_id=tid):
-                blob = model.dump_parameters()
+                with card_lock(model):
+                    blob = model.dump_parameters()
                 params_id = self.params_store.save(blob)
                 self.store.mark_trial_as_completed(tid, score, params_id)
                 self.params_store.delete_checkpoints(tid)  # superseded
@@ -665,6 +756,10 @@ class PackedTrialRunner:
             events.emit("trial_started", trial_id=tid, sub_job_id=w.sub_id,
                         model=w.model_class.__name__, worker_id=w.worker_id, knobs=kn)
         models: List[BaseModel] = []
+        # model index -> (the CurveFit that condemned it, best-so-far at
+        # the verdict); filled by kill_pred, read by on_evict and by the
+        # scoring below.
+        killed: Dict[int, Any] = {}
         pack_entity = f"pack:{w.worker_id}:k{k}"
         try:
             # One pack = one trace + one ledger entity: the pack's
@@ -696,6 +791,32 @@ class PackedTrialRunner:
                 def on_evict(mi: int, epoch: int, reason: str) -> None:
                     events.emit("pack_member_evicted", trial_id=rows[mi][0], epoch=epoch,
                                 reason=reason, worker_id=w.worker_id)
+                    if reason != "killed":
+                        return
+                    # The kill's bookkeeping runs here, before the backfill
+                    # proposes into the freed slot, so that proposal is
+                    # steered by this trial's consolation feedback (the
+                    # serial EarlyKilled arm's contract).
+                    tid_k, kn_k = rows[mi]
+                    fit, best = killed[mi]
+                    w._book_kill(tid_k, kn_k, fit, epoch, best)
+
+                kill_pred = None
+                if w.curve is not None:
+                    def kill_pred(mi: int, epoch: int, metrics) -> bool:
+                        # The member's epoch point (host floats of the
+                        # epoch's one sync), then the verdict. Loss-only
+                        # packs are never killed, as in the serial sink.
+                        tid_k, kn_k = rows[mi]
+                        acc = (metrics or {}).get("acc")
+                        if acc is None:
+                            return False
+                        w.curve.observe(kn_k, epoch, float(acc), trial_id=tid_k)
+                        fit = w.curve.kill_verdict(kn_k, epoch, trial_id=tid_k)
+                        if fit is None:
+                            return False
+                        killed[mi] = (fit, w.curve.best_so_far)
+                        return True
 
                 def backfill(n: int) -> List[BaseModel]:
                     """Fresh proposals for the freed slots. One whose key
@@ -704,6 +825,11 @@ class PackedTrialRunner:
                     nonlocal drained
                     if drained:
                         return []
+                    # Speculative scoring: the advisor hears predicted
+                    # scores for the pack-mates still in flight before it
+                    # drafts (a no-op unless RAFIKI_CURVE_SPECULATE is set).
+                    if w.curve is not None:
+                        w.curve.speculate_inflight(w.advisor)
                     pack_key = repr(models[0].packing_key(
                         models[0]._prepared_dataset(w.train_uri)))
                     out: List[BaseModel] = []
@@ -750,12 +876,14 @@ class PackedTrialRunner:
                 with telemetry.span("trial_pack.train"):
                     histories = w.model_class.train_packed(
                         models, w.train_uri, on_epoch=heartbeat, checkpoint_sink=ckpt_sink,
-                        backfill=backfill, on_evict=on_evict)
+                        backfill=backfill, on_evict=on_evict, kill_predicate=kill_pred)
                 # Members evicted for divergence hold the divergent state:
                 # they are not scored (a NaN score would skew the advisor).
+                # Killed members are not scored either: that would spend
+                # the wall the kill saved.
                 verdicts = [getattr(m, "_health_verdict", None) for m in models]
-                healthy = [i for i, v in enumerate(verdicts) if v is None]
-                with telemetry.span("trial_pack.evaluate"):
+                healthy = [i for i, v in enumerate(verdicts) if v is None and i not in killed]
+                with telemetry.span("trial_pack.evaluate"), card_lock(models[0]):
                     healthy_scores = (w.model_class.evaluate_packed(
                         [models[i] for i in healthy], w.val_uri) if healthy else [])
                 scores: List[Optional[float]] = [None] * len(models)
@@ -767,7 +895,7 @@ class PackedTrialRunner:
             # released, and the abort propagates to the caller.
             for m in models:
                 try:
-                    m.destroy()
+                    _destroy(m)
                 except Exception:
                     pass
             raise
@@ -775,7 +903,9 @@ class PackedTrialRunner:
             # The pack failed as a whole: every member is ERRORED with the
             # floor feedback, as a failing serial trial is. Nothing reruns.
             err = traceback.format_exc()
-            for tid, kn in rows:
+            for i, (tid, kn) in enumerate(rows):
+                if i in killed:
+                    continue  # already ERRORED and fed back in on_evict
                 telemetry.inc("worker.trials_errored")
                 w.store.mark_trial_as_errored(tid, err)
                 events.emit("trial_errored", trial_id=tid, worker_id=w.worker_id,
@@ -783,7 +913,7 @@ class PackedTrialRunner:
                 w._floor_feedback(kn)
             for m in models:
                 try:
-                    m.destroy()
+                    _destroy(m)
                 except Exception:
                     pass
             return len(rows), drained
@@ -803,6 +933,11 @@ class PackedTrialRunner:
                     _journal_epoch_eval(tid, {"type": "values", "values": h},
                                         wall_s=(round_walls[pos] if pos < len(round_walls)
                                                 else None), packed=True)
+            if i in killed:
+                # Row, doomed charge and feedback were done in on_evict;
+                # its curve prefix is journaled above.
+                _destroy(models[i])
+                continue
             if verdicts[i] is not None:
                 # The serial DivergenceError arm's contract: ERRORED with
                 # the diagnosis, floor feedback, nothing persisted.
@@ -814,10 +949,12 @@ class PackedTrialRunner:
                             capsule=v.get("capsule"), diagnosis=v.get("diagnosis"))
                 _health.note_contained()
                 w._floor_feedback(kn)
-                models[i].destroy()
+                _destroy(models[i])
                 continue
             score = float(scores[i])
             w.advisor.feedback(score, kn)
+            if w.curve is not None:
+                w.curve.note_scored(kn, score)
             telemetry.inc("worker.trials_succeeded")
             telemetry.inc("worker.packed_trials")
             if w._saver is not None:
@@ -903,7 +1040,7 @@ class _AsyncSaver:
                 telemetry.inc("worker.saver_errors")
             finally:
                 try:
-                    model.destroy()
+                    _destroy(model)
                 except Exception:
                     telemetry.inc("worker.saver_errors")
                 self._q.task_done()

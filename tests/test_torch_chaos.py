@@ -65,7 +65,8 @@ def test_the_catalogs_have_nineteen_and_six_scenarios():
     """Nineteen in the JAX package; in the port the six in-process ones,
     the three that SIGKILL ProcessScheduler workers, and, since the mesh
     sweep, its three in-process scenarios and the two that SIGKILL the
-    sweep's supervisor process: fourteen, each with the JAX package's
+    sweep's supervisor process, and, since the search plane,
+    ``early-kill-mid-pack-resume``: fifteen, each with the JAX package's
     spec, description and env."""
     assert len(JAX_SCENARIOS) == 19
     assert set(SCENARIOS) == {"checkpoint-write-failure", "straggler-quorum", "drain-under-load",
@@ -75,8 +76,8 @@ def test_the_catalogs_have_nineteen_and_six_scenarios():
                               "mesh-degrades-single-chip"} | SUBPROCESS_SCENARIOS
     assert SUBPROCESS_SCENARIOS == {"kill-mid-trial-resume", "kill-mid-pack-resume",
                                     "collective-kill-mid-step", "supervisor-kill-mid-sweep",
-                                    "host-loss-mid-sweep"}
-    assert len(SCENARIOS) == 14
+                                    "host-loss-mid-sweep", "early-kill-mid-pack-resume"}
+    assert len(SCENARIOS) == 15
     for name, sc in SCENARIOS.items():
         jsc = JAX_SCENARIOS[name]
         assert (sc.spec, sc.description, sc.env) == (jsc.spec, jsc.description, jsc.env), name

@@ -10,8 +10,8 @@ subprocesses run beside the JAX package's in
 supervisor process in ``tests/test_torch_sweep_resume.py``.) Then the two packages' ``nan-trial-contained`` bodies run
 side by side, each with its own plane and journal: the same member
 errors, at the same bad step, the rows end in the same statuses, and
-the journals hold the same record kinds and names, apart from the
-planes the port does not have yet.
+the journals hold the same record kinds and names, the advisor's audit
+records included.
 """
 
 import pytest
@@ -34,9 +34,9 @@ from rafiki_tpu_torch.utils.backend import default_device
 
 torch.set_num_threads(2)
 
-#: Journal kinds of planes the port does not have yet: the JAX package's
-#: advisor decision audit and search ledger (ROADMAP Queue 1, item 9).
-JAX_ONLY_KINDS = {"advisor", "search"}
+#: Journal kinds of planes the port does not have yet: none (the advisor
+#: decision audit and the search ledger's kinds are compared too).
+JAX_ONLY_KINDS = set()
 
 
 @pytest.mark.parametrize("name", sorted(set(SCENARIOS) - SUBPROCESS_SCENARIOS))

@@ -793,3 +793,29 @@ def test_card_process_job_runs_its_worker_on_the_card(cuda, tmp_path):
     m = load_model_class(FF_SOURCE, "ChaosFF")(device=cuda, **best["knobs"])
     m.load_parameters(params.load(best["params_id"]))
     assert abs(m.evaluate(VAL) - best["score"]) <= 0.02
+
+
+def test_card_pack_kill_leaves_the_survivor_its_serial_run(cuda):
+    """A k=2 pack of the canonical shape (VGG16 w1.0, 32x32x3, batch
+    128, bf16 compute) whose member 1 is killed at its first epoch
+    boundary (``kill_predicate``): it leaves with reason ``"killed"``, the
+    pack's program shrinks to the survivor, and the survivor's float32
+    params end bit-equal to its serial trial's on the card."""
+    from rafiki_tpu_torch.models.vgg import Vgg
+
+    uri = "synthetic://images?classes=10&n=1024&w=32&h=32&c=3&seed=4&noise=0.35&flip=0.2"
+    knobs = dict(depth=16, width_mult=1.0, batch_size=128, epochs=3, seed=0)
+    members = [dict(knobs, learning_rate=1e-3, dropout=0.2),
+               dict(knobs, learning_rate=3e-2, dropout=0.0)]
+    models = [Vgg(device=cuda, **k) for k in members]
+    evicted = []
+    Vgg.train_packed(models, uri, on_evict=lambda *a: evicted.append(a),
+                     kill_predicate=lambda mi, e, m: (mi, e) == (1, 0))
+    assert evicted == [(1, 0, "killed")]
+    serial = Vgg(device=cuda, **members[0])
+    serial.train(uri)
+    got = {k: v for k, v in models[0]._module.state_dict().items()}
+    want = {k: v for k, v in serial._module.state_dict().items()}
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k

@@ -498,11 +498,11 @@ def test_stats_and_metrics_keys_alike():
     got = both(keys)
     assert got["port"][0] == got["jax"][0]
     # The port's snapshot: the registry, the spans, the gateway collector,
-    # the program cache's and the observability plane's (perf, slo and the
-    # goodput ledger). The JAX package's has those, the gateway's rollup,
-    # and the collectors of its other planes.
+    # the program cache's, the observability plane's (perf, slo and the
+    # goodput ledger) and the search ledger's. The JAX package's has those,
+    # the gateway's rollup, and the collectors of its other planes.
     assert got["port"][1] == {"counters", "gauges", "histograms", "spans", "ts", "gateway",
-                              "program_cache", "perf", "slo", "goodput"}
+                              "program_cache", "perf", "slo", "goodput", "search"}
     assert got["jax"][1] >= got["port"][1] | DROPPED_COLLECTORS
 
 

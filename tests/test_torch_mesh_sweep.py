@@ -316,3 +316,50 @@ def _two_chip_sweeps(tmp_path):
                       "mesh": {r["name"] for r in journal.read_dir(tmp_path / f"obs-{side}")
                                if r.get("kind") == "mesh"}}
     return runs
+
+
+def test_template_hooks_run_under_the_card_lock(env, monkeypatch, tmp_path):
+    """Chips sharing a card: a template's hook that synchronizes the card
+    must not reach another chip's capture, so the worker calls
+    ``evaluate`` (``evaluate_packed``), ``dump_parameters`` and
+    ``destroy`` inside ``card_lock``. Off the card that lock is no lock,
+    so here it is replaced by one that marks its thread, in a 2-chip
+    packed sweep and in a serial trial."""
+    import contextlib
+
+    import rafiki_tpu_torch.worker.train as train_mod
+    from rafiki_tpu_torch.model.base import TorchModel
+    from tests.test_torch_pack import _mk_worker
+
+    held = threading.local()
+
+    @contextlib.contextmanager
+    def marking_lock(model):
+        held.depth = getattr(held, "depth", 0) + 1
+        try:
+            yield
+        finally:
+            held.depth -= 1
+
+    calls = []
+
+    def wrap(name, fn):
+        def hook(*args, **kwargs):
+            calls.append((name, getattr(held, "depth", 0) > 0))
+            return fn(*args, **kwargs)
+        return hook
+
+    monkeypatch.setattr(train_mod, "card_lock", marking_lock)
+    for name in ("evaluate", "dump_parameters", "destroy"):
+        monkeypatch.setattr(TorchModel, name, wrap(name, getattr(TorchModel, name)))
+    monkeypatch.setattr(TorchModel, "evaluate_packed", classmethod(
+        wrap("evaluate_packed", TorchModel.evaluate_packed.__func__)))
+    store, params, _ = env
+    job = _job(store, FF_SOURCE, "ChaosFF", {"MODEL_TRIAL_COUNT": 4})
+    assert _sweep(store, params, job, chips=2, k=2).status == "COMPLETED"
+    (tmp_path / "serial").mkdir()
+    _, _, worker, _, _ = _mk_worker(tmp_path / "serial", trial_pack=1, n_trials=1)
+    assert worker.run() == 1
+    assert {n for n, _ in calls} == {"evaluate", "evaluate_packed", "dump_parameters",
+                                     "destroy"}
+    assert all(locked for _, locked in calls), calls

@@ -48,9 +48,9 @@ torch.set_num_threads(2)
 #: the peak they give (the MFU denominator, read back by the CLI).
 PORT_ONLY_FIELDS = {("perf", "step"): {"steps"},
                     ("perf", "cost"): {"device", "dtype", "peak_flops"}}
-#: Pairs of planes the port does not have (the JAX package's search
-#: audit, hop anatomy and serving rollup), left out of the comparison.
-JAX_ONLY_KINDS = {"advisor", "search"}
+#: Pairs of planes the port does not have (the JAX package's hop anatomy
+#: and serving rollup), left out of the comparison.
+JAX_ONLY_KINDS = set()
 JAX_ONLY_PAIRS = {("serving", "hops"), ("serving", "exemplar"), ("serving", "ts")}
 
 

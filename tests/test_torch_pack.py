@@ -255,8 +255,13 @@ def test_shape_knob_splits_the_bucket_and_train_packed_refuses_a_mix():
     with pytest.raises(ValueError, match="resume from checkpoint"):
         FeedForward.train_packed([a], TRAIN, checkpoint_sink=lambda *a: None)
     a._start_epoch = 0
-    with pytest.raises(NotImplementedError, match="kill"):
-        FeedForward.train_packed([a], TRAIN, kill_predicate=lambda *a: False)
+    # A kill predicate is consulted at each epoch boundary the budget
+    # does not end (the early kill; tests/test_torch_curve_kill.py).
+    calls = []
+    hist = FeedForward.train_packed(
+        [a], TRAIN, kill_predicate=lambda mi, e, m: calls.append((mi, e)) or False)
+    assert len(hist) == 1 and len(hist[0]) == a.epochs
+    assert calls == [(0, e) for e in range(a.epochs - 1)]
 
 
 # -- packing keys against the JAX package's -----------------------------------

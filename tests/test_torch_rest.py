@@ -166,13 +166,13 @@ def test_login_and_auth_required_alike(servers):
     assert status == 200 and body == {"jax": [], "port": []}
     assert same(servers, "GET", "/healthz")[0] == 200
     # /metrics: the port's snapshot holds the registry, the spans, the
-    # program cache's collector and the observability plane's (perf, slo,
-    # goodput); the JAX package's adds the collectors of planes the port
-    # lacks.
+    # program cache's collector, the observability plane's (perf, slo,
+    # goodput) and the search ledger's; the JAX package's adds the
+    # collectors of planes the port lacks.
     metrics = {k: call(servers.url[k], "GET", "/metrics") for k in ("jax", "port")}
     assert metrics["port"][0] == metrics["jax"][0] == 200
     base = {"counters", "gauges", "histograms", "spans", "ts", "program_cache", "perf", "slo",
-            "goodput"}
+            "goodput", "search"}
     assert base <= set(metrics["port"][1]) <= base | {"gateway"}
     # The JAX package registers its perf and slo collectors at their first
     # use (a train epoch, a gateway request), the port at import.

@@ -347,7 +347,21 @@ def test_supervisor_kill_mid_sweep_acceptance(monkeypatch):
     run's best score and knob set and zero double-claimed slots."""
     names = _scenario_passes("supervisor-kill-mid-sweep", monkeypatch)
     assert {"best_score_matches_unfaulted", "knob_set_matches_unfaulted",
-            "no_double_claims", "advisor_rehydrated"} <= names
+            "no_double_claims", "advisor_rehydrated", "post_resume_batch_non_warmup",
+            "obs_resume_reconstructs"} <= names
+
+
+@pytest.mark.slow
+def test_early_kill_mid_pack_resume_acceptance(monkeypatch):
+    """A supervisor SIGKILLed just after a pack member's early kill, with
+    its pack-mate's speculation in flight, rehydrates to the same
+    proposals twice and resumes to the unfaulted kill-on run's best score
+    and knob set."""
+    names = _scenario_passes("early-kill-mid-pack-resume", monkeypatch)
+    assert {"kill_seen_before_crash", "speculation_in_flight_at_crash",
+            "rehydrated_proposals_byte_match", "killed_trial_errored",
+            "best_score_matches_unfaulted", "knob_set_matches_unfaulted",
+            "no_double_claims"} <= names
 
 
 @pytest.mark.slow
