@@ -12,6 +12,7 @@ CUDA card.
     python3 chip_smoke.py --mesh           # phase 22 alone: mesh sweep, resume, sharded lane
     python3 chip_smoke.py --search         # phase 23 alone: early kill, speculation, audit
     python3 chip_smoke.py --mesh-repack N  # phase 22 (b) alone, N times
+    python3 chip_smoke.py --serve-proc     # phase 24 alone: serving across processes
 
 Drives ``rafiki_tpu_torch`` the way a user serves a top-k ensemble,
 the way a tuning job runs and the way a trial trains, at the full width
@@ -155,15 +156,17 @@ The rest of the model zoo:
      proposals) through ``LocalScheduler.run_train_job`` on
      the canonical task; its top-2 served through the stacked route
      against their stored scores (as 7); a k=2 pack of two DenseNet
-     trials (``train_packed`` -> ``evaluate_packed``, one epoch) against
-     the job's serial trials at batch 128; the step at batch 128, eager
+     trials (``train_packed`` -> ``evaluate_packed``, one epoch of
+     PROC_URI, the canonical task cut to 10,000 images since phase 24
+     needed the time); the step at batch 128, eager
      under the profiler (forward, backward, Adam, sentinels, costliest
      operators) and captured (CUDA-event ms, device busy ms), as 16
      reads them; and one float32 step of a one-member pack against the
      serial step, gradient by gradient. One line per trial, then the
      phase's line: job wall and completed trials per hour, the cold
      trial and warm trial seconds by batch size, peak memory, the
-     pack's seconds against two serial trials'. Fails unless the job
+     pack's seconds against two serial trials' (the job's warm ones at
+     batch 128, scaled from 50,000 images to PROC_URI's). Fails unless the job
      COMPLETED with an expected-improvement proposal and a best score
      of TUNE_TOP1_TARGET, the memory left after each trial does not
      grow, the top-2 serve within SERVED_ACC_ATOL, every epoch replayed
@@ -324,6 +327,39 @@ PROC_URI), the kill rule's defaults but a margin of SEARCH_MARGIN:
      with its seconds, each kill's epoch, the fit's predicted, hi and
      best, and the survivor's byte-equality.
 
+Serving across processes and its request anatomy, phase 1's three
+random-weight trials stored under the ``BenchVgg`` source (bf16 blobs in
+a ``ParamsStore``, rows in a ``MetaStore``), the parent journaling:
+
+ 24. serve_proc: (a) three ``run_inference_worker_process`` children on
+     the card over ``make_mp_bus``, with ``Predictor`` and ``Gateway``
+     (quorum of 3) here; SERVE_PROC_1Q requests of one query and
+     SERVE_PROC_64Q of 64, then the same through the in-process route
+     (thread workers over ``InProcBus``, the same blobs). Fails unless
+     the process route's predictions equal the in-process route's within
+     SERVE_PROC_ATOL, one traced request's ``obs waterfall`` shows
+     ``admit, queue, enq, deq, fwds, fwd, reply, dec`` on each of its
+     three chains with four pids across them, ``obs tails --check``
+     reconciles at 0.10, ``obs serving`` shows a ``serving/ts`` row, and
+     ``serving.hop.forward_s`` has samples for the ``serving_forward_p99``
+     SLO to read. Prints spawn-to-registered seconds, each hop's p50 and
+     p99, the fan-out cost's p50, both routes' client p50/p99, and the
+     in-process forward split into copy in, host launch, sync wait and
+     device span, alone and on three threads (``_forward_split``). (b) one
+     replica SIGKILLed under a load of single-query requests through a
+     quorum-2 gateway (lease TTL SERVE_PROC_TTL_S): fails unless every
+     request answers, the corpse leaves the fresh set within a lease and
+     is reaped, and every bus call of this process returns within
+     SERVE_PROC_CALL_S; prints kill-to-first-quorum-answer seconds. (c)
+     ``stacked-worker-loss-fallback`` on the card: a child serves the
+     stacked top-3 (``build_stacked``) and kills itself on its second
+     forward (the scenario's ``RAFIKI_CHAOS``); the ``FallbackSupervisor``
+     starts per-trial thread workers here, on the card. Fails unless the
+     scenario's seven checks pass (five requests, none dropped; a blackout
+     re-route; ``serving/fallback`` journaled; the child's
+     ``chaos/injected`` record with its pid); prints kill-to-fallback-
+     serving seconds.
+
 Every training phase runs its epochs as captured CUDA graphs
 (``ops/graphs.py``). Each phase's line carries its seconds
 (``phase_s``) and the captured steps it replayed (``graph_replays``,
@@ -342,7 +378,8 @@ card, so two checkouts can be compared in one call. ``--zoo`` runs only
 phases 17 and 18, ``--obs`` only phase 19, ``--chaos`` only phase 20
 (its clean-step check then holds the two runs of phase 20 to each
 other, with no phase 16 count to add), ``--process`` only phase 21,
-``--mesh`` only phase 22, ``--search`` only phase 23, ``--mesh-repack N``
+``--mesh`` only phase 22, ``--search`` only phase 23, ``--serve-proc``
+only phase 24, ``--mesh-repack N``
 phase 22 (b) N times over (two chips' threads sharing the card, to
 catch a capture that another thread's synchronize invalidates now and
 then). ``--resume-child`` is the
@@ -365,7 +402,10 @@ BATCH = 64
 N_SINGLE = 64
 N_BURSTS = 8
 QUERY_SETS = 2
-PROFILE_ITERS = 20
+# Steps (or forwards) a window is timed over with CUDA events, and then
+# profiled over: 10 since phase 24 needed the time (20 before; the
+# profiler's trace of an eager packed step is costly to read back).
+PROFILE_ITERS = 10
 INPUT_SHAPE = (32, 32, 3)
 NUM_CLASSES = 10
 KNOBS = dict(depth=16, width_mult=1.0, dropout=0.0, learning_rate=1e-3,
@@ -2284,8 +2324,9 @@ def densenet_step(card):
 
 def densenet_pack(card):
     """Phase 17's pack: two DenseNet trials (DENSENET_PACK) as one pack,
-    ``train_packed`` -> ``evaluate_packed`` on the canonical task, one
-    epoch; its seconds, scores, peak memory and captured steps."""
+    ``train_packed`` -> ``evaluate_packed``, one epoch of PROC_URI (the
+    canonical task's 10,000-image cut); its seconds, scores, peak memory
+    and captured steps."""
     import gc
 
     import torch
@@ -2304,7 +2345,7 @@ def densenet_pack(card):
     graphs = _graph_counters()
     t0 = time.monotonic()
     with logger.capture(lambda e: None):
-        histories = DenseNet.train_packed(models, TRAIN_URI)
+        histories = DenseNet.train_packed(models, PROC_URI)
     train_s = _synced_s(t0)
     t0 = time.monotonic()
     scores = DenseNet.evaluate_packed(models, EVAL_URI)
@@ -2345,12 +2386,15 @@ def densenet_job(card):
     t0 = time.monotonic()
     pack = densenet_pack(card)
     split["pack_s"] = time.monotonic() - t0
+    # The job's serial trials train on the whole canonical task, the pack
+    # on PROC_URI: their warm train seconds at the pack's batch size,
+    # scaled by the image count, stand in for a serial trial on PROC_URI.
     bs = DENSENET_KNOBS["batch_size"]
     warm = [r["train_s"] for r in rows[1:] if r["batch_size"] == bs and r["train_s"]]
-    pack["serial_train_s_per_trial"] = float(np.mean(warm)) if warm else None
     if warm:
-        pack["speedup_vs_serial"] = len(DENSENET_PACK) * pack["serial_train_s_per_trial"] / \
-            pack["train_s"]
+        pack["serial_train_s_per_trial_scaled"] = float(np.mean(warm)) * PROC_IMAGES / 50000
+        pack["speedup_vs_serial_scaled"] = len(DENSENET_PACK) * \
+            pack["serial_train_s_per_trial_scaled"] / pack["train_s"]
     t0 = time.monotonic()
     step = densenet_step(card)
     split["step_s"] = time.monotonic() - t0
@@ -4243,6 +4287,480 @@ def search_phase(card, check) -> None:
                       "phase_s": time.monotonic() - t0}))
 
 
+# -- serving across processes and its request anatomy -------------------------------
+# Phase 24: phase 1's trials served by run_inference_worker_process children
+# over the multiprocessing bus. The process route's predictions against the
+# in-process route's on the same card: the same forward on the same padded
+# chunks of 64 (predict_proba), the same ensemble mean in another reply order,
+# so they agree to float32 rounding of a mean of three.
+SERVE_PROC_1Q = 200
+SERVE_PROC_64Q = 10
+SERVE_PROC_ATOL = 1e-5
+SERVE_PROC_JOB = "serve-proc"
+#: The liveness lease and heartbeat of the reference test
+#: (tests/test_serve_elastic.py): TTL 8x the 0.5 s beat.
+SERVE_PROC_TTL_S = 4.0
+#: No bus call of this process may take longer (the mp bus's contract:
+#: no wait on it is unbounded; a gather waits at most its own deadline).
+SERVE_PROC_CALL_S = 5.0
+SERVE_PROC_DEADLINE_S = 3.0
+SERVE_PROC_CHAIN = ["admit", "queue", "enq", "deq", "fwds", "fwd", "reply", "dec"]
+
+
+class _TimedBus:
+    """A bus whose every call records its seconds (phase 24 (b))."""
+
+    def __init__(self, bus):
+        self._bus = bus
+        self.calls = []  # (verb, seconds)
+
+    def __getattr__(self, name):
+        fn = getattr(self._bus, name)
+
+        def timed(*args, **kwargs):
+            t0 = time.monotonic()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.calls.append((name, time.monotonic() - t0))
+        return timed
+
+
+def _stacked_child(bus, job, worker_id, params_dir, params_ids):
+    """Spawn target of phase 24 (c): the stacked top-k served from ONE
+    process on the card, journaling where its parent says. It warms its
+    forward first, outside the inference.forward site, so the scenario's
+    first request (the fault's after=1 skip) is a warm one."""
+    import torch
+
+    from rafiki_tpu_torch import obs
+    from rafiki_tpu_torch.parallel.serving import build_stacked
+    from rafiki_tpu_torch.store import ParamsStore
+    from rafiki_tpu_torch.worker.inference import InferenceWorker
+
+    obs.configure_from_env(role="infer")
+    torch.cuda.set_device(0)
+    store = ParamsStore(params_dir)
+    stacked, reason = build_stacked([{"model_name": "vgg"}] * len(params_ids),
+                                    load([store.load(i) for i in params_ids], "cuda"),
+                                    batch_size=BATCH)
+    if stacked is None:
+        raise RuntimeError(f"stacked route refused: {reason}")
+    stacked.warmup()
+    InferenceWorker(bus, job, worker_id, stacked, batch_size=BATCH).run()
+
+
+def _serve_proc_store(tmp, blobs):
+    """Phase 1's blobs as the trials of a BenchVgg job: the stores the
+    children rebuild their models from."""
+    from rafiki_tpu_torch.store import MetaStore, ParamsStore
+
+    store, params = MetaStore(tmp / "meta.sqlite3"), ParamsStore(tmp / "params")
+    model = store.create_model("benchvgg", "IMAGE_CLASSIFICATION", None, BENCH_SRC, "BenchVgg")
+    job = store.create_train_job("serve-proc", "IMAGE_CLASSIFICATION", None, TRAIN_URI,
+                                 EVAL_URI, {"MODEL_TRIAL_COUNT": len(blobs)})
+    sub = store.create_sub_train_job(job["id"], model["id"])
+    trials = []
+    for b in blobs:
+        t = store.create_trial(sub["id"], "benchvgg", dict(KNOBS))
+        store.mark_trial_as_completed(t["id"], 0.0, params.save(b))
+        trials.append(store.get_trial(t["id"]))
+    return store, params, trials
+
+
+def _route_load(gw, queries):
+    """SERVE_PROC_1Q single-query requests, then SERVE_PROC_64Q of 64:
+    their outputs, client seconds, and each part's hop summary (the
+    telemetry is reset before each part)."""
+    from rafiki_tpu_torch import telemetry
+
+    singles, lat1, bursts, lat64 = [], [], [], []
+    telemetry.reset()
+    for i in range(SERVE_PROC_1Q):
+        t0 = time.monotonic()
+        singles.append(gw.predict([queries[i % len(queries)]])[0])
+        lat1.append(time.monotonic() - t0)
+    snap1 = telemetry.snapshot()
+    telemetry.reset()
+    for _ in range(SERVE_PROC_64Q):
+        t0 = time.monotonic()
+        bursts.append(gw.predict(queries[:BATCH]))
+        lat64.append(time.monotonic() - t0)
+    for out in singles + [o for b in bursts for o in b]:
+        if isinstance(out, dict):
+            fail(f"serve_proc: a request failed: {out}")
+    timing = {"p50_ms_1q": percentile_ms(lat1, 50), "p99_ms_1q": percentile_ms(lat1, 99),
+              "p50_ms_64q": percentile_ms(lat64, 50), "p99_ms_64q": percentile_ms(lat64, 99),
+              "hops_1q": _hop_summary(snap1), "hops_64q": _hop_summary(telemetry.snapshot())}
+    return np.asarray(singles, np.float64), np.asarray(bursts, np.float64), timing, snap1
+
+
+def _hop_summary(snap):
+    """Each serving hop's samples, p50 and p99 (ms), and the fan-out cost."""
+    from rafiki_tpu_torch.obs.anatomy import hops
+
+    out = {}
+    for name in list(hops.METRIC_OF.values()) + [hops.FANOUT_METRIC]:
+        h = snap["histograms"].get(name)
+        if h:
+            out[name] = {"n": h["count"], "p50_ms": h["p50"] * 1e3, "p99_ms": h["p99"] * 1e3}
+    return out
+
+
+SERVE_PROC_SPLIT_ROUNDS = 30
+
+
+def _forward_split(models, query):
+    """Where the in-process route's forward hop goes: one padded chunk of
+    one query (the worker's forward, ``ops/train.py predict_proba``)
+    split into the copy in (``.to``: a blocking copy, which drains the
+    stream first), host launch (until the forward returns its device
+    tensor), sync wait (``.cpu()``: the stream drained and the copy
+    back) and the CUDA-event span of the forward on its stream.
+    Three ways, SERVE_PROC_SPLIT_ROUNDS rounds each after a warm one:
+    ``solo`` (one thread, one model), ``threads`` (three threads, one
+    model each, released together each round as a request fans out,
+    all on the default stream as the route runs) and ``threads_streams``
+    (the same with a stream per thread). Each reading's p50 in ms; the
+    launch time that ``threads`` adds over ``solo`` is the interpreter's
+    lock (the same work, one interpreter)."""
+    import torch
+
+    from rafiki_tpu_torch.ops.train import predict
+
+    def forward(m, stream):
+        x = m.preprocess(np.asarray(query, m._input_dtype()))
+        chunk = np.ascontiguousarray(np.concatenate([x, np.repeat(x[-1:], BATCH - len(x), 0)]))
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(stream), torch.inference_mode():
+            t0 = time.perf_counter()
+            xt = torch.from_numpy(chunk).to(m.device)
+            t1 = time.perf_counter()
+            ev0.record()
+            probs = predict(m._loop.state[0], xt)
+            ev1.record()
+            t2 = time.perf_counter()
+            probs.cpu()
+            t3 = time.perf_counter()
+        return [t1 - t0, t2 - t1, t3 - t2, t3 - t0], (ev0, ev1)
+
+    def rounds(ms, streams):
+        rows, events, errors = [], [], []
+        barrier = threading.Barrier(len(ms))
+
+        def run(m, stream):
+            try:
+                for r in range(SERVE_PROC_SPLIT_ROUNDS + 1):
+                    barrier.wait(timeout=60)
+                    row, ev = forward(m, stream)
+                    if r:
+                        rows.append(row)
+                        events.append(ev)
+            except Exception as e:  # noqa: BLE001 -- reported below
+                errors.append(repr(e))
+                barrier.abort()
+
+        threads = [threading.Thread(target=run, args=(m, st), daemon=True)
+                   for m, st in zip(ms, streams)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        if errors or any(th.is_alive() for th in threads):
+            fail(f"serve_proc: the forward split failed: {errors}")
+        torch.cuda.synchronize()
+        cols = np.asarray(rows) * 1e3
+        return {"copy_in_ms": float(np.median(cols[:, 0])),
+                "launch_ms": float(np.median(cols[:, 1])),
+                "sync_ms": float(np.median(cols[:, 2])),
+                "wall_ms": float(np.median(cols[:, 3])),
+                "event_span_ms": float(np.median([a.elapsed_time(b) for a, b in events])),
+                "forwards": len(rows)}
+
+    default = torch.cuda.current_stream()
+    out = {"solo": rounds(models[:1], [default]),
+           "threads": rounds(models, [default] * len(models)),
+           "threads_streams": rounds(models, [torch.cuda.Stream() for _ in models])}
+    out["lock_wait_ms"] = out["threads"]["launch_ms"] - out["solo"]["launch_ms"]
+    return out
+
+
+def serve_proc_routes(card, tmp, blobs, queries):
+    """Phase 24 (a), then (b) on the same children."""
+    import multiprocessing as mp
+    import os
+    import signal
+
+    import torch
+
+    from rafiki_tpu_torch import telemetry
+    from rafiki_tpu_torch.bus import InProcBus, make_mp_bus
+    from rafiki_tpu_torch.gateway import Gateway, GatewayConfig
+    from rafiki_tpu_torch.obs.perf import slo
+    from rafiki_tpu_torch.predictor import Predictor
+    from rafiki_tpu_torch.worker.inference import InferenceWorker, run_inference_worker_process
+
+    t_phase = time.monotonic()
+    store, params, trials = _serve_proc_store(tmp, blobs)
+    a = {"phase": "serve_proc_routes", "card": card[1], "power_limit": card[2]}
+    # The in-process route first: thread workers over InProcBus, the same blobs.
+    telemetry.reset()
+    bus = InProcBus()
+    stop = threading.Event()
+    workers = [InferenceWorker(bus, SERVE_PROC_JOB, f"t{i}", m, batch_size=BATCH,
+                               stop_event=stop)
+               for i, m in enumerate(load(blobs, "cuda"))]
+    threads = [threading.Thread(target=w.run, daemon=True) for w in workers]
+    for th in threads:
+        th.start()
+    try:
+        gw = Gateway(Predictor(bus, SERVE_PROC_JOB, timeout_s=60.0),
+                     GatewayConfig(min_replies=len(blobs), default_deadline_s=60.0))
+        gw.predict(queries[:1])  # the first forwards, untimed
+        in_single, in_bursts, a["in_process"], _ = _route_load(gw, queries)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=30)
+    a["in_process_forward_split"] = _forward_split([w.model for w in workers], queries[:1])
+    workers = None
+    torch.cuda.empty_cache()
+
+    bus = make_mp_bus()
+    procs = []
+    ctx = mp.get_context("spawn")
+    try:
+        telemetry.reset()
+        t_spawn = time.monotonic()
+        for i, t in enumerate(trials):
+            procs.append(ctx.Process(target=run_inference_worker_process,
+                                     args=(bus, str(tmp / "meta.sqlite3"), str(tmp / "params"),
+                                           t["id"], SERVE_PROC_JOB, f"iw-{i}", BATCH),
+                                     daemon=True))
+            procs[-1].start()
+        deadline = time.monotonic() + 180
+        while len(bus.get_workers(SERVE_PROC_JOB)) < len(procs):
+            dead = [(p.name, p.exitcode) for p in procs if not p.is_alive()]
+            if dead:
+                fail(f"serve_proc: a worker process died before registering: {dead}")
+            if time.monotonic() > deadline:
+                fail("serve_proc: the worker processes never registered")
+            time.sleep(0.05)
+        a["spawn_to_registered_s"] = time.monotonic() - t_spawn
+        pred = Predictor(bus, SERVE_PROC_JOB, timeout_s=60.0, worker_ttl_s=SERVE_PROC_TTL_S)
+        gw = Gateway(pred, GatewayConfig(min_replies=len(blobs), default_deadline_s=60.0))
+        t0 = time.monotonic()
+        gw.predict(queries[:1])  # each child's first forward (fwdc), untimed
+        a["first_request_s"] = time.monotonic() - t0
+        pr_single, pr_bursts, a["process"], snap = _route_load(gw, queries)
+        # What the serving_forward_p99 SLO samples each tick (its windows
+        # read None until they span a minute of samples).
+        spec = next(sp for sp in slo.default_specs() if sp.name == "serving_forward_p99")
+        a["serving_forward_p99_reading"] = slo._resolve(spec.source, snap)
+        a["max_abs_err_1q"] = float(np.abs(pr_single - in_single).max())
+        a["max_abs_err_64q"] = float(np.abs(pr_bursts - in_bursts).max())
+        trace = "24" * 16
+        gw.predict([queries[1]], trace_id=trace)
+        gw.rollup.flush()
+        from rafiki_tpu_torch.obs.anatomy import exemplars
+
+        exemplars.ring.flush()
+        obs_dir = str(tmp / "obs")
+        rc, out = _cli(["--dir", obs_dir, "--json", "waterfall", trace])
+        wf = json.loads(out) if rc == 0 else {"queries": []}
+        q = wf["queries"][0] if len(wf["queries"]) == 1 else None
+        a["waterfall_rc"] = rc
+        a["waterfall_chains"] = (None if q is None else
+                                 {w: [m[0] for m in v["marks"]] for w, v in q["chains"].items()})
+        a["waterfall_pids"] = None if q is None else q["pids"]
+        a["child_pids"] = sorted(p.pid for p in procs)
+        rc, out = _cli(["--dir", obs_dir, "--json", "tails", "--check", "--tolerance", "0.10"])
+        a["tails_rc"] = rc
+        a["tails"] = json.loads(out) if out.strip() else None
+        rc, out = _cli(["--dir", obs_dir, "--json", "serving"])
+        a["serving_rc"], a["serving_rows"] = rc, len(out.splitlines())
+        a["part_s"] = time.monotonic() - t_phase
+
+        # (b) SIGKILL one replica under a quorum-2 load of single queries.
+        t_b = time.monotonic()
+        timed = _TimedBus(bus)
+        gwq = Gateway(Predictor(timed, SERVE_PROC_JOB, timeout_s=SERVE_PROC_DEADLINE_S,
+                                worker_ttl_s=SERVE_PROC_TTL_S),
+                      GatewayConfig(max_inflight=4, min_replies=2, hedge_grace_s=0.2,
+                                    default_deadline_s=SERVE_PROC_DEADLINE_S))
+        results = []  # (start, end, ok)
+        halt = threading.Event()
+
+        def load_loop():
+            i = 0
+            while not halt.is_set():
+                t0 = time.monotonic()
+                try:
+                    out = gwq.predict([queries[i % len(queries)]])
+                    ok = not any(isinstance(o, dict) for o in out)
+                except Exception:
+                    ok = False
+                results.append((t0, time.monotonic(), ok))
+                i += 1
+
+        loader = threading.Thread(target=load_loop, daemon=True)
+        loader.start()
+        time.sleep(1.0)
+        t_kill = time.monotonic()
+        os.kill(procs[2].pid, signal.SIGKILL)
+        procs[2].join(10)
+        stale_at = None
+        deadline = t_kill + 3 * SERVE_PROC_TTL_S
+        while time.monotonic() < deadline:
+            if "iw-2" not in timed.get_workers(SERVE_PROC_JOB, max_age_s=SERVE_PROC_TTL_S):
+                stale_at = time.monotonic()
+                break
+            time.sleep(0.1)
+        time.sleep(1.0)  # load on the two survivors alone
+        halt.set()
+        loader.join(30)
+        reaped = timed.reap_stale(SERVE_PROC_TTL_S, job_id=SERVE_PROC_JOB)
+        after = [r for r in results if r[0] >= t_kill]
+        b = {"phase": "serve_proc_kill", "card": card[1], "power_limit": card[2],
+             "killed_exitcode": procs[2].exitcode, "requests": len(results),
+             "requests_after_kill": len(after),
+             "failed_requests": sum(1 for r in results if not r[2]),
+             "kill_to_first_quorum_answer_s": (min(r[1] for r in after if r[2]) - t_kill
+                                               if any(r[2] for r in after) else None),
+             "kill_to_stale_s": None if stale_at is None else stale_at - t_kill,
+             "reaped": reaped, "workers_after": bus.get_workers(SERVE_PROC_JOB),
+             "corpse_queue_depth": bus.queue_depth("iw-2"),
+             "slowest_bus_call": max(timed.calls, key=lambda c: c[1]),
+             "bus_calls": len(timed.calls),
+             "loader_alive": loader.is_alive(),
+             "part_s": time.monotonic() - t_b}
+        gwq.close()
+        gw.close()
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+        bus.close()
+    return a, b, trials
+
+
+def serve_proc_fallback(card, tmp, trials, blobs, queries):
+    """Phase 24 (c): ``stacked-worker-loss-fallback`` with a real stacked
+    VGG16 child and per-trial fallback workers on the card."""
+    import os
+
+    from rafiki_tpu_torch import chaos, telemetry
+    from rafiki_tpu_torch.chaos.scenarios import SCENARIOS, stacked_loss_body
+
+    t_c = time.monotonic()
+    spec = SCENARIOS["stacked-worker-loss-fallback"].spec
+    checks = {}
+    prev = os.environ.get(chaos.ENV_VAR)
+    os.environ[chaos.ENV_VAR] = spec  # the spawned child's plane
+    chaos.install(chaos.FaultPlane.from_spec(spec))
+    telemetry.reset()
+    try:
+        seen = stacked_loss_body(
+            lambda name, ok, detail="": checks.__setitem__(name, (bool(ok), str(detail)[:300])),
+            _stacked_child, (str(tmp / "params"), [t["params_id"] for t in trials]),
+            load(blobs, "cuda"), [[queries[i]] for i in range(5)], register_timeout_s=180.0)
+    finally:
+        chaos.uninstall()
+        if prev is None:
+            os.environ.pop(chaos.ENV_VAR, None)
+        else:
+            os.environ[chaos.ENV_VAR] = prev
+    return {"phase": "serve_proc_fallback", "card": card[1], "power_limit": card[2],
+            "checks": {k: v[0] for k, v in checks.items()},
+            "failed_details": {k: v[1] for k, v in checks.items() if not v[0]},
+            "outcomes": seen["outcomes"], "child_pid": seen["child_pid"],
+            "blackout_retries": seen["blackout_retries"],
+            "kill_to_fallback_serving_s": (None if seen["killed_at"] is None
+                                           or seen["first_answer_after_kill"] is None
+                                           else seen["first_answer_after_kill"]
+                                           - seen["killed_at"]),
+            "part_s": time.monotonic() - t_c}
+
+
+def serve_proc_phase(card, check, blobs=None) -> None:
+    """Phase 24 and its checks (also ``--serve-proc``)."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from rafiki_tpu_torch.obs.journal import ENV_VAR as LOG_ENV, journal
+
+    t0 = time.monotonic()
+    if blobs is None:
+        blobs = [make_blob(seed) for seed in range(K)]
+    queries = queries_for(0).tolist()
+    prev_dir = journal.log_dir if journal.configured else None
+    prev_role, prev_env = journal.role, os.environ.get(LOG_ENV)
+    with tempfile.TemporaryDirectory(prefix="serve-proc-") as td:
+        tmp = Path(td)
+        journal.configure(tmp / "obs", role="serve-proc")
+        os.environ[LOG_ENV] = str(tmp / "obs")  # the children journal beside this process
+        try:
+            a, b, trials = serve_proc_routes(card, tmp, blobs, queries)
+            print(json.dumps(a))
+            print(json.dumps(b))
+            torch.cuda.empty_cache()
+            c = serve_proc_fallback(card, tmp, trials, blobs, queries)
+            print(json.dumps(c))
+        finally:
+            if prev_env is None:
+                os.environ.pop(LOG_ENV, None)
+            else:
+                os.environ[LOG_ENV] = prev_env
+            if prev_dir is not None:
+                journal.configure(prev_dir, role=prev_role)
+            else:
+                journal.close()
+    for route in ("in_process", "process"):
+        check(a[route]["p50_ms_1q"] > 0, f"serve_proc: no {route} timings {a[route]}")
+    check(max(a["max_abs_err_1q"], a["max_abs_err_64q"]) <= SERVE_PROC_ATOL,
+          f"serve_proc: the process route's predictions differ from the in-process route's "
+          f"by {a['max_abs_err_1q']} (1 query) / {a['max_abs_err_64q']} (64) > {SERVE_PROC_ATOL}")
+    chains = a["waterfall_chains"] or {}
+    check(a["waterfall_rc"] == 0 and len(chains) == K
+          and all(c == SERVE_PROC_CHAIN for c in chains.values()),
+          f"serve_proc: obs waterfall rc {a['waterfall_rc']}, chains {chains}")
+    pids = a["waterfall_pids"] or []
+    check(len(set(pids)) == 4 and set(pids) - {os.getpid()} <= set(a["child_pids"]),
+          f"serve_proc: waterfall pids {pids}, this process {os.getpid()}, children "
+          f"{a['child_pids']}")
+    check(a["tails_rc"] == 0 and a["tails"] and a["tails"]["reconcile"]["ok"],
+          f"serve_proc: obs tails --check rc {a['tails_rc']}: {a['tails']}")
+    check(a["serving_rc"] == 0 and a["serving_rows"] >= 1,
+          f"serve_proc: obs serving rc {a['serving_rc']}, {a['serving_rows']} rows")
+    fwd = a["process"]["hops_1q"].get("serving.hop.forward_s", {"n": 0})
+    check(fwd["n"] > 0 and a["serving_forward_p99_reading"] is not None,
+          f"serve_proc: serving.hop.forward_s {fwd}, SLO reading "
+          f"{a['serving_forward_p99_reading']}")
+    check(b["killed_exitcode"] == -9 and b["requests_after_kill"] > 0
+          and b["failed_requests"] == 0 and not b["loader_alive"],
+          f"serve_proc kill: exit {b['killed_exitcode']}, {b['failed_requests']} of "
+          f"{b['requests']} requests failed ({b['requests_after_kill']} after the kill)")
+    check(b["kill_to_stale_s"] is not None and b["kill_to_stale_s"] <= SERVE_PROC_TTL_S + 1.0,
+          f"serve_proc kill: the corpse's lease stayed fresh {b['kill_to_stale_s']} s")
+    check([tuple(r) for r in b["reaped"]] == [(SERVE_PROC_JOB, "iw-2")],
+          f"serve_proc kill: reaped {b['reaped']}")
+    check(b["workers_after"] == ["iw-0", "iw-1"] and b["corpse_queue_depth"] == 0,
+          f"serve_proc kill: workers {b['workers_after']}, corpse queue "
+          f"{b['corpse_queue_depth']}")
+    check(b["slowest_bus_call"][1] <= SERVE_PROC_CALL_S,
+          f"serve_proc kill: a bus call took {b['slowest_bus_call']}")
+    check(all(c["checks"].values()) and len(c["checks"]) == 7,
+          f"serve_proc fallback: checks {c['checks']}: {c['failed_details']}")
+    check(c["kill_to_fallback_serving_s"] is not None,
+          f"serve_proc fallback: no answer after the kill {c}")
+    print(json.dumps({"phase": "serve_proc", "card": card[1], "power_limit": card[2],
+                      "phase_s": time.monotonic() - t0}))
+
+
 def main() -> int:
     import torch
 
@@ -4266,7 +4784,7 @@ def main() -> int:
     repeats = (int(sys.argv[2]) if sys.argv[1:2] == ["--mesh-repack"] and len(sys.argv) == 3
                and sys.argv[2].isdigit() else None)
     if sys.argv[1:] not in ([], ["--zoo"], ["--obs"], ["--chaos"], ["--process"], ["--mesh"],
-                            ["--search"]) and repeats is None:
+                            ["--search"], ["--serve-proc"]) and repeats is None:
         fail(f"unknown arguments {sys.argv[1:]}")
     card = card_identity()
     print(card[0])
@@ -4338,6 +4856,13 @@ def main() -> int:
             print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
             return 1
         print(json.dumps({"search": "ok", "device": torch.cuda.get_device_name(0)}))
+        return 0
+    if sys.argv[1:] == ["--serve-proc"]:
+        serve_proc_phase(card, check)
+        if failures:
+            print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
+            return 1
+        print(json.dumps({"serve_proc": "ok", "device": torch.cuda.get_device_name(0)}))
         return 0
 
     from rafiki_tpu_torch.ops.train import predict
@@ -4624,6 +5149,10 @@ def main() -> int:
     # -- 23. the search plane: early kill, speculation, the advisor audit ---------------
     torch.cuda.empty_cache()
     search_phase(card, check)
+
+    # -- 24. serving across processes and its request anatomy ---------------------------
+    torch.cuda.empty_cache()
+    serve_proc_phase(card, check, blobs)
 
     # -- kernels and the result line -------------------------------------------
     print(json.dumps({"kernels": []}))

@@ -1,9 +1,10 @@
 """Query/prediction bus between the predictor and inference workers.
 
-Counterpart of ``rafiki_tpu/bus``. Not exported yet: ``make_mp_bus``,
-the multiprocessing bus (ROADMAP Queue 1 item 13).
+Counterpart of ``rafiki_tpu/bus``: the in-process bus (plain queues and
+a dict) and the multiprocessing bus with the same interface, so the
+predictor and inference workers can live in separate processes.
 """
 
-from rafiki_tpu_torch.bus.queues import InProcBus
+from rafiki_tpu_torch.bus.queues import InProcBus, make_mp_bus
 
-__all__ = ["InProcBus"]
+__all__ = ["InProcBus", "make_mp_bus"]

@@ -91,10 +91,20 @@ early-kill-mid-pack-resume     the supervisor SIGKILLed just after the
                                knob set
 =============================  =============================================
 
-The JAX package's other 4 scenarios wait for the planes they drive
-(ROADMAP Queue 1): ``stacked-worker-loss-fallback`` for the
-multiprocessing bus (item 13), and the three autoscale and tenancy
-scenarios for item 14.
+and one that SIGKILLs a spawned inference worker over the
+multiprocessing bus (in ``SUBPROCESS_SCENARIOS`` too):
+
+=============================  =============================================
+stacked-worker-loss-fallback   the stacked worker (the whole top-k in one
+                               process) kills itself on its second
+                               forward: the fallback supervisor degrades
+                               the job to per-trial thread workers and the
+                               gateway's blackout re-route answers every
+                               request
+=============================  =============================================
+
+The JAX package's other 3 scenarios, autoscale and tenancy, wait for
+the planes they drive (ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -121,10 +131,12 @@ class Scenario:
 SCENARIOS: Dict[str, Scenario] = {}
 
 #: The scenarios that SIGKILL a subprocess: the ProcessScheduler's
-#: workers, or the sweep supervisor's process (``sweep_proc``).
+#: workers, the sweep supervisor's process (``sweep_proc``), or a spawned
+#: stacked inference worker.
 SUBPROCESS_SCENARIOS = frozenset({"kill-mid-trial-resume", "kill-mid-pack-resume",
                                   "collective-kill-mid-step", "supervisor-kill-mid-sweep",
-                                  "host-loss-mid-sweep", "early-kill-mid-pack-resume"})
+                                  "host-loss-mid-sweep", "early-kill-mid-pack-resume",
+                                  "stacked-worker-loss-fallback"})
 
 
 def scenario(name: str, description: str, spec: str,
@@ -527,6 +539,152 @@ def predictor_outage_surfaces(tmp, check: CheckFn) -> None:
     finally:
         stop.set()
         th.join(timeout=2)
+
+
+# ---------------------------------------------------------------------------
+# Stacked-route loss scenario (mp bus + spawned stacked worker)
+# ---------------------------------------------------------------------------
+
+
+#: The stacked worker's liveness lease, for the supervisor and the
+#: predictor alike (the reference scenario's 1 s).
+STACKED_LOSS_TTL_S = 1.0
+
+
+def _stacked_stub_main(bus, job: str, worker_id: str) -> None:
+    """Spawn target: the stacked worker as its OWN process, the
+    deployment shape of the stacked serving route, where one process
+    holds a job's whole top-k ensemble. RAFIKI_CHAOS rides the spawn
+    env, so the inference.forward kill fires HERE, in the child."""
+    from rafiki_tpu_torch import obs
+
+    obs.configure_from_env(role="infer")
+    from rafiki_tpu_torch.worker.inference import InferenceWorker
+
+    InferenceWorker(bus, job, worker_id, _ConstModel([0.6, 0.4])).run()
+
+
+def stacked_loss_body(check: CheckFn, child, child_args: tuple, fallback_models: list,
+                      requests: list, register_timeout_s: float = 30.0) -> dict:
+    """The body of ``stacked-worker-loss-fallback`` over any stacked
+    child: ``child(bus, job, "stacked-w0", *child_args)`` is spawned and
+    must die of the ``inference.forward`` kill on its second forward;
+    the supervisor's fallback serves ``fallback_models`` from thread
+    workers of this process. Runs the five ``requests`` through the
+    gateway, checks the seven invariants, and returns what it saw
+    (outputs, the child's pid, and the wall instants of the kill and of
+    the first answer after it)."""
+    import multiprocessing as mp
+    import os
+
+    from rafiki_tpu_torch import telemetry
+    from rafiki_tpu_torch.bus.queues import make_mp_bus
+    from rafiki_tpu_torch.gateway import Gateway, GatewayConfig
+    from rafiki_tpu_torch.obs import journal as journal_mod
+    from rafiki_tpu_torch.predictor import Predictor
+    from rafiki_tpu_torch.worker.fallback import FallbackSupervisor
+    from rafiki_tpu_torch.worker.inference import InferenceWorker
+
+    ctx = mp.get_context("spawn")
+    bus = make_mp_bus()
+    stop = threading.Event()
+    fallback_threads: List[threading.Thread] = []
+    proc = sup = None
+    try:
+        proc = ctx.Process(target=child, args=(bus, JOB, "stacked-w0") + tuple(child_args),
+                           daemon=True)
+        proc.start()
+        deadline = time.monotonic() + register_timeout_s
+        while "stacked-w0" not in bus.get_workers(JOB):
+            if not proc.is_alive():
+                raise RuntimeError(f"stacked worker died before registering: {proc.exitcode}")
+            if time.monotonic() >= deadline:
+                raise RuntimeError("stacked worker never registered")
+            time.sleep(0.02)
+
+        def spawn_fallback():
+            # The replicated degrade: one thread worker per trial.
+            for i, model in enumerate(fallback_models):
+                w = InferenceWorker(bus, JOB, f"fb{i}", model, stop_event=stop)
+                th = threading.Thread(target=w.run, daemon=True, name=f"chaos-fb{i}")
+                fallback_threads.append(th)
+                th.start()
+
+        sup = FallbackSupervisor(bus, JOB, "stacked-w0", spawn_fallback,
+                                 ttl_s=STACKED_LOSS_TTL_S, poll_s=0.1).start()
+        predictor = Predictor(bus, JOB, timeout_s=10.0, worker_ttl_s=STACKED_LOSS_TTL_S)
+        gw = Gateway(predictor, GatewayConfig(min_replies=1, blackout_retries=4))
+        # Request 1 is the fault's after=1 skip: the stacked worker serves
+        # it, seeding the latency EWMA the blackout probes key off.
+        # Request 2's forward IS the kill: its envelope dies with the
+        # worker and only the blackout re-route can save it.
+        outcomes, outputs, done_at = [], [], []
+        for queries in requests:
+            try:
+                outs = gw.predict(queries, deadline_s=10.0)
+                ok = bool(outs) and not any(isinstance(o, dict) and "error" in o for o in outs)
+            except Exception as e:
+                outs, ok = repr(e), False
+            outcomes.append(ok)
+            outputs.append(outs)
+            done_at.append(time.time())
+        gw.close()
+        check("no_request_dropped", all(outcomes), f"outcomes: {outcomes}")
+        proc.join(timeout=5)
+        check("stacked_worker_sigkilled", not proc.is_alive() and proc.exitcode == -9,
+              f"alive={proc.is_alive()} exitcode={proc.exitcode}")
+        check("fallback_supervisor_fired", sup.fired.is_set(),
+              "supervisor never saw the lease die")
+        check("blackout_reroute_engaged",
+              telemetry.get_counter("gateway.blackout_retries") >= 1.0,
+              "no gateway.blackout_retries increments")
+        recs = journal_mod.read_dir(journal_mod.journal.log_dir)
+        check("journal_records_fallback", _journal_has(recs, "serving", "fallback"),
+              "no serving/fallback journal record")
+        check("journal_records_blackout_retry", _journal_has(recs, "gateway", "blackout_retry"),
+              "no gateway/blackout_retry journal record")
+        # The kill really fired, and in the CHILD: its chaos/injected
+        # record carries the child's pid.
+        injected = [r for r in recs if r.get("kind") == "chaos"
+                    and r.get("name") == "injected" and r.get("site") == "inference.forward"]
+        check("kill_journaled_from_child",
+              any(r.get("pid") != os.getpid() for r in injected),
+              f"injected records: {injected}")
+        killed_at = next((r.get("ts") for r in injected if r.get("pid") == proc.pid), None)
+        return {"outcomes": outcomes, "outputs": outputs, "child_pid": proc.pid,
+                "killed_at": killed_at,
+                "first_answer_after_kill": next((t for t in done_at
+                                                 if killed_at is not None and t > killed_at),
+                                                None),
+                "blackout_retries": telemetry.get_counter("gateway.blackout_retries")}
+    finally:
+        if sup is not None:
+            sup.stop()
+        stop.set()
+        for th in fallback_threads:
+            th.join(timeout=5)
+        if proc is not None:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(timeout=5)
+        bus.close()
+
+
+@scenario(
+    "stacked-worker-loss-fallback",
+    "SIGKILL the stacked worker that serves a job's WHOLE top-k "
+    "ensemble mid-load: the fallback supervisor must degrade the job "
+    "to replicated per-trial workers, the gateway's blackout re-route "
+    "must carry every admitted request to an answer (zero dropped), "
+    "and the loss->fallback story must reconstruct from the journals.",
+    spec="seed=7;inference.forward:kill:after=1:times=1:match=stacked",
+)
+def stacked_worker_loss_fallback(tmp, check: CheckFn) -> None:
+    # Const-model stand-ins on both sides: this scenario pins the loss
+    # control flow, not the model math.
+    stacked_loss_body(check, _stacked_stub_main, (),
+                      [_ConstModel([0.6, 0.4]) for _ in range(2)],
+                      [[[float(i)]] for i in range(5)])
 
 
 # ---------------------------------------------------------------------------

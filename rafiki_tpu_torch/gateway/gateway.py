@@ -32,9 +32,19 @@ An admitted request passes the ``gateway.predict`` chaos site, keyed
 by the job id (a ``delay`` is a frontend latency spike that eats into
 the request's deadline while it holds an inflight slot).
 
-Left out with the planes the port does not have yet: hop marks, the ``ServingRollup`` time-series and tenancy (the
-``serving/request`` record's ``tenant`` is null). ``stats()`` keeps every key of the JAX package's; the rollup's
-``serving`` telemetry collector is absent.
+Hop marks (``obs/anatomy/hops.py``), as in the JAX package: a request
+opens a thread-local prefix with ``admit``, adds ``queue`` once
+admission is granted and clears it on every exit; the bus envelopes
+copy it. A microbatch flush stamps one ``bat`` mark shared by its
+members, and each member's chains (its prefix, ``bat``, the worker's
+leg and ``dec``) are absorbed under its own trace. Every outcome, sheds
+included, goes into ``self.rollup`` (``ServingRollup``: ``serving/ts``
+rows with the admission and breaker context), registered as the
+``serving`` telemetry collector.
+
+Left out with tenancy (ROADMAP Queue 1 item 14): the ``serving/request``
+record's ``tenant`` is null. ``stats()`` keeps every key of the JAX
+package's.
 
 One Gateway fronts one inference job's Predictor. Its counters flow
 both into gateway-local stats (``GET /gateway``) and into the
@@ -47,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+import uuid
 from typing import Any, Dict, List, Optional, Tuple
 
 from rafiki_tpu_torch import chaos, telemetry
@@ -54,6 +65,8 @@ from rafiki_tpu_torch.gateway.admission import AdmissionController, ShedError
 from rafiki_tpu_torch.gateway.breaker import CircuitBreaker
 from rafiki_tpu_torch.gateway.microbatch import BatchMember, MicroBatcher
 from rafiki_tpu_torch.obs import context as trace_context
+from rafiki_tpu_torch.obs.anatomy import hops as _hops
+from rafiki_tpu_torch.obs.anatomy.timeseries import ServingRollup
 from rafiki_tpu_torch.obs.journal import journal as _journal
 from rafiki_tpu_torch.obs.perf import slo as _slo
 from rafiki_tpu_torch.predictor.predictor import default_quorum
@@ -151,6 +164,9 @@ class Gateway:
         self._hedged = 0
         self._timeouts = 0
         self._latency_ewma_s: Optional[float] = None
+        # Every outcome lands in a per-second rollup journaled as
+        # serving/ts, with admission/breaker context merged per row.
+        self.rollup = ServingRollup(context_fn=self._rollup_context)
         # Only constructed when batching is on — max_batch=1 keeps the
         # classic per-request fan-out with no extra moving parts.
         self._batcher: Optional[MicroBatcher] = None
@@ -163,6 +179,7 @@ class Gateway:
         # serves one job, and tests that build several gateways only
         # ever assert on the live one.
         telemetry.register_collector("gateway", self.stats)
+        telemetry.register_collector("serving", self.rollup.collector)
         # The live limits, for post-mortems and capacity models.
         _journal.record("gateway", "config",
                         max_inflight=self.cfg.max_inflight,
@@ -193,6 +210,19 @@ class Gateway:
             return self._predict(queries, deadline_s)
 
     def _predict(self, queries: List[Any], deadline_s: Optional[float]) -> List[Any]:
+        # Open this request's hop-mark prefix: admit/queue marks stamped
+        # here ride into every bus envelope the fan-out produces. Cleared
+        # in the finally: a stale prefix would leak this request's marks
+        # into the thread's next chain.
+        _hops.begin()
+        _hops.add("admit")
+        try:
+            return self._predict_admitted(queries, deadline_s)
+        finally:
+            _hops.clear()
+
+    def _predict_admitted(self, queries: List[Any],
+                          deadline_s: Optional[float]) -> List[Any]:
         deadline_s = (deadline_s or self.cfg.default_deadline_s
                       or self.predictor.timeout_s)
         deadline = time.monotonic() + deadline_s
@@ -212,6 +242,7 @@ class Gateway:
         except ShedError as e:
             self._count_shed(e.reason)
             raise
+        _hops.add("queue")  # admission granted: the queue wait is over
         with self._lock:
             self._admitted += 1
         telemetry.inc("gateway.admitted")
@@ -233,8 +264,12 @@ class Gateway:
         elapsed = time.monotonic() - t0
         self._absorb(report, elapsed)
         telemetry.observe("gateway.predict_s", elapsed)
+        ok = report.timeouts == 0
+        self.rollup.observe(latency_s=elapsed, outcome="ok" if ok else "error")
+        # The gateway-measured e2e: obs waterfall and tails hold the
+        # stitched chain's total against it.
         _journal.record("serving", "request", queries=len(queries),
-                        e2e_s=round(elapsed, 6), ok=report.timeouts == 0,
+                        e2e_s=round(elapsed, 6), ok=ok,
                         hedged=report.hedged, timeouts=report.timeouts,
                         tenant=None)
         _slo.maybe_tick()
@@ -244,7 +279,7 @@ class Gateway:
         """Microbatched path: ride a shared fan-out. The admission slot
         is held for the whole wait — the inflight budget still bounds
         concurrency."""
-        member = self._batcher.submit(queries, deadline)
+        member = self._batcher.submit(queries, deadline, prefix=_hops.prefix_marks())
         try:
             # +2s slack over the deadline: the flusher itself bounds the
             # fan-out by the member deadlines; this guard only catches a
@@ -258,8 +293,15 @@ class Gateway:
         report = member.report
         elapsed = time.monotonic() - member.enq_t
         telemetry.observe("gateway.predict_s", elapsed)
+        ok = report.timeouts == 0
+        self.rollup.observe(latency_s=elapsed, outcome="ok" if ok else "error")
+        # Re-absorb the shared flush chain under THIS request's trace
+        # (prefix + bat + the worker's chain + dec): every member gets a
+        # stitchable waterfall though the wire saw one envelope.
+        if member.chains:
+            _hops.absorb(uuid.uuid4().hex, member.chains)
         _journal.record("serving", "request", queries=len(queries),
-                        e2e_s=round(elapsed, 6), ok=report.timeouts == 0,
+                        e2e_s=round(elapsed, 6), ok=ok,
                         hedged=report.hedged, timeouts=report.timeouts,
                         batched=True, flush_reason=member.flush_reason,
                         tenant=None)
@@ -269,8 +311,9 @@ class Gateway:
     def _execute_batch(self, members: List[BatchMember],
                        flush_reason: str) -> None:
         """Flusher-thread body: one batched fan-out for all members,
-        then scatter per-member output slices."""
+        then scatter per-member output slices and hop chains."""
         t0 = time.monotonic()
+        bat = _hops.mark("bat")  # shared flush instant for every member
         flat = [q for m in members for q in m.queries]
         deadline = min(m.deadline for m in members)
         telemetry.observe("serving.microbatch.size", float(len(flat)))
@@ -288,11 +331,16 @@ class Gateway:
             report = self._fanout(flat, deadline, batched=True)
         elapsed = time.monotonic() - t0
         self._absorb(report, elapsed)
+        shared = getattr(report, "chains", None)
+        dec = getattr(report, "dec_mark", None)
         off = 0
         for m in members:
             n = len(m.queries)
             m.outputs = report.outputs[off:off + n]
             off += n
+            if shared:
+                m.chains = {w: list(m.prefix) + [bat] + list(ch) + ([dec] if dec else [])
+                            for w, ch in shared.items()}
             m.flush_reason = flush_reason
             m.report = report
             m.elapsed_s = elapsed
@@ -426,9 +474,22 @@ class Gateway:
         return round(max(RETRY_AFTER_FLOOR_S,
                          ewma * backlog / self.cfg.max_inflight), 3)
 
+    def _rollup_context(self) -> Dict[str, Any]:
+        """Live context merged into each serving/ts row: queue depth,
+        inflight, and the per-worker breaker states."""
+        with self._lock:
+            breakers = {w: b.snapshot().get("state")
+                        for w, b in self._breakers.items()}
+        return {"queue_depth": self.admission.waiting,
+                "inflight": self.admission.inflight,
+                "breakers": breakers,
+                "breakers_open": sum(1 for s in breakers.values()
+                                     if s != "closed")}
+
     def _count_shed(self, reason: str) -> None:
         with self._lock:
             self._shed[reason] = self._shed.get(reason, 0) + 1
+        self.rollup.observe(outcome="shed")
         telemetry.inc("gateway.shed")
         # Reasons are a closed enum of admission code paths, refining
         # the stable literal gateway.shed aggregate above.

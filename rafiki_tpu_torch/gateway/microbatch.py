@@ -1,8 +1,7 @@
 """Deadline-aware dynamic microbatching for the serving gateway.
 
 The port's own copy of ``rafiki_tpu/gateway/microbatch.py``, with the
-same flush rules; the hop-mark prefix and per-member hop chains are
-left out with the hop plane, which the port does not have yet.
+same flush rules, and each member's hop-mark prefix and hop chains.
 
 With a stacked (single-worker, device-resident) ensemble the forward
 itself is one launch sequence over the whole batch, which makes the
@@ -22,7 +21,8 @@ thread flushes a combined batch when:
 
 The flush executes one batched fan-out (the gateway's
 ``_execute_batch``) and scatters per-member slices back; each member
-thread then finishes its own bookkeeping.
+thread then finishes its own bookkeeping (hop-chain absorb under its
+OWN trace id, rollup, journal) so waterfalls still stitch per request.
 
 ``max_batch=1`` disables batching entirely — the gateway keeps the
 classic per-request fan-out and this module is never constructed.
@@ -46,15 +46,19 @@ _MIN_WAIT_S = 0.0005
 class BatchMember:
     """One admitted request riding a microbatch."""
 
-    __slots__ = ("queries", "deadline", "enq_t", "done", "outputs", "error",
-                 "flush_reason", "report", "elapsed_s")
+    __slots__ = ("queries", "deadline", "prefix", "enq_t", "done",
+                 "outputs", "chains", "error", "flush_reason", "report",
+                 "elapsed_s")
 
-    def __init__(self, queries: List[Any], deadline: float, enq_t: float):
+    def __init__(self, queries: List[Any], deadline: float,
+                 prefix: List[List[Any]], enq_t: float):
         self.queries = queries
         self.deadline = deadline          # monotonic absolute
+        self.prefix = prefix              # this request's hop marks
         self.enq_t = enq_t
         self.done = threading.Event()
         self.outputs: Optional[List[Any]] = None
+        self.chains = None                # worker -> full member chain
         self.error: Optional[BaseException] = None
         self.flush_reason: Optional[str] = None
         self.report = None                # shared BatchGatherReport
@@ -94,10 +98,11 @@ class MicroBatcher:
 
     # -- producer side -------------------------------------------------------
 
-    def submit(self, queries: List[Any], deadline: float) -> BatchMember:
+    def submit(self, queries: List[Any], deadline: float,
+               prefix: List[List[Any]]) -> BatchMember:
         """Enqueue one admitted request; returns its member handle.
         The caller blocks on ``member.wait()`` — admission slot held."""
-        m = BatchMember(list(queries), deadline, self._clock())
+        m = BatchMember(list(queries), deadline, prefix, self._clock())
         with self._cond:
             if self._stopped:
                 raise RuntimeError("microbatcher stopped")

@@ -16,6 +16,9 @@ Layers on top of :mod:`rafiki_tpu_torch.telemetry`:
   with its epoch times into achieved FLOP/s and MFU, SLO burn-rate
   alerting and step-time anomaly detection;
 * :mod:`~rafiki_tpu_torch.obs.health` — the numerics health plane;
+* :mod:`~rafiki_tpu_torch.obs.anatomy` — the request anatomy: per-hop
+  marks in the bus envelopes, their segments and histograms, the
+  slowest-N exemplar ring and the per-second serving rollup;
 
 plus :mod:`~rafiki_tpu_torch.obs.prom` (Prometheus text exposition of
 the registry snapshot) and the ``python -m rafiki_tpu_torch.obs`` CLI
@@ -24,8 +27,8 @@ processes.
 
 Import discipline: this package's eager surface (context, journal) is
 stdlib-only, so telemetry can import it without a cycle and the CLI
-reads journals on a machine without torch; ledger, prom, recorder,
-perf and cli import telemetry and load lazily via ``__getattr__``.
+reads journals on a machine without torch; anatomy, ledger, prom,
+recorder, perf and cli import telemetry and load lazily via ``__getattr__``.
 Nothing here imports torch at module scope.
 """
 
@@ -35,7 +38,7 @@ import importlib
 
 from rafiki_tpu_torch.obs import context, journal  # noqa: F401  (eager, dep-free)
 
-_LAZY = ("ledger", "perf", "prom", "recorder", "cli")
+_LAZY = ("anatomy", "ledger", "perf", "prom", "recorder", "cli")
 
 __all__ = ["context", "journal", *_LAZY, "configure_from_env"]
 

@@ -27,6 +27,18 @@ under ``--dir``, default ``$RAFIKI_LOG_DIR`` then the configured
     replay <cap>   re-execute a divergence capsule (on the card, or
                    ``--device cpu``) and bit-verify the reproduction;
                    exit 0 only when the bad step reproduced bit for bit
+    waterfall <id> per-hop serving waterfall for one trace (prefix
+                   match): every gathered hop chain rendered with
+                   offsets, segments, pids, and the hop-sum
+                   reconciliation error
+    tails          tail attribution: decompose the p99-over-p50 excess
+                   of the serving path into per-hop contributions from
+                   the ``serving/hops`` + ``serving/exemplar``
+                   records; ``--check`` also gates hop-sum
+                   reconciliation within ``--tolerance``
+    serving [-n N] the continuous serving time-series: last N
+                   ``serving/ts`` rollup rows (qps, p50/p99, shed
+                   rate, queue depth, inflight, breaker state)
     shard          the sharded lane's story: each ``shard/plan``, and per
                    trial its width history (group formations, member
                    losses, reshard-on-restore events); exit 1 when the
@@ -49,8 +61,8 @@ under ``--dir``, default ``$RAFIKI_LOG_DIR`` then the configured
 
 The journals of either package read the same: ``trace``, ``tail``,
 ``slowest``, ``slo``, ``health``, ``curves`` (with ``--predicted``),
-``shard``, ``sweep``, ``lineage`` and ``resume`` print what the JAX
-package's CLI prints. ``decisions`` prints the JAX package's four kinds
+``waterfall``, ``tails``, ``serving``, ``shard``, ``sweep``, ``lineage``
+and ``resume`` print what the JAX package's CLI prints. ``decisions`` prints the JAX package's four kinds
 of decision and, beyond them, the curve advisor's (``advisor/kill``,
 ``advisor/speculate``, ``advisor/correct``).
 ``profile`` multiplies a step's flops by the epoch's ``steps`` where
@@ -479,6 +491,194 @@ _DECISIONS = {("serving", "route"): "route", ("gateway", "shed"): "shed",
               ("advisor", "correct"): "correct"}
 
 
+def _hop_records(log_dir: str,
+                 trace_id: Optional[str] = None) -> List[Dict[str, Any]]:
+    """The unique ``serving`` hop-chain records (waterfalls), deduped
+    by query id — an exemplar is the same chains journaled twice."""
+    out: List[Dict[str, Any]] = []
+    seen = set()
+    for r in journal_mod.read_dir(log_dir):
+        if r.get("kind") != "serving" or r.get("name") not in ("hops",
+                                                               "exemplar"):
+            continue
+        if trace_id and not str(r.get("trace_id", "")).startswith(trace_id):
+            continue
+        if not r.get("chains"):
+            continue
+        qid = r.get("query_id")
+        if qid in seen:
+            continue
+        seen.add(qid)
+        out.append(r)
+    return out
+
+
+def _chain_view(marks: List[List[Any]]) -> Dict[str, Any]:
+    """Segments + reconciliation for one chain. The reconciliation
+    compares the sum of NAMED segments against the chain's end-to-end
+    span — exact when every mark is known and ordered, loud when a hop
+    went missing or a foreign mark absorbed time."""
+    from rafiki_tpu_torch.obs.anatomy import hops as hops_mod
+
+    total = hops_mod.chain_total_s(marks)
+    segs = hops_mod.segments(marks)
+    seg_sum = sum(d for _, d in segs)
+    err = abs(seg_sum - total) / total if total > 0 else 0.0
+    return {"marks": marks,
+            "segments": [{"segment": s, "ms": round(d * 1000.0, 3)}
+                         for s, d in segs],
+            "total_ms": round(total * 1000.0, 3),
+            "seg_sum_ms": round(seg_sum * 1000.0, 3),
+            "reconcile_err": round(err, 6)}
+
+
+def cmd_waterfall(log_dir: str, trace_id: str, as_json: bool) -> int:
+    """Stitch one trace's hop chains into a waterfall."""
+    records = _hop_records(log_dir, trace_id)
+    if not records:
+        print(f"no serving hop records for trace {trace_id!r} under "
+              f"{log_dir}", file=sys.stderr)
+        return 1
+    e2e = [r for r in journal_mod.read_dir(log_dir)
+           if r.get("kind") == "serving" and r.get("name") == "request"
+           and str(r.get("trace_id", "")).startswith(trace_id)]
+    queries = []
+    for r in records:
+        chains = {w: _chain_view(m) for w, m in r["chains"].items()}
+        all_marks = [m for v in chains.values() for m in v["marks"]]
+        queries.append({
+            "query_id": r.get("query_id"),
+            "trace_id": r.get("trace_id"),
+            "n_hops": max((len(v["marks"]) for v in chains.values()),
+                          default=0),
+            "pids": sorted({int(m[2]) for m in all_marks}),
+            "total_s": r.get("total_s"),
+            "max_reconcile_err": max((v["reconcile_err"]
+                                      for v in chains.values()), default=0.0),
+            "chains": chains,
+        })
+    doc = {"trace_id": records[0].get("trace_id"), "queries": queries,
+           "e2e_s": e2e[-1].get("e2e_s") if e2e else None}
+    if as_json:
+        print(json.dumps(doc, default=str))
+        return 0
+    for q in queries:
+        print(f"query {q['query_id']}  trace={q['trace_id']} "
+              f"hops={q['n_hops']} pids={q['pids']} "
+              f"total={q['total_s']}s "
+              f"reconcile_err={q['max_reconcile_err']:.4f}")
+        for w, v in sorted(q["chains"].items()):
+            print(f"  chain {w}: total {v['total_ms']}ms "
+                  f"(segments sum {v['seg_sum_ms']}ms)")
+            t_first = float(v["marks"][0][1]) if v["marks"] else 0.0
+            for m in v["marks"]:
+                off_ms = (float(m[1]) - t_first) * 1000.0
+                print(f"    +{off_ms:10.3f}ms  {str(m[0]):<6} pid={m[2]}")
+            for s in v["segments"]:
+                print(f"      {s['segment']:<16} {s['ms']:10.3f}ms")
+    if doc["e2e_s"] is not None:
+        print(f"-- gateway e2e (post-admission): {doc['e2e_s']}s")
+    return 0
+
+
+def _pctile(xs: List[float], q: float) -> float:
+    xs = sorted(xs)
+    idx = min(len(xs) - 1, max(0, int(round(q / 100.0 * (len(xs) - 1)))))
+    return xs[idx]
+
+
+def cmd_tails(log_dir: str, as_json: bool, check: bool,
+              tolerance: float) -> int:
+    """Decompose the p99-over-p50 latency excess into hop
+    contributions, and (with ``--check``) gate hop-sum
+    reconciliation."""
+    from rafiki_tpu_torch.obs.anatomy import hops as hops_mod
+
+    records = _hop_records(log_dir)
+    if not records:
+        print(f"no serving hop records under {log_dir}", file=sys.stderr)
+        return 1
+    per_seg: Dict[str, List[float]] = {}
+    totals: List[float] = []
+    worst_err = 0.0
+    for r in records:
+        rec_total = 0.0
+        for marks in r["chains"].values():
+            total = hops_mod.chain_total_s(marks)
+            segs = hops_mod.segments(marks)
+            for s, d in segs:
+                per_seg.setdefault(s, []).append(d)
+            seg_sum = sum(d for _, d in segs)
+            if total > 0:
+                worst_err = max(worst_err, abs(seg_sum - total) / total)
+            rec_total = max(rec_total, total)
+        totals.append(rec_total)
+    p50_tot, p99_tot = _pctile(totals, 50.0), _pctile(totals, 99.0)
+    excess = max(0.0, p99_tot - p50_tot)
+    contribs = {s: max(0.0, _pctile(d, 99.0) - _pctile(d, 50.0))
+                for s, d in per_seg.items()}
+    contrib_sum = sum(contribs.values()) or 1.0
+    segments = [{"segment": s,
+                 "count": len(per_seg[s]),
+                 "p50_ms": round(_pctile(per_seg[s], 50.0) * 1000.0, 3),
+                 "p99_ms": round(_pctile(per_seg[s], 99.0) * 1000.0, 3),
+                 "excess_ms": round(c * 1000.0, 3),
+                 "share": round(c / contrib_sum, 4)}
+                for s, c in sorted(contribs.items(),
+                                   key=lambda kv: kv[1], reverse=True)]
+    reconciled = worst_err <= tolerance
+    doc = {"requests": len(records),
+           "p50_ms": round(p50_tot * 1000.0, 3),
+           "p99_ms": round(p99_tot * 1000.0, 3),
+           "excess_ms": round(excess * 1000.0, 3),
+           "dominant": segments[0]["segment"] if segments else None,
+           "segments": segments,
+           "reconcile": {"worst_err": round(worst_err, 6),
+                         "tolerance": tolerance, "ok": reconciled}}
+    if as_json:
+        print(json.dumps(doc, default=str))
+    else:
+        print(f"{doc['requests']} requests: p50 {doc['p50_ms']}ms, "
+              f"p99 {doc['p99_ms']}ms, excess {doc['excess_ms']}ms")
+        for s in segments:
+            print(f"  {s['segment']:<16} n={s['count']:<5} "
+                  f"p50={s['p50_ms']:>9.3f}ms p99={s['p99_ms']:>9.3f}ms "
+                  f"excess={s['excess_ms']:>9.3f}ms share={s['share']:.0%}")
+        print(f"hop-sum reconciliation: worst_err="
+              f"{doc['reconcile']['worst_err']:.4f} "
+              f"({'ok' if reconciled else 'FAIL'} at tol {tolerance})")
+    if check and not reconciled:
+        print(f"hop sums do not reconcile with end-to-end latency "
+              f"(worst_err {worst_err:.4f} > {tolerance})", file=sys.stderr)
+        return 1
+    return 0
+
+
+def cmd_serving(log_dir: str, n: int, as_json: bool) -> int:
+    """Render the last N serving/ts rollup rows."""
+    rows = [r for r in journal_mod.read_dir(log_dir)
+            if r.get("kind") == "serving" and r.get("name") == "ts"]
+    if not rows:
+        print(f"no serving/ts records under {log_dir} (is a gateway "
+              f"journaling?)", file=sys.stderr)
+        return 1
+    rows = rows[-n:]
+    if as_json:
+        for r in rows:
+            print(json.dumps(r, default=str))
+        return 0
+    for r in rows:
+        breakers = r.get("breakers") or {}
+        open_n = r.get("breakers_open", 0)
+        print(f"bucket {r.get('bucket')}  qps={r.get('qps')} "
+              f"p50={r.get('p50_ms')}ms p99={r.get('p99_ms')}ms "
+              f"shed_rate={r.get('shed_rate')} ok={r.get('ok')} "
+              f"shed={r.get('shed')} err={r.get('errors')} "
+              f"queue={r.get('queue_depth')} inflight={r.get('inflight')} "
+              f"breakers={len(breakers)} ({open_n} open)")
+    return 0
+
+
 def _decision_line(tag: str, r: Dict[str, Any]) -> str:
     if tag == "route":
         return (f"route={r.get('route')} job={r.get('job_id')} k={r.get('k')} "
@@ -577,6 +777,19 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="where to replay (default: the CUDA card; 'cpu' on request)")
     sp.add_argument("--json", action="store_true", default=argparse.SUPPRESS,
                     help="the verdict as one JSON document")
+    sp = sub.add_parser("waterfall",
+                        help="per-hop serving waterfall for one trace")
+    sp.add_argument("trace_id")
+    sp = sub.add_parser("tails",
+                        help="p99-over-p50 excess by serving hop")
+    sp.add_argument("--check", action="store_true",
+                    help="exit 1 unless hop sums reconcile with "
+                         "end-to-end latency")
+    sp.add_argument("--tolerance", type=float, default=0.10,
+                    help="reconciliation tolerance (default 0.10)")
+    sp = sub.add_parser("serving",
+                        help="continuous serving time-series rows")
+    sp.add_argument("-n", type=int, default=32)
     sub.add_parser("shard", help="sharded-group width history: plans, "
                                  "formations, member losses, reshard restores")
     sp = sub.add_parser("decisions",
@@ -606,6 +819,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         return cmd_health(log_dir, args.json)
     if args.cmd == "curves":
         return cmd_curves(log_dir, args.trial, args.json, args.predicted)
+    if args.cmd == "waterfall":
+        return cmd_waterfall(log_dir, args.trace_id, args.json)
+    if args.cmd == "tails":
+        return cmd_tails(log_dir, args.json, args.check, args.tolerance)
+    if args.cmd == "serving":
+        return cmd_serving(log_dir, args.n, args.json)
     if args.cmd == "shard":
         return cmd_shard(log_dir, args.json)
     if args.cmd == "decisions":

@@ -15,8 +15,15 @@ one), so its bus envelopes and the workers' spans stitch to it; each
 gather journals its quorum decision (``gather/predictor.gather``) and
 ticks the SLO engine, as in the JAX package.
 
-Not in the port yet: the tenancy program tag (``wrap_query``) and the
-hop marks.
+Hop chains (``obs/anatomy/hops.py``): the gather's quorum decision
+closes every chain a reply carried with a ``dec`` mark. A per-query
+fan-out folds its chains through ``hops.absorb`` (segment histograms,
+the fan-out cost, a ``serving/hops`` record and an exemplar offer); a
+microbatched fan-out returns its chains and the ``dec`` mark, and the
+gateway absorbs them per member under that member's trace.
+
+Not in the port: the tenancy program tag (``wrap_query``, ROADMAP Queue
+1 item 14).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Any, Dict, List, Optional
 
 from rafiki_tpu_torch import telemetry
 from rafiki_tpu_torch.obs import context as trace_context
+from rafiki_tpu_torch.obs.anatomy import hops as _hops
 from rafiki_tpu_torch.obs.journal import journal as _journal
 from rafiki_tpu_torch.obs.perf import slo as _slo
 from rafiki_tpu_torch.predictor.ensemble import ensemble_predictions
@@ -61,8 +69,7 @@ class GatherReport:
 @dataclasses.dataclass
 class BatchGatherReport(GatherReport):
     """A :class:`GatherReport` for one microbatched fan-out, plus the
-    raw hop chains replies carried (empty until the hop plane is
-    ported)."""
+    raw hop chains replies carried and the gather's ``dec`` mark."""
 
     chains: Dict[str, List[Any]] = dataclasses.field(default_factory=dict)
     dec_mark: Optional[List[Any]] = None
@@ -169,6 +176,14 @@ class Predictor:
                 qid, n=len(workers), timeout=remaining,
                 min_n=quorum, grace_s=grace)
             telemetry.observe("predictor.gather_quorum_s", time.monotonic() - t_q)
+            # The quorum decision closes every hop chain. Replies are
+            # (worker, pred) or (worker, pred, hops): index, don't
+            # destructure.
+            dec = _hops.mark("dec")
+            chains = {item[0]: list(item[2]) + [dec]
+                      for item in preds if len(item) > 2 and item[2]}
+            if chains:
+                _hops.absorb(qid, chains)
             for item in preds:
                 replies[item[0]] = replies.get(item[0], 0) + 1
             if not preds:
@@ -227,6 +242,7 @@ class Predictor:
             qid, n=len(workers), timeout=timeout_s,
             min_n=quorum, grace_s=grace)
         telemetry.observe("predictor.gather_quorum_s", time.monotonic() - t_gather)
+        dec = _hops.mark("dec")
         chains = {item[0]: list(item[2])
                   for item in preds if len(item) > 2 and item[2]}
         # Only well-formed replies (a per-query list of length n) can
@@ -256,7 +272,7 @@ class Predictor:
         return BatchGatherReport(outputs=out, workers=list(workers),
                                  quorum=quorum, replies=replies,
                                  timeouts=timeouts, hedged=hedged,
-                                 elapsed_s=elapsed, chains=chains)
+                                 elapsed_s=elapsed, chains=chains, dec_mark=dec)
 
 
 def default_quorum(k: int) -> int:

@@ -2,7 +2,9 @@
 
 Counterpart of ``rafiki_tpu/worker``: workers run in a thread
 (``LocalScheduler``) or as a subprocess pinned to its device
-(``ProcessScheduler``, ``python -m rafiki_tpu_torch.worker.main``).
+(``ProcessScheduler``, ``python -m rafiki_tpu_torch.worker.main``); an
+inference worker runs in a thread or as its own process
+(``worker/inference.py run_inference_worker_process``).
 """
 
 from rafiki_tpu_torch.worker.inference import InferenceWorker

@@ -23,8 +23,19 @@ Each forward passes the ``inference.forward`` chaos site, keyed by the
 worker id (a ``delay`` is a stuck replica whose lease stays fresh; an
 ``error`` a failing forward, answered as one).
 
-Not in the port yet: the process entrypoint, co-hosted job ids, and
-the hop marks.
+Hop chains (``obs/anatomy/hops.py``): a traced envelope's marks are
+continued with this worker's leg: ``deq`` once per popped batch, ``fwds``
+before the chaos hook (an injected delay lands inside the forward hop),
+``fwd`` once ``predict`` has returned host lists (so the device has
+finished), or ``fwdc`` on the worker's first forward (cuDNN's algorithm
+choice and CUDA's lazy start, kept out of the warm percentiles), and
+``reply`` per chain, which goes back through ``put_prediction(hops=)``.
+
+``run_inference_worker_process`` is the worker as its own process (a
+spawn target over ``make_mp_bus``): it rebuilds its trial from the
+stores and serves on the card until killed.
+
+Not in the port: co-hosted job ids (tenancy, ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ from typing import Any, List, Optional
 
 from rafiki_tpu_torch import chaos, telemetry
 from rafiki_tpu_torch.obs import context as trace_context
+from rafiki_tpu_torch.obs.anatomy import hops as _hops
 from rafiki_tpu_torch.obs.journal import journal as _journal
 from rafiki_tpu_torch.predictor.predictor import BATCH_KEY
 
@@ -53,6 +65,9 @@ class InferenceWorker:
         # Set only after the serve loop exited AND the bus registration
         # is gone: every popped query has had its prediction published.
         self.drained = threading.Event()
+        # The first successful forward pays the cold start; its chains
+        # end the forward with fwdc, not fwd.
+        self._warm = False
 
     def stop(self) -> None:
         self._stop.set()
@@ -62,7 +77,10 @@ class InferenceWorker:
         forward (the first one pays cuDNN's algorithm choice) cannot
         starve the lease."""
         while not self._stop.wait(self.HEARTBEAT_S):
-            self.bus.heartbeat(self.job_id, self.worker_id)
+            try:
+                self.bus.heartbeat(self.job_id, self.worker_id)
+            except Exception:  # the bus's manager torn down: exit quietly
+                return
 
     def run(self) -> None:
         self.bus.add_worker(self.job_id, self.worker_id)
@@ -89,6 +107,11 @@ class InferenceWorker:
                 _journal.record("bus", "pop_query", query_id=qid, worker_id=self.worker_id,
                                 trace_id=tr.get("trace_id"), parent_span=tr.get("parent_span"))
         lead = next((t for t in traces if t), None)
+        # Batch-shared marks (deq, fwds, the forward's end) are stamped
+        # once and appended to every traced chain of the batch.
+        deq = _hops.mark("deq")
+        chains = [list(tr["hops"]) + [deq] if tr and tr.get("hops") else None
+                  for tr in traces]
         bind = (trace_context.trace(lead.get("trace_id")) if lead
                 else contextlib.nullcontext())
         flat: List[Any] = []
@@ -102,14 +125,63 @@ class InferenceWorker:
             else:
                 spans.append((len(flat), 1, False))
                 flat.append(q)
+        fwds = _hops.mark("fwds")
+        was_cold = not self._warm
         try:
             chaos.hook("inference.forward", self.worker_id)
             with bind, telemetry.span("inference.forward", worker_id=self.worker_id):
-                flat_preds = self.model.predict(flat)
+                flat_preds = self.model.predict(flat)  # host lists: the card is done
             telemetry.inc("inference.queries_served", len(flat))
+            self._warm = True
         except Exception as e:  # a bad query batch must not kill the worker
             telemetry.inc("inference.batch_errors")
             flat_preds = [{"error": str(e)}] * len(flat)
-        for qid, (off, n, is_batch) in zip(qids, spans):
+        fwd_end = _hops.mark("fwdc" if was_cold else "fwd")
+        for qid, (off, n, is_batch), chain in zip(qids, spans, chains):
             pred = list(flat_preds[off:off + n]) if is_batch else flat_preds[off]
-            self.bus.put_prediction(qid, self.worker_id, pred)
+            if chain is None:
+                self.bus.put_prediction(qid, self.worker_id, pred)
+            else:
+                chain += [fwds, fwd_end, _hops.mark("reply")]
+                self.bus.put_prediction(qid, self.worker_id, pred, hops=chain)
+
+
+def run_inference_worker_process(bus, meta_path: str, params_path: str,
+                                 trial_id: str, job_id: str, worker_id: str,
+                                 batch_size: int = 64) -> None:
+    """Entry point of an inference worker as its OWN process (a spawn
+    target; the mp bus pickles across). Rebuilds the trial's model from
+    the stores (class bytes, knobs, trained params), then serves until
+    killed: the deployment shape the reference gets from one container
+    per trial, and the unit the serve-path elasticity tests SIGKILL.
+
+    The device is the card, as for ``worker/main.py``, unless
+    ``RAFIKI_WORKER_DEVICE=cpu``; without CUDA it raises (no CPU
+    fallback). The journal and trace come from the environment
+    (``RAFIKI_LOG_DIR``, ``RAFIKI_TRACE_ID``), with the flight recorder."""
+    import os
+
+    import torch
+
+    from rafiki_tpu_torch import obs
+    from rafiki_tpu_torch.model.base import load_model_class
+    from rafiki_tpu_torch.store import MetaStore, ParamsStore
+    from rafiki_tpu_torch.utils.backend import default_device, local_devices
+
+    if obs.configure_from_env(role="infer"):
+        obs.recorder.install()
+    if os.environ.get("RAFIKI_WORKER_DEVICE", "").strip().lower() == "cpu":
+        device = local_devices("cpu")[0]
+    else:
+        device = local_devices()[0]  # raises without CUDA: no CPU fallback
+        torch.cuda.set_device(device)
+    store = MetaStore(meta_path)
+    trial = store.get_trial(trial_id)
+    sub = store.get_sub_train_job(trial["sub_train_job_id"])
+    model_row = store.get_model(sub["model_id"])
+    cls = load_model_class(model_row["model_file"], model_row["model_class"])
+    with default_device(device):  # templates build on the thread's device
+        model = cls(**trial["knobs"])
+        if trial.get("params_id"):
+            model.load_parameters(ParamsStore(params_path).load(trial["params_id"]))
+        InferenceWorker(bus, job_id, worker_id, model, batch_size=batch_size).run()

@@ -5,7 +5,8 @@ Every name in the ``__all__`` of the reference's ``model``, ``models``,
 and ``shard`` packages
 imports from the port's package of the same name (``JaxModel`` read as
 ``TorchModel``), but for the names of modules not ported yet, listed in
-``UNPORTED`` with their ROADMAP item. Then the class-level gaps:
+``UNPORTED`` with their ROADMAP item (none since the multiprocessing
+bus). Then the class-level gaps:
 ``Dataset.split`` draws the reference's permutation,
 ``parse_model_install_command`` reports the same names, the loop has
 ``hyper``, and a template overriding ``make_optimizer`` trains in both
@@ -32,10 +33,8 @@ torch.set_num_threads(2)
 PACKAGES = ("model", "models", "ops", "parallel", "bus", "predictor", "worker", "scheduler",
             "shard")
 RENAMED = {"JaxModel": "TorchModel"}
-UNPORTED = {
-    # ROADMAP Queue 1 item 13: the multiprocessing bus.
-    "make_mp_bus": 13,
-}
+#: Names of the reference's exports the port does not have yet: none.
+UNPORTED = {}
 
 
 @pytest.mark.parametrize("package", PACKAGES)

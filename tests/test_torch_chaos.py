@@ -65,9 +65,11 @@ def test_the_catalogs_have_nineteen_and_six_scenarios():
     """Nineteen in the JAX package; in the port the six in-process ones,
     the three that SIGKILL ProcessScheduler workers, and, since the mesh
     sweep, its three in-process scenarios and the two that SIGKILL the
-    sweep's supervisor process, and, since the search plane,
-    ``early-kill-mid-pack-resume``: fifteen, each with the JAX package's
-    spec, description and env."""
+    sweep's supervisor process, since the search plane,
+    ``early-kill-mid-pack-resume``, and, since the multiprocessing bus,
+    ``stacked-worker-loss-fallback``, which SIGKILLs a spawned inference
+    worker: sixteen, each with the JAX package's spec, description and
+    env."""
     assert len(JAX_SCENARIOS) == 19
     assert set(SCENARIOS) == {"checkpoint-write-failure", "straggler-quorum", "drain-under-load",
                               "predictor-outage-surfaces", "pack-straggler-evict",
@@ -76,8 +78,9 @@ def test_the_catalogs_have_nineteen_and_six_scenarios():
                               "mesh-degrades-single-chip"} | SUBPROCESS_SCENARIOS
     assert SUBPROCESS_SCENARIOS == {"kill-mid-trial-resume", "kill-mid-pack-resume",
                                     "collective-kill-mid-step", "supervisor-kill-mid-sweep",
-                                    "host-loss-mid-sweep", "early-kill-mid-pack-resume"}
-    assert len(SCENARIOS) == 15
+                                    "host-loss-mid-sweep", "early-kill-mid-pack-resume",
+                                    "stacked-worker-loss-fallback"}
+    assert len(SCENARIOS) == 16
     for name, sc in SCENARIOS.items():
         jsc = JAX_SCENARIOS[name]
         assert (sc.spec, sc.description, sc.env) == (jsc.spec, jsc.description, jsc.env), name

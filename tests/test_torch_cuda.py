@@ -819,3 +819,77 @@ def test_card_pack_kill_leaves_the_survivor_its_serial_run(cuda):
     assert set(got) == set(want)
     for k in want:
         assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+
+
+def test_card_process_route_equals_the_in_process_route(cuda, tmp_path):
+    """k=2 trials served by ``run_inference_worker_process`` children on
+    the card over the multiprocessing bus, and by thread workers over
+    ``InProcBus``: one microbatch envelope each (one forward per worker
+    over the same batch), the same kernels on the same card, so the
+    ensembles are equal bit for bit."""
+    import multiprocessing as mp
+
+    from rafiki_tpu_torch.bus import InProcBus, make_mp_bus
+    from rafiki_tpu_torch.model.base import load_model_class
+    from rafiki_tpu_torch.predictor.predictor import Predictor
+    from rafiki_tpu_torch.store import MetaStore, ParamsStore
+    from rafiki_tpu_torch.worker.inference import InferenceWorker, run_inference_worker_process
+
+    src = b"from rafiki_tpu_torch.models.vgg import Vgg\n\n\nclass CardVgg(Vgg):\n    pass\n"
+    store, params = MetaStore(tmp_path / "m.sqlite3"), ParamsStore(tmp_path / "p")
+    model = store.create_model("vgg", "IMAGE_CLASSIFICATION", None, src, "CardVgg")
+    job = store.create_train_job("app", "IMAGE_CLASSIFICATION", None, "x", "y",
+                                 {"MODEL_TRIAL_COUNT": 2})
+    sub = store.create_sub_train_job(job["id"], model["id"])
+    trials = []
+    for m in _models("cpu")[:2]:
+        t = store.create_trial(sub["id"], "vgg", SMALL)
+        store.mark_trial_as_completed(t["id"], 0.5, params.save(m.dump_parameters()))
+        trials.append(store.get_trial(t["id"]))
+    queries = np.random.default_rng(2).uniform(0, 1, size=(9, 32, 32, 3)).astype(np.float32)
+    queries = queries.tolist()
+
+    def gather(bus, n):
+        deadline = time.monotonic() + 120
+        while len(bus.get_workers("job")) < n:
+            assert time.monotonic() < deadline, "workers never registered"
+            time.sleep(0.05)
+        report = Predictor(bus, "job", timeout_s=120).predict_batch_detailed(queries)
+        assert report.timeouts == 0 and report.hedged == 0 and len(report.replies) == n
+        return np.asarray(report.outputs)
+
+    cls = load_model_class(src, "CardVgg")
+    models = []
+    for t in trials:
+        m = cls(device=cuda, **t["knobs"])
+        m.load_parameters(params.load(t["params_id"]))
+        models.append(m)
+    bus = InProcBus()
+    workers = [InferenceWorker(bus, "job", f"t{i}", m) for i, m in enumerate(models)]
+    threads = [threading.Thread(target=w.run, daemon=True) for w in workers]
+    for th in threads:
+        th.start()
+    try:
+        in_process = gather(bus, 2)
+    finally:
+        for w in workers:
+            w.stop()
+        for th in threads:
+            th.join(timeout=30)
+    mp_bus = make_mp_bus()
+    procs = []
+    try:
+        for i, t in enumerate(trials):
+            procs.append(mp.get_context("spawn").Process(
+                target=run_inference_worker_process,
+                args=(mp_bus, str(tmp_path / "m.sqlite3"), str(tmp_path / "p"), t["id"], "job",
+                      f"p{i}"), daemon=True))
+            procs[-1].start()
+        process = gather(mp_bus, 2)
+    finally:
+        for p in procs:
+            p.kill()
+            p.join(10)
+        mp_bus.close()
+    assert process.shape == (9, 10) and np.isfinite(process).all()
+    assert np.array_equal(process, in_process)

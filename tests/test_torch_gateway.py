@@ -29,6 +29,7 @@ from werkzeug.serving import make_server
 from rafiki_tpu import gateway as jax_gateway
 from rafiki_tpu import telemetry as jax_telemetry
 from rafiki_tpu.bus import InProcBus as JaxBus
+from rafiki_tpu.ops import train as _jax_ops_train  # noqa: F401 (see below)
 from rafiki_tpu.predictor import Predictor as JaxPredictor
 from rafiki_tpu.predictor.app import PredictorApp as JaxPredictorApp
 from rafiki_tpu.worker.inference import InferenceWorker as JaxWorker
@@ -50,9 +51,9 @@ PACKAGES = {
     "port": types.SimpleNamespace(gw=port_gateway, telemetry=port_telemetry, bus=InProcBus,
                                   worker=InferenceWorker, predictor=Predictor),
 }
-#: Telemetry collectors of planes the port does not have: the JAX
-#: gateway's per-second serving rollup.
-DROPPED_COLLECTORS = {"serving"}
+#: Telemetry collectors of planes the port does not have: none (the
+#: gateway's per-second serving rollup is compared too).
+DROPPED_COLLECTORS = set()
 
 
 def both(scenario):
@@ -250,10 +251,7 @@ class _Collector:
 
 
 def _submit(pkg, b, queries, deadline_s=5.0):
-    deadline = time.monotonic() + deadline_s
-    if pkg is PACKAGES["jax"]:
-        return b.submit(queries, deadline, prefix=[])
-    return b.submit(queries, deadline)
+    return b.submit(queries, time.monotonic() + deadline_s, prefix=[])
 
 
 def _microbatch_trace(pkg):
@@ -491,18 +489,24 @@ def test_stats_and_metrics_keys_alike():
         stats = gw.stats()
         snap = pkg.telemetry.snapshot()
         return ((set(stats), set(stats["limits"]), set(stats["breakers"]["w0"]),
-                 set(gw.sensors()), set(snap["gateway"]),
+                 set(gw.sensors()), set(snap["gateway"]), set(snap["serving"]),
+                 set(snap["serving_exemplars"]),
                  sorted(k for k in snap["counters"] if k.startswith("gateway."))),
                 set(snap))
 
     got = both(keys)
     assert got["port"][0] == got["jax"][0]
     # The port's snapshot: the registry, the spans, the gateway collector,
-    # the program cache's, the observability plane's (perf, slo and the
-    # goodput ledger) and the search ledger's. The JAX package's has those,
-    # the gateway's rollup, and the collectors of its other planes.
+    # (The JAX package's program-cache collector registers when its
+    # ``ops.train`` is imported, as the port's does through its worker:
+    # this module imports it, so the comparison holds whatever ran first.)
+    # the gateway's serving rollup and the exemplar ring, the program
+    # cache's, the observability plane's (perf, slo and the goodput
+    # ledger) and the search ledger's. The JAX package's has those and the
+    # collectors of its other planes.
     assert got["port"][1] == {"counters", "gauges", "histograms", "spans", "ts", "gateway",
-                              "program_cache", "perf", "slo", "goodput", "search"}
+                              "serving", "serving_exemplars", "program_cache", "perf", "slo",
+                              "goodput", "search"}
     assert got["jax"][1] >= got["port"][1] | DROPPED_COLLECTORS
 
 

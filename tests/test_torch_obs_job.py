@@ -19,6 +19,7 @@ import torch
 from rafiki_tpu.bus import InProcBus as JaxBus
 from rafiki_tpu.gateway import Gateway as JaxGateway
 from rafiki_tpu.model.base import load_model_class as jax_load_model_class
+from rafiki_tpu.obs.anatomy import exemplars as jax_exemplars
 from rafiki_tpu.obs.journal import journal as jax_journal
 from rafiki_tpu.obs.journal import read_dir as jax_read_dir
 from rafiki_tpu.obs.perf import profiler as jax_profiler
@@ -31,6 +32,7 @@ from rafiki_tpu.worker.inference import InferenceWorker as JaxInferenceWorker
 from rafiki_tpu_torch.bus import InProcBus
 from rafiki_tpu_torch.gateway import Gateway
 from rafiki_tpu_torch.model.base import load_model_class
+from rafiki_tpu_torch.obs.anatomy import exemplars
 from rafiki_tpu_torch.obs.journal import journal, read_dir
 from rafiki_tpu_torch.obs.perf import profiler, slo
 from rafiki_tpu_torch.ops.train import clear_program_cache
@@ -48,31 +50,35 @@ torch.set_num_threads(2)
 #: the peak they give (the MFU denominator, read back by the CLI).
 PORT_ONLY_FIELDS = {("perf", "step"): {"steps"},
                     ("perf", "cost"): {"device", "dtype", "peak_flops"}}
-#: Pairs of planes the port does not have (the JAX package's hop anatomy
-#: and serving rollup), left out of the comparison.
+#: Pairs of planes the port does not have, left out of the comparison:
+#: none (the hop anatomy and the serving rollup are compared too).
 JAX_ONLY_KINDS = set()
-JAX_ONLY_PAIRS = {("serving", "hops"), ("serving", "exemplar"), ("serving", "ts")}
+JAX_ONLY_PAIRS = set()
 
 
-def _run(pkg, sources, tmp_path):
+def _run(pkg, sources, tmp_path, monkeypatch):
     """The job and the served query in one package; its journal records."""
     if pkg == "jax":
         store_cls, params_cls, sched, bus_cls, worker_cls, pred_cls, gw_cls, load, j, devices = (
             JaxMetaStore, JaxParamsStore, JaxLocalScheduler, JaxBus, JaxInferenceWorker,
             JaxPredictor, JaxGateway, jax_load_model_class, jax_journal, jax.devices("cpu")[:1])
         profiler_mod, slo_mod, clear_cache = jax_profiler, jax_slo, jax_clear_program_cache
+        exemplars_mod = jax_exemplars
     else:
         store_cls, params_cls, sched, bus_cls, worker_cls, pred_cls, gw_cls, load, j, devices = (
             MetaStore, ParamsStore, LocalScheduler, InProcBus, InferenceWorker, Predictor,
             Gateway, load_model_class, journal, CPU)
         profiler_mod, slo_mod, clear_cache = profiler, slo, clear_program_cache
+        exemplars_mod = exemplars
     # A cold program cache, whatever ran before on this process (another
     # test's job of the same template would skip the build and its
-    # program.build span), and every hot-path tick evaluates, so both
-    # journals get slo/state.
+    # program.build span), every hot-path tick evaluates, so both
+    # journals get slo/state, and an empty exemplar ring (another test's
+    # requests would roll its window into this journal).
     clear_cache()
     profiler_mod.reset()
     slo_mod.configure(tick_s=0.0)
+    monkeypatch.setattr(exemplars_mod, "ring", exemplars_mod.ExemplarRing())
     d = tmp_path / pkg
     j.configure(d / "journal", role="job")
     try:
@@ -95,6 +101,8 @@ def _run(pkg, sources, tmp_path):
             while not bus.get_workers("job") and time.monotonic() - t0 < 30:
                 time.sleep(0.01)
             out = gateway.predict([[[[0.5]] * 8] * 8])
+            gateway.rollup.flush()  # serving/ts
+            exemplars_mod.ring.flush()  # serving/exemplar
         finally:
             gateway.drain(1.0)
             stop.set()
@@ -115,9 +123,10 @@ def _shape(records):
     return out
 
 
-def test_the_same_job_and_query_write_the_same_journal(sources, tmp_path):  # noqa: F811
-    got = _shape(_run("port", sources, tmp_path))
-    want = _shape(_run("jax", sources, tmp_path))
+def test_the_same_job_and_query_write_the_same_journal(sources, tmp_path,  # noqa: F811
+                                                        monkeypatch):
+    got = _shape(_run("port", sources, tmp_path, monkeypatch))
+    want = _shape(_run("jax", sources, tmp_path, monkeypatch))
     want = {p: f for p, f in want.items()
             if p[0] not in JAX_ONLY_KINDS and p not in JAX_ONLY_PAIRS}
     assert set(got) == set(want), (sorted(set(got) - set(want)), sorted(set(want) - set(got)))
@@ -128,5 +137,6 @@ def test_the_same_job_and_query_write_the_same_journal(sources, tmp_path):  # no
                  ("perf", "cost"), ("perf", "step"), ("trial", "epoch_eval"),
                  ("gateway", "config"), ("serving", "request"), ("bus", "add_query"),
                  ("bus", "pop_query"), ("gather", "predictor.gather"),
-                 ("span", "inference.forward"), ("slo", "state")]:
+                 ("span", "inference.forward"), ("slo", "state"), ("serving", "hops"),
+                 ("serving", "exemplar"), ("serving", "ts")]:
         assert pair in got, pair
