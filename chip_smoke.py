@@ -13,6 +13,7 @@ CUDA card.
     python3 chip_smoke.py --search         # phase 23 alone: early kill, speculation, audit
     python3 chip_smoke.py --mesh-repack N  # phase 22 (b) alone, N times
     python3 chip_smoke.py --serve-proc     # phase 24 alone: serving across processes
+    python3 chip_smoke.py --tenancy [N]    # phase 25 alone: co-hosting, tenant isolation
 
 Drives ``rafiki_tpu_torch`` the way a user serves a top-k ensemble,
 the way a tuning job runs and the way a trial trains, at the full width
@@ -152,8 +153,8 @@ The rest of the model zoo:
  17. densenet_job: a ``BenchDenseNet`` template (DenseNet-BC depth 58,
      growth 24, the widest of its knob space; one epoch, tuning the
      learning rate and batch 64/128) uploaded as source, as a GP job of
-     DENSENET_TRIALS trials (its GP warmed up on DENSENET_ADVISOR's 2
-     proposals) through ``LocalScheduler.run_train_job`` on
+     DENSENET_TRIALS trials (DENSENET_ADVISOR's 2 warm-up proposals)
+     through ``LocalScheduler.run_train_job`` on
      the canonical task; its top-2 served through the stacked route
      against their stored scores (as 7); a k=2 pack of two DenseNet
      trials (``train_packed`` -> ``evaluate_packed``, one epoch of
@@ -360,6 +361,39 @@ a ``ParamsStore``, rows in a ``MetaStore``), the parent journaling:
      ``chaos/injected`` record with its pid); prints kill-to-fallback-
      serving seconds.
 
+Multi-tenant serving, random-weight VGG16 w1.0 trials (bf16 blobs)
+saved through ``make_params_store`` with ``RAFIKI_PARAMS_CAS=1``:
+
+ 25. tenancy: (a) four jobs of three trials each, J0 phase 1's, J1 and J2
+     their own, J3 J0's first two plus one of its own (so its CAS save
+     writes only its new trial's chunks), served by ONE worker through
+     ``ServicesManager.create_cohosted_inference_services`` under an HBM
+     budget of 2.5 times one job's charge (two jobs resident), gateways
+     microbatching so a 64-query request is one forward. Single-query
+     requests in the order TENANCY_ORDER, and one 64-query request on each
+     job's first. Fails unless each job's co-hosted predictions equal the
+     same job served alone through ``create_inference_services`` within
+     TENANCY_ATOL, the journal's ``tenancy/residency`` events equal the LRU
+     sequence computed here from the requests, no record's ``used_bytes``
+     exceeds the budget, every eviction lowers ``memory_allocated`` by at
+     least TENANCY_FREE_FRAC of what its activation raised it by (read
+     around each load inside the worker and between requests), J3's save
+     wrote exactly the chunks its new trial added, and each charge is the
+     blobs' logical bytes. Prints each job's charge against its
+     activation bytes, ``load_s`` per activation, the client p50 of hit
+     and miss requests and the store's ``dedup_ratio``. (b)
+     ``noisy-neighbor-shed`` on a real forward: phase 1's job through
+     ``create_inference_services(tenancy=TenantFabric(...))`` (gold
+     victim, batch aggressor, 2 inflight, 8 queued) and its HTTP
+     predictor, the scenario's 60 ms ``inference.forward`` delay on top of
+     the card's forward (the services manager has frozen the server's
+     heap, ``utils/heap.py``); after three warm-up requests, eight
+     threads of a client process flood ``POST /predict`` as the aggressor
+     (``X-Rafiki-Tenant``), then 25 victim requests go 20 ms apart.
+     Fails unless the scenario's six checks pass from the journal and
+     ``obs tenants --check`` exits 0, and unless the same run under
+     ``RAFIKI_TENANT_UNWEIGHTED=1`` fails ``victim_p99_within_budget``.
+
 Every training phase runs its epochs as captured CUDA graphs
 (``ops/graphs.py``). Each phase's line carries its seconds
 (``phase_s``) and the captured steps it replayed (``graph_replays``,
@@ -379,7 +413,8 @@ phases 17 and 18, ``--obs`` only phase 19, ``--chaos`` only phase 20
 (its clean-step check then holds the two runs of phase 20 to each
 other, with no phase 16 count to add), ``--process`` only phase 21,
 ``--mesh`` only phase 22, ``--search`` only phase 23, ``--serve-proc``
-only phase 24, ``--mesh-repack N``
+only phase 24, ``--tenancy [N]`` only phase 25 (its weighted
+isolation run N times over, 1 unless given), ``--mesh-repack N``
 phase 22 (b) N times over (two chips' threads sharing the card, to
 catch a capture that another thread's synchronize invalidates now and
 then). ``--resume-child`` is the
@@ -403,9 +438,10 @@ N_SINGLE = 64
 N_BURSTS = 8
 QUERY_SETS = 2
 # Steps (or forwards) a window is timed over with CUDA events, and then
-# profiled over: 10 since phase 24 needed the time (20 before; the
-# profiler's trace of an eager packed step is costly to read back).
-PROFILE_ITERS = 10
+# profiled over: 6 since phase 25 needed the time (20 until phase 24, 10
+# until phase 25; the profiler's trace of an eager packed step is costly
+# to read back).
+PROFILE_ITERS = 6
 INPUT_SHAPE = (32, 32, 3)
 NUM_CLASSES = 10
 KNOBS = dict(depth=16, width_mult=1.0, dropout=0.0, learning_rate=1e-3,
@@ -544,12 +580,11 @@ MB_GATEWAY = {"max_batch": 8, "max_batch_wait_ms": 5}
 
 # -- the rest of the zoo -------------------------------------------------------
 # Phase 17: DenseNet at the widest of its knob space (depth 58, growth
-# 24), tuning the learning rate and the batch size. Three trials (nine
-# until phase 22, five until phase 23 needed the time): the job's GP
-# proposes from expected improvement after DENSENET_ADVISOR's 2 warm-up
-# proposals (8 by default), so the third trial is an
-# expected-improvement proposal.
-DENSENET_TRIALS = 3
+# 24), tuning the learning rate and the batch size. Two trials (nine
+# until phase 22, five until phase 23, three until phase 25 needed the
+# time): both are DENSENET_ADVISOR's warm-up proposals (8 by default);
+# the GP's expected-improvement proposals are driven by phases 6 and 21.
+DENSENET_TRIALS = 2
 DENSENET_ADVISOR = {"n_initial": 2}
 DENSENET_SRC = b'''
 import torch
@@ -4761,6 +4796,431 @@ def serve_proc_phase(card, check, blobs=None) -> None:
                       "phase_s": time.monotonic() - t0}))
 
 
+# -- multi-tenant serving: co-hosting and tenant isolation ---------------------------
+# Phase 25. Each job is a stacked top-3; a job's charge is its blobs' bytes.
+TENANCY_SEEDS = {"J0": (0, 1, 2), "J1": (3, 4, 5), "J2": (6, 7, 8), "J3": (0, 1, 9)}
+TENANCY_ORDER = ["J0", "J1", "J0", "J1", "J2", "J0", "J3", "J3", "J1", "J0", "J2", "J2"]
+#: Budget over one job's charge: two jobs resident, never three.
+TENANCY_BUDGET_JOBS = 2.5
+# A job co-hosted and the same job served alone run the same stacked
+# forward on the same padded chunk of 64 on one card.
+TENANCY_ATOL = 1e-5
+#: An eviction gives back at least this share of its activation's bytes.
+TENANCY_FREE_FRAC = 0.9
+TENANCY_SRC = b"from rafiki_tpu_torch.models.vgg import Vgg\n\n\nclass TenantVgg(Vgg):\n    pass\n"
+#: One forward a request, one residency event: the gateway's microbatch
+#: makes a 64-query request one bus envelope.
+TENANCY_GATEWAY = {"max_batch": BATCH, "max_batch_wait_ms": 2.0}
+TENANCY_ISOLATION_GATEWAY = {"min_replies": 1, "max_inflight": 2, "max_queue": 8}
+
+
+def _lru_events(requests, capacity):
+    """The residency manager's (event, job) sequence for ``requests``,
+    computed here: a hit refreshes, a miss evicts the least recently
+    used job until one fits (every job charges about the same)."""
+    resident, events = [], []
+    for job in requests:
+        if job in resident:
+            resident.remove(job)
+            events.append(("hit", job))
+        else:
+            while len(resident) >= capacity:
+                events.append(("evict", resident.pop(0)))
+            events.append(("activate", job))
+        resident.append(job)
+    return events
+
+
+def _chunk_ids(blob: bytes, chunk_bytes: int) -> set:
+    import hashlib
+
+    return {hashlib.sha256(blob[o:o + chunk_bytes]).hexdigest()
+            for o in range(0, len(blob), chunk_bytes)}
+
+
+def _tenancy_store(tmp, blobs):
+    """The CAS params store with the four jobs' blobs, each job saving
+    its own three, and a meta store with their trial rows. Returns
+    (store, params, train job, trials by job, CAS readings)."""
+    import os
+
+    from rafiki_tpu_torch import telemetry
+    from rafiki_tpu_torch.store import CasParamsStore, MetaStore, make_params_store
+
+    prev = os.environ.get("RAFIKI_PARAMS_CAS")
+    os.environ["RAFIKI_PARAMS_CAS"] = "1"
+    try:
+        params = make_params_store(tmp / "params")
+    finally:
+        if prev is None:
+            os.environ.pop("RAFIKI_PARAMS_CAS")
+        else:
+            os.environ["RAFIKI_PARAMS_CAS"] = prev
+    if not isinstance(params, CasParamsStore):
+        fail(f"tenancy: RAFIKI_PARAMS_CAS=1 gave {type(params).__name__}")
+    store = MetaStore(tmp / "meta.sqlite3")
+    model = store.create_model("vgg", "IMAGE_CLASSIFICATION", None, TENANCY_SRC, "TenantVgg")
+    tj = store.create_train_job("app", "IMAGE_CLASSIFICATION", None, "x", "y", {})
+    sub = store.create_sub_train_job(tj["id"], model["id"])
+    trials, cas = {}, {}
+    for job, seeds in TENANCY_SEEDS.items():
+        present = {p.name for p in (tmp / "params" / "chunks").iterdir()}
+        new_chunks = set().union(*(_chunk_ids(blobs[s], params.stats()["chunk_bytes"])
+                                   for s in seeds)) - present
+        before = params.stats()
+        writes0 = telemetry.get_counter("cas.chunk_writes")
+        rows = []
+        for i, s in enumerate(seeds):
+            t = store.create_trial(sub["id"], "vgg", KNOBS)
+            store.mark_trial_as_completed(t["id"], 0.5, params.save(blobs[s], f"{job}-t{i}"))
+            rows.append(store.get_trial(t["id"]))
+        trials[job] = rows
+        after = params.stats()
+        logical = after["bytes_logical"] - before["bytes_logical"]
+        written = after["bytes_written"] - before["bytes_written"]
+        cas[job] = {"chunk_writes": telemetry.get_counter("cas.chunk_writes") - writes0,
+                    "new_chunks": len(new_chunks), "bytes_logical": logical,
+                    "bytes_written": written, "dedup_ratio": 1.0 - written / logical}
+    cas["store"] = params.stats()
+    return store, params, tj, trials, cas
+
+
+def tenancy_cohost(card, tmp, store, params, tj, trials):
+    """Phase 25 (a): the four jobs co-hosted on one worker, then each
+    alone. Returns the phase's line."""
+    import torch
+
+    from rafiki_tpu_torch.admin.services_manager import ServicesManager
+    from rafiki_tpu_torch.obs.journal import journal, read_dir
+
+    t0 = time.monotonic()
+    log_dir = tmp / "obs-cohost"
+    journal.configure(log_dir, role="tenancy")
+    mgr = ServicesManager(store, params)
+    charges = {j: max(sum(params.size(t["params_id"]) for t in rows), 1 << 20)
+               for j, rows in trials.items()}
+    blob_bytes = {j: sum(len(params.load(t["params_id"])) for t in rows)
+                  for j, rows in trials.items()}
+    budget = int(TENANCY_BUDGET_JOBS * charges["J0"])
+    jobs = {j: store.create_inference_job(tj["id"], None)["id"] for j in trials}
+    back = {v: k for k, v in jobs.items()}
+    x = queries_for(25)
+    one, full = x[:1].tolist(), x.tolist()
+    torch.cuda.synchronize()
+    mgr.create_cohosted_inference_services({jobs[j]: rows for j, rows in trials.items()},
+                                           gateway_overrides=TENANCY_GATEWAY,
+                                           hbm_budget_bytes=budget)
+    host = mgr._inference_jobs[jobs["J0"]].workers[0].model
+    loads = []  # (job, allocated before the load, after it), in the worker
+
+    def measured(job, loader):
+        def load():
+            before = torch.cuda.memory_allocated()
+            program = loader()
+            loads.append((job, before, torch.cuda.memory_allocated()))
+            return program
+        return load
+
+    for spec in host._specs.values():
+        spec.loader = measured(back[spec.program_id], spec.loader)
+    requests, cohosted, lat = [], {}, {"hit": [], "miss": []}
+    evictions, last_act, resident = [], {}, []
+    try:
+        for j in TENANCY_ORDER:
+            for q, tag in ((one, "1q"), (full, "64q")):
+                if tag == "64q" and f"{j}/64q" in cohosted:
+                    continue  # one 64-query request a job, on its first visit
+                miss = j not in resident
+                evicted = []
+                if miss:
+                    while len(resident) >= 2:
+                        evicted.append(resident.pop(0))
+                else:
+                    resident.remove(j)
+                resident.append(j)
+                requests.append(j)
+                n_loads = len(loads)
+                torch.cuda.synchronize()
+                quiet = torch.cuda.memory_allocated()  # the worker is idle
+                t = time.monotonic()
+                cohosted[f"{j}/{tag}"] = mgr.get_gateway(jobs[j]).predict(q)
+                dt = time.monotonic() - t
+                if tag == "1q":
+                    lat["miss" if miss else "hit"].append(dt)
+                if evicted and len(loads) > n_loads:
+                    # The evictions ran before the load: what they freed is
+                    # the quiet reading less the reading the load began at.
+                    took = sum(last_act.get(e, 0) for e in evicted)
+                    free = quiet - loads[n_loads][1]
+                    evictions.append({"evicted": evicted, "freed_bytes": free,
+                                      "activation_bytes": took,
+                                      "frac": free / took if took else None})
+                for job, before, after in loads[n_loads:]:
+                    last_act[job] = after - before
+    finally:
+        for j in trials:
+            mgr.stop_inference_services(jobs[j])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    alone = {}
+    for j, rows in trials.items():
+        job = store.create_inference_job(tj["id"], None)["id"]
+        mgr.create_inference_services(job, rows, gateway_overrides=TENANCY_GATEWAY)
+        try:
+            alone[j] = {"1q": mgr.get_gateway(job).predict(one),
+                        "64q": mgr.get_gateway(job).predict(full)}
+        finally:
+            mgr.stop_inference_services(job)
+    mgr.stop_all()
+    journal.close()
+    res = [r for r in read_dir(log_dir)
+           if (r.get("kind"), r.get("name")) == ("tenancy", "residency")
+           and r.get("for_program") != "shutdown"]
+    errs = []
+    for j in trials:
+        for tag in ("1q", "64q"):
+            a = np.asarray(cohosted[f"{j}/{tag}"], np.float64)
+            b = np.asarray(alone[j][tag], np.float64)
+            if a.shape != b.shape or not np.isfinite(a).all():
+                fail(f"tenancy cohost: {j} {tag} outputs of shape {a.shape} against {b.shape}")
+            errs.append(float(np.abs(a - b).max()))
+    return {"phase": "tenancy_cohost", "card": card[1], "power_limit": card[2],
+            "budget_bytes": budget, "charges": charges, "blob_bytes": blob_bytes,
+            "requests": requests, "events": [(r["event"], back.get(r["program"]))
+                                             for r in res],
+            "used_bytes_max": max((r["used_bytes"] for r in res if "used_bytes" in r),
+                                  default=0),
+            "activations": [{"job": j, "charge": charges[j], "bytes": after - before,
+                             "ratio": (after - before) / charges[j]} for j, before, after in loads],
+            "evictions": evictions,
+            "load_s": [r.get("load_s") for r in res if r["event"] == "activate"],
+            "p50_ms_hit": percentile_ms(lat["hit"], 50), "p50_ms_miss": percentile_ms(lat["miss"], 50),
+            "n_hit": len(lat["hit"]), "n_miss": len(lat["miss"]),
+            "max_abs_err_vs_alone": max(errs), "phase_s": time.monotonic() - t0}
+
+
+
+def _post_predict(url: str, body: bytes, tenant=None) -> None:
+    """One ``POST /predict`` as ``tenant`` (None: anonymous); raises on
+    any status but 200."""
+    import urllib.error
+    import urllib.request
+
+    headers = {"Content-Type": "application/json"}
+    if tenant is not None:
+        headers["X-Rafiki-Tenant"] = tenant
+    req = urllib.request.Request(url, data=body, method="POST", headers=headers)
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    try:
+        with opener.open(req, timeout=30) as r:
+            r.read()
+    except urllib.error.HTTPError as e:
+        e.close()
+        raise RuntimeError(f"HTTP {e.code}")
+
+
+def _tenancy_flood(url: str, body: bytes, stop) -> None:
+    """Spawn target of phase 25 (b): the aggressor's eight flooding
+    threads, as ``noisy-neighbor-shed`` runs them (a shed backs off 5
+    ms), until ``stop`` is set. A client process, not threads of this
+    one: clients are not in the server's interpreter, and eight client
+    threads here would contend with its worker's launches (PERF.md)."""
+    def aggress():
+        while not stop.is_set():
+            try:
+                _post_predict(url, body, "aggressor")
+            except Exception:
+                time.sleep(0.005)
+
+    flood = [threading.Thread(target=aggress, daemon=True) for _ in range(8)]
+    for th in flood:
+        th.start()
+    for th in flood:
+        th.join(timeout=60)
+
+
+def tenancy_isolation(card, tmp, store, params, tj, trials, unweighted, run=0):
+    """Phase 25 (b): ``noisy-neighbor-shed`` through a tenant-aware
+    inference job of phase 1's trials and its HTTP predictor on the
+    card, weighted or (the doctored polarity) unweighted: the aggressor
+    floods from a client process, then the victim sends its 25 requests
+    20 ms apart from here. Returns the line, with the scenario's checks
+    read from the journal."""
+    import gc
+    import multiprocessing as mp
+    import os
+
+    from rafiki_tpu_torch import chaos
+    from rafiki_tpu_torch.admin.services_manager import ServicesManager
+    from rafiki_tpu_torch.chaos.scenarios import SCENARIOS, noisy_neighbor_checks
+    from rafiki_tpu_torch.obs.journal import journal, read_dir
+    from rafiki_tpu_torch.tenancy import TenantDirectory, TenantFabric
+    from rafiki_tpu_torch.utils import heap
+
+    t0 = time.monotonic()
+    polarity = "unweighted" if unweighted else "weighted"
+    log_dir = tmp / f"obs-isolation-{polarity}-{run}"
+    prev = os.environ.get("RAFIKI_TENANT_UNWEIGHTED")
+    if unweighted:
+        os.environ["RAFIKI_TENANT_UNWEIGHTED"] = "1"
+    journal.configure(log_dir, role="tenancy")
+    mgr = ServicesManager(store, params)
+    flood = None
+    try:
+        fabric = TenantFabric(TenantDirectory(tiers={"victim": "gold", "aggressor": "batch"}))
+        budget_ms = fabric.directory.tier_of("victim").p99_budget_ms
+        job = store.create_inference_job(tj["id"], None)["id"]
+        # What the services manager's freeze (utils/heap.py) pays at a
+        # service start: a full collection of the unfrozen heap.
+        t = time.monotonic()
+        gc.collect()
+        collect_s = time.monotonic() - t
+        mgr.create_inference_services(job, trials, gateway_overrides=TENANCY_ISOLATION_GATEWAY,
+                                      tenancy=fabric)
+        url = f"http://{store.get_inference_job(job)['predictor_host']}/predict"
+        body = json.dumps({"queries": queries_for(26)[:1].tolist()}).encode()
+        for _ in range(3):  # the worker thread's first forwards, before any tenant's
+            _post_predict(url, body)
+        # The services manager froze the server's heap (utils/heap.py).
+        heap_holders, frozen_objects = heap.holders(), gc.get_freeze_count()
+        chaos.install(chaos.FaultPlane.from_spec(SCENARIOS["noisy-neighbor-shed"].spec))
+        try:
+            ctx = mp.get_context("spawn")
+            stop = ctx.Event()
+            flood = ctx.Process(target=_tenancy_flood, args=(url, body, stop), daemon=True)
+            flood.start()
+            deadline = time.monotonic() + 60
+            while "aggressor" not in fabric.accounting.per_tenant():
+                if time.monotonic() > deadline or not flood.is_alive():
+                    fail("tenancy isolation: the flood never reached the gateway")
+                time.sleep(0.01)
+            time.sleep(0.3)  # the flood established before the victim
+            victim_errors = 0
+            for _ in range(25):
+                try:
+                    _post_predict(url, body, "victim")
+                except RuntimeError:
+                    victim_errors += 1
+                time.sleep(0.02)
+            stop.set()
+            flood.join(timeout=60)
+        finally:
+            chaos.uninstall()
+        mgr.stop_inference_services(job)  # drains the gateway: tenant/summary
+    finally:
+        if flood is not None and flood.is_alive():
+            flood.kill()
+            flood.join(timeout=10)
+        mgr.stop_all()
+        journal.close()
+        if prev is None:
+            os.environ.pop("RAFIKI_TENANT_UNWEIGHTED", None)
+        else:
+            os.environ["RAFIKI_TENANT_UNWEIGHTED"] = prev
+    recs = read_dir(log_dir)
+    checks = {}
+    noisy_neighbor_checks(lambda name, ok, detail="": checks.update({name: [bool(ok), detail]}),
+                          recs, "victim", "aggressor", budget_ms, victim_errors)
+    rc, out = _cli(["--dir", str(log_dir), "tenants", "--check"])
+    rc_json, out_json = _cli(["--dir", str(log_dir), "--json", "tenants"])
+    tenants = {row["tenant"]: row for row in json.loads(out_json)["tenants"]} if rc_json == 0 else {}
+    fwd = [(r["chains"]) for r in recs if (r.get("kind"), r.get("name")) == ("serving", "hops")]
+    forward_ms = sorted(1000 * (dict((m[0], m[1]) for m in chain).get("fwd", 0)
+                                - dict((m[0], m[1]) for m in chain).get("fwds", 0))
+                        for chains in fwd for chain in chains.values()
+                        if {"fwds", "fwd"} <= {m[0] for m in chain})
+    return {"phase": f"tenancy_isolation_{polarity}", "card": card[1],
+            "power_limit": card[2], "checks": checks, "victim_errors": victim_errors,
+            "tenants_check_rc": rc, "tenants_check_out": out.strip()[-200:],
+            "victim": tenants.get("victim"), "aggressor": tenants.get("aggressor"),
+            "forward_hop_p50_ms": forward_ms[len(forward_ms) // 2] if forward_ms else None,
+            "forward_hop_max_ms": forward_ms[-1] if forward_ms else None,
+            "budget_ms": budget_ms, "heap_holders": heap_holders,
+            "frozen_objects": frozen_objects, "collect_s": collect_s,
+            "phase_s": time.monotonic() - t0}
+
+
+def tenancy_phase(card, check, blobs=None, repeats=1) -> None:
+    """Phase 25 and its checks (also ``--tenancy [N]``, which runs the
+    weighted polarity of (b) ``repeats`` times)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from rafiki_tpu_torch.obs.journal import journal
+
+    t0 = time.monotonic()
+    blobs = list(blobs or [])
+    blobs += [make_blob(seed) for seed in range(len(blobs), 10)]
+    prev_dir = journal.log_dir if journal.configured else None
+    prev_role, prev_max = journal.role, journal.max_records
+    # Every record of the run is read back: the flood's thousands of
+    # sheds must not rotate the victim's records out.
+    journal.max_records = 1 << 22
+    with tempfile.TemporaryDirectory(prefix="tenancy-") as td:
+        tmp = Path(td)
+        try:
+            store, params, tj, trials, cas = _tenancy_store(tmp, blobs)
+            a = tenancy_cohost(card, tmp, store, params, tj, trials)
+            a["cas"] = cas
+            print(json.dumps(a))
+            torch.cuda.empty_cache()
+            weighted = []
+            for run in range(repeats):
+                weighted.append(tenancy_isolation(card, tmp, store, params, tj, trials["J0"],
+                                                  unweighted=False, run=run))
+                print(json.dumps(weighted[-1]), flush=True)
+                torch.cuda.empty_cache()
+            d = tenancy_isolation(card, tmp, store, params, tj, trials["J0"], unweighted=True)
+            print(json.dumps(d))
+        finally:
+            journal.max_records = prev_max
+            if prev_dir is not None:
+                journal.configure(prev_dir, role=prev_role)
+            else:
+                journal.close()
+    expanded = []
+    for j in TENANCY_ORDER:
+        expanded += [j] if j in expanded else [j, j]
+    check(a["max_abs_err_vs_alone"] <= TENANCY_ATOL,
+          f"tenancy cohost: co-hosted predictions differ from each job served alone by "
+          f"{a['max_abs_err_vs_alone']} > {TENANCY_ATOL}")
+    check(a["requests"] == expanded and [tuple(e) for e in a["events"]]
+          == _lru_events(expanded, 2),
+          f"tenancy cohost: residency events {a['events']} against the LRU of "
+          f"{a['requests']}: {_lru_events(expanded, 2)}")
+    check(a["used_bytes_max"] <= a["budget_bytes"],
+          f"tenancy cohost: {a['used_bytes_max']} bytes resident > budget {a['budget_bytes']}")
+    n_evict = sum(1 for e in _lru_events(expanded, 2) if e[0] == "evict")
+    check(len(a["evictions"]) == n_evict and all(
+        e["activation_bytes"] > 0 and e["freed_bytes"] >= TENANCY_FREE_FRAC * e["activation_bytes"]
+        for e in a["evictions"]),
+          f"tenancy cohost: evictions freed {a['evictions']} (want {n_evict}, each at least "
+          f"{TENANCY_FREE_FRAC} of its activation)")
+    check(all(a["charges"][j] == a["blob_bytes"][j] + 65 * len(TENANCY_SEEDS[j])
+              for j in TENANCY_SEEDS),
+          f"tenancy cohost: charges {a['charges']} are not the blobs' bytes {a['blob_bytes']} "
+          f"(plus the plain store's digest line a trial)")
+    check(cas["J3"]["chunk_writes"] == cas["J3"]["new_chunks"] > 0
+          and cas["J3"]["chunk_writes"] < cas["J1"]["chunk_writes"],
+          f"tenancy cohost: J3's save wrote {cas['J3']['chunk_writes']} chunks, its new "
+          f"trial's are {cas['J3']['new_chunks']} (J1 wrote {cas['J1']['chunk_writes']})")
+    for b in weighted:
+        check(all(ok for ok, _ in b["checks"].values()) and len(b["checks"]) == 6,
+              f"tenancy isolation: checks {b['checks']}")
+        check(b["heap_holders"] > 0 and b["frozen_objects"] > 0,
+              f"tenancy isolation: the services manager left the server's heap unfrozen "
+              f"({b['heap_holders']} holders, {b['frozen_objects']} objects)")
+        check(b["tenants_check_rc"] == 0,
+              f"tenancy isolation: obs tenants --check rc {b['tenants_check_rc']}: "
+              f"{b['tenants_check_out']}")
+    check(d["checks"].get("victim_p99_within_budget", [True])[0] is False,
+          f"tenancy isolation unweighted: victim_p99_within_budget passed, so the gate "
+          f"cannot fail: {d['checks']}")
+    print(json.dumps({"phase": "tenancy", "card": card[1], "power_limit": card[2],
+                      "phase_s": time.monotonic() - t0}))
+
 def main() -> int:
     import torch
 
@@ -4781,10 +5241,10 @@ def main() -> int:
         print(card[0])
         print(json.dumps(graph_step(card)))
         return 0
-    repeats = (int(sys.argv[2]) if sys.argv[1:2] == ["--mesh-repack"] and len(sys.argv) == 3
-               and sys.argv[2].isdigit() else None)
+    counted = sys.argv[1:2] in (["--mesh-repack"], ["--tenancy"]) and len(sys.argv) == 3
+    repeats = int(sys.argv[2]) if counted and sys.argv[2].isdigit() else None
     if sys.argv[1:] not in ([], ["--zoo"], ["--obs"], ["--chaos"], ["--process"], ["--mesh"],
-                            ["--search"], ["--serve-proc"]) and repeats is None:
+                            ["--search"], ["--serve-proc"], ["--tenancy"]) and repeats is None:
         fail(f"unknown arguments {sys.argv[1:]}")
     card = card_identity()
     print(card[0])
@@ -4832,7 +5292,7 @@ def main() -> int:
             return 1
         print(json.dumps({"mesh": "ok", "device": torch.cuda.get_device_name(0)}))
         return 0
-    if repeats is not None:
+    if sys.argv[1:2] == ["--mesh-repack"]:
         for i in range(repeats):
             n_failed = len(failures)
             b = mesh_repack(card)
@@ -4863,6 +5323,13 @@ def main() -> int:
             print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
             return 1
         print(json.dumps({"serve_proc": "ok", "device": torch.cuda.get_device_name(0)}))
+        return 0
+    if sys.argv[1:2] == ["--tenancy"]:
+        tenancy_phase(card, check, repeats=repeats or 1)
+        if failures:
+            print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
+            return 1
+        print(json.dumps({"tenancy": "ok", "device": torch.cuda.get_device_name(0)}))
         return 0
 
     from rafiki_tpu_torch.ops.train import predict
@@ -5153,6 +5620,10 @@ def main() -> int:
     # -- 24. serving across processes and its request anatomy ---------------------------
     torch.cuda.empty_cache()
     serve_proc_phase(card, check, blobs)
+
+    # -- 25. multi-tenant serving: co-hosting, tenant isolation --------------------------
+    torch.cuda.empty_cache()
+    tenancy_phase(card, check, blobs)
 
     # -- kernels and the result line -------------------------------------------
     print(json.dumps({"kernels": []}))

@@ -23,8 +23,17 @@ watches for RUNNING jobs whose sweep supervisor stopped heartbeating and
 adopts each through ``scheduler/recovery.py resume_sweep`` on the
 manager's device.
 
-Not in the port yet: compile prewarm, the job admission gate, co-hosted
-serving and autoscale.
+An inference job may take a ``tenancy.TenantFabric`` (a tenant-aware
+gateway). ``create_cohosted_inference_services`` serves several jobs
+from ONE worker behind a ``tenancy.ProgramHost``: each job's trials load
+(stacked when they share an architecture) on the first query that needs
+them, under an LRU HBM byte budget (``tenancy.ResidencyManager``), each
+charged its params blobs' bytes, floored at 1 MiB. Loads and evictions
+take the card's lock (``ops/graphs.py card_lock``), as a trainer's
+synchronizing calls do.
+
+Not in the port yet: compile prewarm, the job admission gate (it
+forecasts through the serving twin) and autoscale.
 """
 
 from __future__ import annotations
@@ -49,11 +58,15 @@ from rafiki_tpu_torch.constants import (
 from rafiki_tpu_torch.gateway import Gateway, GatewayConfig
 from rafiki_tpu_torch.model.base import load_model_class
 from rafiki_tpu_torch.obs.journal import journal as _journal
+from rafiki_tpu_torch.ops.graphs import card_lock
 from rafiki_tpu_torch.parallel.serving import build_stacked
 from rafiki_tpu_torch.predictor.app import start_predictor_server
 from rafiki_tpu_torch.predictor.predictor import Predictor
 from rafiki_tpu_torch.scheduler.local import LocalScheduler
 from rafiki_tpu_torch.store import MetaStore, ParamsStore
+from rafiki_tpu_torch.tenancy.hosting import ProgramHost, ProgramSpec, TrialEnsemble
+from rafiki_tpu_torch.tenancy.residency import ResidencyManager
+from rafiki_tpu_torch.utils import heap
 from rafiki_tpu_torch.utils.backend import DeviceLike, default_device, resolve_device
 from rafiki_tpu_torch.utils.events import events
 from rafiki_tpu_torch.worker.inference import InferenceWorker
@@ -73,6 +86,7 @@ class _InferenceJobHandle:
         self.predictor: Optional[Predictor] = None
         self.gateway: Optional[Gateway] = None
         self.http_server = None  # set when an HTTP frontend is attached
+        self.heap_frozen = False  # holds a utils/heap.py freeze while serving
 
 
 class ServicesManager:
@@ -214,8 +228,8 @@ class ServicesManager:
 
     def create_inference_services(self, inference_job_id: str,
                                   best_trials: List[dict],
-                                  gateway_overrides: Optional[Dict[str, Any]] = None
-                                  ) -> Predictor:
+                                  gateway_overrides: Optional[Dict[str, Any]] = None,
+                                  tenancy=None) -> Predictor:
         """One inference worker per trial (or one over the stacked
         top-k) + a predictor over the bus fronted by a serving Gateway,
         plus a published HTTP frontend whose host:port is recorded on
@@ -223,14 +237,17 @@ class ServicesManager:
 
         ``gateway_overrides`` lets a job pick its own routing policy and
         limits (e.g. ``{"policy": "least-loaded", "max_batch": 8}``)
-        over the framework-config defaults."""
+        over the framework-config defaults. ``tenancy`` (a
+        ``TenantFabric``) makes the gateway tenant-aware: weighted-fair
+        admission and per-tenant accounting."""
         if not best_trials:
             raise ValueError("No completed trials to serve")
         # Reject bad overrides before any model is loaded.
         gw_config = GatewayConfig.from_config(self.config, **(gateway_overrides or {}))
         handle = _InferenceJobHandle()
         try:
-            return self._start_inference(handle, inference_job_id, best_trials, gw_config)
+            return self._start_inference(handle, inference_job_id, best_trials, gw_config,
+                                         tenancy)
         except Exception:
             # Tear down whatever already started — otherwise worker
             # threads (each pinning a trained model) leak unreachably.
@@ -238,7 +255,8 @@ class ServicesManager:
             raise
 
     def _start_inference(self, handle: _InferenceJobHandle, inference_job_id: str,
-                         best_trials: List[dict], gw_config: GatewayConfig) -> Predictor:
+                         best_trials: List[dict], gw_config: GatewayConfig,
+                         tenancy=None) -> Predictor:
         batch_size = self.config.inference_batch_size
         models = [self._load_trial_model(t) for t in best_trials]
         # Same-architecture top-k -> ONE worker running a stacked vmapped
@@ -278,7 +296,7 @@ class ServicesManager:
         self.store.create_service(ServiceType.PREDICTOR.value, job_id=inference_job_id)
         handle.predictor = Predictor(self.bus, inference_job_id,
                                      timeout_s=self.config.predict_timeout_s)
-        handle.gateway = Gateway(handle.predictor, gw_config)
+        handle.gateway = Gateway(handle.predictor, gw_config, tenancy=tenancy)
         for th in handle.worker_threads:
             th.start()
         # Wait for workers to register so the first query doesn't race them.
@@ -302,9 +320,109 @@ class ServicesManager:
                                         predictor_host=predictor_host)
         events.emit("inference_job_started", job_id=inference_job_id,
                     n_workers=len(best_trials), predictor_host=predictor_host)
+        # The heap built so far is the server's: out of the collector's
+        # full scans while it serves (utils/heap.py).
+        heap.freeze()
+        handle.heap_frozen = True
         with self._lock:
             self._inference_jobs[inference_job_id] = handle
         return handle.predictor
+
+    # -- co-hosted serving ----------------------------------------------------
+
+    def _make_program_loader(self, trials: List[dict], batch_size: int):
+        """A lazy model loader for one co-hosted job: it runs on a
+        residency MISS (the job's first query, or its first after an
+        eviction), never at service creation, so a cold job holds no
+        card memory. The load takes the card's lock (module doc).
+        Trials that cannot stack are served as a :class:`TrialEnsemble`
+        (the JAX package serves the first trial alone, ROADMAP Queue 3)."""
+        def load():
+            with card_lock(self):
+                models = [self._load_trial_model(t) for t in trials]
+                if len(models) == 1:
+                    return models[0]
+                stacked, _ = build_stacked(trials, models, batch_size=batch_size)
+                return stacked if stacked is not None else TrialEnsemble(models)
+
+        return load
+
+    def create_cohosted_inference_services(
+            self, job_trials: Dict[str, List[dict]],
+            gateway_overrides: Optional[Dict[str, Any]] = None,
+            hbm_budget_bytes: Optional[int] = None) -> Dict[str, Predictor]:
+        """ONE inference worker serving EVERY job in ``job_trials``
+        behind a ``ProgramHost``: models swap in and out of a shared HBM
+        byte budget by LRU residency (journaled ``tenancy/residency``)
+        instead of each job pinning a worker. Each job keeps its OWN
+        Predictor and Gateway (admission, QoS and metrics stay per job);
+        the predictor tags queries with the job's program id and the
+        host routes them. The gateways are not tenant-aware. No HTTP
+        frontend is published.
+
+        Returns ``{job_id: Predictor}``. The worker is owned by the
+        FIRST job's handle and the cohort shares one stop event, so
+        stopping ANY co-hosted job stops serving for all of them:
+        co-hosting trades isolation of failures for card memory."""
+        if not job_trials:
+            raise ValueError("No jobs to co-host")
+        gw_config = GatewayConfig.from_config(self.config, **(gateway_overrides or {}))
+        batch_size = self.config.inference_batch_size
+        job_ids = list(job_trials)
+        specs = []
+        for job_id, trials in job_trials.items():
+            if not trials:
+                raise ValueError(f"Job {job_id} has no completed trials")
+            # The HBM charge: the params blobs' bytes, floored (a charge
+            # of 0 would make eviction free).
+            size = sum(self.params_store.size(t["params_id"])
+                       for t in trials if t.get("params_id"))
+            specs.append(ProgramSpec(program_id=job_id,
+                                     loader=self._make_program_loader(list(trials), batch_size),
+                                     size_bytes=max(size, 1 << 20)))
+        host = ProgramHost(specs, residency=ResidencyManager(hbm_budget_bytes))
+        primary, extras = job_ids[0], job_ids[1:]
+        worker_id = f"cohost-{primary[:8]}-iw0"
+        stop_event = threading.Event()
+        worker = InferenceWorker(self.bus, primary, worker_id, host, batch_size=batch_size,
+                                 stop_event=stop_event, extra_job_ids=extras)
+        service = self.store.create_service(ServiceType.INFERENCE_WORKER.value,
+                                            job_id=primary, worker_index=0)
+        th = threading.Thread(target=self._run_inference_worker, args=(worker, service["id"]),
+                              name=worker_id, daemon=True)
+        th.start()
+        _journal.record("tenancy", "cohost", worker_id=worker_id, jobs=list(job_ids),
+                        budget_bytes=host.residency.budget_bytes)
+        # Wait for the worker to register under every co-hosted job id
+        # so the first query doesn't race registration.
+        t0 = time.monotonic()
+        while (any(worker_id not in self.bus.get_workers(j) for j in job_ids)
+               and time.monotonic() - t0 < 5.0):
+            time.sleep(0.01)
+        # One heap freeze for the cohort (utils/heap.py), held by the
+        # primary's handle: the cohort stops together.
+        heap.freeze()
+        predictors: Dict[str, Predictor] = {}
+        for job_id in job_ids:
+            handle = _InferenceJobHandle()
+            handle.stop_event = stop_event  # cohort-shared by design
+            if job_id == primary:
+                handle.workers.append(worker)
+                handle.worker_threads.append(th)
+                handle.heap_frozen = True
+            self.store.create_service(ServiceType.PREDICTOR.value, job_id=job_id)
+            handle.predictor = Predictor(self.bus, job_id,
+                                         timeout_s=self.config.predict_timeout_s,
+                                         program=job_id)
+            handle.gateway = Gateway(handle.predictor, gw_config)
+            self.store.update_inference_job(job_id, status=InferenceJobStatus.RUNNING.value,
+                                            predictor_host=None)
+            events.emit("inference_job_started", job_id=job_id, n_workers=1,
+                        predictor_host=None)
+            with self._lock:
+                self._inference_jobs[job_id] = handle
+            predictors[job_id] = handle.predictor
+        return predictors
 
     def _run_inference_worker(self, worker: InferenceWorker, service_id: str) -> None:
         self.store.update_service(service_id, status=ServiceStatus.RUNNING.value)
@@ -352,6 +470,8 @@ class ServicesManager:
             # finish against live workers; new arrivals shed immediately.
             handle.gateway.drain(timeout=min(timeout, 5.0))
         self._teardown(handle, timeout)
+        if handle.heap_frozen:
+            heap.thaw()
         self.store.update_inference_job(inference_job_id,
                                         status=InferenceJobStatus.STOPPED.value)
         events.emit("inference_job_stopped", job_id=inference_job_id)

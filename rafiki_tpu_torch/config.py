@@ -6,8 +6,11 @@ auth, the trial heartbeat and the age at which a silent worker counts as
 dead, and serving with its gateway limits. Each
 field keeps its name, default and environment override
 (``RAFIKI_TPU_<FIELD>``), so one environment configures both packages
-alike. Not ported yet: ``serving_params_dtype`` and the fields of the
-scheduling, tenancy and autoscale planes.
+alike. Not ported: ``default_dtype``, ``poll_interval_s``,
+``predictor_port_base`` and ``serving_params_dtype`` (``dump_parameters``
+reads ``RAFIKI_TPU_SERVING_PARAMS_DTYPE`` itself). The tenancy knobs are ``RAFIKI_TENANT_*`` environment
+variables read by ``tenancy/qos.py`` and ``tenancy/residency.py``, as in
+the JAX package, not fields here.
 """
 
 from __future__ import annotations

@@ -43,11 +43,14 @@ class AdmissionController:
 
     # -- admission -----------------------------------------------------------
 
-    def admit(self, deadline: float, retry_after_s: float = 1.0) -> float:
+    def admit(self, deadline: float, retry_after_s: float = 1.0,
+              tenant: Optional[str] = None) -> float:
         """Block until an inflight slot is free, the monotonic
         ``deadline`` passes, or the controller closes (drain). Returns
         the seconds spent waiting; raises :class:`ShedError` instead of
-        admitting a request that already lost its deadline race."""
+        admitting a request that already lost its deadline race.
+        ``tenant`` is ignored here; the tenant-aware subclass
+        (``tenancy/admission.py``) grants by it."""
         t0 = time.monotonic()
         with self._cv:
             if self._closed:
@@ -75,7 +78,7 @@ class AdmissionController:
                 self._waiting -= 1
         return time.monotonic() - t0
 
-    def release(self) -> None:
+    def release(self, tenant: Optional[str] = None) -> None:
         with self._cv:
             self._inflight -= 1
             self._cv.notify_all()

@@ -42,9 +42,15 @@ included, goes into ``self.rollup`` (``ServingRollup``: ``serving/ts``
 rows with the admission and breaker context), registered as the
 ``serving`` telemetry collector.
 
-Left out with tenancy (ROADMAP Queue 1 item 14): the ``serving/request``
-record's ``tenant`` is null. ``stats()`` keeps every key of the JAX
-package's.
+Tenancy, as in the JAX package: ``Gateway(..., tenancy=TenantFabric())``
+builds its admission through the fabric (weighted-fair, per-tenant
+quotas), ``predict(..., tenant=)`` runs under the tenant's scope (bus
+envelopes carry it), the tenant's tier gives the default deadline,
+admissions, sheds and caller-observed latencies are charged to the
+tenant, the ``serving/request`` records carry it, ``drain`` flushes the
+accounting (``tenant/summary``) and ``sensors()`` adds the fabric's
+keys. Without a fabric the gateway is single-tenant as before.
+``stats()`` keeps every key of the JAX package's.
 
 One Gateway fronts one inference job's Predictor. Its counters flow
 both into gateway-local stats (``GET /gateway``) and into the
@@ -70,6 +76,7 @@ from rafiki_tpu_torch.obs.anatomy.timeseries import ServingRollup
 from rafiki_tpu_torch.obs.journal import journal as _journal
 from rafiki_tpu_torch.obs.perf import slo as _slo
 from rafiki_tpu_torch.predictor.predictor import default_quorum
+from rafiki_tpu_torch.tenancy.qos import ANON_TENANT
 
 POLICIES = ("replicate-all", "least-loaded")
 
@@ -148,11 +155,19 @@ class GatewayConfig:
 class Gateway:
     """Serving frontend for one inference job's predictor."""
 
-    def __init__(self, predictor, config: Optional[GatewayConfig] = None):
+    def __init__(self, predictor, config: Optional[GatewayConfig] = None,
+                 tenancy=None):
         self.predictor = predictor
         self.cfg = config or GatewayConfig()
-        self.admission = AdmissionController(self.cfg.max_inflight,
-                                             self.cfg.max_queue)
+        # A TenantFabric swaps the plain admission controller for the
+        # weighted-fair tenant-aware one, on the same capacity knobs.
+        self.tenancy = tenancy
+        if tenancy is not None:
+            self.admission = tenancy.build_admission(self.cfg.max_inflight,
+                                                     self.cfg.max_queue)
+        else:
+            self.admission = AdmissionController(self.cfg.max_inflight,
+                                                 self.cfg.max_queue)
         self._lock = threading.Lock()
         self._breakers: Dict[str, CircuitBreaker] = {}
         self._draining = False
@@ -193,23 +208,31 @@ class Gateway:
                         max_batch=self.cfg.max_batch,
                         max_batch_wait_ms=self.cfg.max_batch_wait_ms,
                         blackout_retries=self.cfg.blackout_retries,
-                        tenants_enabled=False, tenant_quota_frac=None)
+                        tenants_enabled=tenancy is not None,
+                        tenant_quota_frac=(tenancy.directory.quota_frac
+                                           if tenancy is not None else None))
 
     # -- the predict path ----------------------------------------------------
 
     def predict(self, queries: List[Any],
                 deadline_s: Optional[float] = None,
-                trace_id: Optional[str] = None) -> List[Any]:
+                trace_id: Optional[str] = None,
+                tenant: Optional[str] = None) -> List[Any]:
         """Admit → route → quorum-gather → feed breakers. Raises
         :class:`ShedError` when admission refuses, RuntimeError when
         the job has no live workers.
 
         This is the trace edge: the request runs under ``trace_id``, the
-        active trace, or a fresh one."""
+        active trace, or a fresh one. The tenant edge too
+        (``X-Rafiki-Tenant`` upstream): the tenant rides the same
+        thread-local into the bus envelopes, and with a fabric attached
+        admission, sheds and latency are charged to it."""
         with trace_context.trace(trace_id):
-            return self._predict(queries, deadline_s)
+            with trace_context.tenant_scope(tenant):
+                return self._predict(queries, deadline_s, tenant)
 
-    def _predict(self, queries: List[Any], deadline_s: Optional[float]) -> List[Any]:
+    def _predict(self, queries: List[Any], deadline_s: Optional[float],
+                 tenant: Optional[str] = None) -> List[Any]:
         # Open this request's hop-mark prefix: admit/queue marks stamped
         # here ride into every bus envelope the fan-out produces. Cleared
         # in the finally: a stale prefix would leak this request's marks
@@ -217,12 +240,17 @@ class Gateway:
         _hops.begin()
         _hops.add("admit")
         try:
-            return self._predict_admitted(queries, deadline_s)
+            return self._predict_admitted(queries, deadline_s, tenant)
         finally:
             _hops.clear()
 
-    def _predict_admitted(self, queries: List[Any],
-                          deadline_s: Optional[float]) -> List[Any]:
+    def _predict_admitted(self, queries: List[Any], deadline_s: Optional[float],
+                          tenant: Optional[str] = None) -> List[Any]:
+        fabric = self.tenancy
+        if deadline_s is None and fabric is not None:
+            # The tier's deadline (gold shorter than batch) before the
+            # gateway-wide default.
+            deadline_s = fabric.directory.tier_of(tenant).deadline_s
         deadline_s = (deadline_s or self.cfg.default_deadline_s
                       or self.predictor.timeout_s)
         deadline = time.monotonic() + deadline_s
@@ -230,6 +258,7 @@ class Gateway:
             draining = self._draining
         if draining:
             self._count_shed("draining")
+            self._charge_shed(tenant, "draining")
             raise ShedError("draining", self._retry_after())
         # Deadline-aware admission: don't hold a waiter past the point
         # where the expected service time no longer fits its deadline —
@@ -238,21 +267,27 @@ class Gateway:
                       deadline_s * DEADLINE_RESERVE_FRAC)
         try:
             waited = self.admission.admit(
-                deadline - reserve, retry_after_s=self._retry_after())
+                deadline - reserve, retry_after_s=self._retry_after(),
+                tenant=tenant)
         except ShedError as e:
             self._count_shed(e.reason)
+            # Charged to THIS tenant: the per-tenant shed ledger is how
+            # noisy-neighbor-shed proves who paid for a spike.
+            self._charge_shed(tenant, e.reason)
             raise
         _hops.add("queue")  # admission granted: the queue wait is over
         with self._lock:
             self._admitted += 1
         telemetry.inc("gateway.admitted")
+        if fabric is not None:
+            fabric.accounting.admitted(tenant or ANON_TENANT, waited)
         if waited:
             telemetry.observe("gateway.queue_wait_s", waited)
         # A delay here is a frontend latency spike: it eats into the
         # request's own deadline while the request holds an inflight slot.
         chaos.hook("gateway.predict", self.predictor.job_id)
         if self._batcher is not None:
-            return self._predict_batched(queries, deadline)
+            return self._predict_batched(queries, deadline, tenant, waited)
         t0 = time.monotonic()
         try:
             with telemetry.span("gateway.predict",
@@ -260,22 +295,24 @@ class Gateway:
                                 queries=len(queries)):
                 report = self._fanout(queries, deadline)
         finally:
-            self.admission.release()
+            self.admission.release(tenant=tenant)
         elapsed = time.monotonic() - t0
         self._absorb(report, elapsed)
         telemetry.observe("gateway.predict_s", elapsed)
         ok = report.timeouts == 0
         self.rollup.observe(latency_s=elapsed, outcome="ok" if ok else "error")
+        self._charge_completed(tenant, waited + elapsed, ok)
         # The gateway-measured e2e: obs waterfall and tails hold the
         # stitched chain's total against it.
         _journal.record("serving", "request", queries=len(queries),
                         e2e_s=round(elapsed, 6), ok=ok,
                         hedged=report.hedged, timeouts=report.timeouts,
-                        tenant=None)
+                        tenant=tenant)
         _slo.maybe_tick()
         return report.outputs
 
-    def _predict_batched(self, queries: List[Any], deadline: float) -> List[Any]:
+    def _predict_batched(self, queries: List[Any], deadline: float,
+                         tenant: Optional[str] = None, waited: float = 0.0) -> List[Any]:
         """Microbatched path: ride a shared fan-out. The admission slot
         is held for the whole wait — the inflight budget still bounds
         concurrency."""
@@ -287,7 +324,7 @@ class Gateway:
             if not member.wait(max(0.0, deadline - time.monotonic()) + 2.0):
                 raise RuntimeError("microbatch flush timed out")
         finally:
-            self.admission.release()
+            self.admission.release(tenant=tenant)
         if member.error is not None:
             raise member.error
         report = member.report
@@ -295,6 +332,7 @@ class Gateway:
         telemetry.observe("gateway.predict_s", elapsed)
         ok = report.timeouts == 0
         self.rollup.observe(latency_s=elapsed, outcome="ok" if ok else "error")
+        self._charge_completed(tenant, waited + elapsed, ok)
         # Re-absorb the shared flush chain under THIS request's trace
         # (prefix + bat + the worker's chain + dec): every member gets a
         # stitchable waterfall though the wire saw one envelope.
@@ -304,7 +342,7 @@ class Gateway:
                         e2e_s=round(elapsed, 6), ok=ok,
                         hedged=report.hedged, timeouts=report.timeouts,
                         batched=True, flush_reason=member.flush_reason,
-                        tenant=None)
+                        tenant=tenant)
         _slo.maybe_tick()
         return member.outputs
 
@@ -496,6 +534,17 @@ class Gateway:
         telemetry.inc(f"gateway.shed_{reason}")
         _journal.record("gateway", "shed", reason=reason)
 
+    def _charge_shed(self, tenant: Optional[str], reason: str) -> None:
+        if self.tenancy is not None:
+            self.tenancy.accounting.shed(tenant or ANON_TENANT, reason)
+
+    def _charge_completed(self, tenant: Optional[str], e2e_s: float, ok: bool) -> None:
+        """The tenant ledger charges CALLER-observed latency (admission
+        wait + service): the queue wait under contention is the whole
+        noisy-neighbor signal."""
+        if self.tenancy is not None:
+            self.tenancy.accounting.completed(tenant or ANON_TENANT, e2e_s, ok)
+
     # -- drain ---------------------------------------------------------------
 
     @property
@@ -518,7 +567,12 @@ class Gateway:
             # they already hold slots, so wait_idle covers them.
             self._batcher.drain()
         self.admission.close()
-        return self.admission.wait_idle(timeout)
+        done = self.admission.wait_idle(timeout)
+        if self.tenancy is not None:
+            # The counter summary (tenant/summary) that `obs tenants
+            # --check` reconciles the per-record tallies with.
+            self.tenancy.accounting.flush()
+        return done
 
     def close(self) -> None:
         """Stop the microbatch flusher thread (after :meth:`drain`)."""
@@ -564,7 +618,8 @@ class Gateway:
     def sensors(self) -> Dict[str, Any]:
         """Admission-pressure view: queue depth (absolute and as a
         fraction of capacity), inflight, cumulative shed rate, and
-        breaker state. Cheap by contract."""
+        breaker state, plus the fabric's tenant keys. Cheap by
+        contract."""
         with self._lock:
             admitted = self._admitted
             shed = sum(self._shed.values())
@@ -575,7 +630,7 @@ class Gateway:
                 if b.snapshot().get("state") != "closed")
         waiting = self.admission.waiting
         total = admitted + shed
-        return {
+        out = {
             "queue_depth": waiting,
             "queue_frac": waiting / max(1, self.cfg.max_queue),
             "inflight": self.admission.inflight,
@@ -584,3 +639,7 @@ class Gateway:
             "breakers_open": breakers_open,
             "draining": draining,
         }
+        if self.tenancy is not None:
+            # The tenant aggregates (worst burn, tenant shed rate).
+            out.update(self.tenancy.sensors())
+        return out

@@ -58,11 +58,18 @@ under ``--dir``, default ``$RAFIKI_LOG_DIR`` then the configured
     resume [job]   a sweep's crash->adopt->resume timeline from the
                    ``recovery/*`` and supervisor records; exit 1 when no
                    recovery story exists
+    tenants        per-tenant serving forensics from the ``tenant/*``
+                   accounting records (admit/request/shed/summary) and
+                   the ``tenancy/*`` records (residency swaps, co-hosted
+                   workers): one row per tenant with tier, qps, p50/p99,
+                   shed breakdown and SLO burn; ``--check`` exits 1 when
+                   the flushed ``tenant/summary`` disagrees with the raw
+                   per-record counts
 
 The journals of either package read the same: ``trace``, ``tail``,
 ``slowest``, ``slo``, ``health``, ``curves`` (with ``--predicted``),
-``waterfall``, ``tails``, ``serving``, ``shard``, ``sweep``, ``lineage``
-and ``resume`` print what the JAX package's CLI prints. ``decisions`` prints the JAX package's four kinds
+``waterfall``, ``tails``, ``serving``, ``shard``, ``sweep``, ``lineage``,
+``resume`` and ``tenants`` print what the JAX package's CLI prints. ``decisions`` prints the JAX package's four kinds
 of decision and, beyond them, the curve advisor's (``advisor/kill``,
 ``advisor/speculate``, ``advisor/correct``).
 ``profile`` multiplies a step's flops by the epoch's ``steps`` where
@@ -740,6 +747,133 @@ def cmd_decisions(log_dir: str, n: int, as_json: bool) -> int:
     return 0
 
 
+def cmd_tenants(log_dir: str, as_json: bool, check: bool) -> int:
+    """Per-tenant serving forensics: who was admitted, who was shed
+    and why, and whose SLO burned (the "which tenant is the noisy
+    neighbor" view), read from journals alone: the ``tenant`` kind the
+    admission and accounting write per request, and the ``tenancy``
+    kind the residency manager writes per swap, the co-hosting services
+    per worker and the JAX package's arbiter per job verdict."""
+    recs = journal_mod.read_dir(log_dir)
+    # Kind-wholesale filters on purpose: every name under these two
+    # kinds is forensic state this verb must surface, including names
+    # added later.
+    tenant_recs = [r for r in recs if r.get("kind") == "tenant"]
+    tenancy_recs = [r for r in recs if r.get("kind") == "tenancy"]
+    if not tenant_recs and not tenancy_recs:
+        print(f"no tenant/tenancy records under {log_dir} (is a "
+              f"tenant-aware gateway running?)", file=sys.stderr)
+        return 1
+
+    def _p(xs: List[float], frac: float) -> Optional[float]:
+        if not xs:
+            return None
+        return xs[min(len(xs) - 1, int(frac * len(xs)))]
+
+    per: Dict[str, Dict[str, Any]] = {}
+    for r in tenant_recs:
+        t = r.get("tenant")
+        if t is None:
+            continue
+        row = per.setdefault(t, {"tier": None, "admitted": 0, "requests": 0,
+                                 "ok": 0, "shed": 0, "shed_reasons": {},
+                                 "lat_s": [], "burn": None})
+        name = r.get("name")
+        if name == "admit":
+            row["admitted"] += 1
+            row["tier"] = r.get("tier") or row["tier"]
+        elif name == "request":
+            row["requests"] += 1
+            row["ok"] += 1 if r.get("ok") else 0
+            if isinstance(r.get("e2e_s"), (int, float)):
+                row["lat_s"].append(float(r["e2e_s"]))
+        elif name == "shed":
+            row["shed"] += 1
+            row["tier"] = r.get("tier") or row["tier"]
+            reason = str(r.get("reason"))
+            row["shed_reasons"][reason] = (
+                row["shed_reasons"].get(reason, 0) + 1)
+    summaries = [r for r in tenant_recs if r.get("name") == "summary"]
+    latest = summaries[-1].get("tenants", {}) if summaries else {}
+    ts = [r.get("ts") for r in tenant_recs
+          if isinstance(r.get("ts"), (int, float))]
+    span_s = (max(ts) - min(ts)) if len(ts) > 1 else 0.0
+    table = []
+    for t in sorted(per):
+        row = per[t]
+        xs = sorted(row["lat_s"])
+        table.append({
+            "tenant": t,
+            "tier": row["tier"],
+            "admitted": row["admitted"],
+            "requests": row["requests"],
+            "ok": row["ok"],
+            "shed": row["shed"],
+            "shed_reasons": row["shed_reasons"],
+            "qps": (round(row["requests"] / span_s, 2) if span_s else None),
+            "p50_ms": (None if _p(xs, 0.50) is None
+                       else round(_p(xs, 0.50) * 1000, 3)),
+            "p99_ms": (None if _p(xs, 0.99) is None
+                       else round(_p(xs, 0.99) * 1000, 3)),
+            "burn": (latest.get(t, {}) or {}).get("burn"),
+        })
+    residency = [r for r in tenancy_recs if r.get("name") == "residency"]
+    cohosts = [r for r in tenancy_recs if r.get("name") == "cohost"]
+    verdicts = [r for r in tenancy_recs if r.get("name") == "arbiter"]
+    swap_events: Dict[str, int] = {}
+    for r in residency:
+        ev = str(r.get("event"))
+        swap_events[ev] = swap_events.get(ev, 0) + 1
+    if as_json:
+        print(json.dumps({
+            "tenants": table,
+            "summary": latest or None,
+            "residency_events": swap_events,
+            "cohosted_workers": [
+                {"worker_id": r.get("worker_id"), "jobs": r.get("jobs"),
+                 "budget_bytes": r.get("budget_bytes")} for r in cohosts],
+            "arbiter_verdicts": [
+                {"job_id": r.get("job_id"), "tenant": r.get("tenant"),
+                 "verdict": r.get("verdict")} for r in verdicts],
+        }, default=str))
+    else:
+        for row in table:
+            sheds = (f" shed={row['shed']}{row['shed_reasons']}"
+                     if row["shed"] else "")
+            print(f"{row['tenant']:<16} {str(row['tier']):<6} "
+                  f"adm={row['admitted']:<5} req={row['requests']:<5} "
+                  f"qps={row['qps']} p50={row['p50_ms']}ms "
+                  f"p99={row['p99_ms']}ms burn={row['burn']}{sheds}")
+        if swap_events:
+            print(f"residency: {swap_events}")
+        for r in cohosts:
+            print(f"cohost: worker={r.get('worker_id')} "
+                  f"jobs={r.get('jobs')} budget={r.get('budget_bytes')}B")
+        for r in verdicts:
+            print(f"arbiter: job={r.get('job_id')} "
+                  f"tenant={r.get('tenant')} verdict={r.get('verdict')}")
+    if not check:
+        return 0
+    if not summaries:
+        print("no tenant/summary record — the gateway never drained, so "
+              "the accounting flush is missing", file=sys.stderr)
+        return 1
+    bad = []
+    for t, row in per.items():
+        s = latest.get(t, {}) or {}
+        if s.get("admitted") != row["admitted"]:
+            bad.append(f"{t}: summary admitted={s.get('admitted')} vs "
+                       f"{row['admitted']} tenant/admit records")
+        if s.get("shed") != row["shed"]:
+            bad.append(f"{t}: summary shed={s.get('shed')} vs "
+                       f"{row['shed']} tenant/shed records")
+    if bad:
+        print("RECONCILIATION FAILED: " + "; ".join(bad), file=sys.stderr)
+        return 1
+    print(f"reconciled: {len(per)} tenant(s) against the flushed summary")
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m rafiki_tpu_torch.obs",
@@ -797,6 +931,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "advisories, curve kills, speculations and corrections")
     sp.add_argument("-n", type=int, default=32,
                     help="show the last N decisions (0 = all)")
+    sp = sub.add_parser("tenants",
+                        help="per-tenant serving forensics: admission, "
+                             "shed breakdown, SLO burn, residency swaps")
+    sp.add_argument("--check", action="store_true",
+                    help="exit 1 when the flushed tenant/summary "
+                         "disagrees with raw per-record counts")
     from rafiki_tpu_torch.obs.search import cli as search_cli
 
     # Argparse only at attach; the readers load inside the verbs.
@@ -829,6 +969,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return cmd_shard(log_dir, args.json)
     if args.cmd == "decisions":
         return cmd_decisions(log_dir, args.n, args.json)
+    if args.cmd == "tenants":
+        return cmd_tenants(log_dir, args.json, args.check)
     if args.cmd in ("sweep", "lineage", "resume"):
         return search_cli.dispatch(args, log_dir, args.json)
     return cmd_slowest(log_dir, args.n, args.json)

@@ -86,5 +86,10 @@ class StackedEnsemble:
         (predictor/ensemble.py: float32 stack-mean, shared renormalize),
         so the two routes agree bit for bit where the per-model
         forwards do."""
-        probs = self.predict_proba(x).astype(np.float32)
-        return renormalize_probs(np.mean(probs, axis=0))
+        return ensemble_mean(self.predict_proba(x))
+
+
+def ensemble_mean(probs: np.ndarray) -> np.ndarray:
+    """``(k, B, C)`` per-model probabilities (host) -> the ensembled
+    ``(B, C)``: the replicated route's host op sequence."""
+    return renormalize_probs(np.mean(probs.astype(np.float32), axis=0))

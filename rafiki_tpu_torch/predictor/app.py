@@ -17,11 +17,14 @@ ensembled predictions. Every request goes through the serving
 Each request runs under one trace: the caller's ``X-Rafiki-Trace-Id``
 header, or a fresh id, echoed in the body's ``trace_id`` and the
 response header, so callers can ``python -m rafiki_tpu_torch.obs trace
-<id>`` it. A request's server time is split into three
-telemetry spans, all under its trace: ``predictor_http.decode`` (JSON
-body to the queries, numeric queries to arrays; the arrays alone in the
-nested ``predictor_http.rows``), ``gateway.predict`` and
-``predictor_http.encode``. ``GET /metrics?format=prom`` serves the
+<id>`` it. The caller's tenant (the ``X-Rafiki-Tenant`` header, else
+the body's ``"tenant"`` key, else none: the anonymous tenant) is passed
+to ``Gateway.predict(tenant=)``, which charges admission, sheds and
+latency to it when the gateway has a tenant fabric. A request's server
+time is split into three telemetry spans, all under its trace:
+``predictor_http.decode`` (JSON body to the queries, numeric queries to
+arrays; the arrays alone in the nested ``predictor_http.rows``),
+``gateway.predict`` and ``predictor_http.encode``. ``GET /metrics?format=prom`` serves the
 snapshot as Prometheus text (``obs/prom.py``).
 """
 
@@ -123,9 +126,10 @@ class PredictorApp:
                     return json_response({"error": "deadline_s must be a number"}, 400)
                 if deadline_s <= 0:
                     return json_response({"error": "deadline_s must be > 0"}, 400)
+            tenant = request.headers.get("X-Rafiki-Tenant") or body.get("tenant")
             with telemetry.span("predictor_http.rows", queries=len(queries)):
                 queries = _as_rows(queries)
-        preds = self.gateway.predict(queries, deadline_s=deadline_s)
+        preds = self.gateway.predict(queries, deadline_s=deadline_s, tenant=tenant)
         with telemetry.span("predictor_http.encode", queries=len(preds)):
             response = Response(json.dumps({"predictions": jsonable(preds),
                                             "trace_id": trace_id}).encode())

@@ -22,8 +22,10 @@ the fan-out cost, a ``serving/hops`` record and an exemplar offer); a
 microbatched fan-out returns its chains and the ``dec`` mark, and the
 gateway absorbs them per member under that member's trace.
 
-Not in the port: the tenancy program tag (``wrap_query``, ROADMAP Queue
-1 item 14).
+A co-hosted job's predictor (``program=``) tags every fanned-out query
+with its program id (``tenancy/hosting.py wrap_query``), inside a
+microbatch envelope too, so the shared worker's ``ProgramHost`` routes
+it to the job's model; ``program=None`` keeps the one-job wire format.
 """
 
 from __future__ import annotations
@@ -86,16 +88,29 @@ class Predictor:
     def __init__(self, bus, job_id: str, timeout_s: float = 10.0,
                  worker_ttl_s: float = 3.0,
                  min_replies: Optional[int] = None,
-                 hedge_grace_s: float = DEFAULT_HEDGE_GRACE_S):
+                 hedge_grace_s: float = DEFAULT_HEDGE_GRACE_S,
+                 program: Optional[str] = None):
         self.bus = bus
         self.job_id = job_id
         self.timeout_s = timeout_s
+        # The job's program id when its model lives in a shared
+        # co-hosted worker (module doc); None = one job per worker.
+        self.program = program
         # Liveness lease TTL: workers heartbeat every ~0.5s from a
         # dedicated thread, so a worker missing for worker_ttl_s is dead.
         self.worker_ttl_s = worker_ttl_s
         # Default gather quorum. None → wait for every fanned-out replica.
         self.min_replies = min_replies
         self.hedge_grace_s = hedge_grace_s
+
+    def _tagged(self, query: Any) -> Any:
+        """The query as it rides the bus: wrapped with this job's
+        program tag when the job is co-hosted, verbatim otherwise."""
+        if self.program is None:
+            return query
+        from rafiki_tpu_torch.tenancy.hosting import wrap_query
+
+        return wrap_query(self.program, query)
 
     def live_workers(self) -> List[str]:
         """Reap corpses, then return the fresh-leased worker set — or,
@@ -159,8 +174,9 @@ class Predictor:
         for query in queries:
             qid = uuid.uuid4().hex
             qids.append(qid)
+            tagged = self._tagged(query)
             for w in workers:
-                self.bus.add_query(w, qid, query)
+                self.bus.add_query(w, qid, tagged)
         # One deadline for the whole batch; past it, remaining queries
         # gather non-blockingly so batch latency stays bounded.
         t_gather = time.monotonic()
@@ -234,7 +250,9 @@ class Predictor:
         telemetry.inc("predictor.queries", n)
         telemetry.observe("predictor.fanout_workers", len(workers))
         qid = uuid.uuid4().hex
-        payload = {BATCH_KEY: list(queries)}
+        # The worker expands BATCH_KEY before model.predict, so each
+        # query keeps its own program tag.
+        payload = {BATCH_KEY: [self._tagged(q) for q in queries]}
         for w in workers:
             self.bus.add_query(w, qid, payload)
         t_gather = time.monotonic()

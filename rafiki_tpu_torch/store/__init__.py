@@ -1,10 +1,11 @@
-"""Persistence layer: meta store (sqlite3) + params store (files).
+"""Persistence layer: meta store (sqlite3) + params store (files), plain
+or content-addressed.
 
-Counterpart of ``rafiki_tpu/store``; the content-addressed params
-store (``store/cas.py``) is not ported yet.
+Counterpart of ``rafiki_tpu/store``.
 """
 
+from rafiki_tpu_torch.store.cas import CasParamsStore, make_params_store
 from rafiki_tpu_torch.store.meta import MetaStore
 from rafiki_tpu_torch.store.params import ParamsStore
 
-__all__ = ["MetaStore", "ParamsStore"]
+__all__ = ["CasParamsStore", "MetaStore", "ParamsStore", "make_params_store"]

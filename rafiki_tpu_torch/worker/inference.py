@@ -35,7 +35,12 @@ choice and CUDA's lazy start, kept out of the warm percentiles), and
 spawn target over ``make_mp_bus``): it rebuilds its trial from the
 stores and serves on the card until killed.
 
-Not in the port: co-hosted job ids (tenancy, ROADMAP Queue 1 item 14).
+A co-hosted worker (``extra_job_ids``, a ``tenancy/hosting.py
+ProgramHost`` as its model) registers, heartbeats and deregisters under
+every co-hosted job id with one worker id: each job's predictor fans out
+to the same queue, and the program tag on each query routes it. This is
+for thread workers; ``run_inference_worker_process`` serves one job, as
+the JAX package's does.
 """
 
 from __future__ import annotations
@@ -55,9 +60,11 @@ class InferenceWorker:
     HEARTBEAT_S = 0.5
 
     def __init__(self, bus, job_id: str, worker_id: str, model: Any,
-                 batch_size: int = 64, stop_event: Optional[threading.Event] = None):
+                 batch_size: int = 64, stop_event: Optional[threading.Event] = None,
+                 extra_job_ids: Optional[List[str]] = None):
         self.bus = bus
         self.job_id = job_id
+        self.job_ids = [job_id] + [j for j in (extra_job_ids or []) if j != job_id]
         self.worker_id = worker_id
         self.model = model
         self.batch_size = batch_size
@@ -78,12 +85,14 @@ class InferenceWorker:
         starve the lease."""
         while not self._stop.wait(self.HEARTBEAT_S):
             try:
-                self.bus.heartbeat(self.job_id, self.worker_id)
+                for job_id in self.job_ids:
+                    self.bus.heartbeat(job_id, self.worker_id)
             except Exception:  # the bus's manager torn down: exit quietly
                 return
 
     def run(self) -> None:
-        self.bus.add_worker(self.job_id, self.worker_id)
+        for job_id in self.job_ids:
+            self.bus.add_worker(job_id, self.worker_id)
         threading.Thread(target=self._beat, name=f"beat-{self.worker_id}",
                          daemon=True).start()
         try:
@@ -93,7 +102,8 @@ class InferenceWorker:
                 if items:
                     self._serve(items)
         finally:
-            self.bus.remove_worker(self.job_id, self.worker_id)
+            for job_id in self.job_ids:
+                self.bus.remove_worker(job_id, self.worker_id)
             self.drained.set()
 
     def _serve(self, items: List[tuple]) -> None:
@@ -166,6 +176,7 @@ def run_inference_worker_process(bus, meta_path: str, params_path: str,
     from rafiki_tpu_torch import obs
     from rafiki_tpu_torch.model.base import load_model_class
     from rafiki_tpu_torch.store import MetaStore, ParamsStore
+    from rafiki_tpu_torch.utils import heap
     from rafiki_tpu_torch.utils.backend import default_device, local_devices
 
     if obs.configure_from_env(role="infer"):
@@ -184,4 +195,5 @@ def run_inference_worker_process(bus, meta_path: str, params_path: str,
         model = cls(**trial["knobs"])
         if trial.get("params_id"):
             model.load_parameters(ParamsStore(params_path).load(trial["params_id"]))
+        heap.freeze()  # serves until killed: never thawed (utils/heap.py)
         InferenceWorker(bus, job_id, worker_id, model, batch_size=batch_size).run()

@@ -66,21 +66,22 @@ def test_the_catalogs_have_nineteen_and_six_scenarios():
     the three that SIGKILL ProcessScheduler workers, and, since the mesh
     sweep, its three in-process scenarios and the two that SIGKILL the
     sweep's supervisor process, since the search plane,
-    ``early-kill-mid-pack-resume``, and, since the multiprocessing bus,
+    ``early-kill-mid-pack-resume``, since the multiprocessing bus,
     ``stacked-worker-loss-fallback``, which SIGKILLs a spawned inference
-    worker: sixteen, each with the JAX package's spec, description and
-    env."""
+    worker, and, since tenancy, ``noisy-neighbor-shed``: seventeen, each
+    with the JAX package's spec, description and env."""
     assert len(JAX_SCENARIOS) == 19
     assert set(SCENARIOS) == {"checkpoint-write-failure", "straggler-quorum", "drain-under-load",
                               "predictor-outage-surfaces", "pack-straggler-evict",
                               "nan-trial-contained", "mesh-chip-loss-repack",
                               "chip-loss-mid-sharded-trial",
-                              "mesh-degrades-single-chip"} | SUBPROCESS_SCENARIOS
+                              "mesh-degrades-single-chip",
+                              "noisy-neighbor-shed"} | SUBPROCESS_SCENARIOS
     assert SUBPROCESS_SCENARIOS == {"kill-mid-trial-resume", "kill-mid-pack-resume",
                                     "collective-kill-mid-step", "supervisor-kill-mid-sweep",
                                     "host-loss-mid-sweep", "early-kill-mid-pack-resume",
                                     "stacked-worker-loss-fallback"}
-    assert len(SCENARIOS) == 16
+    assert len(SCENARIOS) == 17
     for name, sc in SCENARIOS.items():
         jsc = JAX_SCENARIOS[name]
         assert (sc.spec, sc.description, sc.env) == (jsc.spec, jsc.description, jsc.env), name

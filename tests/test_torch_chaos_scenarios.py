@@ -11,7 +11,10 @@ supervisor process in ``tests/test_torch_sweep_resume.py``.) Then the two packag
 side by side, each with its own plane and journal: the same member
 errors, at the same bad step, the rows end in the same statuses, and
 the journals hold the same record kinds and names, the advisor's audit
-records included.
+records included. Last, both packages' ``noisy-neighbor-shed`` bodies
+run weighted (every check passes, the aggressor alone is shed, for
+``tenant_quota``) and under ``RAFIKI_TENANT_UNWEIGHTED=1``, where both
+must fail ``victim_p99_within_budget``.
 """
 
 import pytest
@@ -114,3 +117,57 @@ def test_nan_trial_contained_matches_the_jax_packages(tmp_path, monkeypatch):
                  ("flight", "health:divergence"), ("event", "trial_diverged"),
                  ("event", "pack_member_evicted")]:
         assert pair in pairs(got_recs), pair
+
+
+# -- noisy-neighbor-shed, both packages, both polarities ------------------------
+
+
+def _tenant_view(recs):
+    """What the scenario's checks read: per tenant and record name, the
+    count and the shed reasons."""
+    out = {}
+    for r in recs:
+        if r.get("kind") == "tenant" and r.get("name") != "summary":
+            key = (r["tenant"], r["name"])
+            n, reasons = out.get(key, (0, set()))
+            out[key] = (n + 1, reasons | ({r["reason"]} if "reason" in r else set()))
+    return out
+
+
+@pytest.mark.parametrize("unweighted", [False, True], ids=["weighted", "unweighted"])
+def test_noisy_neighbor_shed_matches_the_jax_packages(unweighted, tmp_path, monkeypatch):
+    """Each package's noisy-neighbor-shed body with its own plane and
+    journal: weighted, both pass all six checks, shed only the aggressor
+    and only for ``tenant_quota``; under ``RAFIKI_TENANT_UNWEIGHTED=1``
+    (the doctored polarity) both fail ``victim_p99_within_budget``."""
+    if unweighted:
+        monkeypatch.setenv("RAFIKI_TENANT_UNWEIGHTED", "1")
+    runs = {}
+    for pkg in ("jax", "port"):
+        checks = []
+        check = lambda name, ok, detail="": checks.append((name, bool(ok), str(detail)))  # noqa: E731
+        sc, plane_mod, j, read = ((JAX_SCENARIOS["noisy-neighbor-shed"], jax_chaos, jax_journal,
+                                   jax_read_dir) if pkg == "jax" else
+                                  (SCENARIOS["noisy-neighbor-shed"], chaos, journal, read_dir))
+        plane_mod.install(plane_mod.FaultPlane.from_spec(sc.spec))
+        j.configure(tmp_path / pkg, role="chaos-runner")
+        try:
+            sc.fn(tmp_path, check)
+        finally:
+            j.close()
+            plane_mod.uninstall()
+        runs[pkg] = checks, _tenant_view(read(tmp_path / pkg))
+    (got, got_view), (want, want_view) = runs["port"], runs["jax"]
+    assert [n for n, _, _ in got] == [n for n, _, _ in want] == [
+        "victim_served", "victim_p99_within_budget", "aggressor_shed",
+        "shed_charged_to_aggressor_quota", "victim_never_shed", "summary_reconciles_sheds"]
+    if not unweighted:
+        assert all(ok for _, ok, _ in got), got
+        assert all(ok for _, ok, _ in want), want
+        for view in (got_view, want_view):
+            assert view[("aggressor", "shed")][1] == {"tenant_quota"}
+            assert ("victim", "shed") not in view and view[("victim", "request")][0] == 25
+    else:
+        for checks in (got, want):
+            assert dict((n, ok) for n, ok, _ in checks)["victim_p99_within_budget"] is False
+    assert set(got_view) - {("aggressor", "shed")} == set(want_view) - {("aggressor", "shed")}

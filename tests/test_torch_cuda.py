@@ -45,6 +45,63 @@ def _models(device):
     return out
 
 
+def test_card_stacked_serving_replays_its_captured_forward_bit_for_bit(cuda):
+    """The stacked adapter captures its forward once at the serving
+    shape and replays it for every later chunk; the replays equal the
+    eager stacked forward on the same padded chunks bit for bit."""
+    from rafiki_tpu_torch import telemetry
+    from rafiki_tpu_torch.parallel.serving import build_stacked
+
+    stacked, reason = build_stacked([{"model_name": "vgg"}] * 3, _models(cuda), batch_size=8)
+    assert reason == "stacked"
+    x = np.random.default_rng(2).uniform(0, 1, size=(13, 32, 32, 3)).astype(np.float32)
+    xp = stacked._first.preprocess(x)
+    telemetry.reset()
+    got = [stacked.predict_proba(xp) for _ in range(2)]
+    pad = np.concatenate([xp, np.zeros((3,) + xp.shape[1:], xp.dtype)])
+    eager = np.concatenate([stacked._ens.ensemble_proba(torch.from_numpy(c).to(cuda))
+                            for c in (pad[:8], pad[8:])])[:13]
+    counters = telemetry.snapshot()["counters"]
+    assert counters["serving.graph_captures"] == 1
+    assert counters["serving.graph_replays"] == 4
+    for g in got:
+        assert g.shape == (13, 10) and np.array_equal(g, eager)
+    stacked.destroy()
+
+
+def test_card_stacked_serving_threads_leave_no_memory_behind(cuda):
+    """Served jobs' callers are threads made per job (workers, HTTP
+    handlers), two at a time here; every capture and replay runs on the
+    card's one serving thread, so after the first round a round of jobs
+    served and stopped leaves the card's ``memory_allocated`` where it
+    found it (within 1 MiB)."""
+    from rafiki_tpu_torch.parallel.serving import build_stacked
+
+    q = np.random.default_rng(5).uniform(0, 1, size=(3, 32, 32, 3)).astype(np.float32).tolist()
+
+    def serve():
+        stacked, reason = build_stacked([{"model_name": "vgg"}] * 3, _models(cuda),
+                                        batch_size=64)
+        assert reason == "stacked"
+        stacked.warmup()
+        stacked.predict(q)
+        stacked.destroy()
+
+    def round_of_two():
+        threads = [threading.Thread(target=serve) for _ in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+            assert not th.is_alive()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    first = round_of_two()
+    grown = [round_of_two() - first for _ in range(3)]
+    assert all(g <= 1 << 20 for g in grown), grown
+
+
 def test_card_forward_matches_cpu(cuda):
     x = np.random.default_rng(0).uniform(0, 1, size=(7, 32, 32, 3)).astype(np.float32)
     card = [m.predict_proba(x) for m in _models(cuda)]
@@ -893,3 +950,45 @@ def test_card_process_route_equals_the_in_process_route(cuda, tmp_path):
         mp_bus.close()
     assert process.shape == (9, 10) and np.isfinite(process).all()
     assert np.array_equal(process, in_process)
+
+
+def test_card_eviction_frees_the_stacked_program_and_reactivation_serves_equal(cuda):
+    """A stacked top-3 evicted by the residency manager gives back at
+    least 90% of the ``memory_allocated`` bytes its activation took (the
+    caching allocator keeps the blocks reserved, so ``memory_reserved``
+    is not read), and its re-activation serves the same predictions bit
+    for bit."""
+    from rafiki_tpu_torch.parallel.serving import build_stacked
+    from rafiki_tpu_torch.tenancy import ResidencyManager
+
+    def loader():
+        stacked, reason = build_stacked([{"model_name": "vgg"}] * 3, _models(cuda),
+                                        batch_size=64)
+        assert stacked is not None, reason
+        return stacked
+
+    class _Nothing:
+        def predict(self, queries):
+            return [None for _ in queries]
+
+    q = np.random.default_rng(4).uniform(0, 1, size=(5, 32, 32, 3)).astype(np.float32).tolist()
+    warm = loader()  # this thread's cuBLAS workspace and cuDNN state, once
+    warm.predict(q)
+    warm.destroy()
+    del warm
+    rm = ResidencyManager(budget_bytes=100)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    first = rm.activate("a", 60, loader)
+    torch.cuda.synchronize()
+    took = torch.cuda.memory_allocated() - before
+    want = first.predict(q)
+    del first
+    rm.activate("b", 60, _Nothing)  # evicts "a"
+    torch.cuda.synchronize()
+    freed = before + took - torch.cuda.memory_allocated()
+    assert took > 0 and freed >= 0.9 * took, (took, freed)
+    again = rm.activate("a", 60, loader)  # evicts "b"
+    assert rm.resident_keys() == ["a"]
+    assert again.predict(q) == want
+    rm.drain()

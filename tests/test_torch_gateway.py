@@ -29,6 +29,8 @@ from werkzeug.serving import make_server
 from rafiki_tpu import gateway as jax_gateway
 from rafiki_tpu import telemetry as jax_telemetry
 from rafiki_tpu.bus import InProcBus as JaxBus
+from rafiki_tpu import tenancy as jax_tenancy
+from rafiki_tpu.obs.anatomy import exemplars as jax_exemplars
 from rafiki_tpu.ops import train as _jax_ops_train  # noqa: F401 (see below)
 from rafiki_tpu.predictor import Predictor as JaxPredictor
 from rafiki_tpu.predictor.app import PredictorApp as JaxPredictorApp
@@ -36,6 +38,8 @@ from rafiki_tpu.worker.inference import InferenceWorker as JaxWorker
 from rafiki_tpu_torch import gateway as port_gateway
 from rafiki_tpu_torch import telemetry as port_telemetry
 from rafiki_tpu_torch.bus.queues import InProcBus
+from rafiki_tpu_torch import tenancy as port_tenancy
+from rafiki_tpu_torch.obs.anatomy import exemplars as port_exemplars
 from rafiki_tpu_torch.predictor.app import start_predictor_server
 from rafiki_tpu_torch.predictor.predictor import Predictor
 from rafiki_tpu_torch.worker.inference import InferenceWorker
@@ -484,6 +488,15 @@ def test_shed_and_drain_decisions_alike():
 def test_stats_and_metrics_keys_alike():
     def keys(pkg):
         pkg.telemetry.reset()
+        # The exemplar ring is process-global and outlives reset(): an
+        # earlier test file in this worker may have left exemplars in one
+        # package's ring (its collector then has ``slowest_s``).
+        ring = (jax_exemplars if pkg is PACKAGES["jax"] else port_exemplars).ring
+        ring.flush()
+        # A tenant fabric registers the process-global ``tenants``
+        # collector: one is made here in each package, so the sets below
+        # do not depend on whether an earlier test file made one.
+        (jax_tenancy if pkg is PACKAGES["jax"] else port_tenancy).TenantFabric()
         gw = _gateway(pkg, Scripted(live=["w0", "w1"]), max_batch=1)
         gw.predict([[1.0]])
         stats = gw.stats()
@@ -502,11 +515,11 @@ def test_stats_and_metrics_keys_alike():
     # this module imports it, so the comparison holds whatever ran first.)
     # the gateway's serving rollup and the exemplar ring, the program
     # cache's, the observability plane's (perf, slo and the goodput
-    # ledger) and the search ledger's. The JAX package's has those and the
-    # collectors of its other planes.
+    # ledger), the search ledger's and the tenant fabric's. The JAX
+    # package's has those and the collectors of its other planes.
     assert got["port"][1] == {"counters", "gauges", "histograms", "spans", "ts", "gateway",
                               "serving", "serving_exemplars", "program_cache", "perf", "slo",
-                              "goodput", "search"}
+                              "goodput", "search", "tenants"}
     assert got["jax"][1] >= got["port"][1] | DROPPED_COLLECTORS
 
 
