@@ -14,6 +14,7 @@ CUDA card.
     python3 chip_smoke.py --mesh-repack N  # phase 22 (b) alone, N times
     python3 chip_smoke.py --serve-proc     # phase 24 alone: serving across processes
     python3 chip_smoke.py --tenancy [N]    # phase 25 alone: co-hosting, tenant isolation
+    python3 chip_smoke.py --autoscale      # phase 26 alone: scale-up, prewarm, the twin
 
 Drives ``rafiki_tpu_torch`` the way a user serves a top-k ensemble,
 the way a tuning job runs and the way a trial trains, at the full width
@@ -250,16 +251,18 @@ Process workers and within-trial data parallelism:
      job. Fails unless the job COMPLETED with params for every trial,
      the best score reaches TUNE_TOP1_TARGET, and its top-2 stored blobs
      serve within SERVED_ACC_ATOL of their stored scores (as 7).
-     (b) ``kill-mid-pack-resume`` at the canonical model: a k=PACK_K pack
-     of PROC_PACK_SRC trials (batch 128, 3 epochs on PROC_URI) under the
-     scheduler with the JAX package's spec and env (PROC_KILL_SPEC,
-     PROC_KILL_ENV): the worker SIGKILLs itself after epoch 1 and the
-     respawned ``-r1`` worker resumes all four members from their slice
-     checkpoints. Fails unless all four COMPLETED under ``-r1``, each
+     (b) ``kill-mid-pack-resume`` at the canonical model: a k=PROC_KILL_K
+     pack of PROC_PACK_SRC trials (batch 128, 3 epochs on PROC_CUT_URI)
+     under the scheduler with the JAX package's spec and env
+     (PROC_KILL_SPEC, PROC_KILL_ENV, its pack of four cut to two): the
+     worker SIGKILLs itself after epoch 1 and the respawned ``-r1``
+     worker resumes every member from its slice checkpoints; the line
+     carries the job's event timeline. Fails unless all COMPLETED under
+     ``-r1``, each
      resumed from epoch 1 or later, no checkpoint is left, and each
      member's float32 params are byte-equal to an unfaulted serial run
      of its knobs in this process. (c) the canonical trial (TRAIN_KNOBS,
-     two epochs on PROC_URI) with ``set_mesh(data_parallel_mesh(...))``
+     two epochs on PROC_CUT_URI) with ``set_mesh(data_parallel_mesh(...))``
      over a one-rank NCCL group, against the same trial with no mesh:
      fails unless the params are byte-equal (an all-reduce over one rank
      and the division by 1 change no bit) and the dp trial replayed no
@@ -394,6 +397,42 @@ saved through ``make_params_store`` with ``RAFIKI_PARAMS_CAS=1``:
      ``obs tenants --check`` exits 0, and unless the same run under
      ``RAFIKI_TENANT_UNWEIGHTED=1`` fails ``victim_p99_within_budget``.
 
+Closed-loop elasticity and the serving twin, phase 1's trials:
+
+ 26. autoscale: (a) the trials as a stacked job at batch 64 through
+     ``ServicesManager`` (a tenant-aware gateway, one reply enough), a
+     private SLO on the serving p99 gauge (AUTOSCALE_SLO_MS over
+     AUTOSCALE_WINDOW_S) and ``attach_autoscaler`` (1 to 2 workers, a
+     0.2 s tick); the base replica pinned slow
+     (``inference.forward:delay`` of AUTOSCALE_DELAY_S) and requests
+     driven one after another until the burn breaches and clears. Fails
+     unless the controller journals an actuated ``up``, the replica
+     registers and answers, the burn clears within AUTOSCALE_RECOVERY_S
+     of the breach, there are at most AUTOSCALE_MAX_ACTUATIONS
+     actuations, the replica's answers to 64 queries equal the base
+     replica's bit for bit, and a forced scale-down drains, reaps and
+     frees it with ``memory_allocated`` back within TUNE_LEAK_BYTES of
+     its value before the spawn. Prints breach to actuation, the
+     replica's build (load, stack, capture: the actuation's span),
+     registration to first answer, recovery and the freed bytes. (c) the
+     serving twin on the card's own journal: TWIN_REQUESTS requests of
+     two tenants in turns calibrate it (``serving/hops``,
+     ``serving/ts``) and ``validate`` prints predicted against measured
+     p50 and p99 with its 0.40 tolerance (a reading: it does not fail the
+     run); then a window whose forward is held to TWIN_GATE_FORWARD_S
+     builds ``JobAdmissionGate.from_capture``, which must admit a light
+     job and refuse, with ``JobRejected``, one whose load breaches the
+     gold tenant's budget, both verdicts journaled ``tenancy/arbiter``.
+     (b) a canonical k=2 job (PREWARM_SRC, two trials on PROC_URI)
+     admitted through ``create_train_services``, the program cache cleared
+     first, without and then with ``RAFIKI_AUTOSCALE_PREWARM=1``. Fails
+     unless both complete in a pack, the prewarmed job's
+     ``autoscale/prewarm`` record says hit or warmed and its pack adds no
+     ``program_cache.misses``. Prints the prewarm's seconds and each
+     job's first packed epoch (``perf/step``), beside phase 12's pack.
+
+The whole script's seconds are printed before the kernel line.
+
 Every training phase runs its epochs as captured CUDA graphs
 (``ops/graphs.py``). Each phase's line carries its seconds
 (``phase_s``) and the captured steps it replayed (``graph_replays``,
@@ -414,7 +453,9 @@ phases 17 and 18, ``--obs`` only phase 19, ``--chaos`` only phase 20
 other, with no phase 16 count to add), ``--process`` only phase 21,
 ``--mesh`` only phase 22, ``--search`` only phase 23, ``--serve-proc``
 only phase 24, ``--tenancy [N]`` only phase 25 (its weighted
-isolation run N times over, 1 unless given), ``--mesh-repack N``
+isolation run N times over, 1 unless given), ``--autoscale`` only phase
+26 (its cold job is then the process's first training, so its first
+epoch also pays the process's own start), ``--mesh-repack N``
 phase 22 (b) N times over (two chips' threads sharing the card, to
 catch a capture that another thread's synchronize invalidates now and
 then). ``--resume-child`` is the
@@ -3309,20 +3350,26 @@ def chaos_phase(card, check, phase16_nodes=None) -> None:
 # CUDA_VISIBLE_DEVICES=0, the GP advisor over loopback HTTP; PROC_TUNE_TRIALS
 # trials (TUNE_TRIALS until phase 23 needed the time), the GP warmed up on
 # PROC_ADVISOR's 2 proposals, so its last comes from expected improvement.
-# (b) kill-mid-pack-resume at the canonical model: a k=4 pack of PROC_PACK_SRC
-# trials on PROC_URI, 3 epochs, the worker SIGKILLed after epoch 1 (the JAX
-# package's spec and env), its members resumed by the -r1 worker from their
-# slice checkpoints; params stored in float32 and compared byte for byte with
-# unfaulted serial runs of the same knobs.
-# (c) the canonical trial (TRAIN_KNOBS, two epochs on PROC_URI) on a one-rank
-# NCCL dp mesh against the same trial with no mesh: the params byte for byte,
-# and the warm epoch's ms a step of each path (the dp step runs eagerly).
+# (b) kill-mid-pack-resume at the canonical model: a k=PROC_KILL_K pack of
+# PROC_PACK_SRC trials on PROC_CUT_URI, 3 epochs, the worker SIGKILLed after
+# epoch 1 (the JAX package's spec and env, its k=4 pack cut to 2 members),
+# its members resumed by the -r1 worker from their slice checkpoints; params
+# stored in float32 and compared byte for byte with unfaulted serial runs of
+# the same knobs.
+# (c) the canonical trial (TRAIN_KNOBS, two epochs on PROC_CUT_URI) on a
+# one-rank NCCL dp mesh against the same trial with no mesh: the params byte
+# for byte, and the warm epoch's ms a step of each path (the dp step runs
+# eagerly).
+# (b) and (c) ran a 4-member pack on PROC_URI until phase 26 needed the time.
 PROC_TUNE_TRIALS = 3
 PROC_ADVISOR = {"n_initial": 2}
 PROC_IMAGES = 10000
 PROC_URI = TRAIN_URI.replace("n=50000", f"n={PROC_IMAGES}")
+PROC_CUT_IMAGES = 5000
+PROC_CUT_URI = TRAIN_URI.replace("n=50000", f"n={PROC_CUT_IMAGES}")
+PROC_KILL_K = 2
 PROC_KILL_SPEC = "seed=7;worker.epoch:kill:after=1:times=1:unless=-r"
-PROC_KILL_ENV = {"RAFIKI_CHECKPOINT_EVERY": "1", "RAFIKI_TRIAL_PACK": "4",
+PROC_KILL_ENV = {"RAFIKI_CHECKPOINT_EVERY": "1", "RAFIKI_TRIAL_PACK": str(PROC_KILL_K),
                  "RAFIKI_WORKER_MAX_RESTARTS": "3", "RAFIKI_WORKER_RESTART_BACKOFF_S": "0.2",
                  "RAFIKI_TPU_SERVING_PARAMS_DTYPE": "float32"}
 # The canonical model at one packing key (batch 128, three epochs), the
@@ -3426,11 +3473,15 @@ def process_kill_pack(card):
     try:
         torch.cuda.empty_cache()
         events.configure(f"{tmp}/logs")
-        store, params, job = _proc_job(tmp, PROC_PACK_SRC, "ProcPackVgg", PACK_K, PROC_URI)
-        t0 = time.monotonic()
+        store, params, job = _proc_job(tmp, PROC_PACK_SRC, "ProcPackVgg", PROC_KILL_K,
+                                       PROC_CUT_URI)
+        t0, w0 = time.monotonic(), time.time()
         result = ProcessScheduler(store, params).run_train_job(
             job["id"], n_workers=1, advisor_kind="random", poll_s=0.2)
         wall = time.monotonic() - t0
+        # Where the job's wall goes: every event of the job's processes,
+        # seconds from its start.
+        timeline = [[e["event"], round(e["time"] - w0, 3)] for e in events.read()][:80]
         trials = store.get_trials_of_train_job(job["id"])
         blobs = {t["id"]: params.load(t["params_id"]) for t in trials if t["params_id"]}
         left = [t["id"] for t in trials if params.latest_checkpoint(t["id"]) is not None]
@@ -3444,7 +3495,7 @@ def process_kill_pack(card):
         t_ref = time.monotonic()
         for t in trials:
             m = cls(**t["knobs"])
-            m.train(PROC_URI)
+            m.train(PROC_CUT_URI)
             want = load_flat(pickle.loads(m.dump_parameters())["packed"])
             m.destroy()
             got = (load_flat(pickle.loads(blobs[t["id"]])["packed"]) if t["id"] in blobs
@@ -3467,7 +3518,8 @@ def process_kill_pack(card):
             "resumed_from_epoch": [resumed.get(t["id"]) for t in trials],
             "worker_deaths": len(died), "checkpoints_left": len(left),
             "params_byte_equal": equal, "job_wall_s": wall, "serial_reference_s": ref_s,
-            "errors": result.errors, "phase_s": time.monotonic() - t_phase}
+            "timeline": timeline, "errors": result.errors,
+            "phase_s": time.monotonic() - t_phase}
 
 
 def process_dp_width1(card):
@@ -3502,7 +3554,7 @@ def process_dp_width1(card):
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
                             rank=0, timeout=datetime.timedelta(seconds=120),
                             device_id=torch.device("cuda", 0))
-    steps = dataset_utils.load(PROC_URI).size // PROC_DP_KNOBS["batch_size"]
+    steps = dataset_utils.load(PROC_CUT_URI).size // PROC_DP_KNOBS["batch_size"]
     out = {}
     try:
         mesh = data_parallel_mesh([torch.device("cuda", 0)])
@@ -3526,7 +3578,7 @@ def process_dp_width1(card):
                     seen["event_ms"] = seen["ev0"].elapsed_time(ev1) / steps
 
             m.set_checkpoint_sink(at_epoch_end)
-            m.train(PROC_URI)
+            m.train(PROC_CUT_URI)
             torch.cuda.synchronize()
             snap = telemetry.snapshot()
             out[label] = {
@@ -3537,7 +3589,7 @@ def process_dp_width1(card):
             if m_mesh is not None:
                 loop, bs = m._loop, PROC_DP_KNOBS["batch_size"]
                 win = _StepWindow(1, profile_iters=PROFILE_ITERS // 2)
-                feed = HostFeed(m._prepared_dataset(PROC_URI).batches(
+                feed = HostFeed(m._prepared_dataset(PROC_CUT_URI).batches(
                     bs, shuffle=True, seed=PROC_DP_KNOBS["epochs"], drop_remainder=True),
                     win.n_steps, loop.device, loop.plan)
                 loop.state, _ = loop.program.train_steps(loop.state, feed, on_step=win,
@@ -3582,7 +3634,7 @@ def process_phase(card, check) -> None:
           f"{job['served_abs_diff']}")
     kill = process_kill_pack(card)
     print(json.dumps(kill))
-    check(kill["status"] == "COMPLETED" and kill["trial_status"] == ["COMPLETED"] * PACK_K,
+    check(kill["status"] == "COMPLETED" and kill["trial_status"] == ["COMPLETED"] * PROC_KILL_K,
           f"process kill: job {kill['status']}, trials {kill['trial_status']}, "
           f"errors {kill['errors']}")
     check(kill["worker_deaths"] >= 1 and all("-r1" in (w or "") for w in kill["worker_ids"]),
@@ -5221,9 +5273,395 @@ def tenancy_phase(card, check, blobs=None, repeats=1) -> None:
     print(json.dumps({"phase": "tenancy", "card": card[1], "power_limit": card[2],
                       "phase_s": time.monotonic() - t0}))
 
+
+# -- closed-loop elasticity and the serving twin -------------------------------------
+# Phase 26. (a) phase 1's trials as a stacked job at batch 64; the base
+# replica pinned slow until the private serving-p99 SLO breaches and the
+# autoscaler (0.2 s tick, 1 to 2 workers) scales it up.
+AUTOSCALE_SRC = b"from rafiki_tpu_torch.models.vgg import Vgg\n\n\nclass ScaleVgg(Vgg):\n    pass\n"
+AUTOSCALE_SLO_MS = 150.0
+AUTOSCALE_WINDOW_S = 0.8
+AUTOSCALE_DELAY_S = 0.3
+AUTOSCALE_DRIVE_S = 20.0
+AUTOSCALE_RECOVERY_S = 8.0
+AUTOSCALE_MAX_ACTUATIONS = 2
+#: The lane's band and cooldowns (``RAFIKI_AUTOSCALE_*``), as the JAX
+#: package's ``load-spike-scale-up`` scenario sets them.
+AUTOSCALE_ENV = {"RAFIKI_AUTOSCALE_UP_THRESHOLD": "1.0", "RAFIKI_AUTOSCALE_DOWN_THRESHOLD": "0.0",
+                 "RAFIKI_AUTOSCALE_UP_COOLDOWN_S": "1.0",
+                 "RAFIKI_AUTOSCALE_DOWN_COOLDOWN_S": "60.0"}
+AUTOSCALE_GATEWAY = {"min_replies": 1, "max_queue": 32, "max_inflight": 8}
+AUTOSCALE_TIERS = {"gold_t": "gold", "batch_t": "batch"}
+# (b) the canonical model at one packing key (batch 128, one epoch) on the
+# 10,000-image cut, a k=2 job of two trials.
+PREWARM_SRC = (PROC_PACK_SRC.replace(b"class ProcPackVgg(Vgg):", b"class PrewarmVgg(Vgg):")
+               .replace(b"ProcPackVgg.", b"PrewarmVgg.")
+               .replace(b'"epochs": FixedKnob(3)', b'"epochs": FixedKnob(1)'))
+PREWARM_K = 2
+# (c) the twin's readings on the card's own journal: TWIN_REQUESTS one-query
+# requests, the two tenants in turns, then the admission gate on a window
+# whose forward is held to TWIN_GATE_FORWARD_S by an inference.forward delay
+# on top of the card's (a model of a slower forward: two tenants' requests
+# that meet wait one forward each, inside gold's 200 ms budget; a heavy
+# third tenant makes gold wait two).
+TWIN_REQUESTS = 40
+TWIN_GATE_REQUESTS = 30
+TWIN_GATE_FORWARD_S = 0.085
+TWIN_LIGHT_QPS = 1.0
+TWIN_HEAVY_QPS = 400.0
+
+
+def _span_s(name: str):
+    """Durations of the finished telemetry spans called ``name``."""
+    from rafiki_tpu_torch import telemetry
+
+    return [r.get("dur_s") for r in telemetry.span_records() if r.get("name") == name]
+
+
+def _set_env(values):
+    import os
+
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    return saved
+
+
+def _restore_env(saved):
+    import os
+
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def autoscale_spike(card, tmp, blobs):
+    """Phase 26 (a): the load spike scaled up. Returns the line and the
+    job's services manager, job id and gateway, still serving one
+    replica (for (c))."""
+    import torch
+
+    from rafiki_tpu_torch import chaos, telemetry
+    from rafiki_tpu_torch.admin.services_manager import ServicesManager
+    from rafiki_tpu_torch.obs.journal import journal, read_dir
+    from rafiki_tpu_torch.obs.perf import slo
+    from rafiki_tpu_torch.store import MetaStore, ParamsStore
+    from rafiki_tpu_torch.tenancy import TenantDirectory, TenantFabric
+
+    t0 = time.monotonic()
+    log_dir = tmp / "obs-autoscale"
+    store, params = MetaStore(tmp / "meta.sqlite3"), ParamsStore(tmp / "params")
+    model = store.create_model("vgg", "IMAGE_CLASSIFICATION", None, AUTOSCALE_SRC, "ScaleVgg")
+    tj = store.create_train_job("app", "IMAGE_CLASSIFICATION", None, "x", "y", {})
+    sub = store.create_sub_train_job(tj["id"], model["id"])
+    trials = []
+    for i, b in enumerate(blobs[:K]):
+        t = store.create_trial(sub["id"], "vgg", KNOBS)
+        store.mark_trial_as_completed(t["id"], 0.5, params.save(b, f"as-t{i}"))
+        trials.append(store.get_trial(t["id"]))
+    journal.configure(log_dir, role="autoscale")
+    saved = _set_env(AUTOSCALE_ENV)
+    slo.configure([slo.SloSpec("serving_p99_spike", "gauge:serving.p99_ms", AUTOSCALE_SLO_MS,
+                               windows=(AUTOSCALE_WINDOW_S,))], tick_s=0.0)
+    telemetry.reset()
+    mgr = ServicesManager(store, params)
+    job = store.create_inference_job(tj["id"], None)["id"]
+    mgr.create_inference_services(job, trials, gateway_overrides=AUTOSCALE_GATEWAY,
+                                  tenancy=TenantFabric(TenantDirectory(tiers=AUTOSCALE_TIERS)))
+    handle = mgr._inference_jobs[job]
+    gw = mgr.get_gateway(job)
+    base = handle.workers[0]
+    q = queries_for(27)
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    chaos.install(chaos.FaultPlane.from_spec(
+        f"seed=11;inference.forward:delay:delay={AUTOSCALE_DELAY_S}:match={base.worker_id}"))
+    ctl = mgr.attach_autoscaler(job, min_workers=1, max_workers=2, tick_s=0.2, seed=11)
+    lane = ctl._actuators["inference"]
+    breach_at = scaled_at = recovered_at = None
+    requests = 0
+    try:
+        t_end = time.monotonic() + AUTOSCALE_DRIVE_S
+        while time.monotonic() < t_end:
+            gw.predict(q[requests % BATCH:requests % BATCH + 1].tolist())
+            requests += 1
+            gw.rollup.flush()  # a fresh p99 gauge for every tick of the burn engine
+            now = time.monotonic()
+            state = slo.engine.collector()["state"].get("serving_p99_spike", {})
+            breaching = bool(state.get("breaching"))
+            if breaching and breach_at is None:
+                breach_at = now
+            if scaled_at is None and lane.size() == 2:
+                scaled_at = now
+            if breach_at is not None and scaled_at is not None and not breaching:
+                recovered_at = now
+                break
+    finally:
+        ctl.stop()
+        chaos.uninstall()
+    actuations = ctl.actuation_count("inference")
+    replica = handle.workers[-1] if len(handle.workers) == 2 else None
+    registered = replica is not None and replica.worker_id in mgr.bus.get_workers(job)
+    got = want = None
+    if replica is not None:
+        got = np.asarray(replica.model.predict(q.tolist()))
+        want = np.asarray(base.model.predict(q.tolist()))
+    torch.cuda.synchronize()
+    mem_scaled = torch.cuda.memory_allocated()
+    # The forced scale-down: drained, reaped, freed (its model destroyed).
+    lane.scale_to(1)
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+    journal.close()
+    _restore_env(saved)
+    slo.configure()
+    recs = read_dir(log_dir)
+    decisions = [r for r in recs if (r.get("kind"), r.get("name")) == ("autoscale", "decision")]
+    up = next((r for r in decisions if r.get("direction") == "up" and r.get("actuated")), None)
+    breach = next((r for r in recs if (r.get("kind"), r.get("name")) == ("slo", "breach")), None)
+    spawn = next((r for r in recs if (r.get("kind"), r.get("name")) == ("autoscale", "spawn")),
+                 None)
+    first_answer = None
+    if replica is not None:
+        first_answer = next((r for r in recs if (r.get("kind"), r.get("name"))
+                             == ("serving", "hops") and replica.worker_id in (r.get("chains") or {})
+                             and any(m[0] == "reply" for m in r["chains"][replica.worker_id])),
+                            None)
+    build = _span_s("autoscale.actuate")
+    line = {"phase": "autoscale_spike", "card": card[1], "power_limit": card[2],
+            "requests": requests, "slo_ms": AUTOSCALE_SLO_MS, "window_s": AUTOSCALE_WINDOW_S,
+            "delay_s": AUTOSCALE_DELAY_S,
+            "decision": {k: up.get(k) for k in ("direction", "current", "target", "pressure",
+                                                 "reason", "actuated")} if up else None,
+            "decisions": len(decisions), "actuations": actuations,
+            "breach_to_actuation_s": (up["ts"] - breach["ts"]) if up and breach else None,
+            # The actuation: the replica loaded, stacked and its forward
+            # captured, then its bus registration awaited.
+            "replica_build_s": build[0] if build else None,
+            "serving_graph_captures": telemetry.get_counter("serving.graph_captures"),
+            "registration_to_first_answer_s": (first_answer["ts"] - spawn["ts"])
+            if first_answer and spawn else None,
+            "recovery_s": (recovered_at - breach_at) if recovered_at and breach_at else None,
+            "replica_registered": registered,
+            "replica_bit_equal": got is not None and got.shape == (BATCH, NUM_CLASSES)
+            and bool(np.array_equal(got, want)),
+            "lane_events": [list(e) for e in lane.events],
+            "workers_after_drain": mgr.bus.get_workers(job),
+            "memory_allocated_before_spawn": mem_before,
+            "memory_allocated_scaled": mem_scaled,
+            "memory_allocated_after_drain": mem_after, "freed_bytes": mem_scaled - mem_after,
+            "leak_bytes": TUNE_LEAK_BYTES, "phase_s": time.monotonic() - t0}
+    return line, (mgr, job, gw, base, store)
+
+
+def autoscale_prewarm(card, tmp, prewarm: bool):
+    """Phase 26 (b): the canonical k=2 job admitted through the services
+    manager, with or without ``RAFIKI_AUTOSCALE_PREWARM``, the program
+    cache cleared first. Returns the line."""
+    from rafiki_tpu_torch import telemetry
+    from rafiki_tpu_torch.admin.services_manager import ServicesManager
+    from rafiki_tpu_torch.obs.journal import journal, read_dir
+    from rafiki_tpu_torch.ops.train import clear_program_cache
+
+    t0 = time.monotonic()
+    label = "prewarmed" if prewarm else "cold"
+    sub_tmp = tmp / f"prewarm-{label}"
+    sub_tmp.mkdir()
+    store, params, job = _proc_job(sub_tmp, PREWARM_SRC, "PrewarmVgg", PREWARM_K, PROC_URI)
+    log_dir = sub_tmp / "obs"
+    journal.configure(log_dir, role="prewarm")
+    saved = _set_env({"RAFIKI_AUTOSCALE_PREWARM": "1" if prewarm else "0",
+                      "RAFIKI_TRIAL_PACK": str(PREWARM_K)})
+    clear_program_cache()
+    telemetry.reset()
+    mgr = ServicesManager(store, params)
+    try:
+        misses0 = telemetry.get_counter("program_cache.misses")
+        mgr.create_train_services(job["id"], advisor_kind="random")
+        mgr._train_jobs[job["id"]].thread.join(timeout=600)
+        misses = telemetry.get_counter("program_cache.misses") - misses0
+    finally:
+        mgr.stop_all()
+        journal.close()
+        _restore_env(saved)
+    recs = read_dir(log_dir)
+    pre = [r for r in recs if (r.get("kind"), r.get("name")) == ("autoscale", "prewarm")]
+    packed = [r for r in recs if (r.get("kind"), r.get("name")) == ("perf", "step")
+              and r.get("program_kind") == "packed"]
+    prewarm_s = _span_s("autoscale.prewarm")
+    trials = store.get_trials_of_train_job(job["id"])
+    built = sum(1 for r in pre if r.get("error") is None and not r.get("hit"))
+    return {"phase": f"autoscale_prewarm_{label}", "card": card[1], "power_limit": card[2],
+            "k": PREWARM_K, "train_uri": PROC_URI,
+            "trial_status": [t["status"] for t in trials],
+            "prewarm_records": [{k: r.get(k) for k in ("k", "hit", "error")} for r in pre],
+            "prewarm_s": prewarm_s[0] if prewarm_s else None,
+            "program_cache_misses": misses, "pack_misses": misses - built,
+            "packed_rounds": telemetry.get_counter("worker.packed_rounds"),
+            "first_pack_first_epoch_s": packed[0]["dt"] if packed else None,
+            "first_pack_first_epoch_cold": packed[0].get("cold") if packed else None,
+            "phase_s": time.monotonic() - t0}
+
+
+def _twin_window(gw, gateway_config, log_dir, n, spacing_s=0.02):
+    """``n`` one-query requests through ``gw``, the two tenants of
+    AUTOSCALE_TIERS in turns, journaled to ``log_dir``. The gateway
+    journaled its limits (``gateway/config``) once, at the service's
+    start, into (a)'s journal: the window's journal opens with them."""
+    from rafiki_tpu_torch.obs.journal import journal
+
+    q = queries_for(28)
+    tenants = sorted(AUTOSCALE_TIERS)
+    journal.configure(log_dir, role="twin")
+    journal.record("gateway", "config", **gateway_config)
+    try:
+        for i in range(n):
+            gw.predict(q[i % BATCH:i % BATCH + 1].tolist(), tenant=tenants[i % 2])
+            time.sleep(spacing_s)
+        gw.rollup.flush()
+    finally:
+        journal.close()
+
+
+def autoscale_twin(card, tmp, serving):
+    """Phase 26 (c): the twin on the card's own journal, then the job
+    admission gate. Returns the line."""
+    from rafiki_tpu_torch import chaos
+    from rafiki_tpu_torch.obs.journal import journal, read_dir
+    from rafiki_tpu_torch.obs.twin import validate
+    from rafiki_tpu_torch.obs.twin.calibration import Calibration
+    from rafiki_tpu_torch.tenancy import JobAdmissionGate
+    from rafiki_tpu_torch.tenancy.arbiter import JobRejected
+
+    t0 = time.monotonic()
+    mgr, job, gw, base, _ = serving
+    config = next({k: v for k, v in r.items() if k not in ("ts", "pid", "role", "kind", "name",
+                                                           "trace_id")}
+                  for r in read_dir(tmp / "obs-autoscale")
+                  if (r.get("kind"), r.get("name")) == ("gateway", "config"))
+    read_dir_ = tmp / "obs-twin"
+    _twin_window(gw, config, read_dir_, TWIN_REQUESTS)
+    cal = Calibration.from_journal_dir(read_dir_)
+    kinds = {(r.get("kind"), r.get("name")) for r in read_dir(read_dir_)}
+    v = validate.validate(read_dir_, seed=0)
+    gate_dir = tmp / "obs-twin-gate"
+    forward = cal.dist("forward")
+    delay_s = round(max(0.0, TWIN_GATE_FORWARD_S - forward[len(forward) // 2]), 4)
+    chaos.install(chaos.FaultPlane.from_spec(
+        f"seed=5;inference.forward:delay:delay={delay_s}:match={base.worker_id}"))
+    try:
+        _twin_window(gw, config, gate_dir, TWIN_GATE_REQUESTS)
+    finally:
+        chaos.uninstall()
+    verdicts_dir = tmp / "obs-arbiter"
+    gate = JobAdmissionGate.from_capture(gate_dir, seed=0)
+    journal.configure(verdicts_dir, role="arbiter")
+    rejected = None
+    try:
+        light = gate.admit_job("job-light", "carol", "batch", TWIN_LIGHT_QPS)
+        try:
+            gate.admit_job("job-heavy", "bob", "std", TWIN_HEAVY_QPS)
+        except JobRejected as e:
+            rejected = e.detail
+    finally:
+        journal.close()
+    arbiter_recs = [r for r in read_dir(verdicts_dir)
+                    if (r.get("kind"), r.get("name")) == ("tenancy", "arbiter")]
+    mgr.stop_inference_services(job)
+    return {"phase": "autoscale_twin", "card": card[1], "power_limit": card[2],
+            "calibration": {"segments": {s: len(x) for s, x in cal.segments.items()},
+                            "workers": cal.workers,
+                            "has_hops": ("serving", "hops") in kinds,
+                            "has_ts": ("serving", "ts") in kinds},
+            "validate": {"measured": v["measured"],
+                         "predicted": {k: v["predicted"][k] for k in ("p50_ms", "p99_ms")},
+                         "p50_err": v["p50_err"], "p99_err": v["p99_err"],
+                         "tolerance": v["tolerance"], "ok": v["ok"]},
+            "gate_forward_s": TWIN_GATE_FORWARD_S, "gate_delay_s": delay_s,
+            "gate_existing": {t: [tier, qps] for t, (tier, qps) in gate.existing.items()},
+            "light": {k: light.get(k) for k in ("admit", "forecast_p99_ms", "baseline_p99_ms")},
+            "heavy": None if rejected is None else {
+                "admit": rejected["admit"], "expected_qps": rejected["expected_qps"],
+                "breaches": rejected["breaches"]},
+            "arbiter_records": [r.get("admit") for r in arbiter_recs],
+            "phase_s": time.monotonic() - t0}
+
+
+def autoscale_phase(card, check, blobs=None, pack=None) -> None:
+    """Phase 26 and its checks (also ``--autoscale``)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    t0 = time.monotonic()
+    blobs = list(blobs or [make_blob(seed) for seed in range(K)])
+    with tempfile.TemporaryDirectory(prefix="autoscale-") as td:
+        tmp = Path(td)
+        a, serving = autoscale_spike(card, tmp, blobs)
+        print(json.dumps(a), flush=True)
+        try:
+            c = autoscale_twin(card, tmp, serving)
+        finally:
+            serving[0].stop_all()
+        print(json.dumps(c), flush=True)
+        torch.cuda.empty_cache()
+        cold = autoscale_prewarm(card, tmp, prewarm=False)
+        print(json.dumps(cold), flush=True)
+        b = autoscale_prewarm(card, tmp, prewarm=True)
+        b["cold_first_pack_first_epoch_s"] = cold["first_pack_first_epoch_s"]
+        b["saved_s"] = (None if b["first_pack_first_epoch_s"] is None
+                        or cold["first_pack_first_epoch_s"] is None
+                        else cold["first_pack_first_epoch_s"] - b["first_pack_first_epoch_s"])
+        b["phase12_packed_s"] = None if pack is None else pack.get("packed_s")
+        print(json.dumps(b), flush=True)
+    d = a["decision"] or {}
+    check(d.get("direction") == "up" and d.get("actuated"),
+          f"autoscale spike: no actuated up decision ({a['decisions']} decisions): {d}")
+    check(a["replica_registered"] and a["registration_to_first_answer_s"] is not None,
+          f"autoscale spike: the replica registered {a['replica_registered']}, first answer "
+          f"{a['registration_to_first_answer_s']}")
+    check(a["recovery_s"] is not None and a["recovery_s"] <= AUTOSCALE_RECOVERY_S,
+          f"autoscale spike: the burn cleared {a['recovery_s']} s after the breach "
+          f"(> {AUTOSCALE_RECOVERY_S} or never)")
+    check(a["actuations"] <= AUTOSCALE_MAX_ACTUATIONS,
+          f"autoscale spike: {a['actuations']} actuations > {AUTOSCALE_MAX_ACTUATIONS}")
+    check(a["replica_bit_equal"],
+          "autoscale spike: the replica's answers to 64 queries differ from the base replica's")
+    wid = next((e[1] for e in a["lane_events"]), None)
+    check([e[0] for e in a["lane_events"]] == ["drained", "reaped", "freed"]
+          and len(a["workers_after_drain"]) == 1 and wid not in a["workers_after_drain"],
+          f"autoscale spike: drain events {a['lane_events']}, workers {a['workers_after_drain']}")
+    check(a["memory_allocated_after_drain"] <= a["memory_allocated_before_spawn"]
+          + TUNE_LEAK_BYTES,
+          f"autoscale spike: {a['memory_allocated_after_drain']} bytes allocated after the drain, "
+          f"{a['memory_allocated_before_spawn']} before the spawn (+{TUNE_LEAK_BYTES} allowed)")
+    for run in (cold, b):
+        check(run["trial_status"] == ["COMPLETED"] * PREWARM_K and run["packed_rounds"] >= 1,
+              f"autoscale prewarm ({run['phase']}): trials {run['trial_status']}, packed rounds "
+              f"{run['packed_rounds']}")
+    check(b["prewarm_records"] and all(r["error"] is None for r in b["prewarm_records"]),
+          f"autoscale prewarm: records {b['prewarm_records']} (want hit or warmed)")
+    check(b["pack_misses"] == 0,
+          f"autoscale prewarm: the job's pack added {b['pack_misses']} program_cache.misses")
+    check(not cold["prewarm_records"], f"autoscale prewarm off: {cold['prewarm_records']}")
+    cal = c["calibration"]
+    check(cal["has_hops"] and cal["has_ts"] and cal["segments"].get("forward"),
+          f"autoscale twin: the journal cannot calibrate: {cal}")
+    check(c["light"]["admit"] is True and c["heavy"] is not None and not c["heavy"]["admit"]
+          and any(br["tier"] == "gold" for br in c["heavy"]["breaches"])
+          and c["arbiter_records"] == [True, False],
+          f"autoscale twin gate: light {c['light']}, heavy {c['heavy']}, journaled "
+          f"{c['arbiter_records']}")
+    print(json.dumps({"phase": "autoscale", "card": card[1], "power_limit": card[2],
+                      "phase_s": time.monotonic() - t0}))
+
+
 def main() -> int:
     import torch
 
+    t_script = time.monotonic()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 1
@@ -5244,7 +5682,8 @@ def main() -> int:
     counted = sys.argv[1:2] in (["--mesh-repack"], ["--tenancy"]) and len(sys.argv) == 3
     repeats = int(sys.argv[2]) if counted and sys.argv[2].isdigit() else None
     if sys.argv[1:] not in ([], ["--zoo"], ["--obs"], ["--chaos"], ["--process"], ["--mesh"],
-                            ["--search"], ["--serve-proc"], ["--tenancy"]) and repeats is None:
+                            ["--search"], ["--serve-proc"], ["--tenancy"],
+                            ["--autoscale"]) and repeats is None:
         fail(f"unknown arguments {sys.argv[1:]}")
     card = card_identity()
     print(card[0])
@@ -5330,6 +5769,13 @@ def main() -> int:
             print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
             return 1
         print(json.dumps({"tenancy": "ok", "device": torch.cuda.get_device_name(0)}))
+        return 0
+    if sys.argv[1:] == ["--autoscale"]:
+        autoscale_phase(card, check)
+        if failures:
+            print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
+            return 1
+        print(json.dumps({"autoscale": "ok", "device": torch.cuda.get_device_name(0)}))
         return 0
 
     from rafiki_tpu_torch.ops.train import predict
@@ -5625,7 +6071,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     tenancy_phase(card, check, blobs)
 
+    # -- 26. closed-loop elasticity and the serving twin ----------------------------------
+    torch.cuda.empty_cache()
+    autoscale_phase(card, check, blobs, pack)
+
     # -- kernels and the result line -------------------------------------------
+    print(json.dumps({"script": "chip_smoke", "card": card[1], "power_limit": card[2],
+                      "total_s": time.monotonic() - t_script}))
     print(json.dumps({"kernels": []}))
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)

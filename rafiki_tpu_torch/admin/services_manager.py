@@ -28,16 +28,32 @@ gateway). ``create_cohosted_inference_services`` serves several jobs
 from ONE worker behind a ``tenancy.ProgramHost``: each job's trials load
 (stacked when they share an architecture) on the first query that needs
 them, under an LRU HBM byte budget (``tenancy.ResidencyManager``), each
-charged its params blobs' bytes, floored at 1 MiB. Loads and evictions
-take the card's lock (``ops/graphs.py card_lock``), as a trainer's
-synchronizing calls do.
+charged its params blobs' bytes, floored at 1 MiB.
 
-Not in the port yet: compile prewarm, the job admission gate (it
-forecasts through the serving twin) and autoscale.
+Every load, stack and ``destroy`` of a served model takes the card's
+lock (``ops/graphs.py card_lock``), as a trainer's synchronizing calls
+do: the dedicated route's, the co-hosted route's, a residency eviction's
+and a scale-up replica's. A template's ``destroy`` may synchronize the
+card, and a synchronize or an allocation inside another thread's epoch
+capture would invalidate it. The stacked forward's capture itself runs
+on the card's serving thread (``parallel/serving.py``), which takes the
+lock there, so the warmup runs outside it.
+
+With ``RAFIKI_AUTOSCALE_PREWARM=1`` a train job's admission pre-warms
+its packed programs (``autoscale/prewarm.py``). ``attach_job_gate``
+puts a ``tenancy.JobAdmissionGate`` in front of every new inference job
+that declares a tenant: the job's load is forecast through the serving
+twin and a job that would breach another tenant's p99 budget raises
+``JobRejected`` before any service starts. ``attach_autoscaler`` closes
+the loop over a running inference job (``autoscale/``): a scale-up
+replica of the job's serving shape (the stacked ensemble or its best
+trial) is built on the manager's device, and a drained replica's model
+is freed.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import socket
 import threading
@@ -46,7 +62,11 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from rafiki_tpu_torch import telemetry
 from rafiki_tpu_torch.advisor import AdvisorService
+from rafiki_tpu_torch.autoscale import actuators as _actuators
+from rafiki_tpu_torch.autoscale import controller as _asc
+from rafiki_tpu_torch.autoscale import prewarm as _prewarm
 from rafiki_tpu_torch.bus.queues import InProcBus
 from rafiki_tpu_torch.config import Config, get_config
 from rafiki_tpu_torch.constants import (
@@ -64,7 +84,9 @@ from rafiki_tpu_torch.predictor.app import start_predictor_server
 from rafiki_tpu_torch.predictor.predictor import Predictor
 from rafiki_tpu_torch.scheduler.local import LocalScheduler
 from rafiki_tpu_torch.store import MetaStore, ParamsStore
+from rafiki_tpu_torch.tenancy.arbiter import tenant_pressure
 from rafiki_tpu_torch.tenancy.hosting import ProgramHost, ProgramSpec, TrialEnsemble
+from rafiki_tpu_torch.tenancy.qos import DEFAULT_TIER
 from rafiki_tpu_torch.tenancy.residency import ResidencyManager
 from rafiki_tpu_torch.utils import heap
 from rafiki_tpu_torch.utils.backend import DeviceLike, default_device, resolve_device
@@ -87,6 +109,12 @@ class _InferenceJobHandle:
         self.gateway: Optional[Gateway] = None
         self.http_server = None  # set when an HTTP frontend is attached
         self.heap_frozen = False  # holds a utils/heap.py freeze while serving
+        # Autoscale attachment: the serving shape a scale-up replica
+        # must reproduce, and the live controller.
+        self.best_trials: List[dict] = []
+        self.batch_size: int = 0
+        self.stacked_route: bool = False
+        self.autoscaler = None  # AutoscaleController when attached
 
 
 class ServicesManager:
@@ -101,6 +129,10 @@ class ServicesManager:
         self._train_jobs: Dict[str, _TrainJobHandle] = {}
         self._inference_jobs: Dict[str, _InferenceJobHandle] = {}
         self._lock = threading.Lock()
+        # Fleet-level tenant arbitration: with a JobAdmissionGate
+        # attached, create_inference_services forecasts every NEW job
+        # that declares a tenant through the serving twin first.
+        self.job_gate = None
         self._reaper_thread: Optional[threading.Thread] = None
         self._reaper_stop: Optional[threading.Event] = None
         self._resuming: set = set()
@@ -122,6 +154,14 @@ class ServicesManager:
         def run():
             try:
                 with default_device(self.device):
+                    if _asc.prewarm_enabled():
+                        # Admission-time pre-warm: each model's packed
+                        # program is built BEFORE the sweep starts.
+                        # Best-effort: admission never fails on it.
+                        try:
+                            _prewarm.prewarm_train_job(self.store, job_id)
+                        except Exception:
+                            telemetry.inc("autoscale.prewarm_errors")
                     scheduler.run_train_job(job_id, devices=devices,
                                             devices_per_trial=devices_per_trial,
                                             advisor_kind=advisor_kind, stop_event=stop_event)
@@ -226,10 +266,20 @@ class ServicesManager:
 
     # -- inference services --------------------------------------------------
 
+    def attach_job_gate(self, gate) -> None:
+        """Attach a :class:`~rafiki_tpu_torch.tenancy.arbiter.
+        JobAdmissionGate`: from now on every new inference job that
+        declares a tenant is forecast through the twin first, and a job
+        whose load would breach an existing tenant's p99 budget raises
+        ``JobRejected`` instead of starting services."""
+        self.job_gate = gate
+
     def create_inference_services(self, inference_job_id: str,
                                   best_trials: List[dict],
                                   gateway_overrides: Optional[Dict[str, Any]] = None,
-                                  tenancy=None) -> Predictor:
+                                  tenancy=None, tenant: Optional[str] = None,
+                                  tier: Optional[str] = None,
+                                  expected_qps: float = 0.0) -> Predictor:
         """One inference worker per trial (or one over the stacked
         top-k) + a predictor over the bus fronted by a serving Gateway,
         plus a published HTTP frontend whose host:port is recorded on
@@ -239,11 +289,19 @@ class ServicesManager:
         limits (e.g. ``{"policy": "least-loaded", "max_batch": 8}``)
         over the framework-config defaults. ``tenancy`` (a
         ``TenantFabric``) makes the gateway tenant-aware: weighted-fair
-        admission and per-tenant accounting."""
+        admission and per-tenant accounting. ``tenant``/``tier``/
+        ``expected_qps`` declare whose load this job is: with a job gate
+        attached, the declared load is twin-forecast against the fleet
+        and the job can be REJECTED before any service starts."""
         if not best_trials:
             raise ValueError("No completed trials to serve")
         # Reject bad overrides before any model is loaded.
         gw_config = GatewayConfig.from_config(self.config, **(gateway_overrides or {}))
+        if self.job_gate is not None and tenant is not None:
+            # Raises JobRejected (journaling tenancy/arbiter) when the
+            # forecast breaches an existing tenant's budget.
+            self.job_gate.admit_job(inference_job_id, tenant, tier or DEFAULT_TIER,
+                                    expected_qps)
         handle = _InferenceJobHandle()
         try:
             return self._start_inference(handle, inference_job_id, best_trials, gw_config,
@@ -258,15 +316,20 @@ class ServicesManager:
                          best_trials: List[dict], gw_config: GatewayConfig,
                          tenancy=None) -> Predictor:
         batch_size = self.config.inference_batch_size
-        models = [self._load_trial_model(t) for t in best_trials]
         # Same-architecture top-k -> ONE worker running a stacked vmapped
         # forward; otherwise one worker per trial.
         # RAFIKI_STACKED_SERVING=0 forces the replicated route.
         stacked, route_reason = None, "disabled-by-env"
-        if os.environ.get("RAFIKI_STACKED_SERVING", "1").lower() not in (
-                "0", "false", "no", "off"):
-            stacked, route_reason = build_stacked(best_trials, models, batch_size=batch_size)
+        with card_lock(self):
+            models = [self._load_trial_model(t) for t in best_trials]
+            if os.environ.get("RAFIKI_STACKED_SERVING", "1").lower() not in (
+                    "0", "false", "no", "off"):
+                stacked, route_reason = build_stacked(best_trials, models,
+                                                      batch_size=batch_size)
         serve_models = [stacked] if stacked is not None else models
+        handle.best_trials = list(best_trials)
+        handle.batch_size = batch_size
+        handle.stacked_route = stacked is not None
         warmup_s = None
         if stacked is not None:
             # The stacked forward's first-call costs are paid HERE, at
@@ -410,6 +473,8 @@ class ServicesManager:
                 handle.workers.append(worker)
                 handle.worker_threads.append(th)
                 handle.heap_frozen = True
+            handle.best_trials = list(job_trials[job_id])
+            handle.batch_size = batch_size
             self.store.create_service(ServiceType.PREDICTOR.value, job_id=job_id)
             handle.predictor = Predictor(self.bus, job_id,
                                          timeout_s=self.config.predict_timeout_s,
@@ -457,6 +522,105 @@ class ServicesManager:
             handle = self._inference_jobs.get(inference_job_id)
         return handle.gateway if handle else None
 
+    # -- autoscale -------------------------------------------------------------
+
+    def _spawn_scale_replica(self, handle: _InferenceJobHandle, inference_job_id: str,
+                             index: int):
+        """Build one scale-up replica of the job's serving shape: the
+        stacked ensemble when that route was taken (one worker = the
+        whole ensemble, its forward captured by the warmup on the card's
+        serving thread), otherwise the best trial's model. The load and
+        stack take the card's lock (module doc). Own stop event: the
+        autoscaler drains replicas one at a time, never through the
+        job-wide event."""
+        with card_lock(self):
+            if handle.stacked_route:
+                models = [self._load_trial_model(t) for t in handle.best_trials]
+                stacked, _ = build_stacked(handle.best_trials, models,
+                                           batch_size=handle.batch_size)
+                model = stacked if stacked is not None else models[0]
+            else:
+                stacked, model = None, self._load_trial_model(handle.best_trials[0])
+        if stacked is not None:
+            stacked.warmup()
+        worker_id = f"{inference_job_id[:8]}-as{index}"
+        service = self.store.create_service(
+            ServiceType.INFERENCE_WORKER.value, job_id=inference_job_id,
+            worker_index=1000 + index)
+        worker = InferenceWorker(self.bus, inference_job_id, worker_id, model,
+                                 batch_size=handle.batch_size)
+        th = threading.Thread(target=self._run_inference_worker, args=(worker, service["id"]),
+                              name=worker_id, daemon=True)
+        th.start()
+        handle.workers.append(worker)
+        handle.worker_threads.append(th)
+        return worker_id, worker, th
+
+    def _free_scale_replica(self, handle: _InferenceJobHandle, worker: InferenceWorker,
+                            thread: Optional[threading.Thread]) -> None:
+        """A drained replica leaves the job's handle and its model is
+        destroyed under the card's lock: for a stacked replica that
+        drops its captured forward and its pool."""
+        if worker in handle.workers:
+            i = handle.workers.index(worker)
+            handle.workers.pop(i)
+            handle.worker_threads.pop(i)
+        with card_lock(self):
+            worker.model.destroy()
+
+    def attach_autoscaler(self, inference_job_id: str,
+                          min_workers: Optional[int] = None,
+                          max_workers: Optional[int] = None,
+                          tick_s: Optional[float] = None,
+                          pregate_fn=None, start: bool = True,
+                          **controller_kwargs):
+        """Close the loop over a running inference job: SLO burn and
+        gateway sensors in, replica spawn and drain out, every decision
+        journaled. The baseline fleet is the floor by default: the
+        controller only drains replicas it spawned (they carry their
+        own stop events; the original workers share the job-wide one).
+        Returns the (started) :class:`AutoscaleController`."""
+        with self._lock:
+            handle = self._inference_jobs.get(inference_job_id)
+        if handle is None:
+            raise ValueError(f"Inference job {inference_job_id} has no "
+                             "running services in this process")
+        baseline = [(w.worker_id, w, None) for w in handle.workers]
+        lane = _actuators.InferenceWorkerLane(
+            self.bus, inference_job_id,
+            spawn_fn=lambda i: self._spawn_scale_replica(handle, inference_job_id, i),
+            initial=baseline,
+            free_fn=lambda wid, w, th: self._free_scale_replica(handle, w, th))
+        overrides: Dict[str, Any] = {
+            "min_size": len(baseline) if min_workers is None else min_workers}
+        if max_workers is not None:
+            overrides["max_size"] = max_workers
+        spec = _asc.LaneSpec.from_env("inference", **overrides)
+        if handle.gateway is not None and handle.gateway.tenancy is not None:
+            # A tenant-aware fleet: the lane scales on the WORST of the
+            # inference pressure and the tenant aggregates (worst
+            # per-tenant burn, tenant shed rate): one tenant burning its
+            # p99 budget is a capacity signal while the queue is calm.
+            base_fn = spec.pressure_fn
+
+            def _tenant_aware(sensors, _base=base_fn):
+                bp, breason = _base(sensors)
+                tp, treason = tenant_pressure(sensors)
+                if bp is None or (tp is not None and tp > bp):
+                    return tp, treason
+                return bp, breason
+
+            spec = dataclasses.replace(spec, pressure_fn=_tenant_aware)
+        controller = _asc.AutoscaleController(
+            lanes=[spec],
+            sensor_fn=lambda: _asc.read_sensors(gateway=handle.gateway),
+            actuators={"inference": lane},
+            tick_s=tick_s, pregate_fn=pregate_fn, **controller_kwargs)
+        handle.autoscaler = controller
+        if start:
+            controller.start()
+        return controller
+
     def stop_inference_services(self, inference_job_id: str,
                                 timeout: float = 10.0) -> None:
         with self._lock:
@@ -465,6 +629,10 @@ class ServicesManager:
             self.store.update_inference_job(inference_job_id,
                                             status=InferenceJobStatus.STOPPED.value)
             return
+        if handle.autoscaler is not None:
+            # The control loop stops FIRST: a controller reacting to the
+            # drain's shed spike would fight the teardown.
+            handle.autoscaler.stop()
         if handle.gateway is not None:
             # Graceful drain BEFORE the workers stop: in-flight requests
             # finish against live workers; new arrivals shed immediately.
@@ -476,12 +644,14 @@ class ServicesManager:
                                         status=InferenceJobStatus.STOPPED.value)
         events.emit("inference_job_stopped", job_id=inference_job_id)
 
-    @staticmethod
-    def _teardown(handle: _InferenceJobHandle, timeout: float) -> None:
-        """Stop the workers, the microbatch flusher and the HTTP
-        frontend (its listening socket is released now), then free the
-        models of the workers that stopped."""
+    def _teardown(self, handle: _InferenceJobHandle, timeout: float) -> None:
+        """Stop the workers (a scale-up replica has its own stop event),
+        the microbatch flusher and the HTTP frontend (its listening
+        socket is released now), then free the models of the workers
+        that stopped, under the card's lock (module doc)."""
         handle.stop_event.set()
+        for worker in handle.workers:
+            worker.stop()
         for th in handle.worker_threads:
             if th.ident is not None:  # join only threads that started
                 th.join(timeout=timeout)
@@ -490,9 +660,10 @@ class ServicesManager:
         if handle.http_server is not None:
             handle.http_server.shutdown()
             handle.http_server.server_close()
-        for worker, th in zip(handle.workers, handle.worker_threads):
-            if not th.is_alive():
-                worker.model.destroy()
+        with card_lock(self):
+            for worker, th in zip(handle.workers, handle.worker_threads):
+                if not th.is_alive():
+                    worker.model.destroy()
 
     # -- teardown ------------------------------------------------------------
 

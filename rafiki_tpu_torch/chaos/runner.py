@@ -18,9 +18,10 @@ Telemetry: each run is a ``chaos.scenario`` span, its wall lands in the
 fault rather than surfacing one, in ``chaos.recovery_s``; the plane
 counts ``chaos.injected`` itself.
 
-Left out until item 15 of ROADMAP Queue 1 brings the serving twin: the
-twin pre-gate forecast (``_twin_pregate``) and the report's
-``twin_forecast``.
+Before the plane is installed, the serving twin forecasts what the spec
+should do to serving (``_twin_pregate``, ``obs/twin/pregate.py``); the
+report carries it as ``twin_forecast``, None for a spec that touches no
+serving site.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ from rafiki_tpu_torch.utils.backend import DeviceLike, default_device
 
 # Scenarios whose pass means "the system RECOVERED" (not "the failure
 # surfaced correctly"): their duration feeds the recovery histogram.
-_RECOVERY_SCENARIOS = frozenset({"checkpoint-write-failure", "drain-under-load"})
+_RECOVERY_SCENARIOS = frozenset({"checkpoint-write-failure", "drain-under-load",
+                                 "load-spike-scale-up"})
 
 # The scenarios that SIGKILL ProcessScheduler workers must be
 # reconstructible from the journals alone: after the run, _journal_checks
@@ -72,6 +74,10 @@ class ScenarioReport:
     # directory is gone by the time the report is read, so the payload is
     # carried, not the path). None when nothing dumped.
     flight_record: Optional[dict] = None
+    # The serving twin's forecast of the spec (obs/twin/pregate.py),
+    # simulated offline BEFORE injection. None for specs that touch no
+    # serving site, or if forecasting failed.
+    twin_forecast: Optional[dict] = None
 
     def to_dict(self) -> dict:
         return {
@@ -85,6 +91,7 @@ class ScenarioReport:
                                "role": self.flight_record.get("role"),
                                "pid": self.flight_record.get("pid")}
                               if self.flight_record else None),
+            "twin_forecast": self.twin_forecast,
         }
 
 
@@ -116,6 +123,7 @@ def run_scenario(name: str, device: DeviceLike = None) -> ScenarioReport:
         checks.append(CheckResult(cname, bool(ok), str(detail)))
 
     plane = FaultPlane.from_spec(sc.spec)  # parse FIRST: typos fail loudly
+    twin_forecast = _twin_pregate(sc.spec)
     saved = _set_env(dict(sc.env, **{ENV_VAR: sc.spec}))
     install(plane)
     telemetry.reset()
@@ -163,7 +171,21 @@ def run_scenario(name: str, device: DeviceLike = None) -> ScenarioReport:
     passed = error is None and bool(checks) and all(c.ok for c in checks)
     return ScenarioReport(name=name, passed=passed, checks=checks,
                           schedule=plane.schedule(), duration_s=duration,
-                          error=error, flight_record=flight)
+                          error=error, flight_record=flight,
+                          twin_forecast=twin_forecast)
+
+
+def _twin_pregate(spec: str) -> Optional[dict]:
+    """Ask the serving twin what this spec should do to serving before
+    injecting it for real. Advisory only: any failure degrades to None,
+    since the pre-gate must never break the scenario it pre-games. Runs
+    before install() and telemetry.reset(), so the forecast's simulated
+    chaos decisions cannot pollute the scenario's counters."""
+    try:
+        from rafiki_tpu_torch.obs.twin import pregate
+        return pregate.forecast(spec)
+    except Exception:
+        return None
 
 
 def _journal_checks(check, log_dir: Path, flights: List[Path]) -> None:

@@ -2,7 +2,7 @@
 
 The port's own copy of ``rafiki_tpu/chaos/scenarios.py``: the registry,
 its helpers, TorchModel counterparts of ``ChaosFF`` and ``EvictFF``,
-and the seventeen scenarios whose planes the port has, each with the JAX
+and the nineteen scenarios of the JAX package, each with the JAX
 package's spec, checks (by name) and vacuous-pass rejection. Each is a
 declarative bundle: a ``RAFIKI_CHAOS`` fault spec, extra environment,
 and a body that stands up a real cluster (sqlite meta store, params
@@ -109,8 +109,19 @@ stacked-worker-loss-fallback   the stacked worker (the whole top-k in one
                                request
 =============================  =============================================
 
-The JAX package's other 2 scenarios, of autoscale, wait for the plane
-they drive (ROADMAP Queue 1 item 14).
+and two of the autoscale controller (``autoscale/``):
+
+=============================  =============================================
+load-spike-scale-up            the only serving replica pinned slow: the
+                               serving p99 SLO breaches, the controller
+                               scales the inference lane up and the burn
+                               clears, within 8 s and 2 actuations
+autoscale-flap-damping         an oscillating pressure signal with injected
+                               sensor faults drives two controllers on a
+                               fake clock: damped, the actuations stay
+                               bounded and the guard grows; undamped, they
+                               thrash
+=============================  =============================================
 """
 
 from __future__ import annotations
@@ -877,6 +888,221 @@ def _claim_rows(store, sub, cls, cls_name: str, knobs_list, budget: int):
 
 
 @scenario(
+    "load-spike-scale-up",
+    "The closed elasticity loop end to end: the only serving replica "
+    "is pinned slow, the burn engine breaches the serving p99 SLO, "
+    "the autoscale controller scales the inference lane up, and the "
+    "spike recovers — with recovery-time-to-SLO recorded for the "
+    "bench trend gate.",
+    spec="seed=11;inference.forward:delay:delay=0.3:match=w0",
+)
+def load_spike_scale_up(tmp, check: CheckFn) -> None:
+    from rafiki_tpu_torch import chaos, telemetry
+    from rafiki_tpu_torch.autoscale.actuators import InferenceWorkerLane
+    from rafiki_tpu_torch.autoscale.controller import (AutoscaleController,
+                                                 LaneSpec, read_sensors)
+    from rafiki_tpu_torch.bus import InProcBus
+    from rafiki_tpu_torch.gateway import Gateway, GatewayConfig
+    from rafiki_tpu_torch.obs import journal as journal_mod
+    from rafiki_tpu_torch.obs.perf.slo import SloEngine, SloSpec
+    from rafiki_tpu_torch.predictor import Predictor
+    from rafiki_tpu_torch.worker.inference import InferenceWorker
+
+    bus = InProcBus()
+    stops: List[threading.Event] = []
+    threads: List[threading.Thread] = []
+
+    def spawn(wid):
+        stop = threading.Event()
+        w = InferenceWorker(bus, JOB, wid, _ConstModel([0.6, 0.4]),
+                            stop_event=stop)
+        th = threading.Thread(target=w.run, daemon=True,
+                              name=f"chaos-as-{wid}")
+        stops.append(stop)
+        threads.append(th)
+        th.start()
+        return w, th
+
+    # One replica, and the fault spec pins exactly it (match=w0): every
+    # forward pays 0.3s, so serving p99 sits ~2x over the 150ms SLO.
+    w0, th0 = spawn("w0")
+    deadline = time.monotonic() + 10
+    while "w0" not in bus.get_workers(JOB):
+        if time.monotonic() >= deadline:
+            raise RuntimeError("w0 never registered")
+        time.sleep(0.005)
+    predictor = Predictor(bus, JOB, timeout_s=8.0)
+    gw = Gateway(predictor, GatewayConfig(min_replies=1, max_queue=32,
+                                          max_inflight=8))
+    # Private burn engine on the rollup's p99 GAUGE: a level source
+    # recovers when the signal falls, unlike the cumulative hist_p99
+    # reservoirs. The tight window makes breach AND recovery resolve
+    # inside the scenario's few seconds of wall.
+    engine = SloEngine([SloSpec("serving_p99_spike", "gauge:serving.p99_ms",
+                                150.0, windows=(0.8,))], tick_s=0.0)
+    lane = InferenceWorkerLane(
+        bus, JOB,
+        spawn_fn=lambda i: (f"as{i}",) + spawn(f"as{i}"),
+        initial=[("w0", w0, th0)])
+    ctl = AutoscaleController(
+        lanes=[LaneSpec("inference", min_size=1, max_size=2,
+                        up_threshold=1.0, down_threshold=0.0,
+                        up_cooldown_s=1.0, down_cooldown_s=60.0)],
+        sensor_fn=lambda: read_sensors(gateway=gw, slo_engine=engine),
+        actuators={"inference": lane},
+        seed=11, tick_s=0.2, tick_global_slo=False)
+    breach_at = None
+    scaled_at = None
+    recovered_at = None
+    try:
+        t_end = time.monotonic() + 12.0
+        while time.monotonic() < t_end:
+            gw.predict([[1.0]])
+            # Force-close the rollup bucket so every loop lap refreshes
+            # the gauge the burn engine samples.
+            gw.rollup.flush()
+            now = time.monotonic()
+            state = engine.tick(now)
+            breaching = state["serving_p99_spike"]["breaching"]
+            if breaching and breach_at is None:
+                breach_at = now
+            decisions = ctl.tick(now)
+            if scaled_at is None and any(d.actuated and d.direction == "up"
+                                         for d in decisions):
+                scaled_at = now
+            if (breach_at is not None and scaled_at is not None
+                    and not breaching):
+                recovered_at = now
+                break
+    finally:
+        for stop in stops:
+            stop.set()
+        for th in threads:
+            th.join(timeout=5)
+    check("slo_breached", breach_at is not None,
+          "serving p99 never breached against a 0.3s-pinned replica")
+    check("scaled_up", scaled_at is not None and lane.size() == 2,
+          f"lane size {lane.size()}, scaled_at={scaled_at}")
+    check("slo_recovered", recovered_at is not None,
+          "burn never cleared after scale-up")
+    if breach_at is not None and recovered_at is not None:
+        recovery_s = recovered_at - breach_at
+        # Readable right after run_scenario: the runner resets
+        # telemetry BEFORE the body, not after.
+        telemetry.set_gauge("autoscale.recovery_s", round(recovery_s, 3))
+        check("recovery_within_budget", recovery_s < 8.0,
+              f"recovery took {recovery_s:.2f}s")
+    check("bounded_actuations", ctl.actuation_count("inference") <= 2,
+          f"{ctl.actuation_count('inference')} actuations for one spike")
+    recs = journal_mod.read_dir(journal_mod.journal.log_dir)
+    check("decisions_journaled",
+          any(r.get("kind") == "autoscale" and r.get("name") == "decision"
+              and r.get("actuated") for r in recs),
+          "no actuated autoscale/decision record")
+    plane = chaos.active()
+    fired = [] if plane is None else plane.schedule()
+    check("spike_fault_fired",
+          any(site == "inference.forward" and "w0" in key
+              for site, _mode, _hit, key in fired),
+          f"schedule: {fired}")
+
+
+@scenario(
+    "autoscale-flap-damping",
+    "An adversarially oscillating pressure signal — plus injected "
+    "sensor-plane faults — drives two controllers on a fake clock: "
+    "with damping the actuation count stays bounded and guard "
+    "intervals grow; the identical signal with damping disabled "
+    "thrashes nearly every tick. The contrast is the proof.",
+    spec="seed=13;autoscale.sensor:error:p=0.2",
+)
+def autoscale_flap_damping(tmp, check: CheckFn) -> None:
+    from rafiki_tpu_torch import chaos, telemetry
+    from rafiki_tpu_torch.autoscale.controller import AutoscaleController, LaneSpec
+
+    class _StubLane:
+        def __init__(self):
+            self.n = 2
+            self.calls = 0
+
+        def size(self):
+            return self.n
+
+        def scale_to(self, n):
+            self.n = n
+            self.calls += 1
+
+    TICKS = 120
+    TICK_SPACING = 2.0
+
+    def run(damping: bool):
+        clock = {"t": 0.0}
+        phase = {"i": 0}
+
+        def sensors():
+            # Worst-case square wave: full burn one tick, dead idle the
+            # next. An undamped controller chases it forever.
+            phase["i"] += 1
+            high = phase["i"] % 2 == 1
+            return {"slo_breaching": ["flap"] if high else [],
+                    "slo_burn": 2.0 if high else 0.0,
+                    "queue_frac": 0.0, "shed_rate": 0.0}
+
+        lane = _StubLane()
+        ctl = AutoscaleController(
+            lanes=[LaneSpec("inference", min_size=1, max_size=8,
+                            up_threshold=1.0, down_threshold=0.3,
+                            up_cooldown_s=1.0, down_cooldown_s=1.0)],
+            sensor_fn=sensors,
+            actuators={"inference": lane},
+            clock=lambda: clock["t"],
+            seed=13, tick_s=TICK_SPACING, damping=damping,
+            flap_window_s=600.0, flap_flips=2, flap_backoff=2.0,
+            flap_guard_s=2.0, flap_guard_cap_s=64.0,
+            tick_global_slo=False)
+        act_ts: List[float] = []
+        for _ in range(TICKS):
+            decisions = ctl.tick()
+            if any(d.actuated for d in decisions):
+                act_ts.append(clock["t"])
+            clock["t"] += TICK_SPACING
+        return ctl, lane, act_ts
+
+    damped_ctl, damped_lane, damped_ts = run(damping=True)
+    undamped_ctl, undamped_lane, undamped_ts = run(damping=False)
+    # Polarity 1: the undamped controller really thrashes — near one
+    # actuation per non-faulted tick (this is what damping prevents;
+    # without it the scenario would pass vacuously).
+    check("undamped_flaps", undamped_lane.calls >= TICKS // 2,
+          f"undamped actuated only {undamped_lane.calls}/{TICKS} ticks")
+    # Polarity 2: same signal, damping on -> bounded actuation count.
+    check("damped_bounded", damped_lane.calls <= TICKS // 4,
+          f"damped actuated {damped_lane.calls}/{TICKS} ticks")
+    check("damping_contrast",
+          damped_lane.calls * 3 <= undamped_lane.calls,
+          f"damped {damped_lane.calls} vs undamped {undamped_lane.calls}")
+    # The exponential guard shows up as growing gaps between damped
+    # actuations: the last gap must dwarf the first.
+    gaps = [b - a for a, b in zip(damped_ts, damped_ts[1:])]
+    check("guard_intervals_grow",
+          bool(gaps) and max(gaps) >= 4 * min(gaps),
+          f"damped actuation gaps: {gaps}")
+    check("damped_holds_recorded",
+          telemetry.get_counter("autoscale.damped_holds") >= 1.0,
+          "no damped hold ever recorded")
+    # The injected sensor faults landed, and every faulted tick held:
+    # a controller must never actuate blind.
+    check("sensor_faults_held",
+          telemetry.get_counter("autoscale.sensor_errors") >= 1.0,
+          "sensor-error chaos never fired")
+    plane = chaos.active()
+    fired = [] if plane is None else plane.schedule()
+    check("sensor_fault_fired",
+          any(site == "autoscale.sensor" for site, _mode, _hit, key in fired),
+          f"schedule: {fired}")
+
+
+@scenario(
     "pack-straggler-evict",
     "One member of a k=2 pack early-stops at epoch 0 while its mate "
     "trains the full budget: the straggler must be EVICTED from the "
@@ -1221,11 +1447,12 @@ def _sweep_proc_argv(mode: str, store, params, job_id: str, chips: int, trials_p
             "--device", _platform()]
 
 
-def _sweep_proc(mode: str, store, params, job_id: str, *, chips: int, trials_per_chip: int,
-                env: Dict[str, str], advisor: Optional[str] = None,
-                advisor_kwargs: Optional[str] = None, stale_after_s: Optional[float] = None,
-                timeout: float = 240.0):
-    import json as _json
+def _sweep_proc_start(mode: str, store, params, job_id: str, *, chips: int,
+                      trials_per_chip: int, env: Dict[str, str], advisor: Optional[str] = None,
+                      advisor_kwargs: Optional[str] = None,
+                      stale_after_s: Optional[float] = None):
+    """A ``sweep_proc`` child started and left running (see
+    :func:`_sweep_proc_finish`)."""
     import subprocess
 
     argv = _sweep_proc_argv(mode, store, params, job_id, chips, trials_per_chip)
@@ -1235,7 +1462,23 @@ def _sweep_proc(mode: str, store, params, job_id: str, *, chips: int, trials_per
         argv += ["--advisor-kwargs", advisor_kwargs]
     if stale_after_s is not None:
         argv += ["--stale-after-s", str(stale_after_s)]
-    proc = subprocess.run(argv, env=env, capture_output=True, text=True, timeout=timeout)
+    return subprocess.Popen(argv, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _sweep_proc_finish(child, timeout: float = 240.0):
+    """Wait for a started child; returns (completed process, its last
+    stdout line's JSON summary or {})."""
+    import json as _json
+    import subprocess
+
+    try:
+        out, err = child.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        out, err = child.communicate()
+        raise
+    proc = subprocess.CompletedProcess(child.args, child.returncode, out, err)
     summary = {}
     if proc.stdout.strip():
         try:
@@ -1243,6 +1486,11 @@ def _sweep_proc(mode: str, store, params, job_id: str, *, chips: int, trials_per
         except ValueError:
             summary = {}
     return proc, summary
+
+
+def _sweep_proc(mode: str, store, params, job_id: str, *, timeout: float = 240.0, **kwargs):
+    return _sweep_proc_finish(_sweep_proc_start(mode, store, params, job_id, **kwargs),
+                              timeout=timeout)
 
 
 def _wal_checks(check, store, job_id: str) -> None:
@@ -1285,36 +1533,44 @@ def supervisor_kill_mid_sweep(tmp, check: CheckFn) -> None:
     # run's kill (supervisor.tick only exists after the claims) cannot
     # change which knobs were claimed.
     BUDGET, CHIPS, K = 4, 2, 2
-    fd = tmp / "faulted"
-    fd.mkdir(parents=True, exist_ok=True)
-    store, params, model = _train_env(fd)
-    job = _make_job(store, model, {"MODEL_TRIAL_COUNT": BUDGET})
-
-    p1, _ = _sweep_proc("run", store, params, job["id"], chips=CHIPS, trials_per_chip=K,
-                        env=_sweep_proc_env(), advisor="gp", advisor_kwargs='{"n_initial": 4}')
-    check("supervisor_killed", p1.returncode == -9,
-          f"run rc={p1.returncode}: {p1.stderr[-500:]}")
-
-    _time.sleep(0.5)
-    p2, summary = _sweep_proc("resume", store, params, job["id"], chips=CHIPS,
-                              trials_per_chip=K, env=_sweep_proc_env(chaos=False),
-                              stale_after_s=0.4)
-    check("resume_completed", p2.returncode == 0,
-          f"resume rc={p2.returncode}: {p2.stderr[-800:]}")
-    check("resume_adopted_orphans", summary.get("adopted", 0) >= 1, summary)
-    check("resume_mode_wal", summary.get("mode") == "wal", summary)
-    trials = _check_rows(check, store, job["id"], expect=BUDGET)
-    _wal_checks(check, store, job["id"])
-
     # The unfaulted reference run, same seeds, its own journal dir so the
-    # faulted job's timeline stays uncontaminated.
+    # faulted job's timeline stays uncontaminated; it runs beside the
+    # faulted run (nothing it computes depends on timing) and is read at
+    # the end.
     rd = tmp / "reference"
     rd.mkdir(parents=True, exist_ok=True)
     rstore, rparams, rmodel = _train_env(rd)
     rjob = _make_job(rstore, rmodel, {"MODEL_TRIAL_COUNT": BUDGET})
-    p3, _ = _sweep_proc("run", rstore, rparams, rjob["id"], chips=CHIPS, trials_per_chip=K,
-                        env=_sweep_proc_env({"RAFIKI_LOG_DIR": str(rd / "obs")}, chaos=False),
-                        advisor="gp", advisor_kwargs='{"n_initial": 4}')
+    ref = _sweep_proc_start("run", rstore, rparams, rjob["id"], chips=CHIPS, trials_per_chip=K,
+                            env=_sweep_proc_env({"RAFIKI_LOG_DIR": str(rd / "obs")}, chaos=False),
+                            advisor="gp", advisor_kwargs='{"n_initial": 4}')
+    try:
+        fd = tmp / "faulted"
+        fd.mkdir(parents=True, exist_ok=True)
+        store, params, model = _train_env(fd)
+        job = _make_job(store, model, {"MODEL_TRIAL_COUNT": BUDGET})
+
+        p1, _ = _sweep_proc("run", store, params, job["id"], chips=CHIPS, trials_per_chip=K,
+                            env=_sweep_proc_env(), advisor="gp", advisor_kwargs='{"n_initial": 4}')
+        check("supervisor_killed", p1.returncode == -9,
+              f"run rc={p1.returncode}: {p1.stderr[-500:]}")
+
+        _time.sleep(0.5)
+        p2, summary = _sweep_proc("resume", store, params, job["id"], chips=CHIPS,
+                                  trials_per_chip=K, env=_sweep_proc_env(chaos=False),
+                                  stale_after_s=0.4)
+        check("resume_completed", p2.returncode == 0,
+              f"resume rc={p2.returncode}: {p2.stderr[-800:]}")
+        check("resume_adopted_orphans", summary.get("adopted", 0) >= 1, summary)
+        check("resume_mode_wal", summary.get("mode") == "wal", summary)
+        trials = _check_rows(check, store, job["id"], expect=BUDGET)
+        _wal_checks(check, store, job["id"])
+
+        p3, _ = _sweep_proc_finish(ref)
+    finally:
+        if ref.poll() is None:  # the body raised: stop the reference
+            ref.kill()
+            ref.communicate()
     check("reference_completed", p3.returncode == 0,
           f"reference rc={p3.returncode}: {p3.stderr[-500:]}")
     rtrials = rstore.get_trials_of_train_job(rjob["id"])
@@ -1513,91 +1769,99 @@ def early_kill_mid_pack_resume(tmp, check: CheckFn) -> None:
     # exists, so the doomed member's verdict fires with a live pack-mate
     # still training.
     BUDGET, CHIPS, K = 4, 2, 2
-    fd = tmp / "faulted"
-    fd.mkdir(parents=True, exist_ok=True)
-    store, params, model = _ek_env(fd)
-    job = _make_job(store, model, {"MODEL_TRIAL_COUNT": BUDGET})
-
-    # The SIGKILL cannot be tick-scheduled: the kill epoch arrives at
-    # machine-dependent times. Watch the shared journal dir for the
-    # advisor/kill record AND an uncorrected advisor/speculate record (the
-    # backfill that follows the eviction speculates the pack-mate), then
-    # kill the supervisor: a just-killed member, a speculation in flight.
-    argv = _sweep_proc_argv("run", store, params, job["id"], CHIPS, K) + [
-        "--advisor", "gp", "--advisor-kwargs", '{"n_initial": 4}']
-    child = subprocess.Popen(argv, env=_sweep_proc_env(), stdout=subprocess.PIPE,
-                             stderr=subprocess.PIPE, text=True)
-    log_dir = journal_mod.journal.log_dir
-    deadline = _time.monotonic() + 150.0
-    killed_seen = spec_in_flight = False
-    try:
-        while _time.monotonic() < deadline and child.poll() is None:
-            recs = journal_mod.read_dir(log_dir)
-            killed_seen = _journal_has(recs, "advisor", "kill")
-            spec_in_flight = bool(_uncorrected_spec_hashes(recs))
-            if killed_seen and spec_in_flight:
-                break
-            _time.sleep(0.02)
-    finally:
-        if child.poll() is None:
-            child.send_signal(signal.SIGKILL)
-        _, err = child.communicate(timeout=60)
-    check("kill_seen_before_crash", killed_seen, "no advisor/kill record before timeout/exit")
-    check("speculation_in_flight_at_crash", spec_in_flight,
-          "no uncorrected advisor/speculate record at the crash")
-    check("supervisor_killed", child.returncode == -9,
-          f"run rc={child.returncode}: {(err or '')[-500:]}")
-
-    # Byte-identity at the crash point: rehydrate the advisor TWICE from
-    # the same frozen journal snapshot and store rows (real scores first,
-    # then in-flight speculations) and the post-resume proposals must
-    # match byte for byte.
-    crash_recs = journal_mod.read_dir(log_dir)
-    sub = store.get_sub_train_jobs(job["id"])[0]
-    aid = sub.get("advisor_id")
-    check("advisor_id_persisted", bool(aid), f"sub row: {sub}")
-    model_row = store.get_model(sub["model_id"])
-    model_cls = load_model_class(model_row["model_file"], model_row["model_class"])
-    completed = [t for t in store.get_trials_of_train_job(job["id"])
-                 if t["status"] == "COMPLETED" and t.get("score") is not None]
-    batches = []
-    for _ in range(2):
-        svc = AdvisorService()
-        rehydrate_advisor(svc, model_cls.get_knob_config(), kind="gp", advisor_id=aid,
-                          completed=completed, journal_records=crash_recs, seed=0,
-                          engine_kwargs={"n_initial": 4}, job_id=job["id"])
-        batches.append(_json.dumps(svc.get(aid).propose_batch(K), sort_keys=True))
-    check("rehydrated_proposals_byte_match", batches[0] == batches[1],
-          f"{batches[0][:200]} vs {batches[1][:200]}")
-
-    _time.sleep(0.5)
-    p2, summary = _sweep_proc("resume", store, params, job["id"], chips=CHIPS,
-                              trials_per_chip=K, env=_sweep_proc_env(chaos=False),
-                              stale_after_s=0.4)
-    check("resume_completed", p2.returncode == 0,
-          f"resume rc={p2.returncode}: {p2.stderr[-800:]}")
-    check("resume_adopted_orphans", summary.get("adopted", 0) >= 1, summary)
-
-    trials = store.get_trials_of_train_job(job["id"])
-    check("exact_trial_rows", len(trials) == BUDGET, f"{len(trials)} rows for budget {BUDGET}")
-    check("no_duplicate_rows", len({t["id"] for t in trials}) == len(trials), "duplicate ids")
-    bad = [t["id"] for t in trials if t["status"] not in ("COMPLETED", "ERRORED")]
-    check("all_trials_terminal", not bad, f"non-terminal: {bad}")
-    check("killed_trial_errored", any(t["status"] == "ERRORED" for t in trials),
-          "no ERRORED row: the pre-crash kill vanished on resume")
-    # WAL reconcile: zero double-claimed slots despite the kill, the crash
-    # and the adoption churn.
-    _wal_checks(check, store, job["id"])
-
     # The unfaulted kill-on reference under the same seeds, its own
-    # journal dir: the same best score, the same knob set, the same kill.
+    # journal dir, beside the faulted run (its proposals are all seeded
+    # warm-up and its trials deterministic): the same best score, the same
+    # knob set, the same kill. Read at the end.
     rd = tmp / "reference"
     rd.mkdir(parents=True, exist_ok=True)
     rstore, rparams, rmodel = _ek_env(rd)
     rjob = _make_job(rstore, rmodel, {"MODEL_TRIAL_COUNT": BUDGET})
-    p3, _ = _sweep_proc("run", rstore, rparams, rjob["id"], chips=CHIPS, trials_per_chip=K,
-                        env=_sweep_proc_env({"RAFIKI_LOG_DIR": str(rd / "obs")}, chaos=False),
-                        advisor="gp", advisor_kwargs='{"n_initial": 4}')
+    ref = _sweep_proc_start("run", rstore, rparams, rjob["id"], chips=CHIPS, trials_per_chip=K,
+                            env=_sweep_proc_env({"RAFIKI_LOG_DIR": str(rd / "obs")}, chaos=False),
+                            advisor="gp", advisor_kwargs='{"n_initial": 4}')
+    try:
+        fd = tmp / "faulted"
+        fd.mkdir(parents=True, exist_ok=True)
+        store, params, model = _ek_env(fd)
+        job = _make_job(store, model, {"MODEL_TRIAL_COUNT": BUDGET})
+
+        # The SIGKILL cannot be tick-scheduled: the kill epoch arrives at
+        # machine-dependent times. Watch the shared journal dir for the
+        # advisor/kill record AND an uncorrected advisor/speculate record (the
+        # backfill that follows the eviction speculates the pack-mate), then
+        # kill the supervisor: a just-killed member, a speculation in flight.
+        argv = _sweep_proc_argv("run", store, params, job["id"], CHIPS, K) + [
+            "--advisor", "gp", "--advisor-kwargs", '{"n_initial": 4}']
+        child = subprocess.Popen(argv, env=_sweep_proc_env(), stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+        log_dir = journal_mod.journal.log_dir
+        deadline = _time.monotonic() + 150.0
+        killed_seen = spec_in_flight = False
+        try:
+            while _time.monotonic() < deadline and child.poll() is None:
+                recs = journal_mod.read_dir(log_dir)
+                killed_seen = _journal_has(recs, "advisor", "kill")
+                spec_in_flight = bool(_uncorrected_spec_hashes(recs))
+                if killed_seen and spec_in_flight:
+                    break
+                _time.sleep(0.02)
+        finally:
+            if child.poll() is None:
+                child.send_signal(signal.SIGKILL)
+            _, err = child.communicate(timeout=60)
+        check("kill_seen_before_crash", killed_seen, "no advisor/kill record before timeout/exit")
+        check("speculation_in_flight_at_crash", spec_in_flight,
+              "no uncorrected advisor/speculate record at the crash")
+        check("supervisor_killed", child.returncode == -9,
+              f"run rc={child.returncode}: {(err or '')[-500:]}")
+
+        # Byte-identity at the crash point: rehydrate the advisor TWICE from
+        # the same frozen journal snapshot and store rows (real scores first,
+        # then in-flight speculations) and the post-resume proposals must
+        # match byte for byte.
+        crash_recs = journal_mod.read_dir(log_dir)
+        sub = store.get_sub_train_jobs(job["id"])[0]
+        aid = sub.get("advisor_id")
+        check("advisor_id_persisted", bool(aid), f"sub row: {sub}")
+        model_row = store.get_model(sub["model_id"])
+        model_cls = load_model_class(model_row["model_file"], model_row["model_class"])
+        completed = [t for t in store.get_trials_of_train_job(job["id"])
+                     if t["status"] == "COMPLETED" and t.get("score") is not None]
+        batches = []
+        for _ in range(2):
+            svc = AdvisorService()
+            rehydrate_advisor(svc, model_cls.get_knob_config(), kind="gp", advisor_id=aid,
+                              completed=completed, journal_records=crash_recs, seed=0,
+                              engine_kwargs={"n_initial": 4}, job_id=job["id"])
+            batches.append(_json.dumps(svc.get(aid).propose_batch(K), sort_keys=True))
+        check("rehydrated_proposals_byte_match", batches[0] == batches[1],
+              f"{batches[0][:200]} vs {batches[1][:200]}")
+
+        _time.sleep(0.5)
+        p2, summary = _sweep_proc("resume", store, params, job["id"], chips=CHIPS,
+                                  trials_per_chip=K, env=_sweep_proc_env(chaos=False),
+                                  stale_after_s=0.4)
+        check("resume_completed", p2.returncode == 0,
+              f"resume rc={p2.returncode}: {p2.stderr[-800:]}")
+        check("resume_adopted_orphans", summary.get("adopted", 0) >= 1, summary)
+
+        trials = store.get_trials_of_train_job(job["id"])
+        check("exact_trial_rows", len(trials) == BUDGET, f"{len(trials)} rows for budget {BUDGET}")
+        check("no_duplicate_rows", len({t["id"] for t in trials}) == len(trials), "duplicate ids")
+        bad = [t["id"] for t in trials if t["status"] not in ("COMPLETED", "ERRORED")]
+        check("all_trials_terminal", not bad, f"non-terminal: {bad}")
+        check("killed_trial_errored", any(t["status"] == "ERRORED" for t in trials),
+              "no ERRORED row: the pre-crash kill vanished on resume")
+        # WAL reconcile: zero double-claimed slots despite the kill, the crash
+        # and the adoption churn.
+        _wal_checks(check, store, job["id"])
+
+        p3, _ = _sweep_proc_finish(ref)
+    finally:
+        if ref.poll() is None:  # the body raised: stop the reference
+            ref.kill()
+            ref.communicate()
     check("reference_completed", p3.returncode == 0,
           f"reference rc={p3.returncode}: {p3.stderr[-500:]}")
     rtrials = rstore.get_trials_of_train_job(rjob["id"])

@@ -58,6 +58,17 @@ under ``--dir``, default ``$RAFIKI_LOG_DIR`` then the configured
     resume [job]   a sweep's crash->adopt->resume timeline from the
                    ``recovery/*`` and supervisor records; exit 1 when no
                    recovery story exists
+    autoscale      replay the elasticity controller's decision stream
+                   (``autoscale/decision`` + spawn/drain/prewarm):
+                   direction, sizes, pressure, reason, damping/veto
+                   flags and the sensor snapshot; ``--check`` exits 1
+                   when actuated direction flips inside ``--window``
+                   exceed ``--flips``
+    twin run|sweep|validate
+                   the serving twin (``obs/twin/cli.py``): one simulation
+                   over a load shape or the journal's ``serving/ts``
+                   rows, a knob sweep with the smallest-fleet search, and
+                   predicted-vs-measured p50/p99 against a captured run
     tenants        per-tenant serving forensics from the ``tenant/*``
                    accounting records (admit/request/shed/summary) and
                    the ``tenancy/*`` records (residency swaps, co-hosted
@@ -69,7 +80,7 @@ under ``--dir``, default ``$RAFIKI_LOG_DIR`` then the configured
 The journals of either package read the same: ``trace``, ``tail``,
 ``slowest``, ``slo``, ``health``, ``curves`` (with ``--predicted``),
 ``waterfall``, ``tails``, ``serving``, ``shard``, ``sweep``, ``lineage``,
-``resume`` and ``tenants`` print what the JAX package's CLI prints. ``decisions`` prints the JAX package's four kinds
+``resume``, ``tenants``, ``autoscale`` and ``twin`` print what the JAX package's CLI prints. ``decisions`` prints the JAX package's four kinds
 of decision and, beyond them, the curve advisor's (``advisor/kill``,
 ``advisor/speculate``, ``advisor/correct``).
 ``profile`` multiplies a step's flops by the epoch's ``steps`` where
@@ -747,6 +758,59 @@ def cmd_decisions(log_dir: str, n: int, as_json: bool) -> int:
     return 0
 
 
+def cmd_autoscale(log_dir: str, n: int, as_json: bool, check: bool,
+                  window_s: float, max_flips: int) -> int:
+    """Replay the controller's decision stream; with ``--check``, gate
+    on flap: actuated direction flips per lane inside ``window_s``
+    must stay under ``max_flips`` (the smoke's vacuous-pass polarity
+    runs an undamped controller through here and MUST fail)."""
+    records = [r for r in journal_mod.read_dir(log_dir)
+               if r.get("kind") == "autoscale"]
+    if not records:
+        print(f"no autoscale records under {log_dir} (is a controller "
+              f"running? see docs/autoscale.md)", file=sys.stderr)
+        return 1
+    decisions = [r for r in records if r.get("name") == "decision"]
+    shown = decisions[-n:] if n else decisions
+    if as_json:
+        for r in shown:
+            print(json.dumps(r, default=str))
+    else:
+        for r in shown:
+            flags = "".join((" DAMPED" if r.get("damped") else "",
+                             " VETOED" if r.get("vetoed") else "",
+                             " actuated" if r.get("actuated") else ""))
+            s = r.get("sensors") or {}
+            press = r.get("pressure")
+            print(f"{r.get('lane', '?'):<10} {r.get('direction', '?'):<5}"
+                  f" {r.get('current')}→{r.get('target')}"
+                  f"  p={press if press is None else round(press, 3)}"
+                  f" reason={r.get('reason')}{flags}"
+                  f"  [burn={s.get('slo_burn')} queue={s.get('queue_depth')}"
+                  f" shed={s.get('shed_rate')}"
+                  f" eph={s.get('effective_trials_per_hour')}]")
+    if not check:
+        return 0
+    worst = 0
+    for lane in {r.get("lane") for r in decisions}:
+        acts = [(r.get("tick_ts") or r.get("ts", 0.0), r.get("direction"))
+                for r in decisions
+                if r.get("lane") == lane and r.get("actuated")]
+        flips = [b_ts for (a_ts, a), (b_ts, b) in zip(acts, acts[1:])
+                 if a != b]
+        for i, ts in enumerate(flips):
+            inside = sum(1 for t in flips[:i + 1] if ts - t <= window_s)
+            worst = max(worst, inside)
+    if worst > max_flips:
+        print(f"FLAPPING: {worst} direction flips inside {window_s}s "
+              f"(limit {max_flips}) — an undamped actuator is thrashing "
+              f"capacity (docs/autoscale.md)", file=sys.stderr)
+        return 1
+    print(f"damping ok: worst flip count {worst} within {window_s}s "
+          f"(limit {max_flips})")
+    return 0
+
+
 def cmd_tenants(log_dir: str, as_json: bool, check: bool) -> int:
     """Per-tenant serving forensics: who was admitted, who was shed
     and why, and whose SLO burned (the "which tenant is the noisy
@@ -937,9 +1001,23 @@ def main(argv: Optional[List[str]] = None) -> int:
     sp.add_argument("--check", action="store_true",
                     help="exit 1 when the flushed tenant/summary "
                          "disagrees with raw per-record counts")
+    sp = sub.add_parser("autoscale",
+                        help="elasticity controller decision replay")
+    sp.add_argument("-n", type=int, default=32,
+                    help="show the last N decisions (0 = all)")
+    sp.add_argument("--check", action="store_true",
+                    help="exit 1 when actuations flap (direction flips "
+                         "within --window exceed --flips)")
+    sp.add_argument("--window", type=float, default=60.0,
+                    help="flap detection window seconds (default 60)")
+    sp.add_argument("--flips", type=int, default=4,
+                    help="max direction flips tolerated in the window")
     from rafiki_tpu_torch.obs.search import cli as search_cli
+    from rafiki_tpu_torch.obs.twin import cli as twin_cli
 
-    # Argparse only at attach; the readers load inside the verbs.
+    # Argparse only at attach; the readers (and the twin's engine) load
+    # inside the verbs.
+    twin_cli.attach(sub)
     search_cli.attach(sub)
     args = p.parse_args(argv)
 
@@ -971,6 +1049,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         return cmd_decisions(log_dir, args.n, args.json)
     if args.cmd == "tenants":
         return cmd_tenants(log_dir, args.json, args.check)
+    if args.cmd == "autoscale":
+        return cmd_autoscale(log_dir, args.n, args.json, args.check,
+                             args.window, args.flips)
+    if args.cmd == "twin":
+        return twin_cli.dispatch(args, log_dir, args.json)
     if args.cmd in ("sweep", "lineage", "resume"):
         return search_cli.dispatch(args, log_dir, args.json)
     return cmd_slowest(log_dir, args.n, args.json)

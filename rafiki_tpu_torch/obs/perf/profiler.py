@@ -82,6 +82,10 @@ PEAK_FLOPS: Dict[str, Dict[str, float]] = {
     "H100 PCIe": {"bfloat16": 756.5e12, "tfloat32": 378e12, "float32": 51e12},
 }
 
+#: HBM bandwidth in bytes/s by card, keyed as :data:`PEAK_FLOPS`: the
+#: same datasheet's 3.35 TB/s (SXM) and 2.0 TB/s (PCIe).
+HBM_BYTES_S: Dict[str, float] = {"H100 SXM": 3.35e12, "H100 PCIe": 2.0e12}
+
 #: Bounded stores: distinct programs per process / warm samples per program.
 MAX_PROGRAMS = 64
 STEP_RING = 256
@@ -122,6 +126,12 @@ def peak_flops(device_name: Optional[str], dtype: Optional[str],
     if dtype == "float32" and tf32:
         dtype = "tfloat32"
     return row.get(dtype)
+
+
+def hbm_bandwidth(device_name: Optional[str]) -> Optional[float]:
+    """The :data:`HBM_BYTES_S` figure of the named card; None on the CPU
+    or an unknown card."""
+    return HBM_BYTES_S.get(card_model(device_name) or "")
 
 
 class _ProgramStats:

@@ -16,11 +16,9 @@ tenant-aware end to end.
 * :mod:`hosting` — ``ProgramHost``: one inference worker serving many
   jobs' models behind the residency manager.
 * :mod:`fabric` — ``TenantFabric``, a gateway's opt-in.
-
-Not ported yet: the JAX package's ``tenancy/arbiter.py``.
-``JobAdmissionGate`` forecasts a new job through the serving twin and
-comes with the twin (ROADMAP Queue 1 item 15); ``tenant_pressure``
-feeds only the autoscaler and comes with it (item 14).
+* :mod:`arbiter` — fleet-level arbitration: the autoscale tenant lane's
+  pressure function and the twin-gated admission of NEW jobs
+  (``tenancy/arbiter`` journals).
 """
 
 from rafiki_tpu_torch.tenancy.qos import (ANON_TENANT, DEFAULT_TIER, TIERS, QosClass,
@@ -30,10 +28,11 @@ from rafiki_tpu_torch.tenancy.admission import TenantAdmissionController
 from rafiki_tpu_torch.tenancy.residency import ResidencyManager
 from rafiki_tpu_torch.tenancy.hosting import PROGRAM_KEY, ProgramHost, ProgramSpec, wrap_query
 from rafiki_tpu_torch.tenancy.fabric import TenantFabric
+from rafiki_tpu_torch.tenancy.arbiter import JobAdmissionGate, tenant_pressure
 
 __all__ = [
     "ANON_TENANT", "DEFAULT_TIER", "TIERS", "QosClass", "TenantDirectory",
     "BoundedTenantMap", "TenantAccounting", "TenantAdmissionController",
     "ResidencyManager", "PROGRAM_KEY", "ProgramHost", "ProgramSpec", "wrap_query",
-    "TenantFabric",
+    "TenantFabric", "JobAdmissionGate", "tenant_pressure",
 ]

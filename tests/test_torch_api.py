@@ -2,7 +2,7 @@
 
 Every name in the ``__all__`` of the reference's ``model``, ``models``,
 ``ops``, ``parallel``, ``bus``, ``predictor``, ``worker``, ``scheduler``,
-``shard`` and ``store`` packages, and every public name of its
+``shard``, ``autoscale`` and ``store`` packages, and every public name of its
 ``tenancy`` package (which has no ``__all__``), imports from the port's
 package of the same name (``JaxModel`` read as ``TorchModel``), but for
 the names of modules not ported yet, listed in ``UNPORTED`` with their
@@ -32,12 +32,11 @@ from tests.test_torch_train import blob_params, check_readings, readings, train_
 torch.set_num_threads(2)
 
 PACKAGES = ("model", "models", "ops", "parallel", "bus", "predictor", "worker", "scheduler",
-            "shard", "tenancy", "store")
+            "shard", "tenancy", "store", "autoscale")
 RENAMED = {"JaxModel": "TorchModel"}
 #: Names of the reference's exports the port does not have yet, with
 #: their ROADMAP Queue 1 item.
-UNPORTED = {"JobAdmissionGate": "15, the twins (it forecasts through the serving twin)",
-            "tenant_pressure": "14, autoscale (its only reader)"}
+UNPORTED = {}
 
 
 def _exports(mod):

@@ -68,20 +68,22 @@ def test_the_catalogs_have_nineteen_and_six_scenarios():
     sweep's supervisor process, since the search plane,
     ``early-kill-mid-pack-resume``, since the multiprocessing bus,
     ``stacked-worker-loss-fallback``, which SIGKILLs a spawned inference
-    worker, and, since tenancy, ``noisy-neighbor-shed``: seventeen, each
-    with the JAX package's spec, description and env."""
+    worker, since tenancy, ``noisy-neighbor-shed``, and, since autoscale,
+    ``load-spike-scale-up`` and ``autoscale-flap-damping``: all nineteen,
+    each with the JAX package's spec, description and env."""
     assert len(JAX_SCENARIOS) == 19
     assert set(SCENARIOS) == {"checkpoint-write-failure", "straggler-quorum", "drain-under-load",
                               "predictor-outage-surfaces", "pack-straggler-evict",
                               "nan-trial-contained", "mesh-chip-loss-repack",
                               "chip-loss-mid-sharded-trial",
                               "mesh-degrades-single-chip",
-                              "noisy-neighbor-shed"} | SUBPROCESS_SCENARIOS
+                              "noisy-neighbor-shed", "load-spike-scale-up",
+                              "autoscale-flap-damping"} | SUBPROCESS_SCENARIOS
     assert SUBPROCESS_SCENARIOS == {"kill-mid-trial-resume", "kill-mid-pack-resume",
                                     "collective-kill-mid-step", "supervisor-kill-mid-sweep",
                                     "host-loss-mid-sweep", "early-kill-mid-pack-resume",
                                     "stacked-worker-loss-fallback"}
-    assert len(SCENARIOS) == 17
+    assert len(SCENARIOS) == 19
     for name, sc in SCENARIOS.items():
         jsc = JAX_SCENARIOS[name]
         assert (sc.spec, sc.description, sc.env) == (jsc.spec, jsc.description, jsc.env), name

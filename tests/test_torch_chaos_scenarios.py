@@ -14,19 +14,26 @@ the journals hold the same record kinds and names, the advisor's audit
 records included. Last, both packages' ``noisy-neighbor-shed`` bodies
 run weighted (every check passes, the aggressor alone is shed, for
 ``tenant_quota``) and under ``RAFIKI_TENANT_UNWEIGHTED=1``, where both
-must fail ``victim_p99_within_budget``.
+must fail ``victim_p99_within_budget``. The two autoscale scenarios run
+with the rest (``load-spike-scale-up`` on the wall clock,
+``autoscale-flap-damping`` on a fake one, whose checks and fault schedule
+equal the JAX package's), and the runner's twin pre-gate forecast of
+every serving spec equals the JAX runner's.
 """
 
 import pytest
 import torch
 
 from rafiki_tpu import chaos as jax_chaos
+from rafiki_tpu.chaos import runner as jax_runner
 from rafiki_tpu.chaos.scenarios import SCENARIOS as JAX_SCENARIOS
 from rafiki_tpu.obs.journal import journal as jax_journal, read_dir as jax_read_dir
 from rafiki_tpu.obs.perf import profiler as jax_profiler, slo as jax_slo
+from rafiki_tpu.obs.twin import pregate as jax_pregate
 from rafiki_tpu.ops.train import clear_program_cache as jax_clear_program_cache
 from rafiki_tpu.store import MetaStore as JaxMetaStore
 from rafiki_tpu_torch import chaos
+from rafiki_tpu_torch.chaos import runner as port_runner
 from rafiki_tpu_torch.chaos.runner import format_report, run_scenario
 from rafiki_tpu_torch.chaos.scenarios import SCENARIOS, SUBPROCESS_SCENARIOS
 from rafiki_tpu_torch.obs.journal import journal, read_dir
@@ -171,3 +178,46 @@ def test_noisy_neighbor_shed_matches_the_jax_packages(unweighted, tmp_path, monk
         for checks in (got, want):
             assert dict((n, ok) for n, ok, _ in checks)["victim_p99_within_budget"] is False
     assert set(got_view) - {("aggressor", "shed")} == set(want_view) - {("aggressor", "shed")}
+
+
+# -- the twin pre-gate and the autoscale scenarios --------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(n for n in SCENARIOS
+                                        if jax_pregate.spec_touches_serving(SCENARIOS[n].spec)))
+def test_the_twin_forecast_of_a_serving_spec_equals_the_jax_packages(name):
+    """The runner forecasts every serving spec through the serving twin
+    before injecting it; the forecast equals the JAX runner's for the
+    same spec (the two autoscale scenarios among them)."""
+    spec = SCENARIOS[name].spec
+    assert spec == JAX_SCENARIOS[name].spec
+    got = port_runner._twin_pregate(spec)
+    assert got is not None and got == jax_runner._twin_pregate(spec)
+
+
+def test_the_runner_report_carries_the_forecast_and_none_off_serving():
+    report = run_scenario("autoscale-flap-damping", device="cpu")
+    assert report.passed and report.twin_forecast is None  # autoscale.sensor: no serving site
+    assert report.to_dict()["twin_forecast"] is None
+    assert port_runner._twin_pregate(SCENARIOS["load-spike-scale-up"].spec)["workers_dead"] == []
+
+
+def test_autoscale_flap_damping_matches_the_jax_packages(tmp_path):
+    """Both packages' bodies on their fake clocks, each with its own
+    plane: the same checks with the same details, and the same fired
+    sensor-fault schedule."""
+    runs = {}
+    for pkg in ("jax", "port"):
+        checks = []
+        check = lambda name, ok, detail="": checks.append((name, bool(ok), str(detail)))  # noqa: E731
+        sc, plane_mod = ((JAX_SCENARIOS, jax_chaos) if pkg == "jax" else (SCENARIOS, chaos))
+        sc = sc["autoscale-flap-damping"]
+        plane = plane_mod.FaultPlane.from_spec(sc.spec)
+        plane_mod.install(plane)
+        try:
+            sc.fn(tmp_path, check)
+        finally:
+            plane_mod.uninstall()
+        runs[pkg] = checks, plane.schedule()
+    assert runs["port"] == runs["jax"]
+    assert all(ok for _, ok, _ in runs["port"][0]) and runs["port"][1]

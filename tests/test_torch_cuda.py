@@ -992,3 +992,159 @@ def test_card_eviction_frees_the_stacked_program_and_reactivation_serves_equal(c
     assert rm.resident_keys() == ["a"]
     assert again.predict(q) == want
     rm.drain()
+
+
+# A template that synchronizes the card in ``evaluate`` and ``destroy``,
+# as chip_smoke.py's BENCH_SRC does: a synchronize on another thread
+# while an epoch's step is being captured can invalidate that capture.
+SYNC_SRC = b'''
+import torch
+
+from rafiki_tpu_torch.models.vgg import Vgg
+
+
+class SyncVgg(Vgg):
+    def evaluate(self, dataset_uri):
+        score = super().evaluate(dataset_uri)
+        torch.cuda.synchronize()
+        return score
+
+    def destroy(self):
+        super().destroy()
+        torch.cuda.synchronize()
+'''
+#: Many short epochs (the knob's most): each epoch captures its step anew, so the trial
+#: opens a capture window about every 40 steps.
+SHARED_TRAIN = dict(SMALL, epochs=10)
+SHARED_URI = "synthetic://images?classes=10&n=2560&w=32&h=32&c=3&seed=0&noise=0.35&flip=0.2"
+
+
+def _serving_store(tmp_path, src=SYNC_SRC, name="SyncVgg"):
+    """A meta store with three completed SMALL VGG trials of ``src`` (one
+    sub job) and a params store with their blobs."""
+    from rafiki_tpu_torch.models.vgg import Vgg
+    from rafiki_tpu_torch.store import MetaStore, ParamsStore
+
+    store = MetaStore(tmp_path / "meta.sqlite3")
+    params = ParamsStore(tmp_path / "params")
+    model = store.create_model("vgg", "IMAGE_CLASSIFICATION", None, src, name)
+    tj = store.create_train_job("app", "IMAGE_CLASSIFICATION", None, "x", "y", {})
+    sub = store.create_sub_train_job(tj["id"], model["id"])
+    trials = []
+    for seed in range(3):
+        m = Vgg(device="cpu", **SMALL)
+        m.init_parameters(10, (32, 32, 3), torch.Generator().manual_seed(seed))
+        t = store.create_trial(sub["id"], "vgg", SMALL)
+        store.mark_trial_as_completed(t["id"], 0.5, params.save(m.dump_parameters(), f"t{seed}"))
+        trials.append(store.get_trial(t["id"]))
+    return store, params, trials
+
+
+def test_card_a_trial_trains_while_inference_jobs_start_and_stop(cuda, tmp_path, monkeypatch):
+    """A captured VGG trial trains on one thread while the services
+    manager creates and stops a stacked and a replicated inference job
+    on the same card, again and again; the jobs' templates synchronize
+    in ``destroy``. The trial completes, and its params equal an
+    unshared run's byte for byte: the dedicated route loads, stacks and
+    destroys its models under ``ops/graphs.py card_lock``, so no
+    synchronize lands inside an epoch's capture."""
+    from rafiki_tpu_torch.admin.services_manager import ServicesManager
+    from rafiki_tpu_torch.model.base import load_model_class
+
+    cls = load_model_class(SYNC_SRC, "SyncVgg")
+
+    def train():
+        m = cls(device=cuda, **SHARED_TRAIN)
+        m.train(SHARED_URI)
+        blob = m.dump_parameters()
+        m.destroy()
+        return blob
+
+    alone = train()
+    store, params, trials = _serving_store(tmp_path)
+    mgr = ServicesManager(store, params, device=cuda)
+    out, errors = {}, []
+
+    def trainer():
+        try:
+            out["blob"] = train()
+        except BaseException as e:  # reported below
+            errors.append(repr(e))
+
+    th = threading.Thread(target=trainer, name="shared-trial")
+    th.start()
+    cycles = 0
+    try:
+        while th.is_alive() or cycles < 4:
+            for stacked in (True, False):
+                monkeypatch.setenv("RAFIKI_STACKED_SERVING", "1" if stacked else "0")
+                job = store.create_inference_job(trials[0]["id"], None)["id"]
+                mgr.create_inference_services(job, trials)
+                mgr.stop_inference_services(job)
+            cycles += 1
+    finally:
+        th.join(timeout=600)
+        mgr.stop_all()
+    assert not th.is_alive() and errors == [], errors
+    assert cycles >= 4
+    assert out["blob"] == alone, f"the shared trial's params differ after {cycles} cycles"
+
+
+def _scaled_job(cuda, tmp_path):
+    """A stacked top-3 job served on the card by a services manager with
+    an autoscaler attached but not started (its lane is driven by hand).
+    Returns (manager, job id, handle, lane)."""
+    from rafiki_tpu_torch.admin.services_manager import ServicesManager
+
+    store, params, trials = _serving_store(tmp_path)
+    mgr = ServicesManager(store, params, device=cuda)
+    job = store.create_inference_job(trials[0]["id"], None)["id"]
+    mgr.create_inference_services(job, trials)
+    ctl = mgr.attach_autoscaler(job, min_workers=1, max_workers=2, start=False)
+    handle = mgr._inference_jobs[job]
+    assert handle.stacked_route and len(handle.workers) == 1
+    return mgr, job, handle, ctl._actuators["inference"]
+
+
+def test_card_a_scale_up_replica_answers_as_the_base_replica_bit_for_bit(cuda, tmp_path):
+    """A scale-up replica of a stacked job is loaded, stacked and
+    captured anew on the card; its answers to the same queries equal the
+    base replica's bit for bit, and it registers on the job's bus."""
+    mgr, job, handle, lane = _scaled_job(cuda, tmp_path)
+    try:
+        lane.scale_to(2)
+        base, replica = handle.workers
+        assert replica.worker_id in mgr.bus.get_workers(job)
+        q = np.random.default_rng(6).uniform(0, 1, size=(64, 32, 32, 3)).astype(np.float32)
+        got = np.asarray(replica.model.predict(q.tolist()))
+        want = np.asarray(base.model.predict(q.tolist()))
+        assert got.shape == (64, 10) and np.isfinite(got).all()
+        assert np.array_equal(got, want)
+    finally:
+        mgr.stop_all()
+
+
+def test_card_a_drained_scale_up_replica_gives_back_its_memory(cuda, tmp_path):
+    """Once a first replica has come and gone (the serving thread's own
+    state is then built), a replica's spawn and drain leave the card's
+    ``memory_allocated`` within 1 MiB of its value before the spawn, in
+    the drained, reaped, freed order."""
+    mgr, job, handle, lane = _scaled_job(cuda, tmp_path)
+    try:
+        lane.scale_to(2)
+        lane.scale_to(1)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        lane.scale_to(2)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - before
+        lane.scale_to(1)
+        torch.cuda.synchronize()
+        left = torch.cuda.memory_allocated() - before
+        assert grown > 0 and left <= 1 << 20, (grown, left)
+        wid = f"{job[:8]}-as1"
+        assert [e for e in lane.events if e[1] == wid] == [
+            ("drained", wid), ("reaped", wid), ("freed", wid)]
+        assert len(handle.workers) == 1
+    finally:
+        mgr.stop_all()

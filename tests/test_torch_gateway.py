@@ -28,6 +28,7 @@ from werkzeug.serving import make_server
 
 from rafiki_tpu import gateway as jax_gateway
 from rafiki_tpu import telemetry as jax_telemetry
+from rafiki_tpu.autoscale import controller as jax_autoscale
 from rafiki_tpu.bus import InProcBus as JaxBus
 from rafiki_tpu import tenancy as jax_tenancy
 from rafiki_tpu.obs.anatomy import exemplars as jax_exemplars
@@ -37,6 +38,7 @@ from rafiki_tpu.predictor.app import PredictorApp as JaxPredictorApp
 from rafiki_tpu.worker.inference import InferenceWorker as JaxWorker
 from rafiki_tpu_torch import gateway as port_gateway
 from rafiki_tpu_torch import telemetry as port_telemetry
+from rafiki_tpu_torch.autoscale import controller as port_autoscale
 from rafiki_tpu_torch.bus.queues import InProcBus
 from rafiki_tpu_torch import tenancy as port_tenancy
 from rafiki_tpu_torch.obs.anatomy import exemplars as port_exemplars
@@ -497,6 +499,9 @@ def test_stats_and_metrics_keys_alike():
         # collector: one is made here in each package, so the sets below
         # do not depend on whether an earlier test file made one.
         (jax_tenancy if pkg is PACKAGES["jax"] else port_tenancy).TenantFabric()
+        # So does an autoscale controller, its ``autoscale`` collector.
+        (jax_autoscale if pkg is PACKAGES["jax"] else port_autoscale).AutoscaleController(
+            lanes=[], sensor_fn=dict, actuators={})
         gw = _gateway(pkg, Scripted(live=["w0", "w1"]), max_batch=1)
         gw.predict([[1.0]])
         stats = gw.stats()
@@ -515,11 +520,12 @@ def test_stats_and_metrics_keys_alike():
     # this module imports it, so the comparison holds whatever ran first.)
     # the gateway's serving rollup and the exemplar ring, the program
     # cache's, the observability plane's (perf, slo and the goodput
-    # ledger), the search ledger's and the tenant fabric's. The JAX
-    # package's has those and the collectors of its other planes.
+    # ledger), the search ledger's, the tenant fabric's and the autoscale
+    # controller's. The JAX package's has those and the collectors of its
+    # other planes.
     assert got["port"][1] == {"counters", "gauges", "histograms", "spans", "ts", "gateway",
                               "serving", "serving_exemplars", "program_cache", "perf", "slo",
-                              "goodput", "search", "tenants"}
+                              "goodput", "search", "tenants", "autoscale"}
     assert got["jax"][1] >= got["port"][1] | DROPPED_COLLECTORS
 
 

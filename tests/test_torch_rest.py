@@ -169,13 +169,15 @@ def test_login_and_auth_required_alike(servers):
     # program cache's collector, the observability plane's (perf, slo,
     # goodput), the search ledger's and the exemplar ring's (and, once a
     # gateway is built, the gateway's and its serving rollup's; once a
-    # tenant fabric is made in the process, the fabric's); the JAX
-    # package's adds the collectors of planes the port lacks.
+    # tenant fabric is made in the process, the fabric's; once an
+    # autoscale controller is, the controller's); the JAX package's adds
+    # the collectors of planes the port lacks.
     metrics = {k: call(servers.url[k], "GET", "/metrics") for k in ("jax", "port")}
     assert metrics["port"][0] == metrics["jax"][0] == 200
     base = {"counters", "gauges", "histograms", "spans", "ts", "program_cache", "perf", "slo",
             "goodput", "search", "serving_exemplars"}
-    assert base <= set(metrics["port"][1]) <= base | {"gateway", "serving", "tenants"}
+    assert base <= set(metrics["port"][1]) <= base | {"gateway", "serving", "tenants",
+                                                      "autoscale"}
     # The JAX package registers its perf and slo collectors at their first
     # use (a train epoch, a gateway request), the port at import.
     assert base - {"perf", "slo"} <= set(metrics["jax"][1])
