@@ -9,7 +9,8 @@ CUDA card.
     python3 chip_smoke.py --obs            # phase 19 alone: journal, profile, trace
     python3 chip_smoke.py --chaos          # phase 20 alone: poisoned pack, replay, scenarios
     python3 chip_smoke.py --process        # phase 21 alone: subprocess workers, dp mesh
-    python3 chip_smoke.py --mesh           # phase 22 alone: mesh sweep, resume, sharded lane
+    python3 chip_smoke.py --mesh           # phase 22 alone: mesh sweep and its training
+                                           #   twin, resume, sharded lane
     python3 chip_smoke.py --search         # phase 23 alone: early kill, speculation, audit
     python3 chip_smoke.py --mesh-repack N  # phase 22 (b) alone, N times
     python3 chip_smoke.py --serve-proc     # phase 24 alone: serving across processes
@@ -73,7 +74,9 @@ The service, as a user drives it (phase ``service_journey``):
 
  11. the admin server started through ``admin.app.serve`` (what
      ``python -m rafiki_tpu_torch serve`` runs) on the card, on a free
-     loopback port, over a fresh data dir; with the port's ``Client``:
+     loopback port, over a fresh data dir; ``GET /`` must serve the web
+     UI byte-equal to ``rafiki_tpu_torch/web/index.html``; with the
+     port's ``Client``:
      log in, upload BENCH_SRC, a JOURNEY_TRIALS-trial GP train job on
      the canonical task, then an inference job over its top 2 (the
      stacked route); JOURNEY_1Q requests of one query and JOURNEY_64Q of
@@ -278,17 +281,31 @@ The mesh sweep, its write-ahead log and resume, and the sharded lane:
      ``MeshSweepScheduler.run_sweep(chips=1, trials_per_chip=MESH_K)``
      on the card: one batched draft of 4, every claim bracketed in the
      sweep's WAL, the stopped members' slots backfilled until the budget
-     drains. Fails unless the job COMPLETED with MESH_TRIALS scored
-     trials with params, the WAL reconciles (no double claim, claimed
-     == rows), the best score reaches TUNE_TOP1_TARGET, a backfill
-     ran, and the first and the last trial's float32 params are
-     byte-equal to their serial trials'. (b) ``mesh-chip-loss-repack``
-     at the canonical model (PROC_PACK_SRC, 3 epochs, budget 4, k=2):
-     two chips share the card, the scenario's spec preempts chip 1.
-     Fails unless every trial COMPLETED under chip 0, chip 1's rows were
+     drains, the port's journal open in a temporary directory. Fails
+     unless the job COMPLETED with MESH_TRIALS scored trials with
+     params, the WAL reconciles (no double claim, claimed == rows), the
+     best score reaches TUNE_TOP1_TARGET, a backfill ran, and the first
+     and the last trial's float32 params are byte-equal to their serial
+     trials'. Then the training twin (``obs/twin/train``) on that
+     journal, one line with the card's name and power limit:
+     ``validate``'s measured and predicted trials/hour and wall,
+     ``tph_err``, ``wall_err`` and ``event_log_sha1``, faithful and
+     doctored (TWIN_DOCTORED), and the JAX package's replay, which reads
+     no ``trial_pack/rounds``, beside them. Fails unless the journal
+     calibrates, the faithful bundle is within TWIN_TOLERANCE, the
+     doctored one is not, and two replays of one seed give one digest.
+     (b) ``mesh-chip-loss-repack`` at the canonical model
+     (PROC_PACK_SRC, 3 epochs, budget 4, k=2) under
+     ``RAFIKI_TWIN_PLACEMENT=1``, its journal in (a)'s directory: two
+     chips share the card, the scenario's spec preempts chip 1. Fails
+     unless every trial COMPLETED under chip 0, chip 1's rows were
      re-packed onto chip 0 and resumed from epoch 1 or later, each
-     trial's params are byte-equal to an unfaulted serial run, and both
-     chips' threads replayed captured steps. (c) the sharded lane at
+     trial's params are byte-equal to an unfaulted serial run, both
+     chips' threads replayed captured steps, and the twin's advisory
+     consult journaled one ``twin/placement`` record for the job before
+     its first ``mesh/pack_formed``, with a ``best_split`` (alone, as
+     ``--mesh-repack N``, an ``error``: nothing to calibrate from), that
+     ``obs decisions`` lists once. (c) the sharded lane at
      the Transformer's widest knobs (MESH_TF_SRC, 3 epochs of 10,000
      sequences of 128 tokens, ``RAFIKI_SHARD_WIDTH=2``, both members on
      the card): an unfaulted width-2 trial through the sweep's
@@ -451,7 +468,8 @@ card, so two checkouts can be compared in one call. ``--zoo`` runs only
 phases 17 and 18, ``--obs`` only phase 19, ``--chaos`` only phase 20
 (its clean-step check then holds the two runs of phase 20 to each
 other, with no phase 16 count to add), ``--process`` only phase 21,
-``--mesh`` only phase 22, ``--search`` only phase 23, ``--serve-proc``
+``--mesh`` only phase 22 (its twin line included), ``--search`` only
+phase 23, ``--serve-proc``
 only phase 24, ``--tenancy [N]`` only phase 25 (its weighted
 isolation run N times over, 1 unless given), ``--autoscale`` only phase
 26 (its cold job is then the process's first training, so its first
@@ -465,6 +483,7 @@ child worker of phases 14 and 15; it journals when its parent sets
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -1751,11 +1770,16 @@ def _free_port() -> int:
 
 
 def _get_json(url: str):
+    return json.loads(_get_raw(url)[2])
+
+
+def _get_raw(url: str):
+    """(status, content type, body bytes) of one GET."""
     import urllib.request
 
     opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
     with opener.open(url, timeout=60) as r:
-        return json.loads(r.read())
+        return r.status, r.headers.get("Content-Type") or "", r.read()
 
 
 def _span_p50_ms(records, name: str):
@@ -1786,6 +1810,7 @@ def service_journey(card):
 
     import torch
 
+    import rafiki_tpu_torch
     from rafiki_tpu_torch import telemetry
     from rafiki_tpu_torch.admin.app import serve
     from rafiki_tpu_torch.client import Client
@@ -1822,6 +1847,14 @@ def service_journey(card):
                     fail("service_journey: the admin server never answered")
                 time.sleep(0.1)
         store = MetaStore(cfg.db_path)
+        # The web UI: the admin serves the port's page at ``/``.
+        status, ctype, page = _get_raw(f"http://127.0.0.1:{port}/")
+        want_page = (Path(rafiki_tpu_torch.__file__).resolve().parent / "web"
+                     / "index.html").read_bytes()
+        line["web_ui"] = {"status": status, "content_type": ctype, "bytes": len(page),
+                          "byte_equal": page == want_page}
+        if status != 200 or page != want_page or not ctype.startswith("text/html"):
+            fail(f"service_journey: GET / did not serve the UI: {line['web_ui']}")
 
         # -- 2. train through the REST API ------------------------------------
         client.login(cfg.superadmin_email, cfg.superadmin_password)
@@ -3669,6 +3702,12 @@ MESH_SCENARIOS = frozenset({"mesh-chip-loss-repack", "chip-loss-mid-sharded-tria
                             "mesh-degrades-single-chip"})
 MESH_TRIALS = 8
 MESH_K = 4
+# (a)'s training twin (``obs/twin/train``): ``validate`` of the sweep's
+# journal at the JAX package's tolerance (its ``DEFAULT_TOLERANCE`` and
+# its smoke's, ``scripts/train_twin_smoke.py``), and the doctored bundle
+# of that smoke, which must fail it.
+TWIN_TOLERANCE = 0.25
+TWIN_DOCTORED = {"step": 2.0, "compile": 2.0}
 # (a) PROC_PACK_SRC's canonical trial at two epochs; a member at dropout
 # 0.2 or more stops after its first epoch (the JAX package's EvictFF
 # straggler rule), so the pack evicts it and backfills its slot with a
@@ -3790,8 +3829,9 @@ def _wal_verdict(store, job_id):
     return recs, out
 
 
-def mesh_sweep(card):
-    """Phase 22 (a): the canonical sweep, chips=1 x k=4, 8 GP trials."""
+def mesh_sweep(card, twin_dir):
+    """Phase 22 (a): the canonical sweep, chips=1 x k=4, 8 GP trials, the
+    port's journal open in ``twin_dir`` while it runs."""
     import shutil
     import tempfile
 
@@ -3799,6 +3839,7 @@ def mesh_sweep(card):
 
     from rafiki_tpu_torch import telemetry
     from rafiki_tpu_torch.model.base import load_model_class
+    from rafiki_tpu_torch.obs.journal import journal
     from rafiki_tpu_torch.scheduler import MeshSweepScheduler
 
     t_phase = time.monotonic()
@@ -3808,11 +3849,15 @@ def mesh_sweep(card):
             torch.cuda.empty_cache()
             telemetry.reset()
             store, params, job = _mesh_job(tmp, MESH_SRC, "MeshVgg", MESH_TRIALS)
-            t0 = time.monotonic()
-            result = MeshSweepScheduler(store, params).run_sweep(
-                job["id"], chips=1, trials_per_chip=MESH_K, advisor_kind="gp",
-                devices=[_mesh_device()])
-            wall = _synced_s(t0)
+            journal.configure(twin_dir, role="mesh-sweep")
+            try:
+                t0 = time.monotonic()
+                result = MeshSweepScheduler(store, params).run_sweep(
+                    job["id"], chips=1, trials_per_chip=MESH_K, advisor_kind="gp",
+                    devices=[_mesh_device()])
+                wall = _synced_s(t0)
+            finally:
+                journal.close()
             graphs = _graph_counters()
             snap = telemetry.snapshot()["counters"]
             trials = store.get_trials_of_train_job(job["id"])
@@ -3840,9 +3885,63 @@ def mesh_sweep(card):
                  "phase_s": time.monotonic() - t_phase}, **graphs)
 
 
-def mesh_repack(card):
+def mesh_twin(card, twin_dir):
+    """Phase 22 (a)'s training twin: ``validate`` of the sweep's journal,
+    faithful and doctored, and one seed's replay twice."""
+    from rafiki_tpu_torch.obs.twin.train import calibration, engine, validate
+
+    t0 = time.monotonic()
+    line = {"phase": "mesh_sweep_twin", "card": card[1], "power_limit": card[2]}
+    try:
+        cal = calibration.TrainCalibration.from_journal_dir(twin_dir)
+    except calibration.TrainCalibrationError as e:
+        return dict(line, calibrated=False, error=str(e))
+    line.update(calibrated=True, calibration=cal.meta,
+                packs=[{k: p.get(k) for k in ("chip", "k", "epochs", "rounds")}
+                       for p in cal.packs],
+                epoch_overhead_s=cal.epoch_overhead_s)
+    for name, scales in (("faithful", None), ("doctored", TWIN_DOCTORED)):
+        doc = validate.validate(twin_dir, seed=0, scales=scales)
+        line[name] = {k: doc[k] for k in ("measured", "predicted", "tph_err", "wall_err",
+                                          "tolerance", "ok", "event_log_sha1", "scales")}
+    cfg = engine.TrainTwinConfig.from_calibration(cal)
+    line["replay_sha1s"] = [engine.simulate(cal, cfg, packs=engine.packs_from_calibration(cal),
+                                            seed=0)["event_log_sha1"] for _ in range(2)]
+    # The JAX package's replay of the same journal, which reads no
+    # ``trial_pack/rounds``: the drafted members for the formed epochs,
+    # against the drafted trial count (a reading, not gated).
+    drafted = dataclasses.replace(cal, packs=[
+        {k: v for k, v in p.items() if k not in ("rounds", "backfilled")} for p in cal.packs])
+    res = engine.simulate(drafted, cfg, packs=engine.packs_from_calibration(drafted), seed=0)
+    n, wall = cal.sweep.get("n_trials"), line["faithful"]["measured"]["wall_s"]
+    line["without_rounds"] = {
+        "trials": res["completed"], "wall_s": res["makespan_s"],
+        "tph_err": round(abs(res["trials_per_hour"] - n / wall * 3600.0) / (n / wall * 3600.0), 4),
+        "wall_err": round(abs(res["makespan_s"] - wall) / wall, 4)}
+    line["twin_s"] = time.monotonic() - t0
+    return line
+
+
+def check_twin(t, check) -> None:
+    """Phase 22 (a)'s twin gates."""
+    check(t["calibrated"], f"mesh twin: the sweep's journal does not calibrate: {t.get('error')}")
+    if not t["calibrated"]:
+        return
+    f, d = t["faithful"], t["doctored"]
+    check(f["ok"] and f["tolerance"] == TWIN_TOLERANCE,
+          f"mesh twin: the faithful bundle misses {f['tolerance']}: tph_err {f['tph_err']}, "
+          f"wall_err {f['wall_err']}, measured {f['measured']}, predicted {f['predicted']}")
+    check(not d["ok"], f"mesh twin: the doctored bundle {d['scales']} passes: tph_err "
+                       f"{d['tph_err']}, wall_err {d['wall_err']}")
+    check(len(set(t["replay_sha1s"])) == 1,
+          f"mesh twin: one seed, two event logs {t['replay_sha1s']}")
+
+
+def mesh_repack(card, twin_dir=None):
     """Phase 22 (b): ``mesh-chip-loss-repack`` at the canonical model, two
-    chips sharing the card."""
+    chips sharing the card, under ``RAFIKI_TWIN_PLACEMENT=1`` with the
+    journal in ``twin_dir`` (phase 22 (a)'s; alone, a fresh one, where
+    the consult finds nothing to calibrate from)."""
     import shutil
     import tempfile
 
@@ -3852,6 +3951,7 @@ def mesh_repack(card):
     from rafiki_tpu_torch import telemetry
     from rafiki_tpu_torch.chaos.scenarios import SCENARIOS
     from rafiki_tpu_torch.model.base import load_model_class
+    from rafiki_tpu_torch.obs import journal as journal_mod
     from rafiki_tpu_torch.ops import graphs as graphs_mod
     from rafiki_tpu_torch.scheduler import MeshSweepScheduler
     from rafiki_tpu_torch.utils.events import events
@@ -3859,6 +3959,8 @@ def mesh_repack(card):
     t_phase = time.monotonic()
     sc = SCENARIOS["mesh-chip-loss-repack"]
     tmp = tempfile.mkdtemp(prefix="rafiki-repack-")
+    alone = twin_dir is None
+    twin_dir = f"{tmp}/journal" if alone else twin_dir
     by_thread = {}
     lock = threading.Lock()
     run = graphs_mod.StepRunner.run
@@ -3873,13 +3975,18 @@ def mesh_repack(card):
 
     graphs_mod.StepRunner.run = counted
     try:
-        with _Env(dict(sc.env, RAFIKI_TPU_SERVING_PARAMS_DTYPE="float32")):
+        # The journal is open for the consult's record; the FLOP count a
+        # journaled process takes of each program's first step stays off,
+        # so the two chips' threads step as they did unjournaled.
+        with _Env(dict(sc.env, RAFIKI_TPU_SERVING_PARAMS_DTYPE="float32",
+                       RAFIKI_TWIN_PLACEMENT="1", RAFIKI_PERF_COST_CAPTURE="0")):
             torch.cuda.empty_cache()
             telemetry.reset()
             events.configure(f"{tmp}/logs")
             store, params, job = _mesh_job(tmp, PROC_PACK_SRC, "ProcPackVgg", 4)
             plane = chaos_plane.FaultPlane.from_spec(sc.spec)
             chaos_plane.install(plane)
+            journal_mod.journal.configure(twin_dir, role="mesh-repack")
             try:
                 t0 = time.monotonic()
                 result = MeshSweepScheduler(store, params).run_sweep(
@@ -3887,7 +3994,26 @@ def mesh_repack(card):
                     devices=[_mesh_device()] * 2)
                 wall = _synced_s(t0)
             finally:
+                journal_mod.journal.close()
                 chaos_plane.uninstall()
+            t_twin = time.monotonic()
+            recs = [r for r in journal_mod.read_dir(twin_dir) if r.get("job_id") == job["id"]]
+            kinds = [(r.get("kind"), r.get("name")) for r in recs]
+            placements = [r for r, kind in zip(recs, kinds) if kind == ("twin", "placement")]
+            rc, decisions = _cli(["--dir", twin_dir, "decisions", "-n", "0"])
+            twin = {"alone": alone, "placements": len(placements),
+                    "before_first_pack": (("twin", "placement") in kinds
+                                          and ("mesh", "pack_formed") in kinds
+                                          and kinds.index(("twin", "placement"))
+                                          < kinds.index(("mesh", "pack_formed"))),
+                    "best_split": (placements[0].get("recommendation") or {}).get("best_split")
+                    if placements else None,
+                    "error": placements[0].get("error") if placements else None,
+                    "decisions_rc": rc,
+                    "decisions_placement": sum(1 for ln in decisions.splitlines()
+                                               if " placement " in ln
+                                               and f"job={job['id']}" in ln),
+                    "twin_s": time.monotonic() - t_twin}
             graphs_mod.StepRunner.run = run
             graphs = _graph_counters()
             trials = store.get_trials_of_train_job(job["id"])
@@ -3919,7 +4045,7 @@ def mesh_repack(card):
                                      if k.startswith("mesh-chip-")},
                  "chips_lost": telemetry.get_counter("mesh.chips_lost"),
                  "wal": wal, "serial_byte_equal": equal, "job_wall_s": wall,
-                 "serial_reference_s": ref_s, "errors": result.errors,
+                 "serial_reference_s": ref_s, "errors": result.errors, "twin": twin,
                  "phase_s": time.monotonic() - t_phase}, **graphs)
 
 
@@ -4062,13 +4188,32 @@ def check_repack(b, check) -> None:
     rep = b["replays_by_chip"]
     check(rep.get("mesh-chip-0", 0) > 0 and rep.get("mesh-chip-1", 0) > 0,
           f"mesh repack: captured steps replayed by chip {rep}")
+    t = b["twin"]
+    answer = t["error"] if t["alone"] else t["best_split"]
+    check(t["placements"] == 1 and t["before_first_pack"] and answer
+          and (t["error"] is None) != t["alone"],
+          f"mesh repack: the twin placement consult journaled {t}")
+    check(t["decisions_rc"] == 0 and t["decisions_placement"] == 1,
+          f"mesh repack: obs decisions lists the consult {t['decisions_placement']} time(s), "
+          f"exit {t['decisions_rc']}")
 
 
 def mesh_phase(card, check) -> None:
     """Phase 22 and its checks (also ``--mesh``)."""
+    import shutil
+    import tempfile
+
     t0 = time.monotonic()
-    a = mesh_sweep(card)
-    print(json.dumps(a))
+    twin_dir = tempfile.mkdtemp(prefix="rafiki-twin-")
+    try:
+        a = mesh_sweep(card, twin_dir)
+        print(json.dumps(a))
+        twin = mesh_twin(card, twin_dir)
+        print(json.dumps(twin))
+        check_twin(twin, check)
+        b = mesh_repack(card, twin_dir)
+    finally:
+        shutil.rmtree(twin_dir, ignore_errors=True)
     check(a["status"] == "COMPLETED" and a["trials"] == MESH_TRIALS
           and a["completed"] == MESH_TRIALS and a["with_params"] == MESH_TRIALS
           and not a["errors"],
@@ -4083,7 +4228,6 @@ def mesh_phase(card, check) -> None:
           f"mesh sweep: members against their serial trials {a['serial_byte_equal']}")
     check(a["backfills"] >= 1 and a["graph_replays"] > 0,
           f"mesh sweep: {a['backfills']} backfills, {a['graph_replays']} replays")
-    b = mesh_repack(card)
     print(json.dumps(b))
     check_repack(b, check)
     c = mesh_sharded(card)
@@ -5740,7 +5884,7 @@ def main() -> int:
                               "passed": len(failures) == n_failed,
                               "trial_status": b["trial_status"],
                               "serial_byte_equal": b["serial_byte_equal"],
-                              "replays_by_chip": b["replays_by_chip"],
+                              "replays_by_chip": b["replays_by_chip"], "twin": b["twin"],
                               "job_wall_s": b["job_wall_s"], "phase_s": b["phase_s"]}),
                   flush=True)
         if failures:

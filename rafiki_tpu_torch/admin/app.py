@@ -34,11 +34,13 @@ Route table:
                                      {"stale_after_s", "wait"}, wait
                                      false by default)
   GET  /advisors/<id>/propose, POST /advisors/<id>/feedback
+  GET  /                             web admin UI (static page,
+                                     ``rafiki_tpu_torch/web/index.html``,
+                                     the port's copy of the JAX
+                                     package's ``rafiki_tpu/web/index.html``)
   GET  /healthz                      liveness
   GET  /metrics                      telemetry snapshot (JSON;
                                      ?format=prom: Prometheus text)
-
-Not ported yet: the web UI at ``/``.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from __future__ import annotations
 import json
 import re
 import threading
+from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 from rafiki_tpu_torch import telemetry
@@ -57,11 +60,14 @@ from rafiki_tpu_torch.utils.backend import DeviceLike
 from rafiki_tpu_torch.utils.httpd import AppServer, Request, Response, json_response
 from rafiki_tpu_torch.utils.jsonable import jsonable
 
+_WEB_DIR = Path(__file__).resolve().parent.parent / "web"
+
 _APP = r"(?P<app>[^/]+)"
 _VERSION = r"(?:/(?P<app_version>\d+))?"
 #: (method, path pattern, endpoint), in werkzeug's rule syntax terms:
 #: ``<name>`` is one path segment, ``<int:app_version>`` digits.
 _ROUTES = [
+    ("GET", r"/", "web_index"),
     ("GET", r"/healthz", "healthz"),
     ("GET", r"/metrics", "metrics"),
     ("POST", r"/tokens", "login"),
@@ -191,6 +197,12 @@ class AdminApp:
             return Response(prom.to_prometheus(telemetry.snapshot()).encode(),
                             content_type="text/plain; version=0.0.4")
         return json_response(telemetry.snapshot())
+
+    def ep_web_index(self, request: Request) -> Response:
+        index = _WEB_DIR / "index.html"
+        if index.exists():
+            return Response(index.read_bytes(), content_type="text/html; charset=utf-8")
+        return json_response({"service": "rafiki-tpu admin", "docs": "/healthz"})
 
     def ep_login(self, request: Request) -> Response:
         body = self._body(request)

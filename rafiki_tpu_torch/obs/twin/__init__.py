@@ -1,8 +1,8 @@
 """Digital-twin capacity plane.
 
-The port's own copy of ``rafiki_tpu/obs/twin/``: the serving twin. The
-JAX package's training twin (``obs/twin/train/``, and the ``twin
-train`` verbs) is not ported yet.
+The port's own copy of ``rafiki_tpu/obs/twin/``: the serving twin, and
+under :mod:`~rafiki_tpu_torch.obs.twin.train` the training/sweep twin
+(with the ``twin train`` verbs).
 
 A deterministic discrete-event simulator of the serving chain —
 gateway admission/queue/shed → bus enqueue/dequeue → k-way worker
@@ -26,7 +26,9 @@ Layers:
 * :mod:`~rafiki_tpu_torch.obs.twin.validate` — predicted-vs-measured gating
   against a captured serving run;
 * :mod:`~rafiki_tpu_torch.obs.twin.pregate` — the chaos runner's offline
-  fault forecast.
+  fault forecast;
+* :mod:`~rafiki_tpu_torch.obs.twin.train` — the training/sweep twin
+  (docs/twin.md), lazily loaded like the rest.
 
 Determinism contract: one seed reproduces the event log bit-for-bit
 (no ambient clocks or unseeded RNG in this package),
@@ -49,7 +51,7 @@ _EXPORTS = {
     "TwinConfig": "engine", "simulate": "engine",
 }
 _LAZY_MODULES = ("calibration", "load", "engine", "whatif", "validate",
-                 "pregate", "cli")
+                 "pregate", "cli", "train")
 
 __all__ = [*_EXPORTS, *_LAZY_MODULES]
 

@@ -310,12 +310,16 @@ class Calibration:
         ``peak_hbm_bytes`` (the port's never do) or there is no card."""
         peaks = [float(r["peak_hbm_bytes"]) for r in self.cost.values()
                  if r.get("peak_hbm_bytes") is not None]
-        if not peaks:
-            return None
-        from rafiki_tpu_torch.shard.plan import device_memory_bytes
+        per_chip = card_memory_bytes() if peaks else None
+        return max(peaks) / per_chip if per_chip else None
 
-        try:
-            per_chip = device_memory_bytes()
-        except (ValueError, RuntimeError):
-            return None
-        return max(peaks) / per_chip
+
+def card_memory_bytes() -> Optional[int]:
+    """This process's card's memory (``shard/plan.py
+    device_memory_bytes``), or None without a card."""
+    from rafiki_tpu_torch.shard.plan import device_memory_bytes
+
+    try:
+        return device_memory_bytes()
+    except (ValueError, RuntimeError):
+        return None

@@ -16,6 +16,8 @@ import json
 import sys
 from typing import Any, Dict, Optional
 
+from rafiki_tpu_torch.obs.twin.train import cli as train_cli
+
 
 def attach(sub: argparse._SubParsersAction) -> None:
     """Mount the ``twin`` verb on the obs CLI's subparser tree."""
@@ -80,6 +82,8 @@ def attach(sub: argparse._SubParsersAction) -> None:
                     help="write the TWIN artifact JSON here (the "
                          "bench_report --twin ledger format)")
 
+    train_cli.attach(tsub)
+
 
 def _parse_scales(items) -> Dict[str, float]:
     scales: Dict[str, float] = {}
@@ -122,6 +126,8 @@ def _arrivals(args, log_dir):
 
 
 def dispatch(args, log_dir: str, as_json: bool) -> int:
+    if args.twin_cmd == "train":
+        return train_cli.dispatch(args, log_dir, as_json)
     if args.twin_cmd == "run":
         return cmd_run(args, log_dir, as_json)
     if args.twin_cmd == "sweep":

@@ -57,8 +57,9 @@ chip raises the bar for another's stragglers, and a backfill on any
 chip can speculate every trial in flight across the mesh
 (docs/early_kill.md).
 
-Not ported yet: the twin placement consult (``RAFIKI_TWIN_PLACEMENT``,
-ROADMAP Queue 1, item 15).
+With ``RAFIKI_TWIN_PLACEMENT`` set, ``run_sweep`` consults the training
+twin (``obs/twin/train/placement.py``) at admission, before any budget
+slot is claimed: advisory only, journaled as ``twin/placement``.
 """
 
 from __future__ import annotations
@@ -548,6 +549,21 @@ class MeshSweepScheduler:
                                   errors=["mesh sweep: no device obtainable"])
         k = max(1, int(trials_per_chip))
 
+        # Twin placement consultation (docs/twin.md): with
+        # RAFIKI_TWIN_PLACEMENT set, ask the calibrated train twin for
+        # a pack/split recommendation at admission — BEFORE any budget
+        # slot is claimed. Advisory-only by contract: the answer is
+        # journaled as twin/placement and never changes this sweep;
+        # a missing/stale calibration records the error and moves on.
+        if os.environ.get("RAFIKI_TWIN_PLACEMENT"):
+            try:
+                from rafiki_tpu_torch.obs.twin.train import placement as _placement
+
+                _placement.consult(job_id=job_id, chips=len(devices), k=k, budget=budget)
+            except Exception as e:
+                _journal.record("twin", "placement", job_id=job_id, advisory=True,
+                                error=str(e))
+
         errors: List[str] = []
         subs = self.store.get_sub_train_jobs(job_id)
         if not subs:
@@ -771,7 +787,7 @@ class MeshSweepScheduler:
                 wal.commit(txn, "pack_assign")
                 _journal.record(
                     "mesh", "pack_formed", job_id=job_id, chip=r.index,
-                    packing_key=order[b], k=len(rows),
+                    worker_id=r.worker.worker_id, packing_key=order[b], k=len(rows),
                     fill_ratio=round(len(rows) / float(k), 4),
                     epochs=bucket_epochs.get(order[b]),
                     trial_ids=[tid for tid, _kn in rows],

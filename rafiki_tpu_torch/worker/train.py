@@ -221,6 +221,20 @@ def _journal_epoch_eval(trial_id: str, entry: Dict[str, Any],
         packed=packed)
 
 
+def _journal_pack_rounds(worker_id: str, rows, joined: Dict[int, int],
+                         histories: List[List[Dict[str, Any]]]) -> None:
+    """The pack's rounds (``trial_pack/rounds``): every member's trial
+    id in row order, backfills included, and how many members trained
+    in each round. The training twin replays a pack from it: the
+    drafted members' ``mesh/pack_formed`` record alone says neither
+    which trials joined the freed slots nor how long the pack ran."""
+    spans = [(joined.get(i, 0), len(h)) for i, h in enumerate(histories)]
+    n_rounds = max((j + n for j, n in spans), default=0)
+    widths = [sum(1 for j, n in spans if j <= r < j + n) for r in range(n_rounds)]
+    journal.record("trial_pack", "rounds", worker_id=worker_id,
+                   trial_ids=[tid for tid, _ in rows], widths=widths)
+
+
 class InProcAdvisorHandle:
     def __init__(self, advisor_service, advisor_id: str):
         self._svc = advisor_service
@@ -772,6 +786,9 @@ class PackedTrialRunner:
 
                 t_pack0 = time.monotonic()
                 round_walls: List[float] = []
+                # Row index -> the pack round a backfilled member joined
+                # at (the rounds after the walls so far); others join at 0.
+                joined: Dict[int, int] = {}
 
                 def heartbeat(_round: int) -> None:
                     # The pack-relative wall at each round's end, for the
@@ -852,6 +869,7 @@ class PackedTrialRunner:
                             break
                         if txn is not None:
                             w.wal.commit(txn, "backfill", trial_id=trial["id"])
+                        joined[len(rows)] = len(round_walls)
                         rows.append((trial["id"], kn))
                         events.emit("trial_started", trial_id=trial["id"], sub_job_id=w.sub_id,
                                     model=w.model_class.__name__, worker_id=w.worker_id,
@@ -877,6 +895,7 @@ class PackedTrialRunner:
                     histories = w.model_class.train_packed(
                         models, w.train_uri, on_epoch=heartbeat, checkpoint_sink=ckpt_sink,
                         backfill=backfill, on_evict=on_evict, kill_predicate=kill_pred)
+                _journal_pack_rounds(w.worker_id, rows, joined, histories)
                 # Members evicted for divergence hold the divergent state:
                 # they are not scored (a NaN score would skew the advisor).
                 # Killed members are not scored either: that would spend

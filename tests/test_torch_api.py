@@ -2,11 +2,12 @@
 
 Every name in the ``__all__`` of the reference's ``model``, ``models``,
 ``ops``, ``parallel``, ``bus``, ``predictor``, ``worker``, ``scheduler``,
-``shard``, ``autoscale`` and ``store`` packages, and every public name of its
-``tenancy`` package (which has no ``__all__``), imports from the port's
-package of the same name (``JaxModel`` read as ``TorchModel``), but for
-the names of modules not ported yet, listed in ``UNPORTED`` with their
-ROADMAP item. Then the class-level gaps:
+``shard``, ``autoscale``, ``store``, ``obs.twin`` and ``obs.twin.train``
+packages (the twin's lazily loaded submodules among them), and every
+public name of its ``tenancy`` package (which has no ``__all__``),
+imports from the port's package of the same name (``JaxModel`` read as
+``TorchModel``), but for the names of modules not ported yet, listed in
+``UNPORTED`` with their ROADMAP item. Then the class-level gaps:
 ``Dataset.split`` draws the reference's permutation,
 ``parse_model_install_command`` reports the same names, the loop has
 ``hyper``, and a template overriding ``make_optimizer`` trains in both
@@ -32,7 +33,7 @@ from tests.test_torch_train import blob_params, check_readings, readings, train_
 torch.set_num_threads(2)
 
 PACKAGES = ("model", "models", "ops", "parallel", "bus", "predictor", "worker", "scheduler",
-            "shard", "tenancy", "store", "autoscale")
+            "shard", "tenancy", "store", "autoscale", "obs.twin", "obs.twin.train")
 RENAMED = {"JaxModel": "TorchModel"}
 #: Names of the reference's exports the port does not have yet, with
 #: their ROADMAP Queue 1 item.

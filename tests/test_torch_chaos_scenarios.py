@@ -11,7 +11,7 @@ supervisor process in ``tests/test_torch_sweep_resume.py``.) Then the two packag
 side by side, each with its own plane and journal: the same member
 errors, at the same bad step, the rows end in the same statuses, and
 the journals hold the same record kinds and names, the advisor's audit
-records included. Last, both packages' ``noisy-neighbor-shed`` bodies
+records included, and the port's pack rounds besides. Last, both packages' ``noisy-neighbor-shed`` bodies
 run weighted (every check passes, the aggressor alone is shed, for
 ``tenant_quota``) and under ``RAFIKI_TENANT_UNWEIGHTED=1``, where both
 must fail ``victim_p99_within_budget``. The two autoscale scenarios run
@@ -47,6 +47,9 @@ torch.set_num_threads(2)
 #: Journal kinds of planes the port does not have yet: none (the advisor
 #: decision audit and the search ledger's kinds are compared too).
 JAX_ONLY_KINDS = set()
+#: Records only the port journals: a pack's rounds, which the port's
+#: training twin replays (``obs/twin/train/calibration.py``).
+PORT_ONLY_PAIRS = {("trial_pack", "rounds")}
 
 
 @pytest.mark.parametrize("name", sorted(set(SCENARIOS) - SUBPROCESS_SCENARIOS))
@@ -119,7 +122,8 @@ def test_nan_trial_contained_matches_the_jax_packages(tmp_path, monkeypatch):
         return {(r["kind"], r["name"].split(":")[0] if r["kind"] == "ledger" else r["name"])
                 for r in recs if r["kind"] not in JAX_ONLY_KINDS}
 
-    assert pairs(got_recs) == pairs(want_recs)
+    assert pairs(got_recs) - PORT_ONLY_PAIRS == pairs(want_recs)
+    assert PORT_ONLY_PAIRS <= pairs(got_recs)
     for pair in [("chaos", "injected"), ("health", "divergence"), ("health", "capsule"),
                  ("flight", "health:divergence"), ("event", "trial_diverged"),
                  ("event", "pack_member_evicted")]:
