@@ -9,6 +9,8 @@ CUDA card.
     python3 chip_smoke.py --obs            # phase 19 alone: journal, profile, trace
     python3 chip_smoke.py --chaos          # phase 20 alone: poisoned pack, replay, scenarios
     python3 chip_smoke.py --process        # phase 21 alone: subprocess workers, dp mesh
+    python3 chip_smoke.py --groups         # phases 4 (e) and 21 (c)-(d) alone: two
+                                           #   logical devices of one card
     python3 chip_smoke.py --mesh           # phase 22 alone: mesh sweep and its training
                                            #   twin, resume, sharded lane
     python3 chip_smoke.py --search         # phase 23 alone: early kill, speculation, audit
@@ -41,6 +43,14 @@ Serving, k=3 trials of random weights, batch 64:
      peak device memory) and a device profile of the same models'
      forwards (CUDA events and ``torch.profiler``), each with the
      card's name and power limit.
+     4 (e) (``stacked_groups``): GROUP_K seeded trials stacked through
+     ``build_stacked(devices=[cuda:0, cuda:0])``, two member groups of
+     two, each group's forward captured on the card's serving thread,
+     against the same trials stacked as one group. Fails unless the
+     two are within GROUP_ATOL and each group's replay is its eager
+     forward bit for bit; prints whether they are bit-equal, the host
+     ms of a request of 1 and of 64 queries through each, and
+     ``serving.graph_captures``.
 
 Training, the bench's canonical job and trial (VGG16 w1.0, one epoch of
 the 50k-image synthetic task, bf16 compute):
@@ -270,8 +280,17 @@ Process workers and within-trial data parallelism:
      fails unless the params are byte-equal (an all-reduce over one rank
      and the division by 1 change no bit) and the dp trial replayed no
      captured step (its steps run eagerly); prints the warm epoch's ms a
-     step of both paths. Width 2 and more need two cards; the CPU tests
-     show them over gloo.
+     step of both paths. Width 2 and more over NCCL need two cards; the
+     CPU tests show them over gloo. (d) the same trial on an in-process
+     width-2 mesh over ``[cuda:0, cuda:0]`` (two replicas on the card,
+     one thread running them in lockstep), twice, against (c)'s no-mesh
+     run as the width-1 reference: fails unless the replicas' params are
+     byte-equal, the second run's are the first's, and no captured step
+     was replayed; prints the warm epoch's ms a step (host wall, CUDA
+     events) beside (c)'s, the in-process reduce's ms, the first step's
+     loss and the eval score of both paths, and the largest parameter
+     difference from the width-1 trial (not gated). One card shows the
+     path and its cost, not a speed-up.
 
 The mesh sweep, its write-ahead log and resume, and the sharded lane:
 
@@ -468,7 +487,9 @@ card, so two checkouts can be compared in one call. ``--zoo`` runs only
 phases 17 and 18, ``--obs`` only phase 19, ``--chaos`` only phase 20
 (its clean-step check then holds the two runs of phase 20 to each
 other, with no phase 16 count to add), ``--process`` only phase 21,
-``--mesh`` only phase 22 (its twin line included), ``--search`` only
+``--groups`` only phases 4 (e) and 21 (c)-(d) (the in-process mesh and
+the member groups, two logical devices of one card, with (c)'s no-mesh
+run as (d)'s reference), ``--mesh`` only phase 22 (its twin line included), ``--search`` only
 phase 23, ``--serve-proc``
 only phase 24, ``--tenancy [N]`` only phase 25 (its weighted
 isolation run N times over, 1 unless given), ``--autoscale`` only phase
@@ -483,6 +504,7 @@ child worker of phases 14 and 15; it journals when its parent sets
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -525,6 +547,14 @@ ENSEMBLE_ATOL = 5e-3
 # convs, for which cuDNN may choose other algorithms than for the k
 # plain convs, so the routes agree to bf16 rounding, not bit for bit.
 ROUTE_ATOL = 5e-3
+# Phase 4 (e): GROUP_K trials stacked as two member groups on the card
+# against the same trials stacked as one group. A member's forward is the
+# same in either (its convs run once per member), so the two should be
+# equal; the bound allows a float32 ulp of a probability, as the
+# service journey's does.
+GROUP_K = 4
+GROUP_ATOL = 1e-5
+GROUP_REQUESTS = 20
 
 # -- training -----------------------------------------------------------------
 TRAIN_KNOBS = dict(depth=16, width_mult=1.0, dropout=0.1, learning_rate=1e-3,
@@ -971,6 +1001,72 @@ def serve(models, queries, label, card):
         "queries_served": snap["counters"]["inference.queries_served"],
     }
     return np.asarray(singles, np.float64), [np.asarray(b, np.float64) for b in bursts], timing
+
+
+def stacked_groups(card):
+    """Phase 4 (e): GROUP_K seeded random-weight trials stacked at batch
+    BATCH through ``build_stacked``, once as one group and once over
+    ``[cuda:0, cuda:0]`` (two groups of two, each captured as its own
+    graph on the card's serving thread). Returns the line: the two
+    forwards' largest difference on one query set and whether they are
+    bit-equal, whether each group's replay equals its eager forward bit
+    for bit, the host ms of a request of 1 and of BATCH queries through
+    each adapter (median of GROUP_REQUESTS, taken in turns), and the
+    captures made."""
+    import torch
+
+    from rafiki_tpu_torch import telemetry
+    from rafiki_tpu_torch.parallel.serving import _card_thread, build_stacked
+
+    t_phase = time.monotonic()
+    blobs = [make_blob(seed) for seed in range(GROUP_K)]
+    trials = [{"model_name": "vgg"}] * GROUP_K
+    cuda0 = torch.device("cuda", 0)
+    telemetry.reset()
+    one, reason1 = build_stacked(trials, load(blobs), batch_size=BATCH)
+    two, reason2 = build_stacked(trials, load(blobs), devices=[cuda0, cuda0], batch_size=BATCH)
+    if one is None or two is None:
+        fail(f"stacked groups: refused ({reason1}, {reason2})")
+    groups = [str(d) for d, _ in two._ens.groups]
+    warmup_s = {"one_group": one.warmup(), "two_groups": two.warmup()}
+    x = two._first.preprocess(queries_for(0))
+    p_one, p_two = one.predict_proba(x), two.predict_proba(x)
+    replay_equal = []
+    with torch.inference_mode():
+        for g, (device, _) in enumerate(two._ens.groups):
+            replay = _card_thread(device).submit(two._replay, g, x).result()
+            eager = two._ens.group_forward(g, torch.from_numpy(x).to(device)).cpu().numpy()
+            replay_equal.append(bool(np.array_equal(replay, eager)))
+    ms = {"one_group": {1: [], BATCH: []}, "two_groups": {1: [], BATCH: []}}
+    for _ in range(GROUP_REQUESTS):
+        for label, adapter in (("one_group", one), ("two_groups", two)):
+            for n in (1, BATCH):
+                t0 = time.perf_counter()
+                adapter.predict_proba(x[:n])
+                ms[label][n].append((time.perf_counter() - t0) * 1e3)
+    captures = telemetry.snapshot()["counters"].get("serving.graph_captures", 0.0)
+    one.destroy()
+    two.destroy()
+    return {"phase": "stacked_groups", "card": card[1], "power_limit": card[2], "k": GROUP_K,
+            "group_devices": groups,
+            "max_abs_diff_vs_one_group": float(np.abs(p_two - p_one).max()),
+            "bit_equal_to_one_group": bool(np.array_equal(p_two, p_one)),
+            "replay_equals_eager": replay_equal, "graph_captures": captures,
+            "warmup_s": warmup_s,
+            "request_ms_median": {label: {str(n): float(np.median(v)) for n, v in d.items()}
+                                  for label, d in ms.items()},
+            "phase_s": time.monotonic() - t_phase}
+
+
+def check_stacked_groups(sg, check) -> None:
+    n = len(sg["group_devices"])
+    check(n == 2 and sg["max_abs_diff_vs_one_group"] <= GROUP_ATOL,
+          f"stacked groups: {n} groups, {sg['max_abs_diff_vs_one_group']} from the one-group "
+          f"forward (bound {GROUP_ATOL})")
+    check(sg["replay_equals_eager"] == [True] * n,
+          f"stacked groups: a group's replay is not its eager forward: {sg['replay_equals_eager']}")
+    check(sg["graph_captures"] == 1 + n,
+          f"stacked groups: {sg['graph_captures']} captures, expected {1 + n}")
 
 
 # -- training -----------------------------------------------------------------
@@ -3416,6 +3512,8 @@ PROC_PACK_SRC = (BENCH_SRC.replace(b"class BenchVgg(Vgg):", b"class ProcPackVgg(
                           b'"learning_rate": FloatKnob(1e-4, 2e-3, is_exp=True)')
                  .replace(b'"dropout": FloatKnob(0.0, 0.5)', b'"dropout": FloatKnob(0.0, 0.3)'))
 PROC_DP_KNOBS = dict(TRAIN_KNOBS, epochs=2)
+# The in-process reduce of phase 21 (d) is timed over this many calls.
+DP_REDUCE_ITERS = 20
 
 
 def _proc_job(tmp, src, name, trials, uri=TRAIN_URI):
@@ -3555,6 +3653,48 @@ def process_kill_pack(card):
             "phase_s": time.monotonic() - t_phase}
 
 
+def _epoch_timer(seen, steps):
+    """A checkpoint sink that times a trial's warm epoch (epoch 1) into
+    ``seen``: host wall and CUDA events, ms a step, from the end of epoch
+    0 to the end of epoch 1."""
+    import torch
+
+    def at_epoch_end(epoch, _make_blob):
+        if epoch == 0:
+            torch.cuda.synchronize()
+            seen["t0"] = time.perf_counter()
+            seen["ev0"] = torch.cuda.Event(enable_timing=True)
+            seen["ev0"].record()
+        elif epoch == 1:
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev1.record()
+            ev1.synchronize()
+            seen["wall_ms"] = (time.perf_counter() - seen["t0"]) / steps * 1e3
+            seen["event_ms"] = seen["ev0"].elapsed_time(ev1) / steps
+
+    return at_epoch_end
+
+
+@contextlib.contextmanager
+def _first_step_loss(seen):
+    """Record into ``seen["first_loss"]`` the loss of the first step a
+    trial runs (its epoch's per-step series, read at the epoch's end,
+    where the loop reads the series to the host anyway)."""
+    from rafiki_tpu_torch.ops import train as ops_train
+
+    reduce = ops_train._reduce_series
+
+    def first(series):
+        seen.setdefault("first_loss", float(series["loss"][0]))
+        return reduce(series)
+
+    ops_train._reduce_series = first
+    try:
+        yield
+    finally:
+        ops_train._reduce_series = reduce
+
+
 def process_dp_width1(card):
     """Phase 21 (c): the canonical trial on a one-rank NCCL dp mesh
     against the trial with no mesh. Each path's epoch 0 is cold and its
@@ -3566,7 +3706,9 @@ def process_dp_width1(card):
     ``torch.profiler`` over half as many (``_analyze_profile``:
     device busy ms, idle share and the ms under each step range,
     ``train.all_reduce`` and ``train.feed`` included). Phase 16 profiles
-    the captured step without a mesh."""
+    the captured step without a mesh. Returns the phase's line and the
+    no-mesh trial's params, first-step loss and eval score, which phase
+    21 (d) holds its width-2 trial against."""
     import datetime
     import socket
 
@@ -3596,30 +3738,20 @@ def process_dp_width1(card):
             m = Vgg(**PROC_DP_KNOBS)
             m.set_mesh(m_mesh)
             seen = {}
-
-            def at_epoch_end(epoch, _make_blob, seen=seen):
-                if epoch == 0:
-                    torch.cuda.synchronize()
-                    seen["t0"] = time.perf_counter()
-                    seen["ev0"] = torch.cuda.Event(enable_timing=True)
-                    seen["ev0"].record()
-                elif epoch == 1:
-                    ev1 = torch.cuda.Event(enable_timing=True)
-                    ev1.record()
-                    ev1.synchronize()
-                    seen["wall_ms"] = (time.perf_counter() - seen["t0"]) / steps * 1e3
-                    seen["event_ms"] = seen["ev0"].elapsed_time(ev1) / steps
-
-            m.set_checkpoint_sink(at_epoch_end)
-            m.train(PROC_CUT_URI)
+            m.set_checkpoint_sink(_epoch_timer(seen, steps))
+            with _first_step_loss(seen):
+                m.train(PROC_CUT_URI)
             torch.cuda.synchronize()
             snap = telemetry.snapshot()
             out[label] = {
                 "params": {k: v.detach().cpu().clone() for k, v in m._module.state_dict().items()},
                 "step_ms": seen["wall_ms"], "event_ms": seen["event_ms"],
+                "first_loss": seen["first_loss"],
                 "graph_replays": snap["counters"].get("train.graph_replays", 0.0),
                 "program_key_mesh": m._loop._perf_key[1]}
-            if m_mesh is not None:
+            if m_mesh is None:
+                out[label]["eval_score"] = m.evaluate(EVAL_URI)
+            else:
                 loop, bs = m._loop, PROC_DP_KNOBS["batch_size"]
                 win = _StepWindow(1, profile_iters=PROFILE_ITERS // 2)
                 feed = HostFeed(m._prepared_dataset(PROC_CUT_URI).batches(
@@ -3634,7 +3766,7 @@ def process_dp_width1(card):
     a, b = out["no_mesh"], out["nccl_width1"]
     equal = set(a["params"]) == set(b["params"]) and all(
         torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
-    return {"phase": "process_dp_width1", "card": card[1], "power_limit": card[2],
+    line = {"phase": "process_dp_width1", "card": card[1], "power_limit": card[2],
             "steps_per_epoch": steps, "params_byte_equal": equal,
             "no_mesh_step_ms": a["step_ms"], "nccl_width1_step_ms": b["step_ms"],
             "no_mesh_event_ms": a["event_ms"], "nccl_width1_event_ms": b["event_ms"],
@@ -3643,6 +3775,109 @@ def process_dp_width1(card):
             "nccl_width1_graph_replays": b["graph_replays"],
             "nccl_program_key_mesh": b["program_key_mesh"],
             "phase_s": time.monotonic() - t_phase}
+    return line, a
+
+
+def _reduce_ms(plan, module, iters=DP_REDUCE_ITERS) -> float:
+    """CUDA-event ms of one in-process reduce at the trial's sizes: each
+    replica's float32 gradients of ``module``'s params and a loss and an
+    accuracy, summed, averaged and copied back (``reduce_replicas``)."""
+    import torch
+
+    per = [[torch.zeros((), device=d), torch.zeros((), device=d)]
+           + [torch.randn_like(p, device=d) for p in module.parameters()]
+           for d in plan.mesh.devices]
+    for _ in range(2):
+        plan.reduce_replicas(per)
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    for _ in range(iters):
+        plan.reduce_replicas(per)
+    ev1.record()
+    ev1.synchronize()
+    return ev0.elapsed_time(ev1) / iters
+
+
+def process_dp_local(card, dp, ref):
+    """Phase 21 (d): the canonical trial of 21 (c) (PROC_DP_KNOBS, two
+    epochs on PROC_CUT_URI) on an in-process width-2 mesh over
+    ``[cuda:0, cuda:0]``, run twice, against 21 (c)'s no-mesh run (``ref``,
+    the width-1 reference, not trained again). Each run's warm epoch is
+    timed as 21 (c)'s (host wall and CUDA events, ms a step); the line
+    carries 21 (c)'s figures beside them, the first step's loss and the
+    eval score of both paths, the largest parameter difference from the
+    width-1 trial (printed, not gated: a split batch may change cuDNN's
+    algorithm in bf16), and the in-process reduce's ms a step."""
+    import torch
+
+    from rafiki_tpu_torch import telemetry
+    from rafiki_tpu_torch.model.dataset import dataset_utils
+    from rafiki_tpu_torch.models.vgg import Vgg
+    from rafiki_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    t_phase = time.monotonic()
+    steps = dataset_utils.load(PROC_CUT_URI).size // PROC_DP_KNOBS["batch_size"]
+    devices = [torch.device("cuda", 0)] * 2
+    runs = []
+    for run in range(2):
+        telemetry.reset()
+        m = Vgg(**PROC_DP_KNOBS)
+        m.set_mesh(data_parallel_mesh(devices))
+        seen = {}
+        m.set_checkpoint_sink(_epoch_timer(seen, steps))
+        with _first_step_loss(seen):
+            m.train(PROC_CUT_URI)
+        torch.cuda.synchronize()
+        snap = telemetry.snapshot()
+        own = list(m._module.parameters())
+        replicas_equal = all(all(torch.equal(a, b) for a, b in zip(own, rep.parameters()))
+                             for rep, _ in m._loop.plan.replicas)
+        runs.append({
+            "params": {k: v.detach().cpu().clone() for k, v in m._module.state_dict().items()},
+            "step_ms": seen["wall_ms"], "event_ms": seen["event_ms"],
+            "first_loss": seen["first_loss"], "eval_score": m.evaluate(EVAL_URI),
+            "replicas_byte_equal": replicas_equal,
+            "replicas": 1 + len(m._loop.plan.replicas),
+            "graph_replays": snap["counters"].get("train.graph_replays", 0.0),
+            "program_key_mesh": m._loop._perf_key[1]})
+        if run == 0:
+            reduce_ms = _reduce_ms(m._loop.plan, m._module)
+        m.destroy()
+        torch.cuda.empty_cache()
+    a, b = runs
+    repeat_equal = set(a["params"]) == set(b["params"]) and all(
+        torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
+    width1_diff = max(float((a["params"][k].float() - ref["params"][k].float()).abs().max())
+                      for k in ref["params"])
+    return {"phase": "process_dp_local", "card": card[1], "power_limit": card[2],
+            "devices": [str(d) for d in devices], "replicas": a["replicas"],
+            "steps_per_epoch": steps,
+            "replicas_byte_equal": [r["replicas_byte_equal"] for r in runs],
+            "repeat_byte_equal": repeat_equal,
+            "graph_replays": [r["graph_replays"] for r in runs],
+            "local_width2_step_ms": [r["step_ms"] for r in runs],
+            "local_width2_event_ms": [r["event_ms"] for r in runs],
+            "no_mesh_step_ms": dp["no_mesh_step_ms"], "no_mesh_event_ms": dp["no_mesh_event_ms"],
+            "nccl_width1_step_ms": dp["nccl_width1_step_ms"],
+            "nccl_width1_event_ms": dp["nccl_width1_event_ms"],
+            "reduce_ms": reduce_ms,
+            "first_loss": {"local_width2": a["first_loss"], "no_mesh": ref["first_loss"]},
+            "eval_score": {"local_width2": a["eval_score"], "no_mesh": ref["eval_score"]},
+            "max_param_abs_diff_vs_no_mesh": width1_diff,
+            "program_key_mesh": a["program_key_mesh"],
+            "phase_s": time.monotonic() - t_phase}
+
+
+def check_dp_local(local, check) -> None:
+    check(all(local["replicas_byte_equal"]) and local["replicas"] == 2,
+          f"process dp local: the replicas' params differ: {local['replicas_byte_equal']}")
+    check(local["repeat_byte_equal"],
+          "process dp local: a second identical width-2 run's params differ from the first's")
+    check(local["graph_replays"] == [0.0, 0.0],
+          f"process dp local: replays {local['graph_replays']} (its steps run eagerly)")
+    check(all(np.isfinite(v) for v in local["first_loss"].values())
+          and all(0.0 <= v <= 1.0 for v in local["eval_score"].values()),
+          f"process dp local: first losses {local['first_loss']}, scores {local['eval_score']}")
 
 
 def process_phase(card, check) -> None:
@@ -3677,7 +3912,7 @@ def process_phase(card, check) -> None:
     check(all(kill["params_byte_equal"]) and kill["checkpoints_left"] == 0,
           f"process kill: params against serial runs {kill['params_byte_equal']}, "
           f"checkpoints left {kill['checkpoints_left']}")
-    dp = process_dp_width1(card)
+    dp, ref = process_dp_width1(card)
     print(json.dumps(dp))
     check(dp["params_byte_equal"], "process dp: the width-1 NCCL trial's params differ from "
                                    "the trial with no mesh")
@@ -3688,6 +3923,10 @@ def process_phase(card, check) -> None:
     check("all_reduce" in parts and "feed" in parts,
           f"process dp: the profiled dp epoch ran no all-reduce or host feed range: "
           f"{sorted(parts)}")
+    torch.cuda.empty_cache()
+    local = process_dp_local(card, dp, ref)
+    print(json.dumps(local))
+    check_dp_local(local, check)
     print(json.dumps({"phase": "process", "card": card[1], "power_limit": card[2],
                       "phase_s": time.monotonic() - t0}))
 
@@ -5827,7 +6066,7 @@ def main() -> int:
     repeats = int(sys.argv[2]) if counted and sys.argv[2].isdigit() else None
     if sys.argv[1:] not in ([], ["--zoo"], ["--obs"], ["--chaos"], ["--process"], ["--mesh"],
                             ["--search"], ["--serve-proc"], ["--tenancy"],
-                            ["--autoscale"]) and repeats is None:
+                            ["--autoscale"], ["--groups"]) and repeats is None:
         fail(f"unknown arguments {sys.argv[1:]}")
     card = card_identity()
     print(card[0])
@@ -5867,6 +6106,21 @@ def main() -> int:
             print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
             return 1
         print(json.dumps({"process": "ok", "device": torch.cuda.get_device_name(0)}))
+        return 0
+    if sys.argv[1:] == ["--groups"]:
+        groups = stacked_groups(card)
+        print(json.dumps(groups))
+        check_stacked_groups(groups, check)
+        torch.cuda.empty_cache()
+        dp, ref = process_dp_width1(card)
+        print(json.dumps(dp))
+        local = process_dp_local(card, dp, ref)
+        print(json.dumps(local))
+        check_dp_local(local, check)
+        if failures:
+            print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
+            return 1
+        print(json.dumps({"groups": "ok", "device": torch.cuda.get_device_name(0)}))
         return 0
     if sys.argv[1:] == ["--mesh"]:
         mesh_phase(card, check)
@@ -6004,6 +6258,10 @@ def main() -> int:
           <= ENSEMBLE_ATOL, f"served ensemble disagrees with the CPU ensemble: {errs}")
 
     replicas = None
+    torch.cuda.empty_cache()
+    groups = stacked_groups(card)
+    print(json.dumps(groups))
+    check_stacked_groups(groups, check)
 
     # -- 6.-7. the canonical tune job, and its top-2 served --------------------
     from rafiki_tpu_torch.obs.health import DivergenceError

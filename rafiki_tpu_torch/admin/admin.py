@@ -12,7 +12,9 @@ usable in-process.
 ``device``: CUDA unless the caller asks for the CPU; it raises without
 CUDA. ``recover_trials`` re-runs orphaned trials on that device. A
 train job's ``devices_per_trial`` goes to the scheduler's device
-arithmetic (``scheduler/local.py``), as in the JAX package.
+arithmetic (``scheduler/local.py``), as in the JAX package: k > 1 trains
+each trial on an in-process dp mesh of k devices (on a CPU admin, k
+replicas on the CPU; ``admin/services_manager.py``).
 """
 
 from __future__ import annotations

@@ -10,9 +10,14 @@ published HTTP predictor whose host:port is recorded on the job's row.
 Service rows are written as the JAX package writes them.
 
 The manager holds one device: CUDA unless the caller asks for the CPU
-(``utils/backend.resolve_device``). The device scope is thread-local,
-so the manager opens it in every thread it starts (the train job's,
-the inference workers') and wherever it builds a model.
+(``utils/backend.resolve_device``). A train job's ``devices_per_trial``
+k gives each worker k cards, or, on a manager pinned to one device, one
+worker of k replicas on it (an in-process dp mesh). An inference job's
+stacked route takes no devices (``build_stacked``), as the JAX package's
+manager passes none (``rafiki_tpu/admin/services_manager.py:337``). The
+device scope is thread-local, so the manager opens it in every thread it
+starts (the train job's, the inference workers') and wherever it builds
+a model.
 
 The route decision of each inference job is journaled
 (``serving/route``, as in the JAX package) and evented
@@ -142,12 +147,15 @@ class ServicesManager:
     def create_train_services(self, job_id: str, advisor_kind: str = "gp",
                               devices_per_trial: int = 1) -> None:
         """Start the job's worker fleet in the background and return: one
-        worker on the manager's device, or one per ``devices_per_trial``
-        cards when that device is plain ``cuda``."""
+        per ``devices_per_trial`` cards when the manager's device is plain
+        ``cuda``, else one worker whose set is the manager's device
+        ``devices_per_trial`` times over (an in-process dp mesh of that
+        many replicas on it when more than one; ``scheduler/local.py``)."""
         with self._lock:
             if job_id in self._train_jobs and self._train_jobs[job_id].thread.is_alive():
                 raise ValueError(f"Train job {job_id} already has running services")
-        devices = None if self.device == torch.device("cuda") else [self.device]
+        devices = None if self.device == torch.device("cuda") \
+            else [self.device] * max(1, int(devices_per_trial))
         scheduler = LocalScheduler(self.store, self.params_store, self.advisors)
         stop_event = threading.Event()
 

@@ -37,9 +37,13 @@ seed); ``parse_model_install_command`` checks a template's
 dependencies.
 
 Within-trial data parallelism: ``set_mesh`` (the scheduler's hook, as
-in the JAX package) makes the trial one rank of a dp mesh
-(``parallel/mesh.py``); ``train`` then runs ``TrainLoop(mesh=...)``.
-A pack takes no mesh.
+in the JAX package) makes the trial one rank of a dp mesh, or, under an
+in-process mesh, the whole trial over its replicas (``parallel/mesh.py``);
+``train`` then runs ``TrainLoop(mesh=...)``. Under an in-process mesh the
+loop's state is replica 0's, on the mesh's first device, so ``evaluate``,
+``predict_proba``, ``dump_parameters``, checkpoints and capsules read
+replica 0, and a restored checkpoint reaches every replica at the next
+epoch (``ops/train.py``). A pack takes no mesh.
 
 The learning-curve early kill: a serial trial ends from its log sink
 (``worker/train.py EarlyKilled``, raised out of ``logger.log`` between
@@ -224,8 +228,9 @@ class TorchModel(BaseModel):
 
     def set_mesh(self, mesh) -> None:
         """Train this trial as one rank of a dp mesh
-        (``parallel/mesh.py data_parallel_mesh``) on the mesh's device;
-        None trains on one device. Set before ``train``."""
+        (``parallel/mesh.py data_parallel_mesh``) on the mesh's device, or
+        over an in-process mesh's replicas, replica 0 on the mesh's first
+        device; None trains on one device. Set before ``train``."""
         self._mesh = mesh
 
     def _dynamic_hyper(self, takes_dropout: bool) -> Dict[str, float]:

@@ -91,7 +91,8 @@ taken on the device before the timer (``obs/health/capsule.py``).
 Within-trial data parallelism (``_ShardingPlan`` ``:99``, ``TrainLoop(
 mesh=...)``): a width-W trial is W processes of one ``torch.distributed``
 group (``parallel/mesh.py``), each holding the whole replicated state on
-its own device. As in the JAX package, an epoch under a mesh leaves the
+its own device, or W replicas in one process (an in-process mesh, below).
+As in the JAX package, an epoch under a mesh leaves the
 device-resident path: each global batch is formed on the host from the
 epoch's permutation, and each rank takes its rows ``[r*B/W, (r+1)*B/W)``
 (``parallel/multihost.py global_put``). Each rank runs the step on its
@@ -108,19 +109,40 @@ collective raises :class:`CollectiveError`, which no trial containment
 swallows: the group fails and its scheduler respawns it. Each dp epoch
 passes the ``collective.step`` chaos site, keyed ``p<rank>:<worker id>``.
 
+An in-process mesh (``parallel/mesh.py LocalDataParallelMesh``, the JAX
+package's one program over the k devices of one process) runs its k
+replicas in lockstep on the trial's thread, which is the counterpart of
+XLA's one program and needs no barrier: replica 0 is the trial's own
+module and optimizer state on ``devices[0]``, replicas 1..k-1 copies of
+them on their devices (made before the trial's first step, and again
+whenever the trial's state was replaced, as by a restored checkpoint).
+Each step,
+replica r runs the forward and backward pass on its rows of the global
+batch, with its rows of the global dropout noise, drawn once a step from
+the trial's generator; the flat float32 gradients, loss and float
+metrics are summed on ``devices[0]`` in replica order, divided by k and
+copied back to every replica (the body splits there); then every
+replica runs the poison multiply, Adam and the sentinels on the same
+values, so the replicas stay equal bit for bit. The epoch runs eagerly,
+passes ``collective.step`` once, keyed ``p0:<worker id>``, and holds the
+``ops/graphs.py device_lock`` of each distinct card, in index order.
+Eval, predictions, parameter dumps and checkpoints read replica 0.
+
 ``torch.inference_mode`` is thread-local, so :func:`predict_proba`
 enters it itself, on whatever thread serves the query.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import os
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Hashable, Iterator, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, ContextManager, Dict, Hashable, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -136,7 +158,7 @@ from rafiki_tpu_torch.obs.health import DivergenceError, HealthMonitor
 from rafiki_tpu_torch.obs.health import sentinel as _sentinel
 from rafiki_tpu_torch.obs.ledger import ledger
 from rafiki_tpu_torch.obs.perf import profiler, slo
-from rafiki_tpu_torch.ops.graphs import StepRunner
+from rafiki_tpu_torch.ops.graphs import StepRunner, device_lock
 from rafiki_tpu_torch.ops.optim import (ScaleByAdamState, adam, map_members, member_opt_state,
                                         scale_by_adam)
 from rafiki_tpu_torch.utils.backend import DeviceLike, resolve_device
@@ -180,18 +202,39 @@ class PackedGenerators(tuple):
     a pack's step passes where a serial step passes its one generator."""
 
 
-@dataclass(frozen=True)
+@dataclass
 class DpGenerator:
-    """A dp rank's dropout stream: the trial's ``generator``, from which
-    the rank draws the noise of the whole global batch (``world_size``
-    times its own rows along dim 0) and keeps rows ``[rank*b, (rank+1)*b)``.
-    Every rank draws the same global noise and advances its generator as
-    the width-1 trial does, so each rank's mask is its rows of the
-    width-1 mask."""
+    """A dp replica's dropout stream: the trial's ``generator``, from
+    which the noise of the whole global batch (``world_size`` times the
+    replica's own rows along dim 0) is drawn, and rows ``[rank*b,
+    (rank+1)*b)`` of it kept, so each replica's mask is its rows of the
+    width-1 mask and the generator advances as the width-1 trial's does.
+
+    A process rank (``draws`` None) draws the global noise itself from
+    its own copy of the stream. The replicas of an in-process mesh share
+    one generator and one step's ``draws``: replica 0 draws each global
+    noise once and appends it, and replica r reads them back in the same
+    order (its forward runs the same dropout calls after replica 0's)."""
 
     generator: torch.Generator
     rank: int
     world_size: int
+    draws: Optional[List[torch.Tensor]] = None
+    _read: int = 0
+
+    def noise(self, x: torch.Tensor) -> torch.Tensor:
+        """Uniform noise of ``x``'s shape: this replica's rows of the
+        global draw, on ``x``'s device."""
+        b = x.shape[0]
+        if self.draws is not None and self.rank > 0:
+            full = self.draws[self._read]
+            self._read += 1
+        else:
+            full = torch.rand((b * self.world_size,) + tuple(x.shape[1:]),
+                              generator=self.generator, device=x.device)
+            if self.draws is not None:
+                self.draws.append(full)
+        return full[self.rank * b:(self.rank + 1) * b].to(x.device)
 
 
 def _per_member_rand(x: torch.Tensor, generators: PackedGenerators) -> torch.Tensor:
@@ -218,7 +261,7 @@ def dropout(x: torch.Tensor, rate, generator: Optional[torch.Generator],
     stream is ``generator``'s (on ``x``'s device); the JAX package's
     threefry stream cannot be matched, so parity is checked at rate 0.
     In a pack, ``generator`` is the members' :class:`PackedGenerators`;
-    on a dp rank, a :class:`DpGenerator`. The train step passes the rate
+    on a dp replica, a :class:`DpGenerator`. The train step passes the rate
     as a tensor on ``x``'s device, so a captured step reads it, not a
     value baked in at capture."""
     if deterministic or generator is None:
@@ -227,10 +270,7 @@ def dropout(x: torch.Tensor, rate, generator: Optional[torch.Generator],
     if isinstance(generator, PackedGenerators):
         noise = _per_member_rand(x, generator)
     elif isinstance(generator, DpGenerator):
-        b = x.shape[0]
-        noise = torch.rand((b * generator.world_size,) + tuple(x.shape[1:]),
-                           generator=generator.generator, device=x.device)
-        noise = noise[generator.rank * b:(generator.rank + 1) * b]
+        noise = generator.noise(x)
     else:
         noise = torch.rand(x.shape, generator=generator, device=x.device)
     keep = noise < (1.0 - rate)
@@ -302,21 +342,33 @@ class CollectiveError(RuntimeError):
 @dataclass
 class _ShardingPlan:
     """How a trial's steps see its dp mesh (module doc): ``mesh`` None is
-    the single-device trial, whose plan does nothing."""
+    the single-device trial, whose plan does nothing. Under an in-process
+    mesh the plan holds replicas 1..k-1 (``replicas``: a module and an
+    optimizer state each, on its device); replica 0 is the trial's own
+    state."""
 
     mesh: Optional[Any] = None
+    replicas: Optional[List[Tuple[nn.Module, Any]]] = None
+    _mirrors: Optional[Tuple[nn.Module, int]] = None
 
-    def put_batch(self, batch: Dict[str, np.ndarray], device: torch.device) -> Batch:
+    @property
+    def in_process(self) -> bool:
+        return bool(getattr(self.mesh, "in_process", False))
+
+    def put_batch(self, batch: Dict[str, np.ndarray], device: torch.device):
         """A host batch on ``device``: the whole of it, or under a mesh
-        this rank's rows of it."""
+        this rank's rows of it (an in-process mesh: each replica's rows
+        on its device, in replica order)."""
         if self.mesh is None:
             return _put_batch(batch, device)
-        from rafiki_tpu_torch.parallel.multihost import global_put
+        from rafiki_tpu_torch.parallel import multihost
 
-        return global_put(batch, self.mesh)
+        if self.in_process:
+            return multihost.replica_put(batch, self.mesh)
+        return multihost.global_put(batch, self.mesh)
 
     def generator(self, generator: Optional[torch.Generator]):
-        """The dropout stream a step's loss draws from."""
+        """The dropout stream a process rank's loss draws from."""
         if self.mesh is None or generator is None:
             return generator
         return DpGenerator(generator, self.mesh.rank, self.mesh.world_size)
@@ -338,12 +390,95 @@ class _ShardingPlan:
             raise CollectiveError(f"dp all_reduce over {self.mesh.world_size} ranks failed "
                                   f"on rank {self.mesh.rank}: {e}") from e
         flat.div_(self.mesh.world_size)
-        at = 0
-        for t in tensors:
-            n = t.numel()
-            t.copy_(flat[at:at + n].reshape(t.shape))
-            at += n
+        _unflatten(flat, tensors)
         return tensors
+
+    def reduce_replicas(self, per_replica: List[List[torch.Tensor]]) -> None:
+        """The in-process all-reduce: each replica's tensors replaced, in
+        place, by their mean over the replicas. The float32
+        concatenations are summed on ``devices[0]`` in replica order,
+        divided by k and copied back to every replica, so every replica
+        reads the same bits (two ranks of a gloo group sum the same two
+        buffers, and a sum of two is the same in either order)."""
+        devices = self.mesh.devices
+        flats = [torch.cat([t.reshape(-1).float() for t in ts]) for ts in per_replica]
+        total = flats[0]
+        for f in flats[1:]:
+            total.add_(f.to(devices[0]))
+        total.div_(len(flats))
+        for ts, device in zip(per_replica, devices):
+            _unflatten(total.to(device), ts)
+
+    def sync(self, module: nn.Module, opt_state, step: int) -> None:
+        """Make replicas 1..k-1 copies of replica 0's module and optimizer
+        state, unless they already mirror it: the replicas stay equal
+        bit for bit from step to step, and the copy makes a state the
+        trial was given (a restored checkpoint) every replica's."""
+        if self._mirrors is not None and self._mirrors[0] is module and \
+                self._mirrors[1] == step:
+            return
+        self.replicas = [
+            (copy.deepcopy(module).to(device),
+             map_members(opt_state, lambda t, d=device: t.to(d, copy=True), lambda c: c))
+            for device in self.mesh.devices[1:]]
+        self._mirrors = (module, step)
+
+    def mirrored(self, module: nn.Module, step: int) -> None:
+        """The replicas stepped in lockstep with replica 0 to ``step``."""
+        self._mirrors = (module, step)
+
+    def card_locks(self) -> ContextManager[Any]:
+        """Under an in-process mesh, the ``ops/graphs.py device_lock`` of
+        each distinct card of its devices, taken in index order (the
+        epoch's StepRunner re-enters replica 0's): two workers whose sets
+        share cards cannot each hold one the other waits for."""
+        stack = contextlib.ExitStack()
+        if self.in_process:
+            cards = sorted({d.index for d in self.mesh.devices if d.type == "cuda"})
+            for index in cards:
+                stack.enter_context(device_lock(torch.device("cuda", index)))
+        return stack
+
+    def lockstep(self, grads_of, apply_update, module: nn.Module, opt_state, generator,
+                 hyper: Hyper, scalars: torch.Tensor, batches: List[Batch],
+                 poisoned: bool) -> Tuple[Any, Dict[str, torch.Tensor]]:
+        """One step of an in-process mesh, the replicas in lockstep on this
+        thread: each replica's forward and backward on its rows and its
+        device, with its rows of the step's global dropout noise; the
+        reduce; then each replica's update from the same mean gradients,
+        as each device of the JAX package's mesh updates its replicated
+        state. Returns replica 0's optimizer state and outputs."""
+        devices = self.mesh.devices
+        modules = [module] + [m for m, _ in self.replicas]
+        opts = [opt_state] + [o for _, o in self.replicas]
+        draws: List[torch.Tensor] = []
+        parts = []
+        for r, (m, device) in enumerate(zip(modules, devices)):
+            gen = None if generator is None else DpGenerator(generator, r, len(devices), draws)
+            parts.append(grads_of(m, gen, _on(hyper, device), batches[r]))
+        with torch.no_grad(), record_function("train.all_reduce"):
+            self.reduce_replicas([[loss] + _float_metrics(metrics) + grads
+                                  for loss, metrics, grads in parts])
+        outs = []
+        for r, (m, device) in enumerate(zip(modules, devices)):
+            opts[r], out = apply_update(m, opts[r], _on(hyper, device), scalars.to(device),
+                                        *parts[r], poisoned)
+            outs.append(out)
+        self.replicas = list(zip(modules[1:], opts[1:]))
+        return opts[0], outs[0]
+
+
+def _unflatten(flat: torch.Tensor, tensors: List[torch.Tensor]) -> None:
+    """Copy consecutive pieces of ``flat`` back into ``tensors``."""
+    at = 0
+    for t in tensors:
+        n = t.numel()
+        t.copy_(flat[at:at + n].reshape(t.shape))
+        at += n
+
+
+def _float_metrics(metrics: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+    return [v for v in metrics.values() if v.is_floating_point()]
 
 
 #: The plan of a trial with no mesh.
@@ -357,9 +492,13 @@ def _make_step_fns(apply_fn, loss_fn, optimizer, dynamic_lr: bool = True):
     ``loss_fn(module, batch, generator, hyper) -> (loss, metrics)``.
     ``train_body(module, opt_state, generator, hyper, scalars, batch,
     poisoned, plan)`` runs one step in place and returns ``(opt_state,
-    metrics)``; under a dp ``plan`` the loss, float metrics and gradients
-    are averaged over the mesh (:meth:`_ShardingPlan.reduce`) right after
-    the backward pass. ``scalars`` is the step's row of
+    metrics)``. It splits at the reduce: the loss and its gradients
+    (``grads_of``), then the update (``apply_update``). Under a process
+    mesh the loss, float metrics and gradients are averaged over the
+    group (:meth:`_ShardingPlan.reduce`) between the two; under an
+    in-process mesh ``batch`` is the replicas' batches, and the plan runs
+    both halves for each replica around its reduce
+    (:meth:`_ShardingPlan.lockstep`). ``scalars`` is the step's row of
     :func:`_step_table` on the device: ``-effective_lr`` first when the step scales by it
     (``dynamic_lr`` and an ``lr`` in ``hyper``; else the optimizer is
     complete, from ``make_optimizer``, and its updates apply as they
@@ -369,24 +508,23 @@ def _make_step_fns(apply_fn, loss_fn, optimizer, dynamic_lr: bool = True):
     read them).
     """
 
-    def train_body(module: nn.Module, opt_state, generator, hyper: Hyper,
-                   scalars: torch.Tensor, batch: Batch, poisoned: bool = False,
-                   plan: _ShardingPlan = _NO_MESH) -> Tuple[Any, Dict[str, torch.Tensor]]:
+    def grads_of(module: nn.Module, generator, hyper: Hyper, batch: Batch):
+        with torch.enable_grad():
+            with record_function("train.forward"):
+                loss, metrics = loss_fn(module, batch, generator, hyper)
+            grads = list(torch.autograd.grad(loss, list(module.parameters())))
+        return loss, metrics, grads
+
+    def apply_update(module: nn.Module, opt_state, hyper: Hyper, scalars: torch.Tensor,
+                     loss: torch.Tensor, metrics: Dict[str, torch.Tensor],
+                     grads: List[torch.Tensor], poisoned: bool
+                     ) -> Tuple[Any, Dict[str, torch.Tensor]]:
         params = list(module.parameters())
         scale = dynamic_lr and "lr" in hyper
         opt_scalars = scalars[1:] if scale else scalars
         if poisoned:
             opt_scalars = opt_scalars[:-1]
-        dp = plan.mesh is not None
-        with torch.enable_grad():
-            with record_function("train.forward"):
-                loss, metrics = loss_fn(module, batch, plan.generator(generator), hyper)
-            grads = list(torch.autograd.grad(loss, params))
         with torch.no_grad():
-            if dp:
-                with record_function("train.all_reduce"):
-                    plan.reduce([loss] + [v for v in metrics.values() if v.is_floating_point()]
-                                + grads)
             if poisoned:
                 torch._foreach_mul_(grads, scalars[-1])
             with record_function("train.adam"):
@@ -401,6 +539,18 @@ def _make_step_fns(apply_fn, loss_fn, optimizer, dynamic_lr: bool = True):
                 health = _sentinel.bundle(loss, grads, updates, params)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return opt_state, dict(metrics, loss=loss, **health)
+
+    def train_body(module: nn.Module, opt_state, generator, hyper: Hyper,
+                   scalars: torch.Tensor, batch, poisoned: bool = False,
+                   plan: _ShardingPlan = _NO_MESH) -> Tuple[Any, Dict[str, torch.Tensor]]:
+        if plan.in_process:
+            return plan.lockstep(grads_of, apply_update, module, opt_state, generator, hyper,
+                                 scalars, batch, poisoned)
+        loss, metrics, grads = grads_of(module, plan.generator(generator), hyper, batch)
+        if plan.mesh is not None:
+            with torch.no_grad(), record_function("train.all_reduce"):
+                plan.reduce([loss] + _float_metrics(metrics) + grads)
+        return apply_update(module, opt_state, hyper, scalars, loss, metrics, grads, poisoned)
 
     def eval_step(module: nn.Module, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
         return _count_correct(apply_fn(module, batch), batch["y"], batch.get("valid"))
@@ -485,8 +635,10 @@ class HostFeed:
     copied to the device (from pinned memory, non-blocking) right after
     the previous step is dispatched, then into static slots before its
     own step. ``feed_s`` sums the host seconds of the copies. ``plan``
-    puts each batch (under a dp mesh, this rank's rows of it). Drawing
-    and putting a batch runs under the ``train.feed`` range."""
+    puts each batch (under a dp mesh, this rank's rows of it; under an
+    in-process mesh, each replica's rows, whose eager steps read them as
+    they are, with no slots). Drawing and putting a batch runs under the
+    ``train.feed`` range."""
 
     def __init__(self, batches: Iterator[Dict[str, np.ndarray]], n_steps: int,
                  device: torch.device, plan: _ShardingPlan = _NO_MESH):
@@ -494,7 +646,8 @@ class HostFeed:
         self._plan = plan
         self.feed_s = 0.0
         self._next = self._put_next()
-        self.slots = {k: torch.empty_like(v) for k, v in self._next.items()}
+        self.slots = None if plan.in_process else {
+            k: torch.empty_like(v) for k, v in self._next.items()}
 
     def _put_next(self) -> Optional[Batch]:
         with record_function("train.feed"):
@@ -508,11 +661,11 @@ class HostFeed:
         return dev
 
     def prepare(self, t: int) -> None:
-        for k, slot in self.slots.items():
+        for k, slot in (self.slots or {}).items():
             slot.copy_(self._next[k])
 
-    def batch(self) -> Batch:
-        return dict(self.slots)
+    def batch(self):
+        return self._next if self.slots is None else dict(self.slots)
 
     def after(self, t: int) -> None:
         # One batch of prefetch: batch t+1's copy starts right after
@@ -557,15 +710,20 @@ class Program:
                    ) -> Tuple[State, Dict[str, torch.Tensor]]:
         """One step, eagerly: the same body a captured epoch replays, its
         row of per-step scalars computed and uploaded here. Under a dp
-        ``plan``, ``batch`` is this rank's slice."""
+        ``plan``, ``batch`` is this rank's slice (an in-process mesh's:
+        the replicas' slices, ``plan.put_batch``)."""
         module, opt_state, step_i, generator, hyper = state
         device = _module_device(module)
         if opt_state is None:
             opt_state = self.optimizer.init(list(module.parameters()))
+        if plan.in_process:
+            plan.sync(module, opt_state, step_i)
         scalars = torch.from_numpy(_step_table(self.optimizer, opt_state, hyper, step_i, 1,
                                                self._scales(hyper))[0]).to(device)
         opt_state, metrics = self._body(module, opt_state, generator, _on(hyper, device),
                                         scalars, batch, plan=plan)
+        if plan.in_process:
+            plan.mirrored(module, step_i + 1)
         return (module, opt_state, step_i + 1, generator, hyper), metrics
 
     def train_steps(self, state: State, feed, on_step=None, cost=None,
@@ -585,6 +743,8 @@ class Program:
         device = _module_device(module)
         if opt_state is None:
             opt_state = self.optimizer.init(list(module.parameters()))
+        if plan.in_process:
+            plan.sync(module, opt_state, step_i)
         poisoned = poison is not None
         table = torch.from_numpy(_step_table(self.optimizer, opt_state, hyper, step_i, n,
                                              self._scales(hyper), poison)).to(device)
@@ -612,7 +772,10 @@ class Program:
             body = cost.wrap(body)
         runner = StepRunner(device, n, body, prepare, collect, generators=[generator],
                             eager=plan.mesh is not None)
-        runner.run()
+        with plan.card_locks():
+            runner.run()
+        if plan.in_process:
+            plan.mirrored(module, step_i + n)
         # The body ran (and counted) once per eager step and once for the
         # capture; the replays moved the device state, not the counts.
         opt_state = self.optimizer.advance(cell[0], n - runner.calls)
@@ -676,10 +839,14 @@ _guard = threading.Lock()
 
 
 def mesh_cache_key(mesh) -> Hashable:
-    """The mesh part of a program key: None without a mesh, else the
-    mesh's axis names, width and this rank's device."""
+    """The mesh part of a program key: None without a mesh; for a
+    process rank, the mesh's axis names, width and this rank's device;
+    for an in-process mesh, its axis names and its devices, as the JAX
+    package keys its meshes (``rafiki_tpu/ops/train.py:340-343``)."""
     if mesh is None:
         return None
+    if getattr(mesh, "in_process", False):
+        return (tuple(mesh.axis_names), tuple(str(d) for d in mesh.devices))
     return (tuple(mesh.axis_names), int(mesh.world_size), str(mesh.device))
 
 
@@ -823,7 +990,9 @@ class TrainLoop:
     device: where the trial runs (default the CUDA card; the CPU only
         when asked for).
     mesh: optional dp mesh (``parallel/mesh.py data_parallel_mesh``) on
-        ``device``: the loop is one rank of a width-W trial (module doc).
+        ``device``: the loop is one rank of a width-W trial, or, under an
+        in-process mesh, the whole trial, whose replica 0 is ``device``
+        (module doc).
     """
 
     def __init__(self, init_fn: Optional[Callable[[torch.Generator], nn.Module]],
@@ -893,7 +1062,8 @@ class TrainLoop:
             # A kill keyed to one rank lands while its peers are in (or
             # headed into) the epoch's all-reduces. The worker id carries
             # the -rN restart suffix, so `unless=-r` scopes a kill to the
-            # first incarnation.
+            # first incarnation. An in-process mesh passes once, as rank 0,
+            # as the JAX package's does (jax.process_index() 0).
             _chaos.hook("collective.step",
                         key=f"p{mesh.rank}:{os.environ.get('RAFIKI_WORKER_ID', '')}")
         # Under a mesh each global batch is formed on the host (module doc).

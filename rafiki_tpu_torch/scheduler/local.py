@@ -5,11 +5,14 @@ The port's own copy of ``rafiki_tpu/scheduler/local.py``
 per-sub-job status rules. ``devices=None`` means every CUDA card
 (``local_devices()``), and raises without one; pass
 ``devices=[torch.device("cpu")]`` to run a job on the CPU.
-``devices_per_trial`` follows the JAX package's device arithmetic, but a
-thread worker owns one device: a set of several in one process is
-refused (``TrainWorker``; ROADMAP Queue 1, item 7, the in-process
-multi-device worker). A dp trial over several devices runs under the
-``ProcessScheduler``, one process per device.
+``devices_per_trial`` follows the JAX package's device arithmetic
+(``rafiki_tpu/scheduler/local.py:79-121``, ``partition_devices``): with
+k > 1 each thread worker owns a set of k devices and trains each trial
+as one in-process dp mesh over them (``worker/train.py``,
+``parallel/mesh.py LocalDataParallelMesh``). A device may repeat in
+``devices``: ``[cpu, cpu]`` with k = 2 is one worker of two replicas on
+the CPU, ``[cuda:0, cuda:0]`` two on one card. The ``ProcessScheduler``
+runs a dp trial as one process per device instead.
 """
 
 from __future__ import annotations
@@ -61,8 +64,10 @@ class LocalScheduler:
         Device math, the JAX package's: with D devices and
         ``devices_per_trial`` k there are D // k workers (at least one),
         each owning k devices, unless the job's CHIP_COUNT (or GPU_COUNT)
-        budget or ``n_workers`` caps it lower. With one card and k = 2
-        that is one worker of one card, at width 1. The per-model sub-jobs share the worker pool one
+        budget or ``n_workers`` caps it lower; a worker of k > 1 devices
+        trains each trial on an in-process dp mesh over them. With one
+        device and k = 2 that is one worker of that device, at width 1.
+        The per-model sub-jobs share the worker pool one
         after another; the budget is per sub-job, as in the reference.
         The devices are resolved before the job is marked RUNNING, so a
         missing card leaves the job as it was.

@@ -11,14 +11,17 @@ model's log entries land in TrialLog rows, and they double as a
 throttled service heartbeat. Parameters persist on a background saver
 thread while the next trial trains.
 
-Device handling: a worker owns a device set of one device (a card, or
-the CPU when it was given the CPU); a set of several, which the JAX
-package trains as one in-process dp mesh, is refused (ROADMAP Queue 1,
-item 7: the in-process multi-device worker). Its trials run inside
-``utils.backend.default_device``, so a template built as
-``model_class(**knobs)``, with no device argument, lands on the
-worker's device. With ``RAFIKI_PROFILE_DIR`` set, each trial records a
-``torch.profiler`` Chrome trace under ``<dir>/<trial_id>/``.
+Device handling: a worker owns a device set (cards, or the CPU when it
+was given the CPU). Its trials run inside ``utils.backend.default_device``
+of the set's first device, so a template built as ``model_class(**knobs)``,
+with no device argument, lands there. A set of several devices trains
+each trial as one in-process dp mesh over them: the model gets
+``set_mesh(data_parallel_mesh(devices))`` (``parallel/mesh.py``), as in
+the JAX package (``rafiki_tpu/worker/train.py:276-279`` and ``:483-486``),
+and the worker does not pack. A device may repeat in the set: ``[cuda:0,
+cuda:0]`` is two replicas on one card. With ``RAFIKI_PROFILE_DIR`` set,
+each trial records a ``torch.profiler`` Chrome trace under
+``<dir>/<trial_id>/``.
 
 Within-trial data parallelism: a worker that is rank 0 of a
 ``torch.distributed`` group of W > 1 ranks (``worker/main.py`` joins it)
@@ -145,12 +148,16 @@ def _in_group() -> bool:
     return int(os.environ.get("RAFIKI_NUM_PROCESSES", "1")) > 1
 
 
-def _group_mesh(devices):
-    """The dp mesh of a trial run by a rank of a group of W > 1 ranks,
-    over the worker's one device; None outside such a group."""
+def _trial_mesh(devices):
+    """The dp mesh of a trial: the in-process mesh over a worker's set of
+    several devices; for a rank of a group of W > 1 ranks, the group's
+    mesh over the worker's one device; else None."""
+    from rafiki_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    if devices is not None and len(devices) > 1:
+        return data_parallel_mesh(devices)
     if not _in_group():
         return None
-    from rafiki_tpu_torch.parallel.mesh import data_parallel_mesh
     from rafiki_tpu_torch.utils.backend import resolve_device
 
     return data_parallel_mesh(devices or [resolve_device(None)])
@@ -275,11 +282,6 @@ class TrainWorker:
     ):
         if not (isinstance(model_class, type) and issubclass(model_class, BaseModel)):
             raise TypeError("model_class must subclass BaseModel")
-        if devices is not None and len(devices) > 1:
-            raise NotImplementedError(
-                f"a worker runs its trials on one device; got {len(devices)} (several "
-                "devices in one process: ROADMAP Queue 1, item 7, the in-process "
-                "multi-device worker; a dp trial is one process per device)")
         self.store = store
         self.params_store = params_store
         self.sub_id = sub_train_job_id
@@ -390,7 +392,7 @@ class TrainWorker:
                     logger.capture(sink), self._device_scope(), self._profile_scope(tid):
                 with telemetry.span("trial.build", trial_id=tid):
                     model = self.model_class(**knobs)
-                    mesh = _group_mesh(self.devices)
+                    mesh = _trial_mesh(self.devices)
                     if mesh is not None and hasattr(model, "set_mesh"):
                         model.set_mesh(mesh)
                     self._wire_checkpoints(model, tid, resume)

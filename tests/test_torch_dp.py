@@ -20,6 +20,14 @@ mesh gives the no-mesh trial's params bit for bit (the CPU counterpart
 of the card's width-1 NCCL check), the program cache keys the mesh, and
 the pieces (batch slices, masks, the reduction, collective failures,
 refusals) are checked one by one.
+
+The in-process mesh (several devices in one process, the JAX package's
+one program over k devices) runs its replicas on ``[cpu] * k``: at one
+intra-op thread its width 2 is the gloo pair bit for bit (the same pair
+of rank processes serves both tests), widths 2 and 4 are within
+F32_TOL of the JAX package's 2- and 4-device meshes, its replicas end
+equal, and at dropout 0.3 each replica takes the width-1 trial's rows
+and masks.
 """
 
 import datetime
@@ -113,17 +121,27 @@ def _check(ref, got, start, label):
         assert r[key] <= bound, (label, key, r)
 
 
-def test_width2_ff_matches_the_jax_mesh_and_the_width1_trial(tmp_path):
+@pytest.fixture(scope="module")
+def ff_width2(tmp_path_factory):
+    """The FeedForward trial's start params, its datasets and the results
+    of its two gloo ranks: one pair of rank processes for every test that
+    reads them."""
+    blob = flax_init_blob(JaxMlp(hidden_layers=2, hidden_units=32, num_classes=10,
+                                 dtype=jnp.float32), (8, 8, 1))
+    train_uri, val_uri = IMAGES_1.format(n=32 * 5, seed=0), IMAGES_1.format(n=100, seed=1)
+    ranks = _run_ranks(tmp_path_factory.mktemp("ff_ranks"), 2, "ff", FF_KNOBS, blob,
+                       train_uri, val_uri)
+    return blob, train_uri, val_uri, ranks
+
+
+def test_width2_ff_matches_the_jax_mesh_and_the_width1_trial(ff_width2):
     """The two ranks' half-batch gradients are summed, then halved, where
     the width-1 step sums the whole batch. Readings (-s prints them):
     against the JAX mesh, loss 1.0e-7 rel, update norm 1.7e-6, params
     3.0e-8 max abs and 5.6e-7 of the distance moved; against the port's
     width 1, loss 1.0e-7, params 1.5e-8 and 3.6e-7; accuracies and
     scores equal. Held to F32_TOL."""
-    blob = flax_init_blob(JaxMlp(hidden_layers=2, hidden_units=32, num_classes=10,
-                                 dtype=jnp.float32), (8, 8, 1))
-    train_uri, val_uri = IMAGES_1.format(n=32 * 5, seed=0), IMAGES_1.format(n=100, seed=1)
-    ranks = _run_ranks(tmp_path, 2, "ff", FF_KNOBS, blob, train_uri, val_uri)
+    blob, train_uri, val_uri, ranks = ff_width2
     start = blob_params(blob)
     jax_dp = train_one("jax", JaxFFDp, FF_KNOBS, blob, train_uri, val_uri)
     port_w1 = torch_dp_rank.train("ff", FF_KNOBS, blob, train_uri, val_uri)
@@ -157,6 +175,158 @@ def test_width2_vgg_with_dropout_matches_the_width1_trial(tmp_path):
     assert 0.6 < port_w1["mask"].mean() < 0.8  # rate 0.3 did drop
     for k in ranks[0]["params"]:
         np.testing.assert_array_equal(ranks[0]["params"][k], ranks[1]["params"][k])
+
+
+# -- one process: the in-process mesh ---------------------------------------------
+
+
+def _replicas_equal(m) -> bool:
+    """Every replica of an in-process trial holds replica 0's params."""
+    own = list(m._module.parameters())
+    return all(len(own) == len(list(rep.parameters())) and
+               all(torch.equal(a, b) for a, b in zip(own, rep.parameters()))
+               for rep, _ in m._loop.plan.replicas)
+
+
+def _in_process(template, knobs, blob, train_uri, val_uri, width, threads=None):
+    """One trial of the port on an in-process mesh of ``width`` CPU
+    replicas (``threads``: the intra-op threads it runs with)."""
+    before = torch.get_num_threads()
+    if threads is not None:
+        torch.set_num_threads(threads)
+    try:
+        mesh = data_parallel_mesh([torch.device("cpu")] * width)
+        got = torch_dp_rank.train(template, knobs, blob, train_uri, val_uri, mesh=mesh)
+    finally:
+        torch.set_num_threads(before)
+    return got
+
+
+def test_in_process_width2_ff_is_the_gloo_group_bit_for_bit(ff_width2, monkeypatch):
+    """At one intra-op thread, as each rank process runs, the in-process
+    replicas compute each rank's rows as the rank does, and the sum of
+    two gradients is the same in either order: the params, every
+    epoch's values, the sentinels and the score are rank 0's exactly,
+    and the replicas end equal."""
+    blob, train_uri, val_uri, ranks = ff_width2
+    trials = []
+    build = torch_dp_rank.FF32.train
+
+    def keep(self, uri):
+        trials.append(self)
+        return build(self, uri)
+
+    monkeypatch.setattr(torch_dp_rank.FF32, "train", keep)
+    got = _in_process("ff", FF_KNOBS, blob, train_uri, val_uri, 2, threads=1)
+    assert got["values"] == ranks[0]["values"] and got["health"] == ranks[0]["health"]
+    assert got["score"] == ranks[0]["score"]
+    assert sorted(got["params"]) == sorted(ranks[0]["params"])
+    for k in got["params"]:
+        np.testing.assert_array_equal(got["params"][k], ranks[0]["params"][k])
+    m = trials[0]
+    assert m._loop.plan.mesh.world_size == 2 and _replicas_equal(m)
+    assert m._loop._perf_key[1] == (("dp",), ("cpu", "cpu"))
+
+
+class JaxFFDp4(JaxFF32):
+    """The JAX package's float32 FF trial on a 4-device dp mesh."""
+
+    def __init__(self, **knobs):
+        super().__init__(**knobs)
+        self.set_mesh(jax_mesh(jax.devices()[:4]))
+
+
+@pytest.mark.parametrize("width", [2, 4])
+def test_in_process_ff_matches_the_jax_mesh(width, monkeypatch):
+    """Widths 2 and 4 of the in-process mesh against the JAX package's
+    trial on a mesh of as many devices, held to F32_TOL, with the
+    replicas equal bit for bit after training."""
+    blob = flax_init_blob(JaxMlp(hidden_layers=2, hidden_units=32, num_classes=10,
+                                 dtype=jnp.float32), (8, 8, 1))
+    train_uri, val_uri = IMAGES_1.format(n=32 * 5, seed=0), IMAGES_1.format(n=100, seed=1)
+    trials = []
+    build = torch_dp_rank.FF32.train
+
+    def keep(self, uri):
+        trials.append(self)
+        return build(self, uri)
+
+    monkeypatch.setattr(torch_dp_rank.FF32, "train", keep)
+    got = _in_process("ff", FF_KNOBS, blob, train_uri, val_uri, width)
+    ref = train_one("jax", JaxFFDp if width == 2 else JaxFFDp4, FF_KNOBS, blob, train_uri,
+                    val_uri)
+    _check(ref, got, blob_params(blob), f"port in-process width {width} vs jax mesh")
+    assert trials[0]._loop.plan.mesh.world_size == width and _replicas_equal(trials[0])
+
+
+def test_in_process_width2_vgg_with_dropout_takes_the_width1_rows_and_masks(monkeypatch):
+    """At dropout 0.3 the step's global noise is drawn once from the
+    trial's generator: each replica's first mask and rows are the width-1
+    trial's rows ``[r*B/2, (r+1)*B/2)``, bit for bit, and the trial is
+    within F32_TOL of the width-1 trial."""
+    from rafiki_tpu_torch.parallel import multihost
+
+    blob = flax_init_blob(JaxVggModule(depth=11, width_mult=0.25, num_classes=10, dropout=0.0,
+                                       dtype=jnp.float32), (8, 8, 3))
+    train_uri, val_uri = IMAGES_3.format(n=64 * 3, seed=0), IMAGES_3.format(n=100, seed=1)
+    masks, rows = {}, []
+    noise, put = ops_train.DpGenerator.noise, multihost.replica_put
+    keep = 1.0 - torch.tensor(VGG_KNOBS["dropout"], dtype=torch.float32)
+
+    def spy_noise(self, x):
+        out = noise(self, x)
+        masks.setdefault(self.rank, (out < keep).numpy())
+        return out
+
+    def spy_put(batch, mesh):
+        out = put(batch, mesh)
+        if not rows:
+            rows.extend({k: v.numpy().copy() for k, v in part.items()} for part in out)
+        return out
+
+    monkeypatch.setattr(ops_train.DpGenerator, "noise", spy_noise)
+    monkeypatch.setattr(multihost, "replica_put", spy_put)
+    got = _in_process("vgg", VGG_KNOBS, blob, train_uri, val_uri, 2)
+    monkeypatch.undo()
+    port_w1 = torch_dp_rank.train("vgg", VGG_KNOBS, blob, train_uri, val_uri)
+    _check(port_w1, got, blob_params(blob), "vgg port in-process width 2 vs width 1")
+    b = VGG_KNOBS["batch_size"] // 2
+    data = dataset_utils.load(train_uri)
+    first = np.random.default_rng(VGG_KNOBS["seed"]).permutation(data.size)[:2 * b]
+    assert sorted(masks) == [0, 1] and len(rows) == 2
+    for r in range(2):
+        np.testing.assert_array_equal(masks[r], port_w1["mask"][r * b:(r + 1) * b])
+        np.testing.assert_array_equal(rows[r]["x"], data.x[first[r * b:(r + 1) * b]])
+        np.testing.assert_array_equal(rows[r]["y"], data.y[first[r * b:(r + 1) * b]])
+
+
+def test_several_devices_without_a_group_give_the_in_process_mesh():
+    mesh = data_parallel_mesh(["cpu", torch.device("cpu")])
+    assert mesh.in_process and mesh.world_size == 2 and mesh.rank == 0
+    assert mesh.devices == (torch.device("cpu"),) * 2 and mesh.device == torch.device("cpu")
+    assert ops_train.mesh_cache_key(mesh) == (("dp",), ("cpu", "cpu"))
+    assert ops_train.mesh_cache_key(mesh) != ops_train.mesh_cache_key(
+        types.SimpleNamespace(axis_names=("dp",), world_size=2, device=torch.device("cpu")))
+    with pytest.raises(RuntimeError, match="process group"):
+        data_parallel_mesh([torch.device("cpu")])
+    with pytest.raises(ValueError, match="one type"):
+        data_parallel_mesh([torch.device("cpu"), torch.device("cuda", 0)])
+
+
+def test_the_in_process_reduce_is_the_mean_in_replica_order():
+    """The flat sums run on devices[0] in replica order, then the mean is
+    copied back into every replica's tensors, in place."""
+    plan = ops_train._ShardingPlan(data_parallel_mesh(["cpu"] * 3))
+    rng = np.random.default_rng(0)
+    per = [[torch.from_numpy(rng.normal(size=(2, 3)).astype(np.float32)),
+            torch.tensor(float(r))] for r in range(3)]
+    want = [(per[0][i] + per[1][i] + per[2][i]) / 3 for i in range(2)]
+    ids = [[id(t) for t in ts] for ts in per]
+    plan.reduce_replicas(per)
+    for ts, before in zip(per, ids):
+        assert [id(t) for t in ts] == before
+        for t, w in zip(ts, want):
+            assert torch.equal(t, w)
 
 
 # -- one process: a width-1 gloo group ------------------------------------------
@@ -218,7 +388,10 @@ def test_the_plan_averages_over_the_group_and_raises_a_collective_error(group1, 
 
 
 def test_a_mesh_refuses_several_devices_and_the_wrong_backend(group1):
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """Inside a process group a rank owns one device: several (the JAX
+    package's multihost hybrid) are refused, as is a backend that is not
+    the device's."""
+    with pytest.raises(NotImplementedError, match="hybrid"):
         data_parallel_mesh([torch.device("cpu"), torch.device("cpu")])
     with pytest.raises(ValueError, match="nccl"):
         data_parallel_mesh([torch.device("cuda", 0)])

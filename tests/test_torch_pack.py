@@ -703,11 +703,23 @@ def test_worker_pack_env_default(tmp_path, monkeypatch):
 @pytest.mark.parametrize("case", ["eligible", "preprocess", "masked", "processes", "devices"])
 def test_packer_eligibility(case, tmp_path, monkeypatch):
     if case == "devices":
-        # A worker takes one device (a dp trial is one process per device;
-        # several in one process is ROADMAP Queue 1 item 7's open row), so
-        # the packer's several-devices arm cannot be reached.
-        with pytest.raises(NotImplementedError, match="one device"):
-            _mk_worker(tmp_path, trial_pack=4, n_trials=1, devices=CPU * 2)
+        # Several devices train each trial on an in-process dp mesh, which
+        # a pack does not take: the packer is ineligible and the worker
+        # trains its trials one by one, each at width 2.
+        store, _, worker, _, sub = _mk_worker(tmp_path, trial_pack=4, n_trials=2,
+                                              devices=CPU * 2)
+        assert not PackedTrialRunner(worker, 4).eligible()
+        widths, run_epoch = [], port_train.TrainLoop.run_epoch
+
+        def spy(self, *args, **kwargs):
+            widths.append(self.plan.mesh.world_size)
+            return run_epoch(self, *args, **kwargs)
+
+        monkeypatch.setattr(port_train.TrainLoop, "run_epoch", spy)
+        rounds0 = _counter("worker.packed_rounds")
+        assert worker.run() == 2
+        assert all(t["status"] == "COMPLETED" for t in store.get_trials_of_sub_train_job(sub["id"]))
+        assert widths == [2] * 4 and _counter("worker.packed_rounds") == rounds0
         return
     _, _, worker, _, _ = _mk_worker(tmp_path, trial_pack=4, n_trials=1)
     if case == "preprocess":

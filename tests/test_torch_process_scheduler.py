@@ -305,8 +305,9 @@ def test_collective_init_chaos_fault_absorbed_by_retry(monkeypatch):
 
 def test_local_scheduler_follows_the_device_arithmetic(sources, tmp_path):  # noqa: F811
     """One device and devices_per_trial=2: one worker of one device, at
-    width 1, as the JAX package runs it; two devices in one worker are
-    refused, naming the ROADMAP row."""
+    width 1, as the JAX package runs it; two devices and
+    devices_per_trial=2: one worker of both, each trial on an in-process
+    dp mesh over them."""
     store, params = port_env(tmp_path)
     job = make_job(store, sources["port"], {"MODEL_TRIAL_COUNT": 1})
     result = LocalScheduler(store, params).run_train_job(
@@ -314,9 +315,50 @@ def test_local_scheduler_follows_the_device_arithmetic(sources, tmp_path):  # no
     assert result.status == "COMPLETED" and len(result.trials) == 1
     assert [json.loads(s["devices"]) for s in store.get_services_of_job(job["id"])] == [["cpu"]]
     job2 = make_job(store, sources["port"], {"MODEL_TRIAL_COUNT": 1}, name="two")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        LocalScheduler(store, params).run_train_job(
-            job2["id"], devices=CPU * 2, devices_per_trial=2, advisor_kind="random")
+    result2 = LocalScheduler(store, params).run_train_job(
+        job2["id"], devices=CPU * 2, devices_per_trial=2, advisor_kind="random")
+    assert result2.status == "COMPLETED" and not result2.errors
+    assert [t["status"] for t in result2.trials] == ["COMPLETED"]
+    assert [json.loads(s["devices"]) for s in store.get_services_of_job(job2["id"])] == \
+        [["cpu", "cpu"]]
+
+
+def test_a_collective_step_fault_errors_the_in_process_trial_in_both_packages(
+        sources, tmp_path):  # noqa: F811
+    """Two devices in one worker: the trial's first epoch passes the
+    ``collective.step`` site once, keyed ``p0:<worker id>`` in both
+    packages (the JAX package's in-process mesh is process 0), and an
+    injected error there errors the trial."""
+    import jax
+
+    from rafiki_tpu import chaos as jax_chaos
+    from rafiki_tpu.scheduler import LocalScheduler as JaxLocalScheduler
+    from rafiki_tpu_torch import chaos
+
+    spec = "seed=3;collective.step:error:times=1:match=p0"
+    jstore, jparams = JaxMetaStore(tmp_path / "jax.sqlite3"), JaxParamsStore(tmp_path / "jax-p")
+    jjob = make_job(jstore, sources["jax"], {"MODEL_TRIAL_COUNT": 1})
+    jax_chaos.install(jax_chaos.FaultPlane.from_spec(spec))
+    try:
+        want = JaxLocalScheduler(jstore, jparams).run_train_job(
+            jjob["id"], devices=jax.devices("cpu")[:2], devices_per_trial=2,
+            advisor_kind="random")
+    finally:
+        jax_chaos.uninstall()
+    store, params = port_env(tmp_path)
+    job = make_job(store, sources["port"], {"MODEL_TRIAL_COUNT": 1})
+    chaos.install(chaos.FaultPlane.from_spec(spec))
+    try:
+        got = LocalScheduler(store, params).run_train_job(
+            job["id"], devices=CPU * 2, devices_per_trial=2, advisor_kind="random")
+    finally:
+        chaos.uninstall()
+    for result in (want, got):
+        assert [t["status"] for t in result.trials] == ["ERRORED"]
+        assert "injected collective.step failure" in result.trials[0]["error"]
+    assert got.status == want.status
+    assert [json.loads(s["devices"]) for s in store.get_services_of_job(job["id"])] == \
+        [["cpu", "cpu"]]
 
 
 def test_admin_takes_devices_per_trial(sources, tmp_path):  # noqa: F811
@@ -328,5 +370,8 @@ def test_admin_takes_devices_per_trial(sources, tmp_path):  # noqa: F811
                                      advisor_kind="random")
         admin.services._train_jobs[job["id"]].thread.join(timeout=120)
         assert admin.store.get_train_job(job["id"])["status"] == "COMPLETED"
+        # The CPU admin's one device, twice: one worker of two replicas.
+        assert [json.loads(s["devices"]) for s in
+                admin.store.get_services_of_job(job["id"])] == [["cpu", "cpu"]]
     finally:
         admin.stop()

@@ -290,9 +290,13 @@ def test_a_trial_built_in_the_workers_cpu_scope_lands_on_the_cpu(tmp_path, monke
             assert resolve_device() == torch.device("cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
-    with pytest.raises(NotImplementedError, match="one device"):
-        TrainWorker(store, params, sub["id"], cls, InProcAdvisorHandle(svc, aid), TRAIN, VAL,
-                    {}, devices=CPU * 2)
+    # A set of two devices builds each trial in the scope of the first and
+    # trains it on an in-process dp mesh over both.
+    worker2 = TrainWorker(store, params, sub["id"], cls, InProcAdvisorHandle(svc, aid), TRAIN,
+                          VAL, {"MODEL_TRIAL_COUNT": 2}, devices=CPU * 2, async_persist=False)
+    trial2 = worker2.run_trial(knobs)
+    assert trial2["status"] == "COMPLETED", trial2["error"]
+    assert {"device": "cpu"} in [e.get("values") for e in store.get_trial_logs(trial2["id"])]
 
 
 def test_model_developer_harness_in_both_packages(monkeypatch):
